@@ -1,0 +1,69 @@
+"""Carry weights from the reference package into the port, as numpy.
+
+The reference initialises its models with ``jax.random``, which torch
+cannot reproduce, so parity runs start both packages from the same
+weights: the caller converts the reference's trees to numpy and these
+functions build the port's trees from them.  Nothing here imports JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.api.qtensor import QTensor
+from repro_torch.kernels import quant_matmul as qmk
+
+
+def _tensor(v, device):
+    return torch.from_numpy(np.array(v, copy=True)).to(device)
+
+
+def _tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
+
+
+def params_from_numpy(params: dict, nas: dict, device="cpu") -> tuple:
+    """The reference engine's ``params`` and ``nas`` trees (numpy leaves)
+    as the port's trees: same keys (``w``, ``aw``, ``ax``, ``b``, BN
+    ``scale``/``bias``, ``gamma``, ``delta``) and the same dict order."""
+    return _tree(params, device), _tree(nas, device)
+
+
+def qtensor_from_numpy(fields: dict, device="cpu") -> QTensor:
+    """A port ``QTensor`` from a reference QTensor's numpy leaves and aux
+    (``fields`` keyed by the reference's dataclass field names; fields the
+    port does not have, such as ``experts``, must be None)."""
+    if fields.get("experts") is not None:
+        raise ValueError("expert-stacked QTensors are not ported yet")
+
+    def opt(key, dtype=None):
+        v = fields.get(key)
+        if v is None:
+            return None
+        t = _tensor(v, device)
+        return t if dtype is None else t.to(dtype)
+
+    tile_bits = fields.get("tile_bits")
+    tile_n = fields.get("tile_n")
+    table = None
+    if tile_bits is not None:
+        Kp = -(-int(fields["c_in"]) // qmk.FUSED_K_ALIGN) * qmk.FUSED_K_ALIGN
+        table = qmk.fused_table(tuple(tile_bits), Kp, int(tile_n)).to(device)
+    kernel_shape = fields.get("kernel_shape")
+    return QTensor(
+        packed=tuple(_tensor(p, device) for p in fields["packed"]),
+        scales=tuple(_tensor(s, device) for s in fields["scales"]),
+        inv_perm=opt("inv_perm", torch.int64),
+        bits=tuple(int(b) for b in fields["bits"]),
+        c_out=int(fields["c_out"]), c_in=int(fields["c_in"]),
+        act_bits=int(fields.get("act_bits", 8)),
+        act_scale=float(fields.get("act_scale", 1.0)),
+        kernel_shape=None if kernel_shape is None else tuple(kernel_shape),
+        restore_order=bool(fields.get("restore_order", True)),
+        fused_packed=opt("fused_packed"), fused_scales=opt("fused_scales"),
+        fused_perm=opt("fused_perm", torch.int64),
+        tile_bits=None if tile_bits is None else tuple(int(b) for b in tile_bits),
+        tile_n=None if tile_n is None else int(tile_n),
+        fused_table=table)

@@ -22,6 +22,9 @@ N_SMOKE_SHARDS = 4
 
 
 def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card (the port's CUDA kernels); "
+        "skips inside the test when there is none")
     for i in range(N_SMOKE_SHARDS):
         config.addinivalue_line(
             "markers", f"smoke{i}: test_models_smoke CI matrix shard {i}")
