@@ -38,7 +38,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``torch.profiler`` (CUDA events over back-to-back calls beside it), and
    the bound max(bytes / 3.35 TB/s, FLOPs / 67 TFLOP/s f32); then the
    end-to-end serve time per batch of every model and backend (host clock),
-   and one profiled serve each: device busy time, idle share, top kernels.
+   and one profiled serve each: device busy time, top kernels, and the idle
+   share 1 - busy / serve time, against both the median serve and the
+   profiled serve itself (unclamped: a negative share exposes a mismatch).
 6. The kernel summary line, the card's name and power limit, and the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -106,12 +108,16 @@ def device_kernels(fn, iters=1):
 
 def device_ms(fn, iters=20, warmup=3):
     """Device time per call of ``fn`` (the summed durations of the kernels it
-    launches), or None when the profiler sees no device activity."""
+    launches), or None when the profiler sees no device activity or loses
+    kernels (its event count is not ``iters`` times one call's)."""
     for _ in range(warmup):
         fn()
+    per_call = len(device_kernels(fn)[0])
     events, _ = device_kernels(fn, iters)
     us = sum(t for _, t in events)
-    return us / iters / 1e3 if us > 0 else None
+    if us <= 0 or len(events) != per_call * iters:
+        return None
+    return us / iters / 1e3
 
 
 def host_ms(fn, iters=20, warmup=3) -> float:
@@ -373,9 +379,11 @@ def main() -> int:
         fargs = (x, qt.fused_packed, qt.fused_table, qt.fused_scales, qt.tile_bits)
         w_dense = qt.dequantize()
         groups = list(zip(qt.bits, qt.packed, qt.scales))
-        n_out = len(qt.tile_bits) * qt.tile_n
         flops = 2.0 * m * c * qt.c_out
-        f_bytes = 4 * m * c + qt.fused_packed.numel() + 4 * n_out + 4 * m * n_out
+        # each input as stored read once, the (M, c_out) result written once:
+        # the tile padding's output columns are the kernel's cost, not the bound's
+        f_bytes = (4 * m * c + qt.fused_packed.numel() + 4 * qt.fused_scales.numel()
+                   + 4 * m * qt.c_out)
         g_bytes = sum(4 * m * c + p.numel() + 4 * p.shape[0] * (1 + m) for _, p, _ in groups)
         g_flops = sum(2.0 * m * c * p.shape[0] for _, p, _ in groups)
         row = dict(site=site, M=m, c_in=c, c_out=qt.c_out, tile_n=qt.tile_n,
@@ -437,7 +445,8 @@ def main() -> int:
             wall = serve_ms[f"{mname}/{backend}"]
             breakdown[f"{mname}/{backend}"] = dict(
                 serve_ms=wall, profiled_serve_ms=profiled_ms, device_busy_ms=busy,
-                device_idle_share=max(0.0, 1 - busy / wall), kernels=len(events),
+                device_idle_share=1 - busy / wall,
+                profiled_idle_share=1 - busy / profiled_ms, kernels=len(events),
                 top=[dict(kernel=k[:80], launches=n, ms=t) for k, (n, t) in top])
             log(f"[breakdown] {mname}/{backend}: " + json.dumps(breakdown[f"{mname}/{backend}"]))
     report["resnet8_sites"] = per_site

@@ -11,7 +11,8 @@ into uint8:
 * ``inv_perm`` — ``(c_out,)`` int64 restoring the canonical channel order
   (applied by ``matmul`` when ``restore_order``);
 * the ``bits`` tuple, logical ``(c_out, c_in)``, the layer-wise activation
-  quantization (``act_bits``/``act_scale``) and, for conv weights, the
+  quantization (``act_bits``/``act_scale``, and its f32 clip ``act_alpha``
+  kept on the device) and, for conv weights, the
   kernel tail shape.
 
 With ``tile_n`` set it also carries the **fused single-launch layout**:
@@ -128,6 +129,17 @@ class QTensor:
     tile_bits: Optional[tuple] = None             # per-tile bit-widths
     tile_n: Optional[int] = None                  # output tile width
     fused_table: Optional[torch.Tensor] = None    # (T, 2) int32 kernel schedule
+    # 0-dim f32 PACT clip of the layer's input, on the weight's device (None
+    # = derive it from act_scale/act_bits at construction)
+    act_alpha: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.act_alpha is None:
+            # the reference's sequence: act_scale * levels in Python float64,
+            # then f32 — built once here, so serving copies nothing per call
+            object.__setattr__(self, "act_alpha", torch.tensor(
+                self.act_scale * ((1 << self.act_bits) - 1),
+                dtype=torch.float32, device=self.packed[0].device))
 
     # -- construction -------------------------------------------------------
     @classmethod
@@ -283,16 +295,10 @@ class QTensor:
                 self.fused_perm, self.tile_bits, self.tile_n, self.c_in,
                 self.c_out)
         if backend in ("cuda", "cuda-pergroup"):
-            c_in = self.c_in
-            if self.tile_n is not None:
-                # fused-layout groups are packed at the common Kp: feed the
-                # kernel the same (zero-)padded columns
-                Kp = self.packed[-1].shape[-1] * qz.pack_factor(self.bits[-1])
-                x = torch.nn.functional.pad(x, (0, Kp - c_in))
-                c_in = Kp
-
+            # fused-layout groups are packed at the common Kp; the kernel
+            # reads x's missing columns as zeros (the reference pads x)
             def gemm(b, p, s):
-                return kops.quant_matmul(x, p, s, b, c_in)
+                return kops.quant_matmul(x, p, s, b, self.c_in)
         else:
             def gemm(b, p, s):
                 return x.to(torch.float32) @ self._group_dense(b, p, s).T

@@ -10,7 +10,10 @@ The forward value of the reference's straight-through round is
 ``x + (round(x) - x)``, not ``round(x)``; it is written out the same way so
 both frameworks round the same f32 values.  ``torch.round`` and
 ``jnp.round`` both round half to even, and every step is a division by
-``step`` (never a multiplication by its reciprocal), as in the reference.
+``step`` (never a multiplication by its reciprocal), as in the reference;
+``step`` itself is ``alpha`` divided by a device tensor of the level count
+(:func:`_over`), because on the card PyTorch divides by a Python number
+through its reciprocal.
 
 Sub-byte packing is along the LAST axis: value ``j`` of byte ``b`` sits at
 bit ``j * bits`` — the layout the CUDA kernels in ``kernels/csrc`` unpack.
@@ -27,13 +30,19 @@ def _round_ste(x: torch.Tensor) -> torch.Tensor:
     return x + (torch.round(x) - x)
 
 
+def _over(alpha: torch.Tensor, levels: int) -> torch.Tensor:
+    """``alpha / levels`` as an f32 division on every device (CUDA computes a
+    tensor divided by a Python number as a product with its reciprocal)."""
+    return alpha / torch.full_like(alpha, levels)
+
+
 def quantize_act(x: torch.Tensor, alpha: torch.Tensor, bits: int) -> torch.Tensor:
     """PACT fake-quantization for activations (unsigned, ``[0, alpha]``)."""
     alpha = torch.clamp_min(torch.as_tensor(alpha, dtype=torch.float32,
                                             device=x.device), 1e-6)
     levels = (1 << bits) - 1
     y = torch.minimum(torch.clamp_min(x, 0.0), alpha)
-    step = alpha / levels
+    step = _over(alpha, levels)
     return _round_ste(y / step) * step
 
 
@@ -44,7 +53,7 @@ def quantize_act_signed(x: torch.Tensor, alpha: torch.Tensor,
                                             device=x.device), 1e-6)
     half_levels = (1 << (bits - 1)) - 1
     y = torch.minimum(torch.maximum(x, -alpha), alpha)
-    step = alpha / half_levels
+    step = _over(alpha, half_levels)
     return _round_ste(y / step) * step
 
 
@@ -59,7 +68,7 @@ def quantize_weight(w: torch.Tensor, alpha: torch.Tensor, bits: int) -> torch.Te
     alpha = torch.clamp_min(alpha, 1e-6)
     half_levels = (1 << (bits - 1)) - 1
     y = torch.minimum(torch.maximum(w, -alpha), alpha)
-    step = alpha / half_levels
+    step = _over(alpha, half_levels)
     return _round_ste(y / step) * step
 
 
@@ -69,7 +78,7 @@ def quantize_weight_int(w: torch.Tensor, alpha: torch.Tensor, bits: int
     ``q`` in ``[-half_levels, half_levels]`` and ``w ≈ q * step``."""
     alpha = torch.clamp_min(alpha, 1e-6)
     half_levels = (1 << (bits - 1)) - 1
-    step = alpha / half_levels
+    step = _over(alpha, half_levels)
     q = torch.clamp(torch.round(w / step), -half_levels, half_levels)
     return q.to(torch.int8), step
 

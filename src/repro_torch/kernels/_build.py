@@ -29,10 +29,10 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # ctypes would pass them as 32-bit ints and cut them.
 SIGNATURES = {
     "quant_matmul.cu": {
-        # x, M, Kx, ldx, Kp, packed, table, scales, T, tile_n, out, stream
-        "qmm_fused_f32": [_P, _LL, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P],
-        # x, M, Kx, ldx, K, packed, N, scale, bits, out, stream
-        "qmm_pergroup_f32": [_P, _LL, _I, _I, _I, _P, _I, _P, _I, _P, _P],
+        # x, M, Kx, Kp, packed, table, scales, T, tile_n, out, stream
+        "qmm_fused_f32": [_P, _LL, _I, _I, _P, _P, _P, _I, _I, _P, _P],
+        # x, M, Kx, K, packed, N, scale, bits, out, stream
+        "qmm_pergroup_f32": [_P, _LL, _I, _I, _P, _I, _P, _I, _P, _P],
     },
 }
 

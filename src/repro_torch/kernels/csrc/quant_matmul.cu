@@ -93,7 +93,7 @@ __device__ __forceinline__ void fma_step(const float* xs, const float* ws, int k
 // are issued before the current chunk's FMAs, so they are in flight while
 // the block computes.
 template <int TILE_N>
-__device__ __forceinline__ void load_x(const float* __restrict__ x, int64_t M, int Kx, int ldx,
+__device__ __forceinline__ void load_x(const float* __restrict__ x, int64_t M, int Kx,
                                        int64_t m0, int k0, float (&xr)[Geom<TILE_N>::kXIters]) {
   using G = Geom<TILE_N>;
 #pragma unroll
@@ -101,7 +101,7 @@ __device__ __forceinline__ void load_x(const float* __restrict__ x, int64_t M, i
     const int idx = threadIdx.x + it * kThreads;
     const int64_t m = m0 + idx / kBK;
     const int k = k0 + idx % kBK;
-    xr[it] = (m < M && k < Kx) ? x[m * ldx + k] : 0.0f;
+    xr[it] = (m < M && k < Kx) ? x[m * Kx + k] : 0.0f;
   }
 }
 
@@ -154,13 +154,13 @@ __device__ __forceinline__ void store_w(float* ws,
 }
 
 // One (BM x TILE_N) output tile of y = (x @ w_int^T) * scale.
-//   x      (M, ldx) row-major f32; columns >= Kx read as 0
+//   x      (M, Kx) row-major f32; columns Kx..K-1 read as 0
 //   w      TILE_N rows of K/F packed bytes each (row stride w_row_bytes);
 //          rows >= n_valid read as 0 and are not stored
 //   out    row stride ldo; column 0 of the tile at `out`
 template <int BITS, int TILE_N>
 __device__ __forceinline__ void tile_gemm(
-    const float* __restrict__ x, int64_t M, int Kx, int ldx, int K,
+    const float* __restrict__ x, int64_t M, int Kx, int K,
     const uint8_t* __restrict__ w, int w_row_bytes, int n_valid,
     const float* __restrict__ scale, float* __restrict__ out, int64_t ldo,
     int64_t m0, float* xs, float* ws) {
@@ -177,14 +177,14 @@ __device__ __forceinline__ void tile_gemm(
 
   float xr[G::kXIters];
   uint8_t wr[WChunk<BITS, TILE_N>::kIters];
-  load_x<TILE_N>(x, M, Kx, ldx, m0, 0, xr);
+  load_x<TILE_N>(x, M, Kx, m0, 0, xr);
   load_w<BITS, TILE_N>(w, w_row_bytes, n_valid, 0, wr);
   for (int k0 = 0; k0 < K; k0 += kBK) {
     store_x<TILE_N>(xs, xr);
     store_w<BITS, TILE_N>(ws, wr);
     __syncthreads();
     if (k0 + kBK < K) {                 // next chunk in flight during the FMAs
-      load_x<TILE_N>(x, M, Kx, ldx, m0, k0 + kBK, xr);
+      load_x<TILE_N>(x, M, Kx, m0, k0 + kBK, xr);
       load_w<BITS, TILE_N>(w, w_row_bytes, n_valid, k0 + kBK, wr);
     }
     const int kc = K - k0 < kBK ? K - k0 : kBK;
@@ -213,7 +213,7 @@ __device__ __forceinline__ void tile_gemm(
 // output tile t.  table[2t] = bits, table[2t+1] = byte offset of the tile.
 template <int TILE_N>
 __global__ void __launch_bounds__(kThreads)
-fused_kernel(const float* __restrict__ x, int64_t M, int Kx, int ldx, int Kp,
+fused_kernel(const float* __restrict__ x, int64_t M, int Kx, int Kp,
              const uint8_t* __restrict__ packed, const int* __restrict__ table,
              const float* __restrict__ scales, float* __restrict__ out, int64_t ldo) {
   using G = Geom<TILE_N>;
@@ -226,11 +226,11 @@ fused_kernel(const float* __restrict__ x, int64_t M, int Kx, int ldx, int Kp,
   const float* s = scales + int64_t(t) * TILE_N;
   float* o = out + int64_t(t) * TILE_N;
   if (bits == 2) {
-    tile_gemm<2, TILE_N>(x, M, Kx, ldx, Kp, w, Kp / 4, TILE_N, s, o, ldo, m0, xs, ws);
+    tile_gemm<2, TILE_N>(x, M, Kx, Kp, w, Kp / 4, TILE_N, s, o, ldo, m0, xs, ws);
   } else if (bits == 4) {
-    tile_gemm<4, TILE_N>(x, M, Kx, ldx, Kp, w, Kp / 2, TILE_N, s, o, ldo, m0, xs, ws);
+    tile_gemm<4, TILE_N>(x, M, Kx, Kp, w, Kp / 2, TILE_N, s, o, ldo, m0, xs, ws);
   } else {
-    tile_gemm<8, TILE_N>(x, M, Kx, ldx, Kp, w, Kp, TILE_N, s, o, ldo, m0, xs, ws);
+    tile_gemm<8, TILE_N>(x, M, Kx, Kp, w, Kp, TILE_N, s, o, ldo, m0, xs, ws);
   }
 }
 
@@ -239,7 +239,7 @@ constexpr int kPerGroupTileN = 64;
 // grid (ceil(M / BM), ceil(N / 64)); packed (N, K / F), out (M, N).
 template <int BITS>
 __global__ void __launch_bounds__(kThreads)
-pergroup_kernel(const float* __restrict__ x, int64_t M, int Kx, int ldx, int K,
+pergroup_kernel(const float* __restrict__ x, int64_t M, int Kx, int K,
                 const uint8_t* __restrict__ packed, int N,
                 const float* __restrict__ scale, float* __restrict__ out) {
   using G = Geom<kPerGroupTileN>;
@@ -249,32 +249,32 @@ pergroup_kernel(const float* __restrict__ x, int64_t M, int Kx, int ldx, int K,
   const int n0 = blockIdx.y * kPerGroupTileN;
   const int n_valid = N - n0 < kPerGroupTileN ? N - n0 : kPerGroupTileN;
   const int64_t m0 = int64_t(blockIdx.x) * G::kBM;
-  tile_gemm<BITS, kPerGroupTileN>(x, M, Kx, ldx, K, packed + int64_t(n0) * (K / F), K / F,
+  tile_gemm<BITS, kPerGroupTileN>(x, M, Kx, K, packed + int64_t(n0) * (K / F), K / F,
                                   n_valid, scale + n0, out + n0, N, m0, xs, ws);
 }
 
 template <int TILE_N>
-void launch_fused(const float* x, int64_t M, int Kx, int ldx, int Kp, const uint8_t* packed,
+void launch_fused(const float* x, int64_t M, int Kx, int Kp, const uint8_t* packed,
                   const int* table, const float* scales, int T, float* out,
                   cudaStream_t stream) {
   using G = Geom<TILE_N>;
   const dim3 grid(static_cast<unsigned>((M + G::kBM - 1) / G::kBM), static_cast<unsigned>(T));
-  fused_kernel<TILE_N><<<grid, kThreads, 0, stream>>>(x, M, Kx, ldx, Kp, packed, table, scales,
+  fused_kernel<TILE_N><<<grid, kThreads, 0, stream>>>(x, M, Kx, Kp, packed, table, scales,
                                                       out, int64_t(T) * TILE_N);
 }
 
 template <int BITS>
-void launch_pergroup(const float* x, int64_t M, int Kx, int ldx, int K, const uint8_t* packed,
+void launch_pergroup(const float* x, int64_t M, int Kx, int K, const uint8_t* packed,
                      int N, const float* scale, float* out, cudaStream_t stream) {
   using G = Geom<kPerGroupTileN>;
   const dim3 grid(static_cast<unsigned>((M + G::kBM - 1) / G::kBM),
                   static_cast<unsigned>((N + kPerGroupTileN - 1) / kPerGroupTileN));
-  pergroup_kernel<BITS><<<grid, kThreads, 0, stream>>>(x, M, Kx, ldx, K, packed, N, scale, out);
+  pergroup_kernel<BITS><<<grid, kThreads, 0, stream>>>(x, M, Kx, K, packed, N, scale, out);
 }
 
 }  // namespace
 
-extern "C" int qmm_fused_f32(const void* x, long long M, int Kx, int ldx, int Kp,
+extern "C" int qmm_fused_f32(const void* x, long long M, int Kx, int Kp,
                              const void* packed, const void* table, const void* scales,
                              int T, int tile_n, void* out, void* stream) {
   const auto* xf = static_cast<const float*>(x);
@@ -284,20 +284,20 @@ extern "C" int qmm_fused_f32(const void* x, long long M, int Kx, int ldx, int Kp
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   switch (tile_n) {
-    case 1: launch_fused<1>(xf, M, Kx, ldx, Kp, p, tb, s, T, o, st); break;
-    case 2: launch_fused<2>(xf, M, Kx, ldx, Kp, p, tb, s, T, o, st); break;
-    case 4: launch_fused<4>(xf, M, Kx, ldx, Kp, p, tb, s, T, o, st); break;
-    case 8: launch_fused<8>(xf, M, Kx, ldx, Kp, p, tb, s, T, o, st); break;
-    case 16: launch_fused<16>(xf, M, Kx, ldx, Kp, p, tb, s, T, o, st); break;
-    case 32: launch_fused<32>(xf, M, Kx, ldx, Kp, p, tb, s, T, o, st); break;
-    case 64: launch_fused<64>(xf, M, Kx, ldx, Kp, p, tb, s, T, o, st); break;
-    case 128: launch_fused<128>(xf, M, Kx, ldx, Kp, p, tb, s, T, o, st); break;
+    case 1: launch_fused<1>(xf, M, Kx, Kp, p, tb, s, T, o, st); break;
+    case 2: launch_fused<2>(xf, M, Kx, Kp, p, tb, s, T, o, st); break;
+    case 4: launch_fused<4>(xf, M, Kx, Kp, p, tb, s, T, o, st); break;
+    case 8: launch_fused<8>(xf, M, Kx, Kp, p, tb, s, T, o, st); break;
+    case 16: launch_fused<16>(xf, M, Kx, Kp, p, tb, s, T, o, st); break;
+    case 32: launch_fused<32>(xf, M, Kx, Kp, p, tb, s, T, o, st); break;
+    case 64: launch_fused<64>(xf, M, Kx, Kp, p, tb, s, T, o, st); break;
+    case 128: launch_fused<128>(xf, M, Kx, Kp, p, tb, s, T, o, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int qmm_pergroup_f32(const void* x, long long M, int Kx, int ldx, int K,
+extern "C" int qmm_pergroup_f32(const void* x, long long M, int Kx, int K,
                                 const void* packed, int N, const void* scale, int bits,
                                 void* out, void* stream) {
   const auto* xf = static_cast<const float*>(x);
@@ -306,9 +306,9 @@ extern "C" int qmm_pergroup_f32(const void* x, long long M, int Kx, int ldx, int
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   switch (bits) {
-    case 2: launch_pergroup<2>(xf, M, Kx, ldx, K, p, N, s, o, st); break;
-    case 4: launch_pergroup<4>(xf, M, Kx, ldx, K, p, N, s, o, st); break;
-    case 8: launch_pergroup<8>(xf, M, Kx, ldx, K, p, N, s, o, st); break;
+    case 2: launch_pergroup<2>(xf, M, Kx, K, p, N, s, o, st); break;
+    case 4: launch_pergroup<4>(xf, M, Kx, K, p, N, s, o, st); break;
+    case 8: launch_pergroup<8>(xf, M, Kx, K, p, N, s, o, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -173,7 +173,7 @@ def quant_matmul_fused_2d(x: torch.Tensor, fused_packed: torch.Tensor,
     lib = _build.load("quant_matmul.cu")
     with torch.cuda.device(x.device):
         rc = lib.qmm_fused_f32(
-            x.data_ptr(), M, c, c, Kp, fused_packed.data_ptr(),
+            x.data_ptr(), M, c, Kp, fused_packed.data_ptr(),
             fused_table_.data_ptr(), fused_scales.data_ptr(), T, tile_n,
             out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, "quant_matmul_fused_2d")
@@ -205,7 +205,7 @@ def quant_matmul_2d(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     lib = _build.load("quant_matmul.cu")
     with torch.cuda.device(x.device):
         rc = lib.qmm_pergroup_f32(
-            x.data_ptr(), M, c, c, K, packed.data_ptr(), N, scale.data_ptr(),
+            x.data_ptr(), M, c, K, packed.data_ptr(), N, scale.data_ptr(),
             bits, out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, "quant_matmul_2d")
     quant_matmul_2d.launches += 1

@@ -85,13 +85,12 @@ def deployed_act(x: torch.Tensor, qt: QTensor, signed: bool) -> torch.Tensor:
     """Layer-wise activation quantization of the deployed path.
 
     ``qt.act_scale`` is the unsigned step ``alpha_x / (2^b - 1)``; the clip
-    is recovered as ``act_scale * levels`` in Python float64, cast to f32,
-    and the quantizer divides it by ``levels`` in f32 — the reference's
-    exact sequence, so the deployed activations equal ``frozen_act``'s.
+    ``qt.act_alpha`` is ``act_scale * levels`` in Python float64, cast to
+    f32 once at deploy, and the quantizer divides it by ``levels`` in f32 —
+    the reference's exact sequence, so the deployed activations equal
+    ``frozen_act``'s.
     """
-    alpha = torch.tensor(qt.act_scale * ((1 << qt.act_bits) - 1),
-                         dtype=torch.float32, device=x.device)
-    return qz.quantize_act_any(x, alpha, qt.act_bits, signed)
+    return qz.quantize_act_any(x, qt.act_alpha, qt.act_bits, signed)
 
 
 def qlinear(x: torch.Tensor, p: dict, nas: Optional[dict],

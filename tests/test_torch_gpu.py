@@ -127,3 +127,31 @@ def test_resnet8_serve_is_one_fused_launch_per_site():
     assert torch.equal(y, eng.serve(batch, backend="cuda-pergroup"))
     frozen = eng.forward(batch, PrecisionPolicy.FROZEN)
     assert y.shape == frozen.shape == (8, 10) and torch.isfinite(y).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", (2, 4, 8))
+@pytest.mark.parametrize("signed", (False, True))
+def test_quantizers_on_the_card_equal_the_cpu_bitwise(bits, signed):
+    """The step is ``alpha / levels`` as one f32 division on the card too
+    (not a product with the reciprocal), so the card quantizes as the CPU."""
+    dev = _cuda()
+    rng = np.random.default_rng(bits + 10 * signed)
+    x = torch.from_numpy(rng.standard_normal((64, 257)).astype(np.float32) * 3)
+    w = torch.from_numpy(rng.standard_normal((37, 19)).astype(np.float32))
+    aw = torch.from_numpy(rng.uniform(0.1, 3.0, (37, 1)).astype(np.float32))
+    for alpha in (0.7, 1.3, 6.0, 11.1):
+        ax = torch.tensor(alpha, dtype=torch.float32)
+        got = qz.quantize_act_any(x.to(dev), ax.to(dev), bits, signed)
+        assert torch.equal(got.cpu(), qz.quantize_act_any(x, ax, bits, signed)), alpha
+    assert torch.equal(qz.quantize_weight(w.to(dev), aw.to(dev), bits).cpu(),
+                       qz.quantize_weight(w, aw, bits))
+
+
+@pytest.mark.gpu
+def test_moved_qtensor_keeps_its_clip_on_the_card():
+    dev = _cuda()
+    qt = _qtensor(0, 16, 12, "auto", _mixed)
+    moved = qt.to(dev)
+    assert moved.act_alpha.device.type == "cuda"
+    assert torch.equal(moved.act_alpha.cpu(), qt.act_alpha)

@@ -1,7 +1,8 @@
 """Structural guards of the PyTorch port.
 
-* No module of ``src/repro_torch/`` and not ``chip_smoke.py`` imports
-  ``jax`` or the reference package ``repro`` (an AST scan of every import).
+* No module of ``src/repro_torch/`` or ``bench_torch/``, and not
+  ``chip_smoke.py``, imports ``jax`` or the reference package ``repro``
+  (an AST scan of every import).
 * The engine runs on the card unless asked otherwise: with no CUDA device,
   ``Engine.for_tinyml(cfg)`` raises instead of carrying on on the CPU.
 * CPU tensors take the kernels' plain versions and leave the launch
@@ -21,7 +22,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import tinyml
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + sorted((ROOT / "bench_torch").glob("*.py")) + [ROOT / "chip_smoke.py"])
 
 
 def _imported_roots(path: Path) -> set:

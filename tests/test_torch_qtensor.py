@@ -12,6 +12,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 from repro.api.qtensor import QTensor as JQTensor
 from repro.core import deploy as jdeploy
@@ -137,6 +138,20 @@ def test_to_device_round_trip_keeps_fields():
     moved = qt.to("cpu")
     assert_qtensor_equal(qt, moved, "to(cpu)")
     assert tqmk.FUSED_TILE_NS == tuple(1 << i for i in range(8))
+
+
+@pytest.mark.parametrize("act_bits", (2, 4, 8))
+def test_act_alpha_is_the_reference_clip(act_bits):
+    """The deployed clip is built once: ``act_scale * levels`` in float64,
+    then f32 — the value the reference forms on every call."""
+    w, bits, alpha = _case(act_bits, 16, 12, _mixed)
+    levels = (1 << act_bits) - 1
+    qt = QTensor.from_assignment(w, bits, alpha, tile_n="auto",
+                                 act_bits=act_bits, act_scale=0.37 / levels)
+    assert qt.act_alpha.dtype == torch.float32 and qt.act_alpha.ndim == 0
+    assert qt.act_alpha.numpy().tobytes() == np.float32(
+        qt.act_scale * levels).tobytes()
+    assert qt.to("cpu").act_alpha is not None
 
 
 def test_propagate_perm_equal():
