@@ -1,24 +1,31 @@
-"""`Engine` — the serving half of the lifecycle facade (PyTorch).
+"""`Engine` — the lifecycle facade over Alg. 1 and the Sec. III-C deploy
+(PyTorch).
 
-Counterpart of ``repro.api.Engine`` for the deployed serving path:
+Counterpart of ``repro.api.Engine``:
 
-    eng = Engine.for_tinyml(tinyml.TINY_CONFIGS["resnet8-cifar10"])  # on cuda
-    eng.randomize_nas(0)             # stand-in for a search (bench / tests)
+    cfg = tinyml.TINY_CONFIGS["resnet8-cifar10"]
+    eng = Engine.for_tinyml(cfg, SearchSettings(cfg=cfg.quant, train_compute="int8"))
+    eng.search(data_epochs)          # Alg. 1 warmup + DNAS search
+    eng.finetune(data_epochs)        # Alg. 1 fine-tune (argmax frozen)
     eng.deploy(align=1)              # every searched w -> packed QTensor
     logits = eng.serve(batch)        # fused CUDA kernel, one launch per GEMM
 
-``deploy`` turns each NAS site's float weight into a :class:`QTensor` on the
-engine's device (reordered, packed sub-byte, with the argmaxed activation
-quantization); everything else (biases, folded BN) is kept as it is.
-``serve`` is the same ``apply_fn`` under ``PrecisionPolicy.deployed``.
-``search`` and ``finetune`` belong to the training slice.
+``search`` and ``finetune`` run a :class:`repro_torch.core.search.SearchDriver`
+that owns the params, the NAS logits and the optimizer states;
+``train_compute="int8"`` sends every dense layer's three products through
+the int8 CUDA kernel.  ``deploy`` turns each NAS site's float weight into a
+:class:`QTensor` on the engine's device (reordered, packed sub-byte, with
+the argmaxed activation quantization); everything else (biases, folded BN)
+is kept as it is.  ``serve`` is the same ``apply_fn`` under
+``PrecisionPolicy.deployed``.  ``randomize_nas`` stands in for a search
+where a bench or test needs mixed precision groups without one.
 
 The engine runs on the card unless the caller asks for another device:
 ``device=None`` means ``"cuda"``, and with no card that raises.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
@@ -35,31 +42,27 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def tree_to(tree, device):
-    """Move every tensor of a nested dict to ``device``."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
-
-
 class Engine:
-    def __init__(self, apply_fn: Callable, specs: dict, params: dict,
-                 nas: dict, quant_cfg, device=None):
+    def __init__(self, apply_fn: Callable, specs: dict, loss_fn: Callable,
+                 params: dict, nas: dict, settings, quant_cfg, device=None):
+        from repro_torch.core.search import SearchDriver
         self.device = resolve_device(device)
         self.apply_fn = apply_fn
         self.specs = specs
         self.quant_cfg = quant_cfg
-        self.params = tree_to(params, self.device)
-        self.nas = tree_to(nas, self.device)
+        self.driver = SearchDriver(apply_fn, loss_fn, specs, params, nas,
+                                   settings, device=self.device)
         self.deployed_params: Optional[dict] = None
 
     @classmethod
-    def for_tinyml(cls, cfg, params: Optional[dict] = None,
+    def for_tinyml(cls, cfg, settings=None, params: Optional[dict] = None,
                    nas: Optional[dict] = None, seed: int = 0,
                    device=None) -> "Engine":
         """Engine over one MLPerf-Tiny task.  Weights come from a
         ``torch.Generator`` seeded with ``seed`` unless ``params``/``nas``
-        are given (e.g. bridged from the reference)."""
+        are given (e.g. bridged from the reference); ``settings`` defaults
+        to ``SearchSettings(cfg=cfg.quant)``."""
+        from repro_torch.core.search import SearchSettings
         from repro_torch.models import tinyml
         device = resolve_device(device)
         init_fn, apply_fn, specs = tinyml.build(cfg)
@@ -67,7 +70,38 @@ class Engine:
             p0, n0 = init_fn(torch.Generator().manual_seed(seed))
             params = p0 if params is None else params
             nas = n0 if nas is None else nas
-        return cls(apply_fn, specs, params, nas, cfg.quant, device=device)
+        settings = settings or SearchSettings(cfg=cfg.quant)
+        loss_fn = lambda pred, batch: tinyml.task_loss(cfg, pred, batch)
+        return cls(apply_fn, specs, loss_fn, params, nas, settings, cfg.quant,
+                   device=device)
+
+    # -- the training phases -------------------------------------------------
+    @property
+    def params(self) -> dict:
+        return self.driver.params
+
+    @property
+    def nas(self) -> dict:
+        return self.driver.nas
+
+    @property
+    def history(self) -> list:
+        return self.driver.history
+
+    def search(self, data_epochs: Callable[[], Iterable]) -> "Engine":
+        """Alg. 1 phases 1 and 2: QAT warmup, then the DNAS search."""
+        self.driver.warmup(data_epochs)
+        self.driver.search(data_epochs)
+        return self
+
+    def finetune(self, data_epochs: Callable[[], Iterable],
+                 epochs: Optional[int] = None) -> "Engine":
+        """Alg. 1 phase 3: theta frozen (argmax), W trained."""
+        self.driver.finetune(data_epochs, epochs=epochs)
+        return self
+
+    def result(self):
+        return self.driver.result()
 
     def randomize_nas(self, seed: int = 0) -> "Engine":
         """Randomize the NAS logits in place (bench / demo / test utility):

@@ -2,8 +2,9 @@
 
 The reference initialises its models with ``jax.random``, which torch
 cannot reproduce, so parity runs start both packages from the same
-weights: the caller converts the reference's trees to numpy and these
-functions build the port's trees from them.  Nothing here imports JAX.
+weights and settings: the caller converts the reference's trees to numpy
+(and its dataclasses to dicts) and these functions build the port's
+counterparts from them.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -29,6 +30,18 @@ def params_from_numpy(params: dict, nas: dict, device="cpu") -> tuple:
     as the port's trees: same keys (``w``, ``aw``, ``ax``, ``b``, BN
     ``scale``/``bias``, ``gamma``, ``delta``) and the same dict order."""
     return _tree(params, device), _tree(nas, device)
+
+
+def search_settings_from_fields(fields: dict):
+    """The port's ``SearchSettings`` from the reference's field values
+    (``dataclasses.asdict`` of its ``SearchSettings``: ``cfg`` as a dict of
+    ``MixedPrecConfig`` fields, every other field a Python value)."""
+    from repro_torch.core.mixedprec import MixedPrecConfig
+    from repro_torch.core.search import SearchSettings
+    cfg = dict(fields["cfg"])
+    for key in ("weight_bits", "act_bits"):
+        cfg[key] = tuple(int(b) for b in cfg[key])
+    return SearchSettings(**{**fields, "cfg": MixedPrecConfig(**cfg)})
 
 
 def qtensor_from_numpy(fields: dict, device="cpu") -> QTensor:

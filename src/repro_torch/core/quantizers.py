@@ -1,19 +1,25 @@
-"""Quantizers: affine fake-quantization and sub-byte packing (forward only).
+"""Quantizers: affine fake-quantization with straight-through gradients, and
+sub-byte packing.
 
 PyTorch counterpart of ``repro.core.quantizers``: the paper's Eq. (1) affine
 scheme with the PACT clip, for activations (unsigned on ``[0, alpha]`` or
 signed on ``[-alpha, alpha]``) and weights (symmetric signed, ``2^n - 1``
-levels, zero exactly representable).  Only the forward values are ported;
-the straight-through gradients belong to the training slice.
+levels, zero exactly representable).
 
-The forward value of the reference's straight-through round is
-``x + (round(x) - x)``, not ``round(x)``; it is written out the same way so
-both frameworks round the same f32 values.  ``torch.round`` and
-``jnp.round`` both round half to even, and every step is a division by
-``step`` (never a multiplication by its reciprocal), as in the reference;
-``step`` itself is ``alpha`` divided by a device tensor of the level count
-(:func:`_over`), because on the card PyTorch divides by a Python number
-through its reciprocal.
+Gradients are the reference's: the round is straight-through
+(``x + (round(x) - x).detach()``, whose forward value is also the
+reference's, so both frameworks round the same f32 values), and the clip
+passes its analytic gradient to ``x`` and to ``alpha``.  Every clip is a
+``torch.maximum``/``torch.minimum`` against a tensor: at a tie (``x == 0``,
+``x == ±alpha``, which :func:`init_weight_alpha` makes every channel's
+largest weight) they split the gradient evenly between the two sides, as
+``jnp.clip`` does; ``torch.clamp`` would pass it all to ``x``.
+
+``torch.round`` and ``jnp.round`` both round half to even, and every step
+is a division by ``step`` (never a multiplication by its reciprocal), as in
+the reference; ``step`` itself is ``alpha`` divided by a device tensor of
+the level count (:func:`_over`), because on the card PyTorch divides by a
+Python number through its reciprocal.
 
 Sub-byte packing is along the LAST axis: value ``j`` of byte ``b`` sits at
 bit ``j * bits`` — the layout the CUDA kernels in ``kernels/csrc`` unpack.
@@ -24,10 +30,15 @@ import torch
 
 DEFAULT_BITWIDTHS: tuple[int, ...] = (2, 4, 8)
 
+# CPU 0-dim bounds: they broadcast against a tensor on any device without a
+# copy, and make the clips ties-splitting ``torch.maximum`` calls.
+_ZERO = torch.zeros((), dtype=torch.float32)
+_ALPHA_MIN = torch.tensor(1e-6, dtype=torch.float32)
+
 
 def _round_ste(x: torch.Tensor) -> torch.Tensor:
-    """Forward value of the straight-through round."""
-    return x + (torch.round(x) - x)
+    """``round(x)`` with a straight-through gradient."""
+    return x + (torch.round(x) - x).detach()
 
 
 def _over(alpha: torch.Tensor, levels: int) -> torch.Tensor:
@@ -38,10 +49,10 @@ def _over(alpha: torch.Tensor, levels: int) -> torch.Tensor:
 
 def quantize_act(x: torch.Tensor, alpha: torch.Tensor, bits: int) -> torch.Tensor:
     """PACT fake-quantization for activations (unsigned, ``[0, alpha]``)."""
-    alpha = torch.clamp_min(torch.as_tensor(alpha, dtype=torch.float32,
-                                            device=x.device), 1e-6)
+    alpha = torch.maximum(torch.as_tensor(alpha, dtype=torch.float32,
+                                          device=x.device), _ALPHA_MIN)
     levels = (1 << bits) - 1
-    y = torch.minimum(torch.clamp_min(x, 0.0), alpha)
+    y = torch.minimum(torch.maximum(x, _ZERO), alpha)
     step = _over(alpha, levels)
     return _round_ste(y / step) * step
 
@@ -49,8 +60,8 @@ def quantize_act(x: torch.Tensor, alpha: torch.Tensor, bits: int) -> torch.Tenso
 def quantize_act_signed(x: torch.Tensor, alpha: torch.Tensor,
                         bits: int) -> torch.Tensor:
     """Symmetric signed PACT for activations."""
-    alpha = torch.clamp_min(torch.as_tensor(alpha, dtype=torch.float32,
-                                            device=x.device), 1e-6)
+    alpha = torch.maximum(torch.as_tensor(alpha, dtype=torch.float32,
+                                          device=x.device), _ALPHA_MIN)
     half_levels = (1 << (bits - 1)) - 1
     y = torch.minimum(torch.maximum(x, -alpha), alpha)
     step = _over(alpha, half_levels)
@@ -65,7 +76,7 @@ def quantize_act_any(x: torch.Tensor, alpha: torch.Tensor, bits: int,
 def quantize_weight(w: torch.Tensor, alpha: torch.Tensor, bits: int) -> torch.Tensor:
     """Symmetric signed PACT fake-quantization; ``alpha`` broadcasts against
     ``w`` (shape ``(c_out, 1, ...)`` for per-channel clipping)."""
-    alpha = torch.clamp_min(alpha, 1e-6)
+    alpha = torch.maximum(alpha, _ALPHA_MIN)
     half_levels = (1 << (bits - 1)) - 1
     y = torch.minimum(torch.maximum(w, -alpha), alpha)
     step = _over(alpha, half_levels)

@@ -34,6 +34,10 @@ SIGNATURES = {
         # x, M, Kx, K, packed, N, scale, bits, out, stream
         "qmm_pergroup_f32": [_P, _LL, _I, _I, _P, _I, _P, _I, _P, _P],
     },
+    "int8_matmul.cu": {
+        # a, b, sa, sb, M, N, K, bn, kchunk, ws, out, stream
+        "i8mm_f32": [_P, _P, _P, _P, _LL, _I, _LL, _I, _LL, _P, _P, _P],
+    },
 }
 
 _LIBS: dict = {}
@@ -74,6 +78,25 @@ def build_all(sources=tuple(SIGNATURES)) -> dict:
         os.replace(tmp, so)          # atomic: concurrent builds agree
     return {src: _library_path(src).with_suffix(".log").read_text()
             for src in sources}
+
+
+def check_cuda(name: str, tensors: dict, dtypes: dict) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor of its dtype:
+    a kernel reads raw pointers and would read the wrong bytes."""
+    for key, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {key} is on {t.device}, expected cuda")
+        if t.dtype != dtypes[key]:
+            raise TypeError(f"{name}: {key} is {t.dtype}, expected {dtypes[key]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def raise_on(rc: int, name: str) -> None:
+    """Raise on a launch's ``cudaGetLastError()`` (a refused launch never
+    runs, and no synchronize reports it)."""
+    if rc:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -1,5 +1,6 @@
-"""Public wrappers around the packed GEMM kernels: leading batch dims, K
-padding and the output channel order.
+"""Public wrappers around the packed GEMM kernels (leading batch dims, K
+padding and the output channel order) and the launch counters of every
+kernel wrapper of the port.
 
 Counterpart of ``repro.kernels.ops`` (``quant_matmul``,
 ``quant_matmul_fused``).  The reference pads M up to a tile multiple
@@ -17,11 +18,13 @@ from typing import Optional
 import torch
 
 from repro_torch.core import quantizers as qz
+from repro_torch.kernels import int8_matmul as imk
 from repro_torch.kernels import quant_matmul as qmk
 
 KERNEL_WRAPPERS = {
     "quant_matmul_fused": qmk.quant_matmul_fused_2d,
     "quant_matmul": qmk.quant_matmul_2d,
+    "scaled_int8_mm": imk.scaled_int8_mm,
 }
 
 

@@ -125,21 +125,6 @@ def quant_matmul_fused_2d_plain(x: torch.Tensor, fused_packed: torch.Tensor,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_cuda(name: str, tensors: dict, dtypes: dict) -> None:
-    for key, t in tensors.items():
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: {key} is on {t.device}, expected cuda")
-        if t.dtype != dtypes[key]:
-            raise TypeError(f"{name}: {key} is {t.dtype}, expected {dtypes[key]}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
-
-
 def quant_matmul_fused_2d(x: torch.Tensor, fused_packed: torch.Tensor,
                           fused_table_: torch.Tensor, fused_scales: torch.Tensor,
                           tile_bits: tuple, *, Kp: int, tile_n: int) -> torch.Tensor:
@@ -162,7 +147,7 @@ def quant_matmul_fused_2d(x: torch.Tensor, fused_packed: torch.Tensor,
         raise ValueError(f"x width {c} does not fit Kp {Kp}")
     if fused_table_.shape != (T, 2) or fused_scales.shape != (T * tile_n,):
         raise ValueError("fused table/scales do not match the schedule")
-    _check_cuda("quant_matmul_fused_2d",
+    _build.check_cuda("quant_matmul_fused_2d",
                 dict(x=x, packed=fused_packed, table=fused_table_,
                      scales=fused_scales),
                 dict(x=torch.float32, packed=torch.uint8, table=torch.int32,
@@ -176,7 +161,7 @@ def quant_matmul_fused_2d(x: torch.Tensor, fused_packed: torch.Tensor,
             x.data_ptr(), M, c, Kp, fused_packed.data_ptr(),
             fused_table_.data_ptr(), fused_scales.data_ptr(), T, tile_n,
             out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(rc, "quant_matmul_fused_2d")
+    _build.raise_on(rc, "quant_matmul_fused_2d")
     quant_matmul_fused_2d.launches += 1
     return out
 
@@ -197,7 +182,7 @@ def quant_matmul_2d(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"x width {c} exceeds packed K {K}")
     if scale.shape != (N,):
         raise ValueError(f"scale {tuple(scale.shape)} does not match N={N}")
-    _check_cuda("quant_matmul_2d", dict(x=x, packed=packed, scale=scale),
+    _build.check_cuda("quant_matmul_2d", dict(x=x, packed=packed, scale=scale),
                 dict(x=torch.float32, packed=torch.uint8, scale=torch.float32))
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0:
@@ -207,7 +192,7 @@ def quant_matmul_2d(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         rc = lib.qmm_pergroup_f32(
             x.data_ptr(), M, c, K, packed.data_ptr(), N, scale.data_ptr(),
             bits, out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(rc, "quant_matmul_2d")
+    _build.raise_on(rc, "quant_matmul_2d")
     quant_matmul_2d.launches += 1
     return out
 

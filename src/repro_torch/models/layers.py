@@ -1,17 +1,24 @@
 """Quantization-aware layer primitives (PyTorch, NHWC).
 
-Counterpart of ``repro.models.layers`` for the serving slice.  Every weight
-the paper searches goes through :func:`qlinear` / :func:`qconv2d`, which
-dispatch on a :class:`PrecisionPolicy` and on the weight leaf's type:
+Counterpart of ``repro.models.layers`` for the MLPerf-Tiny models.  Every
+weight the paper searches goes through :func:`qlinear` / :func:`qconv2d`,
+which dispatch on a :class:`PrecisionPolicy` and on the weight leaf's type:
 
   PrecisionPolicy.FLOAT          — no quantization
-  PrecisionPolicy.QAT8           — fixed 8-bit PACT fake-quant
+  PrecisionPolicy.QAT8           — fixed 8-bit PACT fake-quant (warmup)
+  PrecisionPolicy.search(tau)    — the DNAS mixture of Eq. 4-6 (search)
   PrecisionPolicy.FROZEN         — argmax assignment (fine-tuning phase)
   PrecisionPolicy.deployed(bk)   — the weight leaf is a :class:`QTensor`;
                                    ``bk="cuda"`` serves it as ONE fused
                                    kernel launch, ``"cuda-pergroup"`` as
                                    one launch per precision group,
                                    ``"torch"`` through the dense fall-back
+
+``policy.train_compute`` picks the arithmetic of a training phase's product
+after the fake quantization: ``"f32"``, ``"bf16"`` (bf16 operands, f32 sums)
+or ``"int8"`` (:func:`repro_torch.qtrain.int8_linear`: forward and both
+backward products through the int8 kernel, the backward rounding
+stochastically when ``policy.sr_key`` is set).
 
 A site's NAS state is ``{"gamma", "delta"}``; the PACT clips live in the
 params (``{"aw", "ax"}``).  Weights are stored ``(c_out, c_in[, kh, kw])``;
@@ -30,6 +37,7 @@ from repro_torch.api.qtensor import QTensor
 from repro_torch.core import mixedprec as mp
 from repro_torch.core import quantizers as qz
 from repro_torch.kernels import quant_conv as qc
+from repro_torch.qtrain import linear as qt_linear
 
 
 # ---------------------------------------------------------------------------
@@ -75,10 +83,24 @@ def _quant_pair(x, w, p, nas, policy: PrecisionPolicy,
         aw = p["aw"].reshape((w.shape[0],) + (1,) * (w.ndim - 1))
         return (qz.quantize_act_any(x, p["ax"], 8, signed_act),
                 qz.quantize_weight(w, aw, 8))
+    if policy.phase is Phase.SEARCH:
+        return (mp.effective_act(x, nas["delta"], p["ax"], policy.tau, qcfg,
+                                 signed_act),
+                mp.effective_weight(w, nas["gamma"], p["aw"], policy.tau, qcfg))
     if policy.phase is Phase.FROZEN:
         return (mp.frozen_act(x, nas["delta"], p["ax"], qcfg, signed_act),
                 mp.frozen_weight(w, nas["gamma"], p["aw"], qcfg))
     raise ValueError(f"unhandled policy {policy!r}")
+
+
+def _site_key(policy: PrecisionPolicy, w: torch.Tensor) -> Optional[int]:
+    """Per-site stochastic-rounding seed: the policy's seed folded with the
+    reference's salt from the weight's shape, so same-step sites of other
+    shapes draw independent noise."""
+    if policy.sr_key is None:
+        return None
+    salt = (w.shape[0] * 1000003 + w.shape[-1]) & 0x7FFFFFFF
+    return qt_linear.fold_in(policy.sr_key, salt)
 
 
 def deployed_act(x: torch.Tensor, qt: QTensor, signed: bool) -> torch.Tensor:
@@ -105,10 +127,22 @@ def qlinear(x: torch.Tensor, p: dict, nas: Optional[dict],
                         "(run Engine.deploy / core.deploy.deploy_linear)")
     else:
         x, w = _quant_pair(x, w, p, nas, policy, qcfg, signed_act)
-        y = x @ w.T
+        if policy.train_compute == "int8":
+            y = qt_linear.int8_linear(x, w, _site_key(policy, w), qt_linear.DEFAULT)
+        elif policy.train_compute == "bf16":
+            y = _bf16(x) @ _bf16(w).T
+        else:
+            y = x @ w.T
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 and held in f32: a product of two such values
+    is exact in f32, so an f32 matmul of them is the bf16-operand,
+    f32-accumulation product (``preferred_element_type=f32``)."""
+    return t.to(torch.bfloat16).to(torch.float32)
 
 
 def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
@@ -136,7 +170,18 @@ def qconv2d(x: torch.Tensor, p: dict, nas: Optional[dict],
         raise TypeError("DEPLOYED policy requires a QTensor weight leaf")
     else:
         x, w = _quant_pair(x, w, p, nas, policy, qcfg, signed_act)
-        y = conv2d_nhwc(x, w, stride, padding, groups)
+        if policy.train_compute == "int8" and groups == 1:
+            # im2col (differentiable: pad + unfold) and the int8 patch-GEMM,
+            # the deployed path's channel-major lowering; a depthwise conv
+            # contracts kh*kw <= 9 values and stays on the float path
+            patches = qc.im2col(x, w.shape[2], w.shape[3], stride, padding)
+            y = qt_linear.int8_linear(patches, w.reshape(w.shape[0], -1),
+                                      _site_key(policy, w), qt_linear.DEFAULT)
+        elif policy.train_compute == "bf16":
+            y = conv2d_nhwc(x.to(torch.bfloat16), w.to(torch.bfloat16), stride,
+                            padding, groups).to(torch.float32)
+        else:
+            y = conv2d_nhwc(x, w, stride, padding, groups)
     if "b" in p:
         y = y + p["b"]
     return y

@@ -13,6 +13,13 @@ on a machine that has only PyTorch:
 * Each kernel agrees with its plain PyTorch version: rtol 1e-5,
   atol 1e-5 * max|y| (f32 sums of the same products in other orders).
 * A CUDA call with an operand on the CPU raises instead of falling back.
+* The int8 training GEMM (``scaled_int8_mm``) equals its plain version
+  bitwise at edge shapes and on the split-K path; the card's
+  ``rowwise_quantize`` equals the CPU's bitwise; one int8 ``int8_linear``
+  backward with a fixed SR seed equals its plain version bitwise (the same
+  generator on the same device gives both the same uniforms).
+* The quantizers' gradients on the card equal the CPU's (values for x / w;
+  the clip's gradient, a sum over every element, within rtol 1e-5).
 """
 import numpy as np
 import pytest
@@ -21,9 +28,11 @@ import torch
 from repro_torch.api import Engine, PrecisionPolicy, QTensor
 from repro_torch.core import quantizers as qz
 from repro_torch.data.pipeline import SyntheticTiny
+from repro_torch.kernels import int8_matmul as imk
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_matmul as qmk
 from repro_torch.models import tinyml
+from repro_torch.qtrain import linear as qtl
 
 RTOL = 1e-5
 
@@ -155,3 +164,120 @@ def test_moved_qtensor_keeps_its_clip_on_the_card():
     moved = qt.to(dev)
     assert moved.act_alpha.device.type == "cuda"
     assert torch.equal(moved.act_alpha.cpu(), qt.act_alpha)
+
+
+# ---------------------------------------------------------------------------
+# The int8 training GEMM (K5)
+# ---------------------------------------------------------------------------
+
+def _i8(rng, m, k, dev):
+    return torch.from_numpy(rng.integers(-127, 128, size=(m, k)).astype(np.int8)).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [(1, 64, 144), (4096, 1, 576), (300, 40, 1), (77, 5, 3),
+                                   (16, 144, 65536), (3, 2, imk.K_INT32_EXACT_MAX),
+                                   (65536, 16, 27), (100, 130, 384), (1, 1, 1)])
+def test_scaled_int8_mm_equals_plain_bitwise(m, n, k):
+    dev = _cuda()
+    rng = np.random.default_rng(m + n + k)
+    a, b = _i8(rng, m, k, dev), _i8(rng, n, k, dev)
+    sa = torch.from_numpy(rng.uniform(1e-4, 0.1, m).astype(np.float32)).to(dev)
+    sb = torch.from_numpy(rng.uniform(1e-4, 0.1, n).astype(np.float32)).to(dev)
+    before = ops.launch_counts()["scaled_int8_mm"]
+    y = imk.scaled_int8_mm(a, b, sa, sb)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["scaled_int8_mm"] == before + 1
+    assert torch.equal(y, imk.scaled_int8_mm_plain(a, b, sa, sb))
+
+
+@pytest.mark.gpu
+def test_scaled_int8_mm_raises_instead_of_falling_back():
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    a, b = _i8(rng, 8, 16, dev), _i8(rng, 4, 16, dev)
+    ones8, ones4 = torch.ones(8, device=dev), torch.ones(4, device=dev)
+    with pytest.raises(ValueError):                      # transposed view
+        imk.scaled_int8_mm(_i8(rng, 16, 8, dev).T, b, ones8, ones4)
+    with pytest.raises(ValueError):                      # an operand on the CPU
+        imk.scaled_int8_mm(a, b.cpu(), ones8, ones4)
+    with pytest.raises(TypeError):
+        imk.scaled_int8_mm(a.float(), b, ones8, ones4)
+    k = imk.K_INT32_EXACT_MAX + 1
+    with pytest.raises(ValueError):
+        imk.scaled_int8_mm(torch.zeros((1, k), dtype=torch.int8, device=dev),
+                           torch.zeros((1, k), dtype=torch.int8, device=dev),
+                           ones8[:1], ones4[:1])
+
+
+@pytest.mark.gpu
+def test_rowwise_quantize_card_equals_cpu_and_sr_is_seeded():
+    dev = _cuda()
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((257, 333))
+                         .astype(np.float32) * 3)
+    x[0] = 0.0
+    q, s = imk.rowwise_quantize(x.to(dev))
+    q0, s0 = imk.rowwise_quantize(x)
+    assert torch.equal(q.cpu(), q0) and torch.equal(s.cpu(), s0)
+    a, b, c = (imk.rowwise_quantize(x.to(dev), seed)[0] for seed in (5, 5, 6))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_int8_linear_backward_equals_plain_with_sr():
+    dev = _cuda()
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((4, 9, 9, 27)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.standard_normal((16, 27)).astype(np.float32)).to(dev)
+    dy = torch.from_numpy(rng.standard_normal((4, 9, 9, 16)).astype(np.float32)).to(dev)
+    outs = {}
+    for backend in ("cuda", "torch"):
+        xt, wt = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = qtl.int8_linear(xt, wt, 1234, qtl.QTrainConfig(backend=backend))
+        y.backward(dy)
+        outs[backend] = (y.detach(), xt.grad, wt.grad)
+    for got, ref, what in zip(outs["cuda"], outs["torch"], ("y", "dx", "dw")):
+        assert torch.equal(got, ref), what
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", (2, 4, 8))
+def test_quantizer_grads_on_the_card_equal_the_cpu(bits):
+    dev = _cuda()
+    rng = np.random.default_rng(bits)
+    w = torch.from_numpy(rng.standard_normal((12, 45)).astype(np.float32))
+    aw = qz.init_weight_alpha(w).reshape(12, 1)             # ties at ±alpha
+    x = torch.from_numpy(np.abs(rng.standard_normal((64, 45))).astype(np.float32) * 2)
+    x[0, :5] = 0.0
+    x[1, :5] = 2.5
+    c_w = torch.from_numpy(rng.standard_normal((12, 45)).astype(np.float32))
+    c_x = torch.from_numpy(rng.standard_normal((64, 45)).astype(np.float32))
+
+    def grads(device):
+        leaves = [t.to(device).requires_grad_(True)
+                  for t in (w, aw, x, torch.tensor(2.5))]
+        loss = (torch.sum(qz.quantize_weight(leaves[0], leaves[1], bits) * c_w.to(device))
+                + torch.sum(qz.quantize_act(leaves[2], leaves[3], bits) * c_x.to(device)))
+        return [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+
+    card, cpu = grads(dev), grads(torch.device("cpu"))
+    np.testing.assert_array_equal(card[0].numpy(), cpu[0].numpy())
+    np.testing.assert_array_equal(card[2].numpy(), cpu[2].numpy())
+    for got, ref in ((card[1], cpu[1]), (card[3], cpu[3])):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                                   atol=1e-6 * float(c_x.abs().sum()))
+
+
+@pytest.mark.gpu
+def test_int8_training_step_launches_k5_three_times_per_site():
+    dev = _cuda()
+    from repro_torch.core.search import SearchSettings
+    cfg = tinyml.TINY_CONFIGS["resnet8-cifar10"]
+    eng = Engine.for_tinyml(cfg, SearchSettings(cfg=cfg.quant, train_compute="int8"), seed=0)
+    assert eng.device == dev
+    batch = next(iter(SyntheticTiny(cfg, n=16, seed=0).batches(16)))
+    before = ops.launch_counts()["scaled_int8_mm"]
+    loss = eng.driver.warmup_step(batch)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["scaled_int8_mm"] - before == 3 * len(eng.nas) == 30
+    assert torch.isfinite(loss)

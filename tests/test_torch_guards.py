@@ -5,8 +5,8 @@
   (an AST scan of every import).
 * The engine runs on the card unless asked otherwise: with no CUDA device,
   ``Engine.for_tinyml(cfg)`` raises instead of carrying on on the CPU.
-* CPU tensors take the kernels' plain versions and leave the launch
-  counters at 0.
+* CPU tensors take the kernels' plain versions (serving and int8
+  training) and leave the launch counters at 0.
 """
 import ast
 import dataclasses
@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch.api import Engine, PrecisionPolicy, QTensor
+from repro_torch.core.search import SearchSettings
 from repro_torch.data.pipeline import SyntheticTiny
 from repro_torch.kernels import ops
 from repro_torch.models import tinyml
@@ -60,7 +61,11 @@ def test_cpu_tensors_take_the_plain_versions():
     eng.deploy(align=1)
     batch = next(iter(SyntheticTiny(cfg, n=4, seed=0).batches(2)))
     outs = [eng.serve(batch, backend=b) for b in ("cuda", "cuda-pergroup", "torch")]
-    assert ops.launch_counts() == {"quant_matmul_fused": 0, "quant_matmul": 0}
+    eng8 = Engine.for_tinyml(cfg, SearchSettings(cfg=cfg.quant, train_compute="int8"),
+                             seed=1, device="cpu")
+    eng8.driver.warmup_step(batch)                       # int8 training, on the CPU
+    assert ops.launch_counts() == {"quant_matmul_fused": 0, "quant_matmul": 0,
+                                   "scaled_int8_mm": 0}
     frozen = eng.forward(batch, PrecisionPolicy.FROZEN)
     for y in outs:
         assert y.device.type == "cpu" and y.shape == (2, 10)
