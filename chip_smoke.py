@@ -112,8 +112,58 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    time (host clock, median of 10 after 3 warm-ups) per model and compute
    mode, and one profiled step each: device busy time, top kernels, idle
    share.
-6. The kernel summary line, the card's name and power limit, and the last
-   line ``{"ok": true, "device": {...}}``.
+3c. The LM path's kernels at edge operands, against their plain versions:
+   the decode-attention kernel (K4) at qwen1.5-4b's decode shape (4 slots x
+   20 kv-heads, a 1024 ring) and at edges (pos 0 and S-1, S not a multiple
+   of its 32-token tile, rep 1/4/16, hd 16/64/128, kv_bits 8, 4, (2, 8),
+   (2, 4, 8), q f32 and bf16, out bf16 and f32), each within
+   ``decode_attention.error_bound``: the f32 forward-error bound of its two
+   dots and its softmax, plus one out-dtype ulp for a weight or an output
+   rounded to the neighbouring value.  The per-group GEMM (K2) with bf16 x
+   at every group shape of qwen1.5-4b at decode (M = 4) and prefill
+   (M = 4 x 512), within 2 (K + 2) u sum |x w s|; the fused GEMM (K1)
+   equals K2 bitwise on bf16 x at a 2048-deep qwen-width weight.
+4c. The LM serving path: ``serving.init_deployed_model(get_config(
+   "qwen1.5-4b"), seed=0)`` on the card (40 layers, d_model 2560, vocab
+   151936; at this width every linear is per-group), then
+   ``ServingEngine(backend="cuda", max_slots=4, max_len=1024,
+   prefill_len=512)`` on the launcher's staggered trace (8 requests,
+   prompts of 256-512 tokens, 8-32 new tokens each) for kv_bits None, 8 and
+   (2, 4, 8).  The launch counts are zeroed just before and read just
+   after.  Gates, inside the path on its own operands (none of them
+   launches a kernel): every engine step launches K4 once per layer in a
+   decode step with a packed cache and never in a prefill, and K2 once per
+   precision group of every linear; each decoder block of a run's first 3
+   decode steps and of the prefills before them, on the same input, within
+   2^-5 x max(1, max|y|) of the plain backend (``"torch"``) on the card (bf16
+   rounds at other points on the two paths), the plain decode block fed the
+   new cache entries the kernel path wrote (a bf16 value a hair from a
+   rounding boundary can take the other code, and a 2-bit code is a whole
+   group amax), each within half a step plus 2^-4 of its row's largest
+   value of the plain path's own; every K4 launch of those steps within its
+   bound of its plain version on the same operands.  On the plain backend
+   the packed 8-bit cache gives the int8-per-token cache's tokens (the
+   reference's acceptance pin).  Reported, not gated: greedy token
+   agreement of the kernel path with the plain path over the trace, and
+   the end-to-end logits distance of the two, teacher-forced on the kernel
+   path's tokens for 16 steps (a near tie among 151936 logits can flip).
+5b. LM times (host clock, a synchronize after each engine step): prefill
+   ms per admission and decode-step ms (medians), tokens per second of the
+   trace, resident KV bytes, per kv_bits; one profiled decode step (4 slots
+   at position 400): device busy time, idle share, top kernels.  K4 at the
+   decode shape (positions 256-540 of the 1024 ring), its plain version
+   and ``F.scaled_dot_product_attention`` on the dequantized bf16 ring (the
+   library yardstick, never used by the port), bound: the bytes of the
+   entries <= pos with their scales, q and the output, over 3.35 TB/s.  K2
+   at every group shape of one decode step (M = 4), timed once a shape and
+   counted as often as the step calls it, against a bf16 ``torch.matmul``
+   of the bf16 x with the bf16-rounded dequantized weight and the bound
+   max(bytes / 3.35 TB/s, 2 M N K / 989 TFLOP/s bf16), x and y counted at
+   2 bytes (the function is the reference's bf16 dot).
+6. The kernel summary line (K1 at the resnet8 shapes, K2 over one
+   qwen1.5-4b decode step, K4 at the qwen decode shape, K5 over one resnet8
+   int8 training step), the card's name and power limit, and the last line
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a CUDA device, and when run outside the repository
 (it needs ``src/repro_torch``).
@@ -133,6 +183,7 @@ import torch
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_FLOP_PER_S = 67e12     # H100 SXM, f32 outside the tensor cores
+PEAK_BF16_FLOP_PER_S = 989e12   # H100 SXM, bf16 tensor cores, dense
 PEAK_INT8_OP_PER_S = 1979e12    # H100 SXM, int8 tensor cores, dense
 SERVE_TOL = 1e-4
 # card vs CPU, first f32 step: loss rtol; a gradient leaf within this share
@@ -208,6 +259,507 @@ def host_ms(fn, iters=20, warmup=3) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# The LM serving path (qwen1.5-4b at full width and depth)
+# ---------------------------------------------------------------------------
+
+LM_SLOTS, LM_MAX_LEN, LM_PREFILL = 4, 1024, 512
+LM_KV = (None, 8, (2, 4, 8))
+# a decoder block's output on the kernel path against the plain path's on the
+# same input (and the same new cache entries): bf16 rounds every activation
+# at other points on the two paths (the plain path rounds each dequantized
+# weight to bf16, the kernel path sums exact bf16 x integer products and
+# rounds once), so the two drift by a few bf16 ulps of the block's largest
+# output: 2^-5 of it is 8 bf16 ulps there
+BLOCK_TOL = 2.0 ** -5
+# the plain path's own cache entry against the fed one: half a quantization
+# step plus 16 bf16 ulps of the row's largest value (the paths' inputs drift)
+ENTRY_DRIFT = 2.0 ** -4
+LM_GATED_STEPS = 3          # decode steps per kv_bits with block and K4 checks
+
+
+def lm_trace(cfg, seed=0):
+    """The launcher's staggered trace: 8 requests, prompts of 256-512
+    tokens, 8-32 new tokens each, arrivals over 8 ticks."""
+    from types import SimpleNamespace
+    from repro_torch.launch import serve as launcher
+    args = SimpleNamespace(requests=8, prompt_len=LM_PREFILL, gen=32, stagger=8)
+    return launcher.build_trace(cfg, args, np.random.default_rng(seed))
+
+
+class LMGates:
+    """Checks run inside the LM path, on the operands the path itself gives
+    (they launch no kernel, so the launch counts stay the path's):
+
+    * each decoder block (prefill and decode) against the plain backend on
+      the card on the same input, within BLOCK_TOL; in decode the plain
+      block is fed the new cache entries the kernel path wrote (a bf16
+      value a hair from a rounding boundary can take the other code, and a
+      2-bit code is a whole group amax), each within half a step plus
+      ENTRY_DRIFT of the plain path's own value;
+    * every decode-attention launch against its plain version on the same
+      operands, within ``decode_attention.error_bound``;
+    * the launches of each engine step: K4 once per layer per decode step
+      with a packed cache and never in a prefill, K2 once per precision
+      group of every linear.
+    """
+
+    def __init__(self):
+        from repro_torch.kernels import decode_attention as datt
+        from repro_torch.models import attention as attn
+        from repro_torch.models import kv_quant as kvq
+        from repro_torch.models import serving
+        self.datt, self.attn, self.kvq, self.serving = datt, attn, kvq, serving
+        self.on = False
+        self.block_ratios, self.k4_ratios, self.entry_checks = [], [], 0
+        self.k4_cases = 0
+        self._orig = dict(block_forward=serving.block_forward,
+                          decode_block=serving.decode_block,
+                          decode_attention=datt.decode_attention)
+
+        class K4Spy:
+            """``attention``'s view of the kernel module with the wrapper
+            spied on (the wrapper counts itself by its module-level name, so
+            the module attribute stays the wrapper)."""
+            decode_attention = staticmethod(self._decode_attention)
+
+            def __getattr__(_, name):
+                return getattr(datt, name)
+        self._spy = K4Spy()
+
+    def __enter__(self):
+        self.serving.block_forward = self._block_forward
+        self.serving.decode_block = self._decode_block
+        self.attn.datt = self._spy
+        return self
+
+    def __exit__(self, *exc):
+        self.serving.block_forward = self._orig["block_forward"]
+        self.serving.decode_block = self._orig["decode_block"]
+        self.attn.datt = self.datt
+
+    def _ratio(self, y, y_ref, what):
+        r = float((y.float() - y_ref.float()).abs().max()) / (
+            BLOCK_TOL * max(1.0, float(y_ref.float().abs().max())))
+        check(bool(torch.isfinite(y).all()), f"{what}: block output not finite")
+        check(r <= 1.0, f"{what}: kernel path {r:.3g} x the tolerance off the plain path")
+        self.block_ratios.append(r)
+
+    def _block_forward(self, p, cfg, h, positions, backend="cuda", kv_spec=None):
+        y, c = self._orig["block_forward"](p, cfg, h, positions, backend, kv_spec)
+        if self.on:
+            y_ref, _ = self._orig["block_forward"](p, cfg, h, positions, "torch", kv_spec)
+            self._ratio(y, y_ref, "prefill block")
+        return y, c
+
+    def _decode_block(self, p, cfg, h, cache, pos, live=None, kv_spec=None, backend="cuda"):
+        y = self._orig["decode_block"](p, cfg, h, cache, pos, live, kv_spec, backend)
+        if not self.on:
+            return y
+        B, S = h.shape[0], cache["k"].shape[2]
+        bidx, at = torch.arange(B, device=h.device), pos.long().clamp(0, S - 1)
+        new = {k: cache[k][bidx, :, at][:, :, None].clone() for k in cache}
+        feed = iter([(new["k"], new["k_scale"]), (new["v"], new["v_scale"])])
+        rows = live if live is not None else torch.ones(B, dtype=torch.bool, device=h.device)
+        kvq = self.kvq
+
+        def fed(quant, spec_of):
+            def fn(t, *spec):
+                vals, scales = next(feed)
+                sp = spec_of(spec)
+                deq = (vals.view(torch.int8).float() * scales if sp is None
+                       else kvq.dequant_channelwise(vals, scales, sp, torch.float32))
+                step = scales if sp is None else torch.repeat_interleave(
+                    scales, torch.tensor(sp.sizes, device=scales.device), dim=-1)
+                t32 = t.float()
+                ok = (deq - t32).abs() <= step / 2 + ENTRY_DRIFT * t32.abs().amax(-1, keepdim=True)
+                check(bool(ok[rows].all()), "a cache entry of the kernel path is off "
+                           "the plain path's by more than half a step and the drift")
+                self.entry_checks += 1
+                return vals, scales
+            return fn
+        orig_q = (self.attn.quant_per_token, kvq.quant_channelwise)
+        self.attn.quant_per_token = fed(orig_q[0], lambda spec: None)
+        kvq.quant_channelwise = fed(orig_q[1], lambda spec: spec[0])
+        try:
+            clone = {k: v.clone() for k, v in cache.items()}
+            y_ref = self._orig["decode_block"](p, cfg, h, clone, pos, live, kv_spec, "torch")
+        finally:
+            self.attn.quant_per_token, kvq.quant_channelwise = orig_q
+        check(next(feed, None) is None, "the plain block did not quantize k and v")
+        self._ratio(y, y_ref, "decode block")
+        return y
+
+    def _decode_attention(self, q, kp, ks, vp, vs, pos, bits, sizes, out_dtype=torch.bfloat16):
+        datt, kvq = self.datt, self.kvq
+        out = self._orig["decode_attention"](q, kp, ks, vp, vs, pos, bits, sizes, out_dtype)
+        if self.on:
+            ref = datt.decode_attention_plain(q, kp, ks, vp, vs, pos, bits, sizes, out_dtype)
+            spec = kvq.KVQuantSpec(tuple(bits), tuple(sizes))
+            bound = datt.error_bound(q, kvq.dequant_channelwise(kp, ks, spec, out_dtype),
+                                     kvq.dequant_channelwise(vp, vs, spec, out_dtype),
+                                     pos, out_dtype)
+            r = float(((out.double() - ref.double()).abs() / bound).max())
+            check(r <= 1.0, f"decode attention {r:.3g} x its bound off the plain version")
+            self.k4_ratios.append(r)
+            self.k4_cases += 1
+        return out
+
+
+def k4_bytes(B, KV, rep, hd, NB, G, pos, S, q_bytes, out_bytes):
+    """The bytes decode attention must move: the packed K and V entries
+    <= pos with their scales, q once, the output once."""
+    n = sum(min(int(p) + 1, S) for p in pos)
+    return n * KV * 2 * (NB + 4 * G) + B * KV * rep * hd * (q_bytes + out_bytes)
+
+
+def lm_serving(dev, card, ops, gen):
+    """Phases 3c, 4c and 5b: the qwen1.5-4b serving path.  Returns the
+    report and the K2 and K4 rows of the kernels line."""
+    import torch.nn.functional as F
+    from repro_torch.api import sampling as smp
+    from repro_torch.api.scheduler import ServingEngine
+    from repro_torch.config import get_config
+    from repro_torch.kernels import decode_attention as datt
+    from repro_torch.kernels import quant_matmul as qmk
+    from repro_torch.core import quantizers as qz
+    from repro_torch.models import kv_quant as kvq
+    from repro_torch.models import serving
+
+    report = {}
+    cfg = get_config("qwen1.5-4b")
+    t0 = time.perf_counter()
+    dparams = serving.init_deployed_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(len(dparams["blocks"]) == cfg.n_layers == 40 and cfg.d_model == 2560
+          and dparams["embed"].shape == (151936, 2560), "qwen1.5-4b at full width and depth")
+    linears = [dl["w"] for blk in dparams["blocks"] for part in ("attn", "ffn")
+               for dl in blk[part].values()] + [dparams["lm_head"]["w"]]
+    check(all(qt.fused_packed is None for qt in linears),
+          "at full width every qwen linear is per-group (K > K_SINGLE_STEP_MAX)")
+    groups_per_step = sum(len(qt.bits) for qt in linears)
+    weight_bytes = sum(int(p.numel()) for qt in linears for p in qt.packed)
+    log(f"[lm] qwen1.5-4b deployed on the card in {init_s:.2f} s: {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {len(linears)} linears, "
+        f"{groups_per_step} precision groups, {weight_bytes} packed weight bytes")
+    report["init_s"], report["packed_weight_bytes"] = init_s, weight_bytes
+
+    # -- 3c. K4 at edge operands and K2 with bf16 x, against their plain versions
+    k4_rows = []
+    edge = [(4, 20, 1, 128, 1024, 8, [300, 511, 0, 1023]),
+            (4, 20, 1, 128, 1024, (2, 4, 8), [0, 1023, 512, 77]),
+            (2, 2, 4, 64, 1000, 4, [999, 37]), (2, 2, 16, 128, 77, (2, 8), [76, 5]),
+            (2, 4, 1, 128, 40, (2, 4, 8), [39, 33]), (1, 3, 3, 16, 12, (2, 4, 8), [0])]
+    for B, KV, rep, hd, S, kv_bits, pos in edge:
+        spec = kvq.spec_for(kv_bits, hd)
+        k, v = (torch.from_numpy(gen.standard_normal((B, KV, S, hd)).astype(np.float32)).to(dev)
+                for _ in range(2))
+        kp, ks = kvq.quant_channelwise(k, spec)
+        vp, vs = kvq.quant_channelwise(v, spec)
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        for q_dtype in (torch.float32, torch.bfloat16):
+            q = torch.from_numpy(gen.standard_normal((B, KV, rep, hd)).astype(np.float32)
+                                 ).to(dev).to(q_dtype)
+            for out_dtype in (torch.bfloat16, torch.float32):
+                y = datt.decode_attention(q, kp, ks, vp, vs, p, spec.bits, spec.sizes, out_dtype)
+                ref = datt.decode_attention_plain(q, kp, ks, vp, vs, p, spec.bits, spec.sizes,
+                                                  out_dtype)
+                bound = datt.error_bound(q, kvq.dequant_channelwise(kp, ks, spec, out_dtype),
+                                         kvq.dequant_channelwise(vp, vs, spec, out_dtype),
+                                         p, out_dtype)
+                d = (y.double() - ref.double()).abs()
+                row = dict(case=f"B{B} KV{KV} rep{rep} hd{hd} S{S} kv{kv_bits} pos{pos}",
+                           q=str(q_dtype), out=str(out_dtype),
+                           max_abs_err=float(d.max()), worst_err_over_bound=float((d / bound).max()),
+                           unequal_share=float((d > 0).double().mean()))
+                k4_rows.append(row)
+                check(bool(torch.isfinite(y).all()) and row["worst_err_over_bound"] <= 1.0,
+                      f"K4 off its plain version: {row}")
+    torch.cuda.synchronize()
+    for row in k4_rows:
+        log("[k4] " + json.dumps(row))
+    report["k4_edge_checks"] = k4_rows
+
+    # K2 with bf16 x at the qwen decode (4 slots) and prefill (4 x 512) shapes
+    shapes = {}          # (bits, N, K) -> (packed, scale, calls per decode step)
+    for qt in linears:
+        for b, pk, sc in zip(qt.bits, qt.packed, qt.scales):
+            key = (b, pk.shape[0], qt.c_in)
+            n_calls = shapes[key][2] + 1 if key in shapes else 1
+            shapes[key] = (pk, sc, n_calls)
+    k2_rows = []
+    for m in (LM_SLOTS, LM_SLOTS * LM_PREFILL):
+        for (b, N, K), (pk, sc, calls) in shapes.items():
+            if m > LM_SLOTS and N > 50000:
+                continue                                  # the lm_head sees one token a slot
+            x = torch.from_numpy(gen.standard_normal((m, K)).astype(np.float32)).to(dev)
+            x = x.to(torch.bfloat16).to(torch.float32)
+            y = qmk.quant_matmul_2d(x, pk, sc, b)
+            ref = qmk.quant_matmul_2d_plain(x, pk, sc, b)
+            w = qz.unpack_int(pk, b).to(torch.float32)
+            mag = (x.abs() @ w.abs().T).double() * sc.abs().double()
+            d = (y.double() - ref.double()).abs()
+            r = float((d / (2 * (K + 2) * U * mag + 1e-30)).max())
+            k2_rows.append(dict(M=m, N=N, K=K, bits=b, calls_per_step=calls,
+                                max_abs_err=float(d.max()), worst_err_over_tol=r))
+            check(r <= 1.0 and bool(torch.isfinite(y).all()), f"K2 (bf16 x) off its plain "
+                  f"version at M={m} N={N} K={K} {b}-bit: {r:.3g}")
+    torch.cuda.synchronize()
+    for row in k2_rows:
+        log("[k2-bf16] " + json.dumps(row))
+    small = serving.init_deployed_linear(torch.Generator(device=dev).manual_seed(1), 2048, 2560,
+                                         cfg, device=dev)["w"]
+    check(small.fused_packed is not None, "a 2048-deep qwen-width linear has the fused layout")
+    xb = torch.from_numpy(gen.standard_normal((LM_SLOTS * 8, 2048)).astype(np.float32)
+                          ).to(dev).to(torch.bfloat16)
+    fused_eq = torch.equal(small.matmul(xb, "cuda", torch.bfloat16),
+                           small.matmul(xb, "cuda-pergroup", torch.bfloat16))
+    check(fused_eq, "K1 != K2 bitwise on bf16 inputs")
+    log(f"[k2-bf16] {len(k2_rows)} products within 2 (K + 2) u sum |x w s| of the plain "
+        f"version; K1 == K2 bitwise on bf16 x at 2048 -> 2560 (tile_n {small.tile_n})")
+    report["k2_bf16_checks"] = k2_rows
+
+    # -- 4c. the main path: ServingEngine(backend="cuda") for each kv_bits ------
+    reqs, arrivals = lm_trace(cfg)
+    log(f"[lm] trace: {len(reqs)} requests, prompts {[len(r.tokens) for r in reqs]}, "
+        f"max_tokens {[r.max_tokens for r in reqs]}, arrivals {arrivals}")
+    gates = LMGates()
+    runs, tokens = {}, {}
+    ops.reset_launch_counts()
+    with gates:
+        for kv_bits in LM_KV:
+            eng = ServingEngine(cfg, dparams, backend="cuda", max_slots=LM_SLOTS,
+                                max_len=LM_MAX_LEN, prefill_len=LM_PREFILL, kv_bits=kv_bits)
+            steps = {"prefill": 0, "decode": 0}
+            step = eng.step
+
+            def checked_step(eng=eng, step=step, steps=steps, kv_bits=kv_bits):
+                before = ops.launch_counts()
+                gates.on = steps["decode"] < LM_GATED_STEPS
+                out = step()
+                torch.cuda.synchronize()
+                after = ops.launch_counts()
+                if out["kind"] in steps:
+                    steps[out["kind"]] += 1
+                    k4 = after["decode_attention"] - before["decode_attention"]
+                    k2 = after["quant_matmul"] - before["quant_matmul"]
+                    want = cfg.n_layers if out["kind"] == "decode" and kv_bits else 0
+                    check(k4 == want, f"kv {kv_bits} {out['kind']}: {k4} K4 launches, want {want}")
+                    check(k2 == groups_per_step, f"kv {kv_bits} {out['kind']}: {k2} K2 "
+                          f"launches, want {groups_per_step} (the precision groups)")
+                gates.on = False
+                return out
+            eng.step = checked_step
+            t0 = time.perf_counter()
+            outs = eng.run(reqs, arrivals)
+            check(sorted(outs) == list(range(len(reqs)))
+                  and all(len(outs[i].tokens) == reqs[i].max_tokens for i in outs),
+                  f"kv {kv_bits}: every request served in full")
+            tokens[("cuda", kv_bits)] = [outs[i].tokens.tolist() for i in range(len(reqs))]
+            runs[str(kv_bits)] = dict(steps=dict(steps), gated_run_s=time.perf_counter() - t0,
+                                      useful_tokens=eng.stats["useful_tokens"],
+                                      kv_bytes_resident=eng.kv_bytes_resident())
+            del eng
+    lm_launches = ops.launch_counts()
+    log(f"[lm] launches over the LM path: {lm_launches}; blocks within "
+        f"{max(gates.block_ratios):.4g} of the tolerance ({len(gates.block_ratios)} checked), "
+        f"{gates.entry_checks} fed cache entries in bounds, K4 within "
+        f"{max(gates.k4_ratios):.4g} of its bound on {gates.k4_cases} live launches")
+    check(lm_launches["decode_attention"] > 0 and lm_launches["quant_matmul"] > 0,
+          f"a kernel of the LM path never launched: {lm_launches}")
+    report.update(path=runs, path_launches=lm_launches,
+                  worst_block_err_over_tol=max(gates.block_ratios), blocks_checked=len(gates.block_ratios),
+                  worst_k4_err_over_bound=max(gates.k4_ratios), k4_live_checks=gates.k4_cases)
+
+    # the reference's acceptance pin: on the plain backend the packed 8-bit
+    # cache gives the int8-per-token cache's tokens
+    for kv_bits in (None, 8):
+        eng = ServingEngine(cfg, dparams, backend="torch", max_slots=LM_SLOTS,
+                            max_len=LM_MAX_LEN, prefill_len=LM_PREFILL, kv_bits=kv_bits)
+        outs = eng.run(reqs, arrivals)
+        tokens[("torch", kv_bits)] = [outs[i].tokens.tolist() for i in range(len(reqs))]
+        del eng
+    check(tokens[("torch", 8)] == tokens[("torch", None)],
+          "plain backend: kv_bits=8 tokens != int8-per-token tokens")
+
+    def agreement(a, b):
+        pairs = [(x, y) for ra, rb in zip(a, b) for x, y in zip(ra, rb)]
+        return sum(x == y for x, y in pairs) / len(pairs)
+    report["greedy_token_agreement_cuda_vs_torch"] = {
+        str(kv): agreement(tokens[("cuda", kv)], tokens[("torch", kv)]) for kv in (None, 8)}
+    log(f"[lm] plain backend: kv_bits=8 tokens == int8-per-token tokens; greedy token "
+        f"agreement of the kernel path with the plain path: "
+        f"{report['greedy_token_agreement_cuda_vs_torch']} (reported, not gated)")
+
+    # end-to-end distance of the kernel path's logits from the plain path's,
+    # teacher-forced on the kernel path's greedy tokens (reported, not gated)
+    prompts = torch.zeros((LM_SLOTS, LM_PREFILL), dtype=torch.int64, device=dev)
+    lens = torch.tensor([len(r.tokens) for r in reqs[:LM_SLOTS]], device=dev)
+    for i, r in enumerate(reqs[:LM_SLOTS]):
+        prompts[i, :len(r.tokens)] = torch.from_numpy(r.tokens.astype(np.int64))
+    e2e = {}
+    for kv_bits in LM_KV:
+        state = {}
+        for backend in ("cuda", "torch"):
+            lg, pf = serving.prefill(dparams, cfg, {"tokens": prompts}, backend, lens=lens,
+                                     kv_bits=kv_bits)
+            ring = serving.embed_caches(pf, serving.init_caches(cfg, LM_SLOTS, LM_MAX_LEN,
+                                                                kv_bits, dev))
+            state[backend] = [lg, ring]
+        dist, agree, pos = [], [], lens.clone()
+        for _ in range(16):
+            a, b = state["cuda"][0], state["torch"][0]
+            dist.append(float((a - b).abs().max() / b.abs().max()))
+            agree.append(float((a.argmax(-1) == b.argmax(-1)).double().mean()))
+            tok = smp.sample(a)
+            for backend in ("cuda", "torch"):
+                state[backend][0], state[backend][1] = serving.decode_step(
+                    dparams, cfg, tok, state[backend][1], pos, backend, kv_bits=kv_bits)
+            pos = pos + 1
+        e2e[str(kv_bits)] = dict(max_rel_logit_distance=max(dist), mean_rel_logit_distance=
+                                 float(np.mean(dist)), greedy_agreement=float(np.mean(agree)))
+        del state
+    log(f"[lm] kernel path vs plain path, teacher-forced, 16 steps: {json.dumps(e2e)}")
+    report["e2e_kernel_vs_plain"] = e2e
+
+    # -- 5b. LM times ----------------------------------------------------------
+    times = {}
+    for kv_bits in LM_KV:
+        eng = ServingEngine(cfg, dparams, backend="cuda", max_slots=LM_SLOTS,
+                            max_len=LM_MAX_LEN, prefill_len=LM_PREFILL, kv_bits=kv_bits)
+        step_ms = {"prefill": [], "decode": []}
+        step = eng.step
+
+        def timed_step(step=step, step_ms=step_ms):
+            t0 = time.perf_counter()
+            out = step()
+            torch.cuda.synchronize()
+            if out["kind"] in step_ms:
+                step_ms[out["kind"]].append((time.perf_counter() - t0) * 1e3)
+            return out
+        eng.step = timed_step
+        t0 = time.perf_counter()
+        eng.run(reqs, arrivals)
+        run_s = time.perf_counter() - t0
+        # one profiled decode step over 4 live slots at mid-ring positions
+        pos = torch.full((LM_SLOTS,), 400, dtype=torch.int32, device=dev)
+        toks = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device=dev)
+
+        def one_step(eng=eng, pos=pos, toks=toks, kv_bits=kv_bits):
+            serving.decode_step(dparams, cfg, toks, eng.caches, pos, "cuda", kv_bits=kv_bits)
+        events, profiled_ms = device_kernels(one_step)
+        busy = sum(t for _, t in events) / 1e3
+        by_name: dict = {}
+        for kname, t in events:
+            n, tot = by_name.get(kname, (0, 0.0))
+            by_name[kname] = (n + 1, tot + t / 1e3)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+        dec = statistics.median(step_ms["decode"])
+        times[str(kv_bits)] = dict(
+            run_s=run_s, useful_tokens=eng.stats["useful_tokens"],
+            tokens_per_s=eng.stats["useful_tokens"] / run_s,
+            prefill_ms_median=statistics.median(step_ms["prefill"]),
+            prefills=len(step_ms["prefill"]), decode_step_ms_median=dec,
+            decode_steps=len(step_ms["decode"]), profiled_step_ms=profiled_ms,
+            device_busy_ms=busy, device_idle_share=1 - busy / dec,
+            profiled_idle_share=1 - busy / profiled_ms, kernels=len(events),
+            kv_bytes_resident=eng.kv_bytes_resident(),
+            top=[dict(kernel=k[:80], launches=n, ms=t) for k, (n, t) in top])
+        log(f"[lm-times] kv {kv_bits}: " + json.dumps(times[str(kv_bits)]) + f" | {card}")
+        del eng
+    report["times"] = times
+
+    # K4 at the path's decode shape: 4 slots at positions 256-540 of a 1024 ring
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim
+    k4_times = {}
+    for kv_bits in (8, (2, 4, 8)):
+        spec = kvq.spec_for(kv_bits, hd)
+        k, v = (torch.from_numpy(gen.standard_normal((LM_SLOTS, kvh, LM_MAX_LEN, hd))
+                                 .astype(np.float32)).to(dev) for _ in range(2))
+        kp, ks = kvq.quant_channelwise(k, spec)
+        vp, vs = kvq.quant_channelwise(v, spec)
+        q = torch.from_numpy(gen.standard_normal((LM_SLOTS, kvh, 1, hd)).astype(np.float32)).to(dev)
+        pos_list = [256, 380, 470, 540]
+        p = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+        kf = kvq.dequant_channelwise(kp, ks, spec, torch.bfloat16)
+        vf = kvq.dequant_channelwise(vp, vs, spec, torch.bfloat16)
+        mask = (torch.arange(LM_MAX_LEN, device=dev)[None, None, None, :]
+                <= p[:, None, None, None])
+        qb = q.to(torch.bfloat16)
+        fns = {"k4": lambda: datt.decode_attention(q, kp, ks, vp, vs, p, spec.bits, spec.sizes),
+               "plain": lambda: datt.decode_attention_plain(q, kp, ks, vp, vs, p, spec.bits,
+                                                            spec.sizes),
+               "library": lambda: F.scaled_dot_product_attention(qb, kf, vf, attn_mask=mask)}
+        row = dict(B=LM_SLOTS, KV=kvh, rep=1, hd=hd, S=LM_MAX_LEN, pos=pos_list,
+                   kv_bits=str(kv_bits))
+        for key, fn in fns.items():
+            row[f"{key}_loop_ms"] = cuda_ms(fn, iters=50)
+            dev_ms = device_ms(fn, iters=20)
+            row[f"{key}_ms"] = row[f"{key}_loop_ms"] if dev_ms is None else dev_ms
+            row[f"{key}_timer"] = "events" if dev_ms is None else "profiler"
+        nbytes = k4_bytes(LM_SLOTS, kvh, 1, hd, spec.packed_bytes, spec.n_groups, pos_list,
+                          LM_MAX_LEN, 4, 2)
+        flops = 4.0 * sum(pp + 1 for pp in pos_list) * kvh * hd
+        row.update(bytes=nbytes, bytes_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+                   ops_ms=flops / PEAK_F32_FLOP_PER_S * 1e3)
+        k4_times[str(kv_bits)] = row
+        log("[times] K4 " + json.dumps(row) + f" | {card}")
+    report["k4_times"] = k4_times
+
+    # K2 over one decode step at the qwen shapes: each distinct group shape
+    # timed once and counted as often as a step calls it.  The function is
+    # bf16 x times integer codes into a bf16 result (the reference's bf16
+    # dot), so the bound reads x and writes y at 2 bytes and counts the
+    # products at the bf16 tensor-core peak, and the library yardstick is a
+    # bf16 matmul with the bf16-rounded dequantized weight.
+    k2_step = {"k2_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+    k2_time_rows = []
+    for (b, N, K), (pk, sc, calls) in shapes.items():
+        xb = torch.from_numpy(gen.standard_normal((LM_SLOTS, K)).astype(np.float32)).to(dev)
+        xb = xb.to(torch.bfloat16)
+        x = xb.to(torch.float32)
+        wdeq = (qz.unpack_int(pk, b).to(torch.float32) * sc[:, None]).to(torch.bfloat16)
+        fns = {"k2": lambda: qmk.quant_matmul_2d(x, pk, sc, b),
+               "plain": lambda: qmk.quant_matmul_2d_plain(x, pk, sc, b),
+               "library": lambda: torch.matmul(xb, wdeq.T)}
+        row = dict(M=LM_SLOTS, N=N, K=K, bits=b, calls_per_step=calls)
+        for key, fn in fns.items():
+            row[f"{key}_loop_ms"] = cuda_ms(fn, iters=20)
+            dev_ms = device_ms(fn, iters=10)
+            row[f"{key}_ms"] = row[f"{key}_loop_ms"] if dev_ms is None else dev_ms
+        nbytes = 2 * LM_SLOTS * K + pk.numel() + 4 * N + 2 * LM_SLOTS * N
+        row["bytes_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+        row["ops_ms"] = 2.0 * LM_SLOTS * N * K / PEAK_BF16_FLOP_PER_S * 1e3
+        for key in ("k2_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms"):
+            k2_step[key] += calls * row[key]
+        k2_time_rows.append(row)
+        log("[times] K2 qwen decode " + json.dumps(row) + f" | {card}")
+    k2_step["bound_ms"] = sum(r["calls_per_step"] * max(r["bytes_ms"], r["ops_ms"])
+                              for r in k2_time_rows)
+    k2_step["bound_by"] = "bytes" if k2_step["bytes_ms"] >= k2_step["ops_ms"] else "operations"
+    log(f"[times] K2 over one qwen1.5-4b decode step ({groups_per_step} launches): "
+        f"{json.dumps(k2_step)} | {card}")
+    report["k2_qwen_times"] = k2_time_rows
+    report["k2_qwen_decode_step"] = k2_step
+
+    k4_row = k4_times["(2, 4, 8)"]
+    k4 = dict(name="decode_attention", route="cuda",
+              source="src/repro_torch/kernels/csrc/decode_attention.cu",
+              replaces="src/repro/kernels/decode_attention.py:82",
+              launches=lm_launches["decode_attention"],
+              max_abs_err=max([r["max_abs_err"] for r in k4_rows]),
+              ms=k4_row["k4_ms"], plain_ms=k4_row["plain_ms"],
+              bound_ms=max(k4_row["bytes_ms"], k4_row["ops_ms"]),
+              bound_by="bytes" if k4_row["bytes_ms"] >= k4_row["ops_ms"] else "operations",
+              library_ms=k4_row["library_ms"])
+    k2 = dict(ms=k2_step["k2_ms"], plain_ms=k2_step["plain_ms"], bound_ms=k2_step["bound_ms"],
+              bound_by=k2_step["bound_by"], library_ms=k2_step["library_ms"],
+              launches=lm_launches["quant_matmul"],
+              max_abs_err=max(r["max_abs_err"] for r in k2_rows))
+    return report, k2, k4
 
 
 def main() -> int:
@@ -541,7 +1093,7 @@ def main() -> int:
                 launches = {k: after[k] - before[k] for k in after}
                 if mname == "resnet8-cifar10" and backend == "cuda":
                     check(launches == {"quant_matmul_fused": n_sites, "quant_matmul": 0,
-                                       "scaled_int8_mm": 0},
+                                       "scaled_int8_mm": 0, "decode_attention": 0},
                           f"resnet8: {launches} for {n_sites} sites")
                 err = (y - frozen).abs()
                 outs[backend] = y
@@ -952,6 +1504,10 @@ def main() -> int:
     report["k5_times"] = k5_times
     report["train_step"] = step_times
 
+    # -- 3c, 4c, 5b. the LM serving path: qwen1.5-4b at full width and depth ------
+    lm_report, k2_lm, k4_lm = lm_serving(dev, card, ops, gen)
+    report["lm"] = lm_report
+
     # -- 6. summary --------------------------------------------------------------
     fb, fby = bound("fused")
     gb, gby = bound("pergroup")
@@ -965,9 +1521,10 @@ def main() -> int:
         dict(name="quant_matmul_pergroup", route="cuda",
              source="src/repro_torch/kernels/csrc/quant_matmul.cu",
              replaces="src/repro/kernels/quant_matmul.py:119",
-             launches=launches["quant_matmul"], max_abs_err=max(errs["pergroup"]),
-             ms=total("pergroup_ms"), plain_ms=total("pergroup_plain_ms"), bound_ms=gb,
-             bound_by=gby, library_ms=total("library_ms")),
+             launches=k2_lm["launches"],
+             max_abs_err=max(max(errs["pergroup"]), k2_lm["max_abs_err"]),
+             ms=k2_lm["ms"], plain_ms=k2_lm["plain_ms"], bound_ms=k2_lm["bound_ms"],
+             bound_by=k2_lm["bound_by"], library_ms=k2_lm["library_ms"]),
         dict(name="scaled_int8_mm", route="cuda",
              source="src/repro_torch/kernels/csrc/int8_matmul.cu",
              replaces="src/repro/kernels/int8_matmul.py:82",
@@ -975,11 +1532,16 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in k5_rows),
              ms=k5_sum["k5_ms"], plain_ms=k5_sum["plain_ms"], bound_ms=k5_bound,
              bound_by=k5_bound_by, library_ms=k5_sum["library_ms"]),
+        k4_lm,
     ]
-    log(f"[summary] K1/K2 times are sums over the {len(per_site)} resnet8 GEMM sites at "
-        f"batch {BATCH} (one serve), K5's over the {len(k5_times)} products of one resnet8 "
-        f"int8 training step at batch {BATCH}; K1/K2 launches are the serving path's, K5's "
-        f"the training path's; {card}")
+    log(f"[summary] K1 times are sums over the {len(per_site)} resnet8 GEMM sites at "
+        f"batch {BATCH} (one serve; K2 there: {total('pergroup_ms'):.6g} ms, bound {gb:.6g}, "
+        f"plain {total('pergroup_plain_ms'):.6g}), K2's over the per-group GEMMs of one "
+        f"qwen1.5-4b decode step (4 slots; bound and library in bf16), K4's one decode-attention call at qwen's decode "
+        f"shape (4 slots x 20 kv-heads, positions 256-540 of a 1024 ring, kv_bits (2, 4, 8)), "
+        f"K5's over the {len(k5_times)} products of one resnet8 int8 training step at batch "
+        f"{BATCH}; K1 launches are the tinyml serving path's, K2's and K4's the LM path's, "
+        f"K5's the training path's; {card}")
     report["kernels"] = kernels
     if opts.out:
         Path(opts.out).parent.mkdir(parents=True, exist_ok=True)

@@ -33,7 +33,9 @@ Backends (the reference's names in brackets):
 
 On CPU tensors the two kernel backends run their kernels' plain versions.
 PyTorch runs eagerly, so ``QTensor`` is a plain frozen dataclass (no
-pytree); :meth:`to` moves it between devices.  Compute is f32.
+pytree); :meth:`to` moves it between devices.  Compute is f32 unless
+``matmul`` is given another ``compute_dtype`` (bf16 for the language
+models).
 """
 from __future__ import annotations
 
@@ -152,32 +154,21 @@ class QTensor:
 
         ``w`` is ``(c_out, ...)`` (array-like); trailing dims flatten into
         the contraction axis (conv kernels keep their tail shape).
-        ``tile_n`` builds the fused layout: an int pins the tile width,
-        ``"auto"`` takes the largest power of two ``<= c_out`` (capped at
-        128), ``None`` packs only the per-group buffers.  With a fused layout
-        the per-group buffers are packed at the common ``Kp`` (c_in rounded
-        up to 4) so both paths reduce the same K columns.  Contractions
-        beyond ``K_SINGLE_STEP_MAX`` stay per-group.  Built on the CPU;
-        :meth:`to` moves the result.
+        ``tile_n`` builds the fused layout (see :meth:`from_codes`).  Built
+        on the CPU; :meth:`to` moves the result.
         """
         from repro_torch.core import deploy as dpl   # local: import cycle
         w = torch.as_tensor(np.asarray(w, np.float32))
         kernel_shape = tuple(w.shape[1:]) if w.ndim > 2 else None
         w2 = w.reshape(w.shape[0], -1)
-        c_out, c_in = w2.shape
+        c_out = w2.shape[0]
         bits_per_channel = np.asarray(bits_per_channel)
         alpha = np.asarray(alpha_w, np.float32)
         if alpha.ndim == 0:
             alpha = np.broadcast_to(alpha, (c_out,)).copy()
         perm, sizes = dpl.group_channels(bits_per_channel, bitwidths,
                                          align=align)
-        if tile_n == "auto":
-            tile_n = _auto_tile_n(c_out)
-        Kp = -(-c_in // qmk.FUSED_K_ALIGN) * qmk.FUSED_K_ALIGN
-        if tile_n is not None and Kp > qmk.K_SINGLE_STEP_MAX:
-            tile_n = None                  # contraction too deep to fuse
-        packed, scales, used_bits, groups = [], [], [], []
-        offset = 0
+        groups, offset = [], 0
         for b in sorted(bitwidths):
             n = sizes[b]
             if n == 0:
@@ -187,6 +178,45 @@ class QTensor:
             q, step = qz.quantize_weight_int(
                 w2[torch.from_numpy(idx)],
                 torch.from_numpy(alpha[idx][:, None]), b)
+            groups.append((b, q, step.reshape(-1)))
+        return cls.from_codes(groups, w2.shape[1], perm=perm,
+                              restore_order=restore_order, tile_n=tile_n,
+                              act_bits=act_bits, act_scale=act_scale,
+                              kernel_shape=kernel_shape)
+
+    @classmethod
+    def from_codes(cls, groups, c_in: int, perm=None,
+                   restore_order: bool = False, tile_n=None,
+                   act_bits: int = 8, act_scale: float = 1.0,
+                   kernel_shape=None) -> "QTensor":
+        """The one builder of a deployed weight, from its integer codes.
+
+        ``groups``: ``(bits, q (n_g, c_in) int8, step (n_g,) f32)`` per
+        non-empty precision group, ascending bit-width, rows in deployed
+        order; the group sizes ``n_g`` are static.  ``perm`` (numpy, the
+        original channel of each deployed row) gives the order restore;
+        ``None`` is a static group-contiguous deploy (no permutation, as
+        ``models/serving.init_deployed_linear`` builds).
+
+        ``tile_n`` builds the fused layout: an int pins the tile width,
+        ``"auto"`` takes the largest power of two ``<= c_out`` (capped at
+        128), ``None`` packs only the per-group buffers.  With a fused
+        layout the per-group buffers are packed at the common ``Kp`` (c_in
+        rounded up to 4) so both paths reduce the same K columns.
+        Contractions beyond ``K_SINGLE_STEP_MAX`` stay per-group.  The
+        tensors stay on the codes' device.
+        """
+        device = groups[0][1].device
+        c_out = sum(int(q.shape[0]) for _, q, _ in groups)
+        if tile_n == "auto":
+            tile_n = _auto_tile_n(c_out)
+        Kp = -(-c_in // qmk.FUSED_K_ALIGN) * qmk.FUSED_K_ALIGN
+        if tile_n is not None and Kp > qmk.K_SINGLE_STEP_MAX:
+            tile_n = None                  # contraction too deep to fuse
+        packed, scales, used_bits, layout = [], [], [], []
+        offset = 0
+        for b, q, step in groups:
+            n = int(q.shape[0])
             f = qz.pack_factor(b)
             kpad = Kp if tile_n is not None else -(-c_in // f) * f
             q = torch.nn.functional.pad(q, (0, kpad - c_in))
@@ -194,15 +224,21 @@ class QTensor:
             packed.append(qz.pack_int(q, b))
             scales.append(step)
             used_bits.append(b)
-            groups.append((b, q.numpy(), step.numpy(), idx))
-        inv_perm = torch.from_numpy(np.argsort(perm)).to(torch.int64)
+            if tile_n is not None:
+                idx = (np.arange(offset, offset + n) if perm is None
+                       else perm[offset: offset + n])
+                layout.append((b, q.cpu().numpy(), step.cpu().numpy(), idx))
+            offset += n
+        inv_perm = (None if perm is None
+                    else torch.from_numpy(np.argsort(perm)).to(torch.int64).to(device))
         fused = {}
         if tile_n is not None:
             fp, fs, fperm, tile_bits = _fused_tile_layout(
-                groups, tile_n, Kp, c_out, restore_order)
-            fused = dict(fused_packed=fp, fused_scales=fs, fused_perm=fperm,
+                layout, tile_n, Kp, c_out, restore_order)
+            fused = dict(fused_packed=fp.to(device), fused_scales=fs.to(device),
+                         fused_perm=None if fperm is None else fperm.to(device),
                          tile_bits=tile_bits, tile_n=tile_n,
-                         fused_table=qmk.fused_table(tile_bits, Kp, tile_n))
+                         fused_table=qmk.fused_table(tile_bits, Kp, tile_n).to(device))
         return cls(tuple(packed), tuple(scales), inv_perm,
                    tuple(used_bits), c_out, c_in,
                    act_bits=act_bits, act_scale=act_scale,
@@ -277,11 +313,19 @@ class QTensor:
             w = w.reshape((self.c_out,) + self.kernel_shape)
         return w
 
-    def matmul(self, x: torch.Tensor, backend: str = "torch") -> torch.Tensor:
-        """``x (..., c_in) -> (..., c_out)`` f32 on one of :data:`BACKENDS`.
+    def matmul(self, x: torch.Tensor, backend: str = "torch",
+               compute_dtype=torch.float32) -> torch.Tensor:
+        """``x (..., c_in) -> (..., c_out)`` in ``compute_dtype`` on one of
+        :data:`BACKENDS`.
 
-        This method owns the routing and the concat/restore so the backends
-        cannot drift.
+        ``compute_dtype`` is the reference's: x is rounded to it before the
+        product and the result is rounded to it once.  The kernels take x
+        as f32 (a bf16 x times an integer weight is exact in f32, so that
+        is the reference's bf16 dot with f32 accumulation) and scale in
+        f32; the ``"torch"`` backend rounds the dequantized weight to
+        ``compute_dtype`` and multiplies in it, as the reference's jnp
+        path does.  This method owns the routing and the concat/restore so
+        the backends cannot drift.
         """
         from repro_torch.kernels import ops as kops
         if x.shape[-1] != self.c_in:
@@ -289,19 +333,23 @@ class QTensor:
                 f"x contraction dim {x.shape[-1]} != c_in {self.c_in}")
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+        if backend in ("cuda", "cuda-pergroup"):
+            # rounded to compute_dtype once for every group's launch
+            x = x.to(compute_dtype).to(torch.float32)
         if backend == "cuda" and self.fused_packed is not None:
             return kops.quant_matmul_fused(
                 x, self.fused_packed, self.fused_table, self.fused_scales,
                 self.fused_perm, self.tile_bits, self.tile_n, self.c_in,
-                self.c_out)
+                self.c_out, out_dtype=compute_dtype)
         if backend in ("cuda", "cuda-pergroup"):
             # fused-layout groups are packed at the common Kp; the kernel
             # reads x's missing columns as zeros (the reference pads x)
             def gemm(b, p, s):
-                return kops.quant_matmul(x, p, s, b, self.c_in)
+                return kops.quant_matmul(x, p, s, b, self.c_in, out_dtype=compute_dtype)
         else:
             def gemm(b, p, s):
-                return x.to(torch.float32) @ self._group_dense(b, p, s).T
+                w = self._group_dense(b, p, s).to(compute_dtype)
+                return x.to(compute_dtype) @ w.T
         outs = [gemm(b, p, s)
                 for b, p, s in zip(self.bits, self.packed, self.scales)]
         return self._concat_restore(outs)

@@ -4,7 +4,9 @@ The reference initialises its models with ``jax.random``, which torch
 cannot reproduce, so parity runs start both packages from the same
 weights and settings: the caller converts the reference's trees to numpy
 (and its dataclasses to dicts) and these functions build the port's
-counterparts from them.  Nothing here imports JAX.
+counterparts from them.  bf16 leaves arrive as numpy's bfloat16 (the
+``ml_dtypes`` type JAX hands out) and cross by their bits.  Nothing here
+imports JAX.
 """
 from __future__ import annotations
 
@@ -16,7 +18,10 @@ from repro_torch.kernels import quant_matmul as qmk
 
 
 def _tensor(v, device):
-    return torch.from_numpy(np.array(v, copy=True)).to(device)
+    v = np.array(v, copy=True)
+    if v.dtype.name == "bfloat16":          # numpy's bf16 (ml_dtypes): by its bits
+        return torch.from_numpy(v.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(v).to(device)
 
 
 def _tree(tree, device):
@@ -80,3 +85,48 @@ def qtensor_from_numpy(fields: dict, device="cpu") -> QTensor:
         tile_bits=None if tile_bits is None else tuple(int(b) for b in tile_bits),
         tile_n=None if tile_n is None else int(tile_n),
         fused_table=table)
+
+
+def _is_qtensor_fields(v) -> bool:
+    return isinstance(v, dict) and "packed" in v and "tile_bits" in v
+
+
+def _lm_tree(tree, device):
+    if _is_qtensor_fields(tree):
+        return qtensor_from_numpy(tree, device)
+    if isinstance(tree, dict):
+        return {k: _lm_tree(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
+
+
+def _layer(tree, i):
+    """Layer ``i`` of a tree whose array leaves are stacked per layer (a
+    QTensor's static fields are shared by every layer)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_layer(v, i) for v in tree)
+    if isinstance(tree, np.ndarray):
+        return tree[i]
+    return tree
+
+
+def deployed_lm_from_numpy(tree: dict, device="cpu") -> dict:
+    """The reference's deployed LM tree (``serving.init_deployed_model``,
+    dense family) as the port's: ``{"embed", "blocks", "ln_f", "lm_head"}``
+    with the bf16 embedding, norms and biases, and every deployed linear a
+    QTensor (its fused layout and ``fused_table`` too).  ``tree`` has numpy
+    leaves and each reference QTensor as its ``{field: value}`` dict (numpy
+    leaves, ``experts`` None); the reference stacks the blocks along a
+    leading layer axis, the port keeps a list of per-layer dicts."""
+    blocks = tree["blocks"]
+    n_layers = len(blocks["ln1"]["scale"])
+    out = {k: _lm_tree(v, device) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = [_lm_tree(_layer(blocks, i), device) for i in range(n_layers)]
+    return out
+
+
+def caches_from_numpy(tree: dict, device="cpu") -> dict:
+    """The reference's dense serving caches (``{"k", "v", "k_scale",
+    "v_scale"}``, stacked per layer) as the port's: the same layout."""
+    return {k: _tensor(v, device) for k, v in tree.items()}

@@ -47,6 +47,13 @@ def _over(alpha: torch.Tensor, levels: int) -> torch.Tensor:
     return alpha / torch.full_like(alpha, levels)
 
 
+def over(t: torch.Tensor, value: float) -> torch.Tensor:
+    """``t / value`` as an IEEE division on every device: the divisor is a
+    0-dim tensor on ``t``'s device (CUDA divides by a Python number, or by a
+    CPU scalar, as a product with its reciprocal)."""
+    return t / torch.full((), value, dtype=t.dtype, device=t.device)
+
+
 def quantize_act(x: torch.Tensor, alpha: torch.Tensor, bits: int) -> torch.Tensor:
     """PACT fake-quantization for activations (unsigned, ``[0, alpha]``)."""
     alpha = torch.maximum(torch.as_tensor(alpha, dtype=torch.float32,

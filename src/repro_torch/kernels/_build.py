@@ -24,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-gencode", "arch=compute_90a,code=sm_90a", "-Xptxas", "-v")
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures per source: every pointer and the stream are c_void_p, or
 # ctypes would pass them as 32-bit ints and cut them.
 SIGNATURES = {
@@ -37,6 +37,12 @@ SIGNATURES = {
     "int8_matmul.cu": {
         # a, b, sa, sb, M, N, K, bn, kchunk, ws, out, stream
         "i8mm_f32": [_P, _P, _P, _P, _LL, _I, _LL, _I, _LL, _P, _P, _P],
+    },
+    "decode_attention.cu": {
+        # q, q_bf16, k_packed, k_scales, v_packed, v_scales, pos, scratch, out,
+        # out_bf16, B, KV, rep, hd, S, NB, G, bits[4], sizes[4], sqrt_hd, stream
+        "decode_attention_f32acc": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I]
+                                   + [_I] * 15 + [_F, _P],
     },
 }
 

@@ -185,3 +185,78 @@ def qconv2d(x: torch.Tensor, p: dict, nas: Optional[dict],
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+# ---------------------------------------------------------------------------
+# Norms, activations and positional encodings of the language models (float:
+# the paper leaves normalization and elementwise ops unquantized)
+# ---------------------------------------------------------------------------
+
+def norm_init(d: int, kind: str = "rmsnorm", dtype=torch.float32,
+              device=None) -> dict:
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
+
+
+def rmsnorm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
+    """In f32, cast back to ``x``'s dtype; the mean is a sum divided by the
+    width, as the reference's ``jnp.mean``."""
+    x32 = x.to(torch.float32)
+    var = qz.over(torch.sum(x32 * x32, dim=-1, keepdim=True), x.shape[-1])
+    out = x32 * torch.rsqrt(var + eps) * p["scale"].to(torch.float32)
+    return out.to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    n = x.shape[-1]
+    mu = qz.over(torch.sum(x32, dim=-1, keepdim=True), n)
+    var = qz.over(torch.sum((x32 - mu) ** 2, dim=-1, keepdim=True), n)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    out = out * p["scale"].to(torch.float32)
+    if "bias" in p:
+        out = out + p["bias"].to(torch.float32)
+    return out.to(x.dtype)
+
+
+def apply_norm(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
+    return rmsnorm(x, p) if kind == "rmsnorm" else layernorm(x, p)
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return F.silu(gate) * up
+
+
+def rope_freqs(head_dim: int, theta: float, positions: torch.Tensor,
+               partial: float = 1.0) -> tuple:
+    """cos/sin tables (f32) for (possibly partial) RoPE over ``positions``
+    (any shape ``(..., S)``); returns ``(cos, sin, rot_dim)``.  ``partial``
+    below 1 rotates only the first ``int(head_dim * partial)`` dims."""
+    rot = int(head_dim * partial)
+    rot -= rot % 2
+    dev = positions.device
+    exps = qz.over(torch.arange(0, rot, 2, dtype=torch.float32, device=dev), rot)
+    inv = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32, device=dev), exps)
+    ang = positions.to(torch.float32)[..., None] * inv       # (..., S, rot/2)
+    return torch.cos(ang), torch.sin(ang), rot
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               rot: int) -> torch.Tensor:
+    """``x (..., S, n_heads, head_dim)``; ``cos``/``sin`` ``(..., S, rot/2)``.
+
+    As in the reference, a bf16 ``x`` times the f32 tables promotes: the
+    rotated result is f32 (the pass-through dims too, by concatenation).
+    """
+    if rot == 0:
+        return x
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    c = cos[..., :, None, :]
+    s = sin[..., :, None, :]
+    o1 = x1 * c - x2 * s
+    o2 = x2 * c + x1 * s
+    out = torch.stack([o1, o2], dim=-1).reshape(xr.shape)
+    return torch.cat([out, xp.to(out.dtype)], dim=-1) if xp.shape[-1] else out

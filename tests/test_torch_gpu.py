@@ -20,6 +20,20 @@ on a machine that has only PyTorch:
   generator on the same device gives both the same uniforms).
 * The quantizers' gradients on the card equal the CPU's (values for x / w;
   the clip's gradient, a sum over every element, within rtol 1e-5).
+* The decode-attention kernel (``decode_attention``) against its plain
+  version on the card, within ``decode_attention.error_bound`` (the f32
+  forward-error bound of its two dots and softmax, plus one out-dtype ulp
+  for a weight or an output rounded to the neighbouring value): qwen's
+  shape and edges (rep 1/4/16, hd 64/128, pos 0 and S-1, S not a multiple
+  of the kernel's 32-token tile, every kv_bits, q f32/bf16, out bf16/f32);
+  one launch per call; a CPU operand or a wrong dtype raises.
+* The per-group kernel with bf16 x (``QTensor.matmul(compute_dtype=bf16)``)
+  against its plain version at the qwen1.5-4b decode and prefill shapes:
+  the f32 sums within 2 (K + 2) u sum |x w s|, the bf16 output within that
+  plus one bf16 ulp.
+* A reduced qwen1.5-4b decode step on the card with a packed cache runs the
+  decode-attention kernel once per layer and the per-group kernel once
+  per precision group of every linear.
 """
 import numpy as np
 import pytest
@@ -281,3 +295,120 @@ def test_int8_training_step_launches_k5_three_times_per_site():
     torch.cuda.synchronize()
     assert ops.launch_counts()["scaled_int8_mm"] - before == 3 * len(eng.nas) == 30
     assert torch.isfinite(loss)
+
+
+def _k4_case(dev, B, KV, rep, hd, S, kv_bits, q_dtype, seed):
+    from repro_torch.models import kv_quant as kvq
+    rng = np.random.default_rng(seed)
+    spec = kvq.spec_for(kv_bits, hd)
+    k, v = (torch.from_numpy(rng.standard_normal((B, KV, S, hd)).astype(np.float32)).to(dev)
+            for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((B, KV, rep, hd)).astype(np.float32)).to(dev)
+    kp, ks = kvq.quant_channelwise(k, spec)
+    vp, vs = kvq.quant_channelwise(v, spec)
+    return spec, q.to(q_dtype), kp, ks, vp, vs
+
+
+K4_CASES = [
+    # (B, KV, rep, hd, S, kv_bits, pos)
+    (4, 20, 1, 128, 1024, 8, [300, 511, 0, 1023]),          # qwen1.5-4b, 4 slots
+    (4, 20, 1, 128, 1024, (2, 4, 8), [300, 511, 0, 1023]),
+    (2, 2, 4, 64, 1000, 4, [999, 37]),                       # S not a multiple of 32
+    (2, 2, 16, 128, 77, (2, 8), [76, 5]),
+    (1, 3, 3, 16, 12, (2, 4, 8), [0]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,KV,rep,hd,S,kv_bits,pos", K4_CASES, ids=str)
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_decode_attention_matches_plain(B, KV, rep, hd, S, kv_bits, pos, q_dtype, out_dtype):
+    from repro_torch.kernels import decode_attention as datt
+    from repro_torch.models import kv_quant as kvq
+    dev = _cuda()
+    spec, q, kp, ks, vp, vs = _k4_case(dev, B, KV, rep, hd, S, kv_bits, q_dtype, S + rep)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    before = datt.decode_attention.launches
+    got = datt.decode_attention(q, kp, ks, vp, vs, p, spec.bits, spec.sizes, out_dtype)
+    torch.cuda.synchronize()
+    assert datt.decode_attention.launches == before + 1
+    ref = datt.decode_attention_plain(q, kp, ks, vp, vs, p, spec.bits, spec.sizes, out_dtype)
+    assert got.dtype == out_dtype and got.shape == ref.shape
+    kf = kvq.dequant_channelwise(kp, ks, spec, out_dtype)
+    vf = kvq.dequant_channelwise(vp, vs, spec, out_dtype)
+    bound = datt.error_bound(q, kf, vf, p, out_dtype)
+    diff = (got.double() - ref.double()).abs()
+    assert torch.isfinite(got).all() and (diff <= bound).all(), float((diff / bound).max())
+
+
+@pytest.mark.gpu
+def test_decode_attention_raises_instead_of_falling_back():
+    from repro_torch.kernels import decode_attention as datt
+    dev = _cuda()
+    spec, q, kp, ks, vp, vs = _k4_case(dev, 1, 2, 2, 16, 8, 4, torch.float32, 0)
+    p = torch.tensor([3], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        datt.decode_attention(q, kp.cpu(), ks, vp, vs, p, spec.bits, spec.sizes)
+    with pytest.raises(TypeError):
+        datt.decode_attention(q, kp, ks, vp, vs, p.long(), spec.bits, spec.sizes)
+    with pytest.raises(ValueError):
+        datt.decode_attention(q, kp, ks, vp, vs, p, (8,), (16,))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 2048])            # qwen decode (4 slots), prefill (4 x 512)
+@pytest.mark.parametrize("c_in,c_out", [(2560, 2560), (2560, 6912), (6912, 2560)])
+def test_pergroup_bf16_x_matches_plain_at_qwen_shapes(m, c_in, c_out):
+    from repro_torch.config import get_config
+    from repro_torch.models import serving
+    dev = _cuda()
+    cfg = get_config("qwen1.5-4b")
+    qt = serving.init_deployed_linear(torch.Generator(device=dev).manual_seed(c_out), c_in,
+                                      c_out, cfg, device=dev)["w"]
+    assert qt.fused_packed is None and len(qt.bits) == 3     # K > K_SINGLE_STEP_MAX
+    x = torch.randn((m, c_in), generator=torch.Generator(device=dev).manual_seed(m),
+                    device=dev).to(torch.bfloat16)
+    x32 = x.to(torch.float32)
+    for b, p, sc in zip(qt.bits, qt.packed, qt.scales):
+        got = qmk.quant_matmul_2d(x32, p, sc, b)
+        ref = qmk.quant_matmul_2d_plain(x32, p, sc, b)
+        w = qz.unpack_int(p, b).double()
+        tol = 2 * (c_in + 2) * 2.0 ** -24 * (x32.double().abs() @ w.abs().T) * sc.double().abs()
+        assert ((got.double() - ref.double()).abs() <= tol).all()
+    before = ops.launch_counts()["quant_matmul"]
+    y = qt.matmul(x, "cuda", torch.bfloat16)
+    assert ops.launch_counts()["quant_matmul"] - before == 3 and y.dtype == torch.bfloat16
+    plain = torch.cat([qmk.quant_matmul_2d_plain(x32, p, sc, b)
+                       for b, p, sc in zip(qt.bits, qt.packed, qt.scales)], dim=-1).double()
+    mag = torch.cat([(x32.double().abs() @ qz.unpack_int(p, b).double().abs().T)
+                     * sc.double().abs() for b, p, sc in zip(qt.bits, qt.packed, qt.scales)],
+                    dim=-1)
+    ulp = torch.exp2(torch.floor(torch.log2(plain.abs().clamp_min(1e-30)))) * 2.0 ** -7
+    tol = 2 * (c_in + 2) * 2.0 ** -24 * mag + ulp       # the f32 sums, then one bf16 rounding
+    assert ((y.double() - plain).abs() <= tol).all()
+
+
+@pytest.mark.gpu
+def test_lm_decode_step_launches_k4_once_per_layer():
+    from repro_torch.config import get_config
+    from repro_torch.kernels import decode_attention as datt
+    from repro_torch.models import serving
+    dev = _cuda()
+    cfg = get_config("qwen1.5-4b").reduced()
+    dp = serving.init_deployed_model(cfg, seed=0, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), device=dev)
+    logits, pf = serving.prefill(dp, cfg, {"tokens": toks}, "cuda", kv_bits=(2, 4, 8))
+    ring = serving.embed_caches(pf, serving.init_caches(cfg, 2, 16, (2, 4, 8), dev))
+    before = ops.launch_counts()
+    out, ring = serving.decode_step(dp, cfg, toks[:, -1:], ring, torch.tensor([8, 8], device=dev),
+                                    "cuda", kv_bits=(2, 4, 8))
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["decode_attention"] - before["decode_attention"] == cfg.n_layers
+    linears = sum(len(dl["w"].bits) if dl["w"].fused_packed is None else 0
+                  for blk in dp["blocks"] for part in ("attn", "ffn")
+                  for dl in blk[part].values())
+    assert after["quant_matmul"] - before["quant_matmul"] == linears
+    assert datt.decode_attention.launches == after["decode_attention"]
+    assert out.shape == (2, 1, cfg.vocab_size) and torch.isfinite(out).all()

@@ -5,8 +5,13 @@
   (an AST scan of every import).
 * The engine runs on the card unless asked otherwise: with no CUDA device,
   ``Engine.for_tinyml(cfg)`` raises instead of carrying on on the CPU.
-* CPU tensors take the kernels' plain versions (serving and int8
-  training) and leave the launch counters at 0.
+* CPU tensors take the kernels' plain versions (serving, int8 training,
+  and LM serving with a packed KV cache through the decode-attention
+  wrapper) and leave the launch counters at 0.
+* The LM entry points (``serving.init_deployed_model``,
+  ``serving.init_caches``, ``ServingEngine``, the
+  ``repro_torch.launch.serve`` launcher) run on the card unless asked
+  otherwise: with no CUDA device they raise.
 """
 import ast
 import dataclasses
@@ -17,10 +22,13 @@ import pytest
 import torch
 
 from repro_torch.api import Engine, PrecisionPolicy, QTensor
+from repro_torch.api.scheduler import Request, ServingEngine
+from repro_torch.config import get_config
+from repro_torch.launch import serve as serve_launcher
 from repro_torch.core.search import SearchSettings
 from repro_torch.data.pipeline import SyntheticTiny
 from repro_torch.kernels import ops
-from repro_torch.models import tinyml
+from repro_torch.models import serving, tinyml
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
@@ -53,6 +61,21 @@ def test_engine_without_device_needs_the_card():
         Engine.for_tinyml(tinyml.TINY_CONFIGS["dae-ad"], device="cuda")
 
 
+def test_lm_entry_points_without_device_need_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    cfg = get_config("qwen1.5-4b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serving.init_deployed_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serving.init_caches(cfg, 2, 16, kv_bits=8)
+    dparams = serving.init_deployed_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(cfg, dparams)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_launcher.main(["--arch", "qwen1.5-4b", "--reduced", "--requests", "1"])
+
+
 def test_cpu_tensors_take_the_plain_versions():
     ops.reset_launch_counts()
     cfg = dataclasses.replace(tinyml.TINY_CONFIGS["resnet8-cifar10"],
@@ -64,8 +87,14 @@ def test_cpu_tensors_take_the_plain_versions():
     eng8 = Engine.for_tinyml(cfg, SearchSettings(cfg=cfg.quant, train_compute="int8"),
                              seed=1, device="cpu")
     eng8.driver.warmup_step(batch)                       # int8 training, on the CPU
+    lm_cfg = get_config("qwen1.5-4b").reduced()            # LM serving, packed cache
+    lm = ServingEngine(lm_cfg, serving.init_deployed_model(lm_cfg, device="cpu"),
+                       backend="cuda", max_slots=2, max_len=16, prefill_len=8,
+                       kv_bits=(2, 4, 8), device="cpu")
+    lm_out = lm.run([Request(np.arange(5, dtype=np.int32), max_tokens=3)])
+    assert len(lm_out[0].tokens) == 3 and lm.stats["decode_launches"] == 2
     assert ops.launch_counts() == {"quant_matmul_fused": 0, "quant_matmul": 0,
-                                   "scaled_int8_mm": 0}
+                                   "scaled_int8_mm": 0, "decode_attention": 0}
     frozen = eng.forward(batch, PrecisionPolicy.FROZEN)
     for y in outs:
         assert y.device.type == "cpu" and y.shape == (2, 10)

@@ -39,6 +39,18 @@ def tree_to_numpy(tree):
     return np.asarray(tree)
 
 
+def lm_tree_to_numpy(tree):
+    """A reference deployed LM tree with numpy leaves and each QTensor as
+    its field dict (what ``repro_torch.bridge.deployed_lm_from_numpy``
+    takes)."""
+    from repro.api.qtensor import QTensor as JQTensor
+    if isinstance(tree, JQTensor):
+        return jax_qtensor_fields(tree)
+    if isinstance(tree, dict):
+        return {k: lm_tree_to_numpy(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
 def assert_array_bytes_equal(got, ref, what):
     got, ref = to_numpy(got), np.asarray(ref)
     assert got.shape == ref.shape, (what, got.shape, ref.shape)
