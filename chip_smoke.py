@@ -160,10 +160,51 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    of the bf16 x with the bf16-rounded dequantized weight and the bound
    max(bytes / 3.35 TB/s, 2 M N K / 989 TFLOP/s bf16), x and y counted at
    2 bytes (the function is the reference's bf16 dot).
+3d. The MoE path's kernels against their plain versions: the expert-batched
+   fused GEMM (K3) at deepseek-v3-671b's ``we_down`` (256 experts, Kp 2048,
+   N 7168) at decode (M 8, the capacity floor) and prefill capacity (M 40),
+   bf16 and f32 compute, and at edges (E 1, M 1, M 70 not a multiple of the
+   row tile, tile_n 16 and 128, a stack with an output gather, out bf16
+   and f32), each f32 sum within 2 (K + 2) u sum |x w| with w the rounded
+   dequantized weight (``quant_matmul.fused_3d_error_bound``), a bf16
+   output one bf16 ulp more.  K2's expert axis equals per-expert K2
+   launches bitwise at ``we_gate``'s group shapes (16 experts).
+4d. The MoE + MLA serving path: ``serving.init_deployed_model`` of
+   ``get_config("deepseek-v3-671b")`` with its depth cut to 2 layers
+   (``dataclasses.replace``; every width as published: d_model 7168, 128
+   heads, 256 experts top-8 + 1 shared, expert d_ff 2048, LoRA ranks
+   1536/512, vocab 129280) from seed 0 on the card, then
+   ``ServingEngine(backend="cuda", max_slots=4, max_len=512,
+   prefill_len=256)`` on a staggered trace (6 requests, prompts of 64-256
+   tokens, 8-16 new tokens) for kv_bits None and (2, 4, 8) over the MLA
+   latent.  The launch counts are zeroed just before and read just after.
+   Gates: every engine step launches K3 once per layer (``we_down``), K2
+   once per precision group of every per-group linear and stack (the
+   expert axis: 2 x 3 launches a layer for ``we_gate``/``we_up``, never one
+   per expert) and K1 once per fused linear; each sub-layer (MLA
+   attention, MoE FFN) of each block of a run's first 3 decode steps and
+   of the prefills before them within 2^-5 x max(1, max|y|) of the plain
+   backend on the card on the same input, the plain MLA decode fed the
+   latent entry the kernel path wrote (within half a step plus 2^-4 of its
+   row's largest value of the plain path's own).  Reported, not gated: the
+   kernel path's logits against the plain path's, teacher-forced for 8
+   steps, and the share of (token, layer) routings that pick the same
+   experts on the two paths.
+5c. MoE times: prefill ms per admission, decode-step ms (host clock,
+   medians), tokens per second, resident KV bytes, packed weight bytes per
+   layer; one profiled decode step (4 slots at position 200): device busy,
+   idle share, top kernels.  K3 at ``we_down``'s decode and prefill shapes:
+   its device time, its plain version, a bf16 ``torch.bmm`` on the
+   bf16-rounded dequantized stack (the library yardstick, never used by the
+   port), the bound max(bytes / 3.35 TB/s, 2 E M K N / 989 TFLOP/s bf16),
+   x and y counted at 2 bytes.  K2's expert axis over one decode step
+   (``we_gate``/``we_up``'s groups at M 8) against the same yardsticks.
 6. The kernel summary line (K1 at the resnet8 shapes, K2 over one
-   qwen1.5-4b decode step, K4 at the qwen decode shape, K5 over one resnet8
-   int8 training step), the card's name and power limit, and the last line
-   ``{"ok": true, "device": {...}}``.
+   qwen1.5-4b decode step with its expert axis over one deepseek-v3 decode
+   step beside it, K4 at the qwen decode shape, K5 over one resnet8 int8
+   training step, K3 at deepseek-v3's ``we_down`` decode shape), the card's
+   name and power limit, and the last line ``{"ok": true, "device":
+   {...}}``.
 
 Exits non-zero without a CUDA device, and when run outside the repository
 (it needs ``src/repro_torch``).
@@ -762,6 +803,506 @@ def lm_serving(dev, card, ops, gen):
     return report, k2, k4
 
 
+# ---------------------------------------------------------------------------
+# The MoE + MLA serving path (deepseek-v3-671b at full width, 2 layers)
+# ---------------------------------------------------------------------------
+
+DS_LAYERS = 2
+DS_SLOTS, DS_MAX_LEN, DS_PREFILL = 4, 512, 256
+DS_KV = (None, (2, 4, 8))
+DS_GATED_STEPS = 3          # decode steps per kv_bits with the sub-layer checks
+DS_TF_STEPS = 8             # teacher-forced steps of the reported logit distance
+
+
+def ds_trace(cfg, seed=0):
+    """The launcher's staggered trace at this phase's sizes: 6 requests,
+    prompts of 64-256 tokens, 8-16 new tokens each, arrivals over 8 ticks."""
+    from repro_torch.api.scheduler import Request
+    rng = np.random.default_rng(seed)
+    reqs, arrivals = [], []
+    for _ in range(6):
+        L = int(rng.integers(64, DS_PREFILL + 1))
+        reqs.append(Request(tokens=rng.integers(0, cfg.vocab_size, (L,)).astype(np.int32),
+                            max_tokens=int(rng.integers(8, 17))))
+        arrivals.append(int(rng.integers(0, 9)))
+    return reqs, arrivals
+
+
+class MoEGates:
+    """Checks run inside the MoE path on the operands the path itself gives
+    (they launch no kernel, so the launch counts stay the path's): each
+    sub-layer of each block, MLA attention and the MoE FFN, in prefill and
+    decode, against the plain backend (``"torch"``) on the card on the same
+    input, within BLOCK_TOL x max(1, max|y|).  With the same MoE input the
+    two paths' f32 router gives the same experts, so a near tie cannot
+    flip.  The plain MLA decode is fed the latent entry the kernel path
+    wrote, each live one within half a step plus ENTRY_DRIFT of the plain
+    path's own value (a 2-bit code is a whole group amax)."""
+
+    def __init__(self):
+        from repro_torch.models import attention as attn
+        from repro_torch.models import kv_quant as kvq
+        from repro_torch.models import serving
+        self.attn, self.kvq, self.serving = attn, kvq, serving
+        self.on = False
+        self.ratios = {"mla prefill": [], "moe prefill": [], "mla decode": [], "moe decode": []}
+        self.entry_checks = 0
+        self._orig = dict(mla_full=serving._deployed_mla_full, ffn=serving._deployed_ffn_full,
+                          mla_decode=attn.mla_decode)
+
+    def __enter__(self):
+        self.serving._deployed_mla_full = self._mla_full
+        self.serving._deployed_ffn_full = self._ffn
+        self.attn.mla_decode = self._mla_decode
+        return self
+
+    def __exit__(self, *exc):
+        self.serving._deployed_mla_full = self._orig["mla_full"]
+        self.serving._deployed_ffn_full = self._orig["ffn"]
+        self.attn.mla_decode = self._orig["mla_decode"]
+
+    def _ratio(self, y, y_ref, what):
+        r = float((y.float() - y_ref.float()).abs().max()) / (
+            BLOCK_TOL * max(1.0, float(y_ref.float().abs().max())))
+        check(bool(torch.isfinite(y).all()), f"{what}: sub-layer output not finite")
+        check(r <= 1.0, f"{what}: kernel path {r:.3g} x the tolerance off the plain path")
+        self.ratios[what].append(r)
+
+    def _mla_full(self, p, cfg, x, positions, backend="cuda", build_cache=False, kv_spec=None):
+        y, c = self._orig["mla_full"](p, cfg, x, positions, backend, build_cache, kv_spec)
+        if self.on:
+            y_ref, _ = self._orig["mla_full"](p, cfg, x, positions, "torch", False, kv_spec)
+            self._ratio(y, y_ref, "mla prefill")
+        return y, c
+
+    def _ffn(self, p, cfg, x, backend="cuda"):
+        y = self._orig["ffn"](p, cfg, x, backend)
+        if self.on:
+            y_ref = self._orig["ffn"](p, cfg, x, "torch")
+            self._ratio(y, y_ref, "moe decode" if x.shape[1] == 1 else "moe prefill")
+        return y
+
+    def _mla_decode(self, p, cfg, x, cache, pos, dq_linear, live=None, kv_spec=None):
+        if not self.on:
+            return self._orig["mla_decode"](p, cfg, x, cache, pos, dq_linear, live, kv_spec)
+        clone = {k: v.clone() for k, v in cache.items()}
+        y, cache = self._orig["mla_decode"](p, cfg, x, cache, pos, dq_linear, live, kv_spec)
+        B, S = x.shape[0], cache["ckv"].shape[1]
+        bidx, at = torch.arange(B, device=x.device), pos.long().clamp(0, S - 1)
+        vals = cache["ckv"][bidx, at][:, None].clone()
+        scales = cache["ckv_scale"][bidx, at][:, None].clone()
+        rows = live if live is not None else torch.ones(B, dtype=torch.bool, device=x.device)
+        kvq = self.kvq
+
+        def fed(t, *spec):
+            sp = spec[0] if spec else None
+            deq = (vals.view(torch.int8).float() * scales if sp is None
+                   else kvq.dequant_channelwise(vals, scales, sp, torch.float32))
+            step = scales if sp is None else torch.repeat_interleave(
+                scales, torch.tensor(sp.sizes, device=scales.device), dim=-1)
+            t32 = t.float()
+            ok = (deq - t32).abs() <= step / 2 + ENTRY_DRIFT * t32.abs().amax(-1, keepdim=True)
+            check(bool(ok[rows].all()), "a latent entry of the kernel path is off the plain "
+                  "path's by more than half a step and the drift")
+            self.entry_checks += 1
+            return vals, scales
+        orig_q = (self.attn.quant_per_token, kvq.quant_channelwise)
+        self.attn.quant_per_token, kvq.quant_channelwise = fed, fed
+        try:
+            y_ref, _ = self._orig["mla_decode"](p, cfg, x, clone, pos,
+                                                self.serving._dq(cfg.cdtype, "torch"), live,
+                                                kv_spec)
+        finally:
+            self.attn.quant_per_token, kvq.quant_channelwise = orig_q
+        self._ratio(y, y_ref, "mla decode")
+        return y, cache
+
+
+def k3_bytes(E, M, Kp, N, qt):
+    """The bytes the expert GEMM must move: x and y at 2 bytes (the
+    reference's bf16 dot), every expert's packed bytes, scales and the
+    schedule once."""
+    return (2 * E * M * Kp + qt.fused_packed.numel() + 4 * qt.fused_scales.numel()
+            + 4 * qt.fused_table.numel() + 2 * E * M * N)
+
+
+def moe_serving(dev, card, ops, gen):
+    """Phases 3d, 4d and 5c: deepseek-v3-671b at full width, 2 layers.
+    Returns the report, the K3 row of the kernels line, the K2 expert-axis
+    figures and the path's launch counts."""
+    import dataclasses
+
+    from repro_torch.api import sampling as smp
+    from repro_torch.api.scheduler import ServingEngine
+    from repro_torch.config import get_config
+    from repro_torch.core import quantizers as qz
+    from repro_torch.kernels import quant_matmul as qmk
+    from repro_torch.models import serving
+
+    report = {}
+    full = get_config("deepseek-v3-671b")
+    cfg = dataclasses.replace(full, n_layers=DS_LAYERS)
+    log(f"[moe] deepseek-v3-671b at its published width, depth cut from {full.n_layers} "
+        f"to {cfg.n_layers} layers (random weights, seed 0)")
+    t0 = time.perf_counter()
+    dparams = serving.init_deployed_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ffn0 = dparams["blocks"][0]["ffn"]
+    wd, wg = ffn0["we_down"]["w"], ffn0["we_gate"]["w"]
+    check(cfg.d_model == 7168 and cfg.n_experts == 256 and cfg.moe_d_ff == 2048
+          and cfg.kv_lora_rank == 512 and dparams["embed"].shape == (129280, 7168),
+          "deepseek-v3-671b at full width")
+    check(wd.experts == 256 and wd.fused_packed is not None and wd.tile_n == 128
+          and len(wd.tile_bits) == 56, "we_down: one fused expert stack (Kp 2048, T 56)")
+    check(all(ffn0[n]["w"].fused_packed is None for n in ("we_gate", "we_up")),
+          "we_gate/we_up (c_in 7168) stay per-group")
+
+    def nbytes(qt):
+        return qt.memory_bits // 8
+    per_layer = {
+        "we_down": nbytes(wd),
+        "we_gate+we_up": nbytes(wg) + nbytes(ffn0["we_up"]["w"]),
+        "mla": sum(nbytes(dl["w"]) for dl in dparams["blocks"][0]["attn"].values()
+                   if "w" in dl),
+        "shared": sum(nbytes(dl["w"]) for dl in ffn0["shared"].values())}
+    per_layer["layer"] = sum(per_layer.values())
+    report.update(init_s=init_s, packed_weight_bytes_per_layer=per_layer,
+                  embed_bytes=dparams["embed"].numel() * 2,
+                  lm_head_bytes=nbytes(dparams["lm_head"]["w"]),
+                  cut=dict(n_layers=[full.n_layers, cfg.n_layers]))
+    log(f"[moe] deployed on the card in {init_s:.2f} s; packed weight bytes per layer "
+        f"{json.dumps(per_layer)}, bf16 embedding {report['embed_bytes']}, lm_head "
+        f"{report['lm_head_bytes']}; peak memory {torch.cuda.max_memory_allocated()} B")
+
+    # -- 3d. K3 and K2's expert axis against their plain versions ---------------
+    def rand(shape, dtype=torch.float32):
+        return torch.from_numpy(gen.standard_normal(shape).astype(np.float32)).to(dev).to(dtype)
+
+    def k3_check(label, qt, m, cd, out_dtype):
+        E, Kp = qt.experts, -(-qt.c_in // qmk.FUSED_K_ALIGN) * qmk.FUSED_K_ALIGN
+        x = rand((E, m, qt.c_in))
+        xc = x.to(cd).to(torch.float32)
+        args = (qt.fused_packed, qt.fused_scales, qt.tile_bits)
+        got = qmk.quant_matmul_fused_3d(xc, qt.fused_packed, qt.fused_table, qt.fused_scales,
+                                        qt.tile_bits, Kp=Kp, tile_n=qt.tile_n, compute_dtype=cd)
+        ref = qmk.quant_matmul_fused_3d_plain(xc, *args, Kp=Kp, tile_n=qt.tile_n,
+                                              compute_dtype=cd)
+        bound = qmk.fused_3d_error_bound(xc, *args, Kp=Kp, tile_n=qt.tile_n, compute_dtype=cd)
+        d = (got.double() - ref.double()).abs()
+        worst = float((d / (bound.double() + 1e-30)).max())
+        y = ops.quant_matmul_fused_batched(x, qt.fused_packed, qt.fused_table, qt.fused_scales,
+                                           qt.fused_perm, qt.tile_bits, qt.tile_n, qt.c_in,
+                                           qt.c_out, compute_dtype=cd, out_dtype=out_dtype)
+        cols = (qt.fused_perm if qt.fused_perm is not None
+                else torch.arange(qt.c_out, device=dev))
+        r, b = ref.index_select(2, cols).double(), bound.index_select(2, cols).double()
+        ulp = (torch.exp2(torch.floor(torch.log2(r.abs() + b + 1e-30))) * 2.0 ** -7
+               if out_dtype == torch.bfloat16 else 0.0)
+        worst_out = float(((y.double() - r).abs() / (b + ulp + 1e-30)).max())
+        row = dict(case=label, E=E, M=m, Kp=Kp, N=qt.c_out, tile_n=qt.tile_n,
+                   gather=qt.fused_perm is not None, compute=str(cd), out=str(out_dtype),
+                   max_abs_err=float(d.max()), worst_err_over_bound=worst,
+                   worst_out_err_over_bound=worst_out)
+        check(bool(torch.isfinite(got).all()) and worst <= 1.0 and worst_out <= 1.0,
+              f"K3 off its plain version: {row}")
+        return row
+
+    k3_rows = []
+    for m in (8, 40):                       # we_down at decode and at prefill capacity
+        for cd in (torch.bfloat16, torch.float32):
+            k3_rows.append(k3_check("we_down layer 0", wd, m, cd, cd))
+    small_cfg = dataclasses.replace(cfg, deploy=dataclasses.replace(cfg.deploy, align=8))
+    g = torch.Generator(device=dev).manual_seed(7)
+    edges = [("E1 M1", serving.init_deployed_linear(g, 128, 256, cfg, expert_axis=1,
+                                                   device=dev)["w"], 1),
+             ("M70 tile16 gather", serving.init_deployed_linear(
+                 g, 33, 50, small_cfg, expert_axis=4, tile_n=16, device=dev)["w"], 70),
+             ("M40 tile16", serving.init_deployed_linear(
+                 g, 64, 96, small_cfg, expert_axis=3, tile_n=16, device=dev)["w"], 40),
+             ("M8 tile128 K200", serving.init_deployed_linear(
+                 g, 200, 384, cfg, expert_axis=4, device=dev)["w"], 8)]
+    check(edges[1][1].fused_perm is not None, "the gather stack must gather")
+    for label, qt, m in edges:
+        for cd in (torch.bfloat16, torch.float32):
+            for out_dtype in (torch.bfloat16, torch.float32):
+                k3_rows.append(k3_check(label, qt, m, cd, out_dtype))
+    torch.cuda.synchronize()
+    for row in k3_rows:
+        log("[k3] " + json.dumps(row))
+    report["k3_checks"] = k3_rows
+
+    # K2's expert axis == per-expert launches, bitwise, at we_gate's group shapes
+    n_slice, Kg = min(16, wg.experts), wg.c_in
+    k2e_rows = []
+    xg = rand((n_slice, 8, Kg), torch.bfloat16).float()
+    for b, pk, sc in zip(wg.bits, wg.packed, wg.scales):
+        one = qmk.quant_matmul_2d(xg, pk[:n_slice].contiguous(), sc[:n_slice].contiguous(), b)
+        each = torch.stack([qmk.quant_matmul_2d(xg[e], pk[e], sc[e], b) for e in range(n_slice)])
+        ref = qmk.quant_matmul_2d_plain(xg, pk[:n_slice], sc[:n_slice], b)
+        mag = (xg.double().abs() @ qz.unpack_int(pk[:n_slice], b).double().abs().mT
+               ) * sc[:n_slice].double().abs()[:, None]
+        r = float(((one.double() - ref.double()).abs() / (2 * (Kg + 2) * U * mag + 1e-30)).max())
+        same = torch.equal(one, each)
+        k2e_rows.append(dict(bits=b, E=n_slice, M=8, N=pk.shape[1], K=Kg, bitwise=same,
+                             worst_err_over_tol=r,
+                             max_abs_err=float((one.double() - ref.double()).abs().max())))
+        check(same and r <= 1.0, f"K2 expert axis: {k2e_rows[-1]}")
+    for row in k2e_rows:
+        log("[k2-experts] " + json.dumps(row))
+    report["k2_expert_checks"] = k2e_rows
+
+    # -- 4d. the main path: ServingEngine(backend="cuda") for each kv_bits -------
+    layers = dparams["blocks"]
+    linears = [dl["w"] for blk in layers for dl in blk["attn"].values() if "w" in dl]
+    linears += [dl["w"] for blk in layers for dl in blk["ffn"]["shared"].values()]
+    linears.append(dparams["lm_head"]["w"])
+    stacks = [blk["ffn"][n]["w"] for blk in layers for n in ("we_gate", "we_up", "we_down")]
+    want = {"quant_matmul_fused": sum(qt.fused_packed is not None for qt in linears),
+            "quant_matmul": sum(len(qt.bits) for qt in linears + stacks
+                                if qt.fused_packed is None),
+            "quant_matmul_fused_batched": sum(qt.fused_packed is not None for qt in stacks),
+            "scaled_int8_mm": 0, "decode_attention": 0}
+    check(want["quant_matmul_fused_batched"] == cfg.n_layers
+          and sum(len(qt.bits) for qt in stacks if qt.fused_packed is None)
+          == 2 * 3 * cfg.n_layers, f"launches per step: {want}")
+    reqs, arrivals = ds_trace(cfg)
+    log(f"[moe] trace: {len(reqs)} requests, prompts {[len(r.tokens) for r in reqs]}, "
+        f"max_tokens {[r.max_tokens for r in reqs]}, arrivals {arrivals}; launches per engine "
+        f"step {json.dumps(want)}")
+    gates = MoEGates()
+    runs, tokens = {}, {}
+    ops.reset_launch_counts()
+    with gates:
+        for kv_bits in DS_KV:
+            eng = ServingEngine(cfg, dparams, backend="cuda", max_slots=DS_SLOTS,
+                                max_len=DS_MAX_LEN, prefill_len=DS_PREFILL, kv_bits=kv_bits)
+            steps = {"prefill": 0, "decode": 0}
+            step = eng.step
+
+            def checked_step(step=step, steps=steps, kv_bits=kv_bits):
+                before = ops.launch_counts()
+                gates.on = steps["decode"] < DS_GATED_STEPS
+                out = step()
+                torch.cuda.synchronize()
+                after = ops.launch_counts()
+                if out["kind"] in steps:
+                    steps[out["kind"]] += 1
+                    got = {k: after[k] - before[k] for k in after}
+                    check(got == want, f"kv {kv_bits} {out['kind']}: launches {got}, want {want}")
+                gates.on = False
+                return out
+            eng.step = checked_step
+            t0 = time.perf_counter()
+            outs = eng.run(reqs, arrivals)
+            check(sorted(outs) == list(range(len(reqs)))
+                  and all(len(outs[i].tokens) == reqs[i].max_tokens for i in outs),
+                  f"kv {kv_bits}: every request served in full")
+            tokens[kv_bits] = [outs[i].tokens.tolist() for i in range(len(reqs))]
+            runs[str(kv_bits)] = dict(steps=dict(steps), gated_run_s=time.perf_counter() - t0,
+                                      useful_tokens=eng.stats["useful_tokens"],
+                                      kv_bytes_resident=eng.kv_bytes_resident())
+            del eng
+    path_launches = ops.launch_counts()
+    worst = {k: max(v) for k, v in gates.ratios.items()}
+    log(f"[moe] launches over the MoE path: {path_launches}; sub-layers within {json.dumps(worst)} "
+        f"of the tolerance ({sum(len(v) for v in gates.ratios.values())} checked), "
+        f"{gates.entry_checks} fed latent entries in bounds; runs {json.dumps(runs)}")
+    check(all(path_launches[k] > 0 for k in ("quant_matmul", "quant_matmul_fused",
+                                             "quant_matmul_fused_batched")),
+          f"a kernel of the MoE path never launched: {path_launches}")
+    check(all(len(v) > 0 for v in gates.ratios.values()), "every sub-layer kind was checked")
+    report.update(path=runs, path_launches=path_launches, worst_sublayer_err_over_tol=worst,
+                  sublayers_checked={k: len(v) for k, v in gates.ratios.items()},
+                  fed_latent_entries=gates.entry_checks)
+
+    # end-to-end distance of the kernel path's logits from the plain path's,
+    # teacher-forced on the kernel path's greedy tokens, and the share of
+    # (token, layer) routings that pick the same experts on both paths
+    # (reported, not gated: a near tie among 256 sigmoid scores flips an
+    # expert, which moves the token's whole expert output)
+    from repro_torch.models import moe as moe_mod
+    prompts = torch.zeros((DS_SLOTS, DS_PREFILL), dtype=torch.int64, device=dev)
+    lens = torch.tensor([len(r.tokens) for r in reqs[:DS_SLOTS]], device=dev)
+    for i, r in enumerate(reqs[:DS_SLOTS]):
+        prompts[i, :len(r.tokens)] = torch.from_numpy(r.tokens.astype(np.int64))
+    e2e, route = {}, moe_mod.route_topk
+    for kv_bits in DS_KV:
+        state, picks, current = {}, {"cuda": [], "torch": []}, ["cuda"]
+
+        def spy(logits, k, routing="softmax"):
+            gates_, topi_ = route(logits, k, routing)
+            picks[current[0]].append(torch.sort(topi_, -1).values)
+            return gates_, topi_
+        moe_mod.route_topk = spy
+        try:
+            for backend in ("cuda", "torch"):
+                current[0] = backend
+                lg, pf = serving.prefill(dparams, cfg, {"tokens": prompts}, backend, lens=lens,
+                                         kv_bits=kv_bits)
+                ring = serving.embed_caches(pf, serving.init_caches(cfg, DS_SLOTS, DS_MAX_LEN,
+                                                                    kv_bits, dev))
+                state[backend] = [lg, ring]
+            dist, agree, pos = [], [], lens.clone()
+            for _ in range(DS_TF_STEPS):
+                a, b = state["cuda"][0], state["torch"][0]
+                dist.append(float((a - b).abs().max() / b.abs().max()))
+                agree.append(float((a.argmax(-1) == b.argmax(-1)).double().mean()))
+                tok = smp.sample(a)
+                for backend in ("cuda", "torch"):
+                    current[0] = backend
+                    state[backend][0], state[backend][1] = serving.decode_step(
+                        dparams, cfg, tok, state[backend][1], pos, backend, kv_bits=kv_bits)
+                pos = pos + 1
+        finally:
+            moe_mod.route_topk = route
+        same = [(u == v).all(-1) for u, v in zip(picks["cuda"], picks["torch"])]
+        e2e[str(kv_bits)] = dict(
+            max_rel_logit_distance=max(dist), mean_rel_logit_distance=float(np.mean(dist)),
+            greedy_agreement=float(np.mean(agree)),
+            prefill_routing_agreement=float(torch.cat(same[:cfg.n_layers]).double().mean()),
+            decode_routing_agreement=float(torch.cat(same[cfg.n_layers:]).double().mean()))
+        del state
+    log(f"[moe] kernel path vs plain path, teacher-forced, {DS_TF_STEPS} steps: "
+        f"{json.dumps(e2e)} (reported, not gated)")
+    report["e2e_kernel_vs_plain"] = e2e
+
+    # -- 5c. times -------------------------------------------------------------
+    times = {}
+    for kv_bits in DS_KV:
+        eng = ServingEngine(cfg, dparams, backend="cuda", max_slots=DS_SLOTS,
+                            max_len=DS_MAX_LEN, prefill_len=DS_PREFILL, kv_bits=kv_bits)
+        step_ms = {"prefill": [], "decode": []}
+        step = eng.step
+
+        def timed_step(step=step, step_ms=step_ms):
+            t0 = time.perf_counter()
+            out = step()
+            torch.cuda.synchronize()
+            if out["kind"] in step_ms:
+                step_ms[out["kind"]].append((time.perf_counter() - t0) * 1e3)
+            return out
+        eng.step = timed_step
+        t0 = time.perf_counter()
+        eng.run(reqs, arrivals)
+        run_s = time.perf_counter() - t0
+        pos = torch.full((DS_SLOTS,), 200, dtype=torch.int32, device=dev)
+        toks = torch.zeros((DS_SLOTS, 1), dtype=torch.int64, device=dev)
+
+        def one_step(eng=eng, pos=pos, toks=toks, kv_bits=kv_bits):
+            serving.decode_step(dparams, cfg, toks, eng.caches, pos, "cuda", kv_bits=kv_bits)
+        events, profiled_ms = device_kernels(one_step)
+        busy = sum(t for _, t in events) / 1e3
+        by_name: dict = {}
+        for kname, t in events:
+            n, tot = by_name.get(kname, (0, 0.0))
+            by_name[kname] = (n + 1, tot + t / 1e3)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+        dec = statistics.median(step_ms["decode"])
+        times[str(kv_bits)] = dict(
+            run_s=run_s, useful_tokens=eng.stats["useful_tokens"],
+            tokens_per_s=eng.stats["useful_tokens"] / run_s,
+            prefill_ms_median=statistics.median(step_ms["prefill"]),
+            prefills=len(step_ms["prefill"]), decode_step_ms_median=dec,
+            decode_steps=len(step_ms["decode"]), profiled_step_ms=profiled_ms,
+            device_busy_ms=busy, device_idle_share=1 - busy / dec,
+            profiled_idle_share=1 - busy / profiled_ms, kernels=len(events),
+            kv_bytes_resident=eng.kv_bytes_resident(),
+            top=[dict(kernel=k[:80], launches=n, ms=t) for k, (n, t) in top])
+        log(f"[moe-times] kv {kv_bits}: " + json.dumps(times[str(kv_bits)]) + f" | {card}")
+        del eng
+    report["times"] = times
+
+    # K3 at we_down's decode shape (E 256, M 8 = the capacity floor) and at the
+    # prefill capacity (M 40): device time, plain version, a bf16 bmm on the
+    # bf16-rounded dequantized stack (the library yardstick), and the bound
+    E, Kp, N = wd.experts, -(-wd.c_in // qmk.FUSED_K_ALIGN) * qmk.FUSED_K_ALIGN, wd.c_out
+    wb = torch.empty((E, wd.fused_scales.shape[1], Kp), dtype=torch.bfloat16, device=dev)
+    for sl in qmk.expert_chunks(E, wb.shape[1] * Kp):
+        wb[sl] = qmk.fused_3d_dense(wd.fused_packed[sl], wd.fused_scales[sl], wd.tile_bits,
+                                    Kp=Kp, tile_n=wd.tile_n,
+                                    compute_dtype=torch.bfloat16).to(torch.bfloat16)
+    k3_times = {}
+    for m in (8, 40):
+        xb = rand((E, m, Kp), torch.bfloat16)
+        x = xb.float()
+        fns = {"k3": lambda: qmk.quant_matmul_fused_3d(
+                   x, wd.fused_packed, wd.fused_table, wd.fused_scales, wd.tile_bits, Kp=Kp,
+                   tile_n=wd.tile_n, compute_dtype=torch.bfloat16),
+               "plain": lambda: qmk.quant_matmul_fused_3d_plain(
+                   x, wd.fused_packed, wd.fused_scales, wd.tile_bits, Kp=Kp, tile_n=wd.tile_n,
+                   compute_dtype=torch.bfloat16),
+               "library": lambda: torch.bmm(xb, wb.mT)}
+        row = dict(E=E, M=m, Kp=Kp, N=N, tile_n=wd.tile_n, T=len(wd.tile_bits))
+        for key, fn in fns.items():
+            iters = 3 if key == "plain" else 10
+            row[f"{key}_loop_ms"] = cuda_ms(fn, iters=iters, warmup=1)
+            dev_ms = device_ms(fn, iters=iters, warmup=1)
+            row[f"{key}_ms"] = row[f"{key}_loop_ms"] if dev_ms is None else dev_ms
+            row[f"{key}_timer"] = "events" if dev_ms is None else "profiler"
+        nb = k3_bytes(E, m, Kp, N, wd)
+        row.update(bytes=nb, bytes_ms=nb / PEAK_BYTES_PER_S * 1e3,
+                   ops_ms=2.0 * E * m * Kp * N / PEAK_BF16_FLOP_PER_S * 1e3)
+        k3_times[m] = row
+        log("[times] K3 we_down " + json.dumps(row) + f" | {card}")
+    del wb
+    report["k3_times"] = {str(k): v for k, v in k3_times.items()}
+
+    # K2's expert axis over one decode step: we_gate's and we_up's groups at
+    # M = 8 (each shape timed once, counted as often as a step launches it)
+    k2e_step = {"k2_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
+                "ops_ms": 0.0, "bound_ms": 0.0}
+    k2e_times = []
+    x8b = rand((E, 8, Kg), torch.bfloat16)
+    x8 = x8b.float()
+    calls = 2 * cfg.n_layers                    # we_gate and we_up in every layer
+    for b, pk, sc in zip(wg.bits, wg.packed, wg.scales):
+        wgb = torch.empty(pk.shape[:2] + (Kg,), dtype=torch.bfloat16, device=dev)
+        for sl in qmk.expert_chunks(E, pk.shape[1] * Kg):
+            wgb[sl] = (qz.unpack_int(pk[sl], b).float() * sc[sl, :, None]).to(torch.bfloat16)
+        fns = {"k2": lambda: qmk.quant_matmul_2d(x8, pk, sc, b),
+               "plain": lambda: qmk.quant_matmul_2d_plain(x8, pk, sc, b),
+               "library": lambda: torch.bmm(x8b, wgb.mT)}
+        row = dict(bits=b, E=E, M=8, N=pk.shape[1], K=Kg, calls_per_step=calls)
+        for key, fn in fns.items():
+            iters = 3 if key == "plain" else 10
+            row[f"{key}_loop_ms"] = cuda_ms(fn, iters=iters, warmup=1)
+            dev_ms = device_ms(fn, iters=iters, warmup=1)
+            row[f"{key}_ms"] = row[f"{key}_loop_ms"] if dev_ms is None else dev_ms
+        nb = 2 * E * 8 * Kg + pk.numel() + 4 * sc.numel() + 2 * E * 8 * pk.shape[1]
+        row["bytes_ms"] = nb / PEAK_BYTES_PER_S * 1e3
+        row["ops_ms"] = 2.0 * E * 8 * pk.shape[1] * Kg / PEAK_BF16_FLOP_PER_S * 1e3
+        for key in ("k2_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms"):
+            k2e_step[key] += calls * row[key]
+        k2e_step["bound_ms"] += calls * max(row["bytes_ms"], row["ops_ms"])
+        k2e_times.append(row)
+        log("[times] K2 expert axis we_gate/we_up " + json.dumps(row) + f" | {card}")
+        del wgb
+    log(f"[times] K2's expert axis over one decode step ({2 * 3 * cfg.n_layers} launches): "
+        f"{json.dumps(k2e_step)} | {card}")
+    report["k2_expert_times"] = k2e_times
+    report["k2_expert_decode_step"] = k2e_step
+
+    r8 = k3_times[8]
+    k3 = dict(name="quant_matmul_fused_batched", route="cuda",
+              source="src/repro_torch/kernels/csrc/quant_matmul.cu",
+              replaces="src/repro/kernels/quant_matmul.py:193",
+              launches=path_launches["quant_matmul_fused_batched"],
+              max_abs_err=max(r["max_abs_err"] for r in k3_rows),
+              ms=r8["k3_ms"], plain_ms=r8["plain_ms"],
+              bound_ms=max(r8["bytes_ms"], r8["ops_ms"]),
+              bound_by="bytes" if r8["bytes_ms"] >= r8["ops_ms"] else "operations",
+              library_ms=r8["library_ms"])
+    k2_experts = dict(bitwise_equal_to_per_expert_launches=all(r["bitwise"] for r in k2e_rows),
+                      launches_per_decode_step=2 * 3 * cfg.n_layers,
+                      decode_step_ms=k2e_step["k2_ms"], plain_ms=k2e_step["plain_ms"],
+                      bound_ms=k2e_step["bound_ms"], library_ms=k2e_step["library_ms"],
+                      max_abs_err=max(r["max_abs_err"] for r in k2e_rows))
+    del dparams
+    torch.cuda.empty_cache()
+    return report, k3, k2_experts, path_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement as JSON here")
@@ -1093,6 +1634,7 @@ def main() -> int:
                 launches = {k: after[k] - before[k] for k in after}
                 if mname == "resnet8-cifar10" and backend == "cuda":
                     check(launches == {"quant_matmul_fused": n_sites, "quant_matmul": 0,
+                                       "quant_matmul_fused_batched": 0,
                                        "scaled_int8_mm": 0, "decode_attention": 0},
                           f"resnet8: {launches} for {n_sites} sites")
                 err = (y - frozen).abs()
@@ -1507,6 +2049,11 @@ def main() -> int:
     # -- 3c, 4c, 5b. the LM serving path: qwen1.5-4b at full width and depth ------
     lm_report, k2_lm, k4_lm = lm_serving(dev, card, ops, gen)
     report["lm"] = lm_report
+    torch.cuda.empty_cache()
+
+    # -- 3d, 4d, 5c. the MoE serving path: deepseek-v3-671b at full width, 2 layers
+    moe_report, k3_moe, k2_experts, moe_launches = moe_serving(dev, card, ops, gen)
+    report["moe"] = moe_report
 
     # -- 6. summary --------------------------------------------------------------
     fb, fby = bound("fused")
@@ -1515,16 +2062,19 @@ def main() -> int:
         dict(name="quant_matmul_fused", route="cuda",
              source="src/repro_torch/kernels/csrc/quant_matmul.cu",
              replaces="src/repro/kernels/quant_matmul.py:193",
-             launches=launches["quant_matmul_fused"], max_abs_err=max(errs["fused"]),
+             launches=launches["quant_matmul_fused"] + moe_launches["quant_matmul_fused"],
+             max_abs_err=max(errs["fused"]),
              ms=total("fused_ms"), plain_ms=total("fused_plain_ms"), bound_ms=fb,
              bound_by=fby, library_ms=total("library_ms")),
         dict(name="quant_matmul_pergroup", route="cuda",
              source="src/repro_torch/kernels/csrc/quant_matmul.cu",
              replaces="src/repro/kernels/quant_matmul.py:119",
-             launches=k2_lm["launches"],
-             max_abs_err=max(max(errs["pergroup"]), k2_lm["max_abs_err"]),
+             launches=k2_lm["launches"] + moe_launches["quant_matmul"],
+             max_abs_err=max(max(errs["pergroup"]), k2_lm["max_abs_err"],
+                             k2_experts["max_abs_err"]),
              ms=k2_lm["ms"], plain_ms=k2_lm["plain_ms"], bound_ms=k2_lm["bound_ms"],
-             bound_by=k2_lm["bound_by"], library_ms=k2_lm["library_ms"]),
+             bound_by=k2_lm["bound_by"], library_ms=k2_lm["library_ms"],
+             expert_axis=k2_experts),
         dict(name="scaled_int8_mm", route="cuda",
              source="src/repro_torch/kernels/csrc/int8_matmul.cu",
              replaces="src/repro/kernels/int8_matmul.py:82",
@@ -1533,15 +2083,19 @@ def main() -> int:
              ms=k5_sum["k5_ms"], plain_ms=k5_sum["plain_ms"], bound_ms=k5_bound,
              bound_by=k5_bound_by, library_ms=k5_sum["library_ms"]),
         k4_lm,
+        k3_moe,
     ]
     log(f"[summary] K1 times are sums over the {len(per_site)} resnet8 GEMM sites at "
         f"batch {BATCH} (one serve; K2 there: {total('pergroup_ms'):.6g} ms, bound {gb:.6g}, "
         f"plain {total('pergroup_plain_ms'):.6g}), K2's over the per-group GEMMs of one "
-        f"qwen1.5-4b decode step (4 slots; bound and library in bf16), K4's one decode-attention call at qwen's decode "
-        f"shape (4 slots x 20 kv-heads, positions 256-540 of a 1024 ring, kv_bits (2, 4, 8)), "
-        f"K5's over the {len(k5_times)} products of one resnet8 int8 training step at batch "
-        f"{BATCH}; K1 launches are the tinyml serving path's, K2's and K4's the LM path's, "
-        f"K5's the training path's; {card}")
+        f"qwen1.5-4b decode step (4 slots; bound and library in bf16; its expert axis over "
+        f"one deepseek-v3 decode step beside them), K4's one decode-attention call at qwen's "
+        f"decode shape (4 slots x 20 kv-heads, positions 256-540 of a 1024 ring, kv_bits "
+        f"(2, 4, 8)), K5's over the {len(k5_times)} products of one resnet8 int8 training "
+        f"step at batch {BATCH}, K3's one call at deepseek-v3's we_down decode shape (256 "
+        f"experts x 8 rows, Kp 2048, N 7168; bound and library in bf16); K1 launches are the "
+        f"tinyml serving path's and the MoE path's, K2's the qwen and MoE paths', K4's the "
+        f"qwen path's, K5's the training path's, K3's the MoE path's; {card}")
     report["kernels"] = kernels
     if opts.out:
         Path(opts.out).parent.mkdir(parents=True, exist_ok=True)

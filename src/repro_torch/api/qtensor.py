@@ -22,10 +22,17 @@ bit-width schedule (``tile_bits``) and, for the kernel, the same schedule as
 an int32 ``(T, 2)`` table of ``[bits, byte offset]`` (``fused_table``),
 built once here and kept on the device beside the buffer.
 
+With ``experts`` set (MoE weight stacks) every tensor but the schedule,
+its table and the output gather carries a leading expert axis, all experts
+share ONE tile schedule, and ``matmul`` maps ``(E, ..., c_in) -> (E, ...,
+c_out)``: the packed form of ``einsum("ecd,efd->ecf", x, dense_stack)``.
+
 Backends (the reference's names in brackets):
 
 * ``"cuda"`` (``"pallas"``) — the serving path: the fused layout runs as ONE
-  launch of the fused CUDA kernel; without one, the per-group kernel.
+  launch of the fused CUDA kernel (of the expert kernel for a stack, which
+  dequantizes each weight tile before the product); without one, the
+  per-group kernel (one launch per group over every expert of a stack).
 * ``"cuda-pergroup"`` (``"pallas-pergroup"``) — one per-group kernel launch
   per precision group, concatenated, then the order restore.
 * ``"torch"`` (``"jnp"``) — per-group dense fall-back (unpack, dequant,
@@ -56,43 +63,68 @@ def _auto_tile_n(c_out: int) -> int:
     return min(128, 1 << (max(int(c_out), 1).bit_length() - 1))
 
 
+def _pack(q: torch.Tensor, bits: int) -> torch.Tensor:
+    """``qz.pack_int`` of ``q (..., K)``, an expert stack packed a chunk of
+    experts at a time (packing widens to int32 on the way)."""
+    if q.ndim < 3:
+        return qz.pack_int(q, bits)
+    f = qz.pack_factor(bits)
+    out = torch.empty(q.shape[:-1] + (q.shape[-1] // f,), dtype=torch.uint8, device=q.device)
+    for sl in qmk.expert_chunks(q.shape[0], q[0].numel()):
+        out[sl] = qz.pack_int(q[sl], bits)
+    return out
+
+
 def _fused_tile_layout(groups, tile_n: int, Kp: int, c_out: int,
                        restore_order: bool):
     """Build the single-launch fused layout from per-group integer weights.
 
-    ``groups`` is a list of ``(bits, q (n_g, Kp) int8 numpy, step (n_g,),
-    canon_idx (n_g,))`` in ascending bit-width.  Each group is padded to a
-    ``tile_n`` multiple (zero rows / zero scales / target -1) and cut into
-    tiles; the tiles are ordered by the target position of their first
-    (always real) row — canonical position when ``restore_order``, deployed
-    position otherwise.  When that walk order lays every real channel at its
-    target column with padding only past ``c_out``, ``fused_perm`` is None;
-    otherwise it is the ``(c_out,)`` output gather.
+    ``groups`` is a list of ``(bits, q (..., n_g, Kp) int8, step (..., n_g)
+    f32, canon_idx (n_g,) numpy)`` in ascending bit-width; a leading expert
+    axis on ``q``/``step`` gives every expert its own buffer under the one
+    schedule.  Each group is padded to a ``tile_n`` multiple (zero rows /
+    zero scales / target -1) and cut into tiles; the tiles are ordered by
+    the target position of their first (always real) row — canonical
+    position when ``restore_order``, deployed position otherwise.  When that
+    walk order lays every real channel at its target column with padding
+    only past ``c_out``, ``fused_perm`` is None; otherwise it is the
+    ``(c_out,)`` output gather.  The schedule depends only on the group
+    sizes and the targets (numpy); the bytes are torch ops on the codes'
+    device, one pack per run of consecutive tiles of a group.
 
-    Returns ``(fused_packed 1-D uint8, fused_scales (T*tile_n,) f32,
-    fused_perm, tile_bits)``.
+    Returns ``(fused_packed (..., bytes) uint8, fused_scales (..., T*tile_n)
+    f32, fused_perm, tile_bits)``.
     """
-    tiles = []
+    tiles, padded = [], []
     dep_start = 0
-    for b, q, step, idx in groups:
-        n = q.shape[0]
-        if q.shape[1] != Kp:
-            raise ValueError(f"group width {q.shape[1]} != Kp {Kp}")
+    for gi, (b, q, step, idx) in enumerate(groups):
+        n = q.shape[-2]
+        if q.shape[-1] != Kp:
+            raise ValueError(f"group width {q.shape[-1]} != Kp {Kp}")
         pad = (-n) % tile_n
-        qp = np.pad(np.asarray(q, np.int8), ((0, pad), (0, 0)))
-        sp = np.pad(np.asarray(step, np.float32).reshape(-1), (0, pad))
+        if pad:
+            q = torch.nn.functional.pad(q, (0, 0, 0, pad))
+            step = torch.nn.functional.pad(step, (0, pad))
+        padded.append((q, step.to(torch.float32)))
         tgt = (np.asarray(idx, np.int64) if restore_order
                else np.arange(dep_start, dep_start + n, dtype=np.int64))
         tgt = np.concatenate([tgt, np.full(pad, -1, np.int64)])
         dep_start += n
         for t0 in range(0, n + pad, tile_n):
-            sl = slice(t0, t0 + tile_n)
-            tiles.append((b, qp[sl], sp[sl], tgt[sl]))
+            tiles.append((b, gi, t0, tgt[t0:t0 + tile_n]))
     tiles.sort(key=lambda t: int(t[3][0]))
     tile_bits = tuple(t[0] for t in tiles)
+    runs = []                                 # [bits, group, row start, row end]
+    for b, gi, t0, _ in tiles:
+        if runs and runs[-1][1] == gi and runs[-1][3] == t0:
+            runs[-1][3] = t0 + tile_n
+        else:
+            runs.append([b, gi, t0, t0 + tile_n])
+    lead = groups[0][1].shape[:-2]
     fused_packed = torch.cat(
-        [qz.pack_int(torch.from_numpy(q), b).reshape(-1) for b, q, _, _ in tiles])
-    fused_scales = torch.from_numpy(np.concatenate([t[2] for t in tiles]))
+        [_pack(padded[gi][0][..., r0:r1, :], b).reshape(*lead, -1)
+         for b, gi, r0, r1 in runs], dim=-1)
+    fused_scales = torch.cat([padded[gi][1][..., r0:r1] for _, gi, r0, r1 in runs], dim=-1)
     tcol = np.concatenate([t[3] for t in tiles])
     if (tcol[:c_out] == np.arange(c_out)).all() and (tcol[c_out:] < 0).all():
         fused_perm = None                   # restore folded into the walk
@@ -100,7 +132,7 @@ def _fused_tile_layout(groups, tile_n: int, Kp: int, c_out: int,
         cols = np.nonzero(tcol >= 0)[0]
         fp = np.zeros(c_out, np.int64)
         fp[tcol[cols]] = cols
-        fused_perm = torch.from_numpy(fp)
+        fused_perm = torch.from_numpy(fp).to(fused_packed.device)
     return fused_packed, fused_scales, fused_perm, tile_bits
 
 
@@ -134,6 +166,11 @@ class QTensor:
     # 0-dim f32 PACT clip of the layer's input, on the weight's device (None
     # = derive it from act_scale/act_bits at construction)
     act_alpha: Optional[torch.Tensor] = None
+    # -- expert stacking (MoE) ---------------------------------------------
+    experts: Optional[int] = None   # E: every tensor but the schedule and
+    #                                 the gather carries a leading expert axis,
+    #                                 and matmul maps (E, ..., c_in) -> (E, ...,
+    #                                 c_out), each expert its own weight
 
     def __post_init__(self):
         if self.act_alpha is None:
@@ -193,21 +230,28 @@ class QTensor:
 
         ``groups``: ``(bits, q (n_g, c_in) int8, step (n_g,) f32)`` per
         non-empty precision group, ascending bit-width, rows in deployed
-        order; the group sizes ``n_g`` are static.  ``perm`` (numpy, the
-        original channel of each deployed row) gives the order restore;
-        ``None`` is a static group-contiguous deploy (no permutation, as
-        ``models/serving.init_deployed_linear`` builds).
+        order; the group sizes ``n_g`` are static.  Codes of shape ``(E,
+        n_g, c_in)`` with steps ``(E, n_g)`` build an expert stack
+        (``experts=E``): every expert's groups and fused buffer under ONE
+        tile schedule, as the reference's
+        ``serving.init_deployed_linear(expert_axis=E)`` builds them.
+        ``perm`` (numpy, the original channel of each deployed row) gives the
+        order restore; ``None`` is a static group-contiguous deploy (no
+        permutation, as ``models/serving.init_deployed_linear`` builds).
 
         ``tile_n`` builds the fused layout: an int pins the tile width,
         ``"auto"`` takes the largest power of two ``<= c_out`` (capped at
         128), ``None`` packs only the per-group buffers.  With a fused
         layout the per-group buffers are packed at the common ``Kp`` (c_in
         rounded up to 4) so both paths reduce the same K columns.
-        Contractions beyond ``K_SINGLE_STEP_MAX`` stay per-group.  The
-        tensors stay on the codes' device.
+        Contractions beyond ``K_SINGLE_STEP_MAX`` stay per-group.  Every
+        tensor is built with torch ops on the codes' device.
         """
         device = groups[0][1].device
-        c_out = sum(int(q.shape[0]) for _, q, _ in groups)
+        experts = int(groups[0][1].shape[0]) if groups[0][1].ndim == 3 else None
+        if experts is not None and perm is not None:
+            raise ValueError("an expert stack is built group-contiguous (perm=None)")
+        c_out = sum(int(q.shape[-2]) for _, q, _ in groups)
         if tile_n == "auto":
             tile_n = _auto_tile_n(c_out)
         Kp = -(-c_in // qmk.FUSED_K_ALIGN) * qmk.FUSED_K_ALIGN
@@ -216,18 +260,19 @@ class QTensor:
         packed, scales, used_bits, layout = [], [], [], []
         offset = 0
         for b, q, step in groups:
-            n = int(q.shape[0])
+            n = int(q.shape[-2])
             f = qz.pack_factor(b)
             kpad = Kp if tile_n is not None else -(-c_in // f) * f
-            q = torch.nn.functional.pad(q, (0, kpad - c_in))
-            step = step.reshape(-1).to(torch.float32)
-            packed.append(qz.pack_int(q, b))
+            if kpad != c_in:
+                q = torch.nn.functional.pad(q, (0, kpad - c_in))
+            step = step.reshape(q.shape[:-1]).to(torch.float32)
+            packed.append(_pack(q, b))
             scales.append(step)
             used_bits.append(b)
             if tile_n is not None:
                 idx = (np.arange(offset, offset + n) if perm is None
                        else perm[offset: offset + n])
-                layout.append((b, q.cpu().numpy(), step.cpu().numpy(), idx))
+                layout.append((b, q, step, idx))
             offset += n
         inv_perm = (None if perm is None
                     else torch.from_numpy(np.argsort(perm)).to(torch.int64).to(device))
@@ -235,15 +280,14 @@ class QTensor:
         if tile_n is not None:
             fp, fs, fperm, tile_bits = _fused_tile_layout(
                 layout, tile_n, Kp, c_out, restore_order)
-            fused = dict(fused_packed=fp.to(device), fused_scales=fs.to(device),
-                         fused_perm=None if fperm is None else fperm.to(device),
+            fused = dict(fused_packed=fp, fused_scales=fs, fused_perm=fperm,
                          tile_bits=tile_bits, tile_n=tile_n,
                          fused_table=qmk.fused_table(tile_bits, Kp, tile_n).to(device))
         return cls(tuple(packed), tuple(scales), inv_perm,
                    tuple(used_bits), c_out, c_in,
                    act_bits=act_bits, act_scale=act_scale,
                    kernel_shape=kernel_shape, restore_order=restore_order,
-                   **fused)
+                   experts=experts, **fused)
 
     def to(self, device) -> "QTensor":
         """The same QTensor with every tensor on ``device``."""
@@ -273,7 +317,8 @@ class QTensor:
 
     # -- compute ------------------------------------------------------------
     def _group_dense(self, b: int, p: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-        """Unpack + dequant ONE precision group to ``(rows_b, c_in)`` f32."""
+        """Unpack + dequant ONE precision group to ``(rows_b, c_in)`` f32
+        (``(E, rows_b, c_in)`` for an expert stack)."""
         w_int = qz.unpack_int(p, b)[..., : self.c_in]
         return w_int.to(torch.float32) * s[..., None]
 
@@ -333,6 +378,8 @@ class QTensor:
                 f"x contraction dim {x.shape[-1]} != c_in {self.c_in}")
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+        if self.experts is not None:
+            return self._matmul_experts(x, backend, compute_dtype)
         if backend in ("cuda", "cuda-pergroup"):
             # rounded to compute_dtype once for every group's launch
             x = x.to(compute_dtype).to(torch.float32)
@@ -354,6 +401,40 @@ class QTensor:
                 for b, p, s in zip(self.bits, self.packed, self.scales)]
         return self._concat_restore(outs)
 
+    def _matmul_experts(self, x: torch.Tensor, backend: str, compute_dtype) -> torch.Tensor:
+        """Expert stack: ``x (E, ..., c_in) -> (E, ..., c_out)``, each expert
+        contracting its own weight.  ``"cuda"`` with the fused layout runs
+        the expert kernel once for the whole stack; the per-group kernel
+        otherwise (and under ``"cuda-pergroup"``) runs once per precision
+        group over every expert; ``"torch"`` contracts each group's dense
+        slice, a chunk of experts at a time (the full stack dequantized at
+        once would not fit: 8.5 GB in f32 for one deepseek-v3 group)."""
+        from repro_torch.kernels import ops as kops
+        E = self.experts
+        kops.check_experts(x, E)
+        if backend in ("cuda", "cuda-pergroup"):
+            x = x.to(compute_dtype).to(torch.float32)
+        if backend == "cuda" and self.fused_packed is not None:
+            return kops.quant_matmul_fused_batched(
+                x, self.fused_packed, self.fused_table, self.fused_scales,
+                self.fused_perm, self.tile_bits, self.tile_n, self.c_in,
+                self.c_out, compute_dtype=compute_dtype, out_dtype=compute_dtype)
+        if backend in ("cuda", "cuda-pergroup"):
+            def gemm(b, p, s):
+                return kops.quant_matmul(x, p, s, b, self.c_in, out_dtype=compute_dtype)
+        else:
+            xc = x.to(compute_dtype).reshape(E, -1, self.c_in)
+
+            def gemm(b, p, s):
+                y = torch.empty((E, xc.shape[1], p.shape[1]), dtype=compute_dtype,
+                                device=x.device)
+                for sl in qmk.expert_chunks(E, p[0].numel() * qz.pack_factor(b)):
+                    w = self._group_dense(b, p[sl], s[sl]).to(compute_dtype)
+                    y[sl] = xc[sl] @ w.mT
+                return y.reshape(*x.shape[:-1], p.shape[1])
+        outs = [gemm(b, p, s) for b, p, s in zip(self.bits, self.packed, self.scales)]
+        return self._concat_restore(outs)
+
     def conv2d(self, x: torch.Tensor, stride=1, padding: str = "SAME",
                groups: int = 1, backend: str = "torch") -> torch.Tensor:
         """NHWC conv ``x (N, H, W, C) -> (N, Ho, Wo, c_out)`` fully packed.
@@ -368,6 +449,8 @@ class QTensor:
         if self.kernel_shape is None:
             raise TypeError("conv2d requires a conv QTensor "
                             "(kernel_shape is None — this is a linear map)")
+        if self.experts is not None:
+            raise TypeError("conv2d does not take expert-stacked QTensors")
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
         kh, kw = self.kernel_shape[-2:]

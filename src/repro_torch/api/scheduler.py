@@ -188,7 +188,8 @@ class ServingEngine:
     # -- KV residency --------------------------------------------------------
     def kv_bytes_dense(self) -> int:
         """Bytes of the dense ``(max_slots, max_len)`` cache pool at this
-        engine's ``kv_bits`` policy."""
+        engine's ``kv_bits`` policy: every leaf of the family's cache (GQA's
+        k/v and scales, or MLA's latent, its scales and the rotary key)."""
         return sum(t.numel() * t.element_size() for t in self.caches.values())
 
     def kv_bytes_resident(self) -> int:

@@ -51,10 +51,9 @@ def search_settings_from_fields(fields: dict):
 
 def qtensor_from_numpy(fields: dict, device="cpu") -> QTensor:
     """A port ``QTensor`` from a reference QTensor's numpy leaves and aux
-    (``fields`` keyed by the reference's dataclass field names; fields the
-    port does not have, such as ``experts``, must be None)."""
-    if fields.get("experts") is not None:
-        raise ValueError("expert-stacked QTensors are not ported yet")
+    (``fields`` keyed by the reference's dataclass field names).  An expert
+    stack (``experts`` set) keeps its leading expert axis on every leaf but
+    the output gather, as the reference does."""
 
     def opt(key, dtype=None):
         v = fields.get(key)
@@ -84,7 +83,8 @@ def qtensor_from_numpy(fields: dict, device="cpu") -> QTensor:
         fused_perm=opt("fused_perm", torch.int64),
         tile_bits=None if tile_bits is None else tuple(int(b) for b in tile_bits),
         tile_n=None if tile_n is None else int(tile_n),
-        fused_table=table)
+        fused_table=table,
+        experts=None if fields.get("experts") is None else int(fields["experts"]))
 
 
 def _is_qtensor_fields(v) -> bool:
@@ -113,12 +113,13 @@ def _layer(tree, i):
 
 def deployed_lm_from_numpy(tree: dict, device="cpu") -> dict:
     """The reference's deployed LM tree (``serving.init_deployed_model``,
-    dense family) as the port's: ``{"embed", "blocks", "ln_f", "lm_head"}``
-    with the bf16 embedding, norms and biases, and every deployed linear a
-    QTensor (its fused layout and ``fused_table`` too).  ``tree`` has numpy
-    leaves and each reference QTensor as its ``{field: value}`` dict (numpy
-    leaves, ``experts`` None); the reference stacks the blocks along a
-    leading layer axis, the port keeps a list of per-layer dicts."""
+    dense or MoE family) as the port's: ``{"embed", "blocks", "ln_f",
+    "lm_head"}`` with the bf16 embedding, norms, biases and MoE router, and
+    every deployed linear a QTensor (its fused layout and ``fused_table``
+    too; MoE expert weights as expert stacks).  ``tree`` has numpy leaves
+    and each reference QTensor as its ``{field: value}`` dict (numpy
+    leaves); the reference stacks the blocks along a leading layer axis,
+    the port keeps a list of per-layer dicts."""
     blocks = tree["blocks"]
     n_layers = len(blocks["ln1"]["scale"])
     out = {k: _lm_tree(v, device) for k, v in tree.items() if k != "blocks"}
@@ -127,6 +128,7 @@ def deployed_lm_from_numpy(tree: dict, device="cpu") -> dict:
 
 
 def caches_from_numpy(tree: dict, device="cpu") -> dict:
-    """The reference's dense serving caches (``{"k", "v", "k_scale",
-    "v_scale"}``, stacked per layer) as the port's: the same layout."""
+    """The reference's dense-ring serving caches (GQA's ``{"k", "v",
+    "k_scale", "v_scale"}`` or MLA's ``{"ckv", "ckv_scale", "krope"}``,
+    stacked per layer) as the port's: the same layout."""
     return {k: _tensor(v, device) for k, v in tree.items()}

@@ -158,12 +158,11 @@ class ArchConfig:
 
 # Registry -------------------------------------------------------------------
 
-ARCH_IDS = ("qwen1.5-4b",)
+ARCH_IDS = ("qwen1.5-4b", "deepseek-v3-671b")
 
 # the rest of the reference's pool, with the ROADMAP.md item that ports each
 NOT_PORTED = {
-    "deepseek-v3-671b": "queue 1 item 5 (MoE + MLA, kernel 3)",
-    "arctic-480b": "queue 1 item 5 (MoE, kernel 3)",
+    "arctic-480b": "queue 1 item 5 (MoE with the dense residual MLP, dense_res)",
     "mamba2-780m": "queue 1 item 5 (SSM)",
     "zamba2-1.2b": "queue 1 item 5 (hybrid SSM)",
     "whisper-small": "queue 1 item 5 (audio encoder-decoder)",

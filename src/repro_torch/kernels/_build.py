@@ -31,8 +31,11 @@ SIGNATURES = {
     "quant_matmul.cu": {
         # x, M, Kx, Kp, packed, table, scales, T, tile_n, out, stream
         "qmm_fused_f32": [_P, _LL, _I, _I, _P, _P, _P, _I, _I, _P, _P],
-        # x, M, Kx, K, packed, N, scale, bits, out, stream
-        "qmm_pergroup_f32": [_P, _LL, _I, _I, _P, _I, _P, _I, _P, _P],
+        # x, M, Kx, K, packed, N, scale, bits, E, out, stream
+        "qmm_pergroup_f32": [_P, _LL, _I, _I, _P, _I, _P, _I, _I, _P, _P],
+        # x, M, Kx, Kp, packed, expert_bytes, table, scales, T, tile_n, E,
+        # round_bf16, out, stream
+        "qmm_fused_experts_f32": [_P, _LL, _I, _I, _P, _LL, _P, _P, _I, _I, _I, _I, _P, _P],
     },
     "int8_matmul.cu": {
         # a, b, sa, sb, M, N, K, bn, kchunk, ws, out, stream

@@ -1,6 +1,6 @@
 // Packed mixed-precision GEMMs for Hopper (sm_90a), f32 in, f32 out.
 //
-// Two kernels share one device routine, `tile_gemm`:
+// Three kernels share one device routine, `tile_gemm`:
 //
 // * `fused_kernel` replaces the Pallas kernel `_fused_kernel` of
 //   src/repro/kernels/quant_matmul.py (2-D form, `quant_matmul_fused_2d`,
@@ -12,6 +12,23 @@
 //   Python-unrolled `pl.when` chain of the TPU kernel.
 // * `pergroup_kernel` replaces the Pallas kernel `_kernel`
 //   (`quant_matmul_2d`): one precision group, packed (N, K/f), any K.
+//   `blockIdx.z` walks an expert axis (MoE weight stacks, packed
+//   (E, N, K/f)): one launch serves a precision group of every expert, where
+//   the reference loops over the experts in Python; each expert's output is
+//   the single-expert launch's, bit for bit (same routine, same operands).
+// * `fused_experts_kernel` replaces the Pallas kernel `_fused_kernel` in its
+//   expert-batched 3-D form (`quant_matmul_fused_3d`, dequant_first=True):
+//   grid (M tiles, T, E), every expert's ragged buffer under ONE tile
+//   table.  Unlike the other two it scales each weight tile BEFORE the
+//   product: w = round_cd(w_int * s) is what goes to shared memory (rounded
+//   to bf16 when the compute dtype is bf16, as the reference casts the
+//   dequantized tile to it), and the accumulator is stored unscaled.  So it
+//   is NOT bitwise equal to the per-group kernel on the same stack (the
+//   scale sits elsewhere), as the reference's two expert paths differ; it
+//   is held to the dense einsum over the rounded dequantized weight.  A
+//   product of two bf16 values is exact in f32, so at bf16 the f32 sums are
+//   the reference's bf16 dot with f32 accumulation.  Offsets into a stack
+//   are 64-bit: one deepseek-v3 `we_down` stack is 2.0 GB.
 //
 // Arithmetic.  y[m, n] = (sum_k x[m, k] * w_int[n, k]) * scale[n].  Each
 // output's K terms are accumulated by one thread in ascending k with fmaf,
@@ -31,6 +48,14 @@
 // design is the plain SIMT register-tiled GEMM: each thread owns RM x CN
 // outputs.  Tensor cores (wgmma), TMA and a deeper ring are later work.
 //
+// The expert kernel at MoE decode (deepseek-v3 `we_down`: 256 experts x 8
+// rows, Kp 2048, N 7168) must stream 2.0 GB of packed weights for 60
+// GFLOP of products, so the card's bound is bytes (about 0.6 ms).  This
+// first version keeps the shared SIMT routine: a block's 64-row tile holds
+// the 8 real rows and 56 masked ones, so it does 8x the FMAs the products
+// need and is bound by SIMT FMA issue, not by the bytes.  Tiles of fewer
+// rows, and bf16 tensor cores on the dequantized tile, are the levers.
+//
 // Edges handled in the kernel, not by padding: ragged M (rows >= M read as
 // 0 and are not stored), x narrower than K (columns >= Kx read as 0, which
 // is the reference's zero padding of x to Kp), ragged N (per-group), any
@@ -39,6 +64,7 @@
 // C interface (bound with ctypes): each entry point launches on the given
 // stream, allocates nothing and returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -136,9 +162,12 @@ __device__ __forceinline__ void load_w(const uint8_t* __restrict__ w, int w_row_
   }
 }
 
-template <int BITS, int TILE_N>
+// Unpacked weights to shared memory.  DEQUANT_FIRST (the expert kernel)
+// stores w_int * scale[n] instead, rounded to bf16 when round_bf16.
+template <int BITS, int TILE_N, bool DEQUANT_FIRST>
 __device__ __forceinline__ void store_w(float* ws,
-                                        const uint8_t (&wr)[WChunk<BITS, TILE_N>::kIters]) {
+                                        const uint8_t (&wr)[WChunk<BITS, TILE_N>::kIters],
+                                        const float* __restrict__ scale, bool round_bf16) {
   using C = WChunk<BITS, TILE_N>;
   constexpr int F = 8 / BITS;
 #pragma unroll
@@ -148,22 +177,30 @@ __device__ __forceinline__ void store_w(float* ws,
       const int n = idx % TILE_N;
       const int b = idx / TILE_N;
 #pragma unroll
-      for (int j = 0; j < F; ++j) ws[(b * F + j) * TILE_N + n] = unpack_value<BITS>(wr[it], j);
+      for (int j = 0; j < F; ++j) {
+        float v = unpack_value<BITS>(wr[it], j);
+        if constexpr (DEQUANT_FIRST) {
+          v = __fmul_rn(v, scale[n]);
+          if (round_bf16) v = __bfloat162float(__float2bfloat16_rn(v));
+        }
+        ws[(b * F + j) * TILE_N + n] = v;
+      }
     }
   }
 }
 
-// One (BM x TILE_N) output tile of y = (x @ w_int^T) * scale.
+// One (BM x TILE_N) output tile of y = (x @ w_int^T) * scale, or with
+// DEQUANT_FIRST of y = x @ round_cd(w_int * scale)^T.
 //   x      (M, Kx) row-major f32; columns Kx..K-1 read as 0
 //   w      TILE_N rows of K/F packed bytes each (row stride w_row_bytes);
 //          rows >= n_valid read as 0 and are not stored
 //   out    row stride ldo; column 0 of the tile at `out`
-template <int BITS, int TILE_N>
+template <int BITS, int TILE_N, bool DEQUANT_FIRST = false>
 __device__ __forceinline__ void tile_gemm(
     const float* __restrict__ x, int64_t M, int Kx, int K,
     const uint8_t* __restrict__ w, int w_row_bytes, int n_valid,
     const float* __restrict__ scale, float* __restrict__ out, int64_t ldo,
-    int64_t m0, float* xs, float* ws) {
+    int64_t m0, float* xs, float* ws, bool round_bf16 = false) {
   using G = Geom<TILE_N>;
   const int tid = threadIdx.x;
   const int tn = tid % G::kThreadsN;
@@ -181,7 +218,7 @@ __device__ __forceinline__ void tile_gemm(
   load_w<BITS, TILE_N>(w, w_row_bytes, n_valid, 0, wr);
   for (int k0 = 0; k0 < K; k0 += kBK) {
     store_x<TILE_N>(xs, xr);
-    store_w<BITS, TILE_N>(ws, wr);
+    store_w<BITS, TILE_N, DEQUANT_FIRST>(ws, wr, scale, round_bf16);
     __syncthreads();
     if (k0 + kBK < K) {                 // next chunk in flight during the FMAs
       load_x<TILE_N>(x, M, Kx, m0, k0 + kBK, xr);
@@ -204,7 +241,7 @@ __device__ __forceinline__ void tile_gemm(
 #pragma unroll
     for (int j = 0; j < G::kCN; ++j) {
       const int n = tn + j * G::kThreadsN;
-      if (n < n_valid) out[m * ldo + n] = __fmul_rn(acc[i][j], scale[n]);
+      if (n < n_valid) out[m * ldo + n] = DEQUANT_FIRST ? acc[i][j] : __fmul_rn(acc[i][j], scale[n]);
     }
   }
 }
@@ -236,7 +273,8 @@ fused_kernel(const float* __restrict__ x, int64_t M, int Kx, int Kp,
 
 constexpr int kPerGroupTileN = 64;
 
-// grid (ceil(M / BM), ceil(N / 64)); packed (N, K / F), out (M, N).
+// grid (ceil(M / BM), ceil(N / 64), E); per expert e: x (M, Kx),
+// packed (N, K / F), scale (N,), out (M, N), each stack's slices contiguous.
 template <int BITS>
 __global__ void __launch_bounds__(kThreads)
 pergroup_kernel(const float* __restrict__ x, int64_t M, int Kx, int K,
@@ -246,11 +284,48 @@ pergroup_kernel(const float* __restrict__ x, int64_t M, int Kx, int K,
   constexpr int F = 8 / BITS;
   __shared__ float xs[kBK * G::kXStride];
   __shared__ float ws[kBK * kPerGroupTileN];
+  const int64_t e = blockIdx.z;
+  x += e * M * Kx;
+  packed += e * N * int64_t(K / F);
+  scale += e * N;
+  out += e * M * N;
   const int n0 = blockIdx.y * kPerGroupTileN;
   const int n_valid = N - n0 < kPerGroupTileN ? N - n0 : kPerGroupTileN;
   const int64_t m0 = int64_t(blockIdx.x) * G::kBM;
   tile_gemm<BITS, kPerGroupTileN>(x, M, Kx, K, packed + int64_t(n0) * (K / F), K / F,
                                   n_valid, scale + n0, out + n0, N, m0, xs, ws);
+}
+
+// grid (ceil(M / BM), T, E): block (i, t, e) computes rows [i*BM, i*BM+BM)
+// of output tile t of expert e.  Per expert: x (M, Kx), its ragged buffer
+// of expert_bytes at packed + e * expert_bytes (the table's offsets are
+// within it), scales (T * TILE_N,), out (M, T * TILE_N).
+template <int TILE_N>
+__global__ void __launch_bounds__(kThreads)
+fused_experts_kernel(const float* __restrict__ x, int64_t M, int Kx, int Kp,
+                     const uint8_t* __restrict__ packed, int64_t expert_bytes,
+                     const int* __restrict__ table, const float* __restrict__ scales,
+                     float* __restrict__ out, int T, int round_bf16) {
+  using G = Geom<TILE_N>;
+  __shared__ float xs[kBK * G::kXStride];
+  __shared__ float ws[kBK * TILE_N];
+  const int t = blockIdx.y;
+  const int64_t e = blockIdx.z;
+  const int64_t ldo = int64_t(T) * TILE_N;
+  const int bits = table[2 * t];
+  const uint8_t* w = packed + e * expert_bytes + table[2 * t + 1];
+  const float* xe = x + e * M * Kx;
+  const float* s = scales + e * ldo + int64_t(t) * TILE_N;
+  float* o = out + e * M * ldo + int64_t(t) * TILE_N;
+  const int64_t m0 = int64_t(blockIdx.x) * G::kBM;
+  const bool rb = round_bf16 != 0;
+  if (bits == 2) {
+    tile_gemm<2, TILE_N, true>(xe, M, Kx, Kp, w, Kp / 4, TILE_N, s, o, ldo, m0, xs, ws, rb);
+  } else if (bits == 4) {
+    tile_gemm<4, TILE_N, true>(xe, M, Kx, Kp, w, Kp / 2, TILE_N, s, o, ldo, m0, xs, ws, rb);
+  } else {
+    tile_gemm<8, TILE_N, true>(xe, M, Kx, Kp, w, Kp, TILE_N, s, o, ldo, m0, xs, ws, rb);
+  }
 }
 
 template <int TILE_N>
@@ -263,12 +338,24 @@ void launch_fused(const float* x, int64_t M, int Kx, int Kp, const uint8_t* pack
                                                       out, int64_t(T) * TILE_N);
 }
 
+template <int TILE_N>
+void launch_fused_experts(const float* x, int64_t M, int Kx, int Kp, const uint8_t* packed,
+                          int64_t expert_bytes, const int* table, const float* scales,
+                          int T, int E, int round_bf16, float* out, cudaStream_t stream) {
+  using G = Geom<TILE_N>;
+  const dim3 grid(static_cast<unsigned>((M + G::kBM - 1) / G::kBM), static_cast<unsigned>(T),
+                  static_cast<unsigned>(E));
+  fused_experts_kernel<TILE_N><<<grid, kThreads, 0, stream>>>(
+      x, M, Kx, Kp, packed, expert_bytes, table, scales, out, T, round_bf16);
+}
+
 template <int BITS>
 void launch_pergroup(const float* x, int64_t M, int Kx, int K, const uint8_t* packed,
-                     int N, const float* scale, float* out, cudaStream_t stream) {
+                     int N, const float* scale, int E, float* out, cudaStream_t stream) {
   using G = Geom<kPerGroupTileN>;
   const dim3 grid(static_cast<unsigned>((M + G::kBM - 1) / G::kBM),
-                  static_cast<unsigned>((N + kPerGroupTileN - 1) / kPerGroupTileN));
+                  static_cast<unsigned>((N + kPerGroupTileN - 1) / kPerGroupTileN),
+                  static_cast<unsigned>(E));
   pergroup_kernel<BITS><<<grid, kThreads, 0, stream>>>(x, M, Kx, K, packed, N, scale, out);
 }
 
@@ -299,16 +386,43 @@ extern "C" int qmm_fused_f32(const void* x, long long M, int Kx, int Kp,
 
 extern "C" int qmm_pergroup_f32(const void* x, long long M, int Kx, int K,
                                 const void* packed, int N, const void* scale, int bits,
-                                void* out, void* stream) {
+                                int E, void* out, void* stream) {
   const auto* xf = static_cast<const float*>(x);
   const auto* p = static_cast<const uint8_t*>(packed);
   const auto* s = static_cast<const float*>(scale);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
+  if (E < 1 || E > 65535) return static_cast<int>(cudaErrorInvalidValue);
   switch (bits) {
-    case 2: launch_pergroup<2>(xf, M, Kx, K, p, N, s, o, st); break;
-    case 4: launch_pergroup<4>(xf, M, Kx, K, p, N, s, o, st); break;
-    case 8: launch_pergroup<8>(xf, M, Kx, K, p, N, s, o, st); break;
+    case 2: launch_pergroup<2>(xf, M, Kx, K, p, N, s, E, o, st); break;
+    case 4: launch_pergroup<4>(xf, M, Kx, K, p, N, s, E, o, st); break;
+    case 8: launch_pergroup<8>(xf, M, Kx, K, p, N, s, E, o, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int qmm_fused_experts_f32(const void* x, long long M, int Kx, int Kp,
+                                     const void* packed, long long expert_bytes,
+                                     const void* table, const void* scales, int T,
+                                     int tile_n, int E, int round_bf16, void* out,
+                                     void* stream) {
+  const auto* xf = static_cast<const float*>(x);
+  const auto* p = static_cast<const uint8_t*>(packed);
+  const auto* tb = static_cast<const int*>(table);
+  const auto* s = static_cast<const float*>(scales);
+  auto* o = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (E < 1 || E > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  switch (tile_n) {
+    case 1: launch_fused_experts<1>(xf, M, Kx, Kp, p, expert_bytes, tb, s, T, E, round_bf16, o, st); break;
+    case 2: launch_fused_experts<2>(xf, M, Kx, Kp, p, expert_bytes, tb, s, T, E, round_bf16, o, st); break;
+    case 4: launch_fused_experts<4>(xf, M, Kx, Kp, p, expert_bytes, tb, s, T, E, round_bf16, o, st); break;
+    case 8: launch_fused_experts<8>(xf, M, Kx, Kp, p, expert_bytes, tb, s, T, E, round_bf16, o, st); break;
+    case 16: launch_fused_experts<16>(xf, M, Kx, Kp, p, expert_bytes, tb, s, T, E, round_bf16, o, st); break;
+    case 32: launch_fused_experts<32>(xf, M, Kx, Kp, p, expert_bytes, tb, s, T, E, round_bf16, o, st); break;
+    case 64: launch_fused_experts<64>(xf, M, Kx, Kp, p, expert_bytes, tb, s, T, E, round_bf16, o, st); break;
+    case 128: launch_fused_experts<128>(xf, M, Kx, Kp, p, expert_bytes, tb, s, T, E, round_bf16, o, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

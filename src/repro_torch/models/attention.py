@@ -1,7 +1,8 @@
-"""Grouped-query attention of the language models: full-sequence (prefill)
-and one-token cached decode.
+"""Attention of the language models: grouped-query attention (GQA) and
+DeepSeek's multi-head latent attention (MLA), full-sequence (prefill) and
+one-token cached decode.
 
-Counterpart of the GQA part of ``repro.models.attention``.  Full-sequence
+Counterpart of the GQA and MLA parts of ``repro.models.attention``.  Full-sequence
 attention is the reference's blockwise online softmax over KV chunks,
 mirrored chunk by chunk in plain PyTorch, so the S x S score matrix never
 materializes.
@@ -16,8 +17,15 @@ Dot products whose bf16 result the reference casts to f32 at once are
 summed in f32 here without the bf16 rounding: XLA folds such a cast into
 the dot, so that is what the reference computes.
 
-Unlike the reference, :func:`gqa_decode` writes the new cache entries in
-place (the caller's ring tensors are updated and returned).
+MLA caches the normalized KV latent (int8 per token, or channel-wise
+packed over ``kv_lora_rank``) and the shared rotary key; decode expands the
+whole ring through the packed ``wkv_b`` linear every step, as the
+reference does (it no longer absorbs ``wkv_b`` into the query from a dense
+view of the weight).
+
+Unlike the reference, :func:`gqa_decode` and :func:`mla_decode` write the
+new cache entries in place (the caller's ring tensors are updated and
+returned).
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import quantizers as qz
 from repro_torch.kernels import decode_attention as datt
 from repro_torch.models import kv_quant as kvq
 from repro_torch.models import layers as L
@@ -214,3 +223,97 @@ def gqa_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: torch.Tensor,
             vf = kvq.dequant_channelwise(cache["v"], cache["v_scale"], kv_spec, cd)
         o = datt.attend(qg, kf, vf, pos, cd)
     return dq_linear(o.reshape(B, 1, H * hd), p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (deepseek-v3): latent ring cache and decode
+# ---------------------------------------------------------------------------
+
+def init_mla_cache(cfg, batch: int, max_len: int,
+                   spec: Optional[kvq.KVQuantSpec] = None, device=None) -> dict:
+    """MLA ring cache, ``(batch, max_len, F)`` per leaf: the latent ``ckv``
+    (int8 with one f32 scale per token, or packed channel-wise over
+    ``kv_lora_rank`` with one scale per group) and the shared rotary key
+    ``krope`` in bf16."""
+    kvr = cfg.kv_lora_rank
+    if spec is None:
+        nb, G, vdt = kvr, 1, torch.int8
+    else:
+        if spec.feat != kvr:
+            raise ValueError(f"spec width {spec.feat} != kv_lora_rank {kvr}")
+        nb, G, vdt = spec.packed_bytes, spec.n_groups, torch.uint8
+    shape = (batch, max_len)
+    return {
+        "ckv": torch.zeros(shape + (nb,), dtype=vdt, device=device),
+        "ckv_scale": torch.zeros(shape + (G,), dtype=torch.float32, device=device),
+        "krope": torch.zeros(shape + (cfg.qk_rope_dim,), dtype=torch.bfloat16, device=device),
+    }
+
+
+def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: torch.Tensor,
+               dq_linear, live: Optional[torch.Tensor] = None,
+               kv_spec: Optional[kvq.KVQuantSpec] = None) -> tuple:
+    """One-token MLA decode over a dense ring cache, per-slot positions.
+
+    ``x (B, 1, d)``; ``pos (B,)``: row ``b`` writes its latent at ring
+    index ``pos[b]`` and attends to ``<= pos[b]``; ``live=False`` rows drop
+    their write.  The cached latents of every slot are dequantized and
+    expanded to per-head keys and values through the packed ``wkv_b``
+    linear (``dq_linear``; on the kernel path the fused GEMM over all ``B *
+    S`` cached latents), then one query attends: the score dots summed in
+    f32 (bf16 operands, no bf16 rounding, as XLA folds the reference's
+    cast), divided by ``sqrt(nope + rope)``, an f32 softmax rounded to the
+    compute dtype, the value dot rounded once.  Writes ``cache`` in place
+    and returns ``(y (B, 1, d), cache)``.
+    """
+    if x.shape[1] != 1:
+        raise NotImplementedError(
+            "multi-token (speculative verify) MLA decode, _mla_decode_multi, is not "
+            "ported yet: ROADMAP.md queue 1 item 6")
+    B = x.shape[0]
+    H = cfg.n_heads
+    nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    cd = cfg.cdtype
+    pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
+    if pos.ndim == 0:
+        pos = pos.expand(B).contiguous()
+
+    cq = L.rmsnorm(dq_linear(x, p["wq_a"]), p["q_norm"])
+    q = dq_linear(cq, p["wq_b"]).reshape(B, 1, H, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    ckv_new = dq_linear(x, p["wkv_a"])
+    c_kv, k_rope_new = ckv_new[..., :kvr], ckv_new[..., kvr:]
+    c_kv = L.rmsnorm(c_kv, p["kv_norm"])
+    cos, sin, rot = L.rope_freqs(rope, cfg.rope_theta, pos[:, None], 1.0)
+    q_rope = L.apply_rope(q_rope, cos, sin, rot)
+    k_rope_new = L.apply_rope(k_rope_new[:, :, None, :], cos, sin, rot)[:, :, 0]
+
+    if kv_spec is None:
+        qc, qs = quant_per_token(c_kv)                       # (B, 1, kvr), (B, 1, 1)
+    else:
+        qc, qs = kvq.quant_channelwise(c_kv, kv_spec)
+    S = cache["ckv"].shape[1]
+    wpos = slot_write_pos(pos, live, S)
+    # the (B, S, F) rings seen as (B, 1, S, F): one "kv-head" of the GQA writer
+    for key, new in (("ckv", qc), ("ckv_scale", qs),
+                     ("krope", k_rope_new.to(torch.bfloat16))):
+        _ring_write(cache[key].unsqueeze(1), wpos, new)
+
+    if kv_spec is None:
+        ckv_f = (cache["ckv"].to(torch.float32) * cache["ckv_scale"]).to(cd)
+    else:
+        ckv_f = kvq.dequant_channelwise(cache["ckv"], cache["ckv_scale"], kv_spec, cd)
+    kv = dq_linear(ckv_f, p["wkv_b"]).reshape(B, S, H, nope + vd)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    f32 = torch.float32
+    s = torch.einsum("bqhn,bkhn->bhqk", q_nope.to(cd).to(f32), k_nope.to(cd).to(f32))
+    s = s + torch.einsum("bqhr,bkr->bhqk", q_rope.to(cd).to(f32),
+                         cache["krope"].to(cd).to(f32))
+    s = qz.over(s, math.sqrt(nope + rope))
+    valid = torch.arange(S, device=x.device)[None, None, None, :] <= pos[:, None, None, None]
+    s = torch.where(valid, s, torch.full((), -math.inf, device=x.device))
+    e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+    w = (e / torch.sum(e, dim=-1, keepdim=True)).to(cd)
+    o = torch.einsum("bhqk,bkhv->bqhv", w.to(f32), v.to(cd).to(f32)).to(cd)
+    return dq_linear(o.reshape(B, 1, H * vd), p["wo"]), cache

@@ -34,6 +34,20 @@ on a machine that has only PyTorch:
 * A reduced qwen1.5-4b decode step on the card with a packed cache runs the
   decode-attention kernel once per layer and the per-group kernel once
   per precision group of every linear.
+* The expert kernel (``quant_matmul_fused_3d``, MoE stacks) against its
+  plain version: E 1 to 16, M 1 to 70 (not a multiple of the row tile),
+  tile_n 16 and 128, a stack with an output gather, f32 and bf16 compute,
+  f32 and bf16 out; the f32 sums within ``fused_3d_error_bound`` (2 (K +
+  2) u sum |x w| with w the rounded dequantized weight), a bf16 output one
+  bf16 ulp more; one launch per call.
+* The per-group kernel's expert axis equals per-expert launches bitwise at
+  deepseek-v3's ``we_gate`` group shapes (8 experts), in one launch.
+* Reduced deepseek-v3-671b on the card: each MLA and MoE sub-layer of the
+  kernel path within 2^-5 * max(1, max|y|) of the plain backend on the
+  same input (prefill and one decode step, the plain decode fed the kernel
+  path's latent entry); a decode step launches the expert kernel once per
+  fused expert stack and the per-group kernel once per group of the
+  per-group stacks, never once per expert.
 """
 import numpy as np
 import pytest
@@ -412,3 +426,159 @@ def test_lm_decode_step_launches_k4_once_per_layer():
     assert after["quant_matmul"] - before["quant_matmul"] == linears
     assert datt.decode_attention.launches == after["decode_attention"]
     assert out.shape == (2, 1, cfg.vocab_size) and torch.isfinite(out).all()
+
+
+# ---------------------------------------------------------------------------
+# MoE: the expert kernel, the per-group kernel's expert axis, deepseek serving
+# ---------------------------------------------------------------------------
+
+K3_CASES = [
+    # (name, E, c_out, c_in, align, tile_n, m)
+    ("E1-M1-tile128", 1, 256, 128, 128, 128, 1),
+    ("E4-M8-K200", 4, 384, 200, 128, 128, 8),
+    ("E3-M40-tile16", 3, 96, 64, 8, 16, 40),
+    ("E4-M70-gather", 4, 50, 33, 8, 16, 70),
+    ("E16-M8-we_down", 16, 7168, 2048, 128, 128, 8),
+]
+
+
+def _moe_cfg(align):
+    import dataclasses
+
+    from repro_torch.config import DeploySpec, get_config
+    cfg = get_config("deepseek-v3-671b")
+    return dataclasses.replace(cfg, deploy=DeploySpec(align=align))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,E,c_out,c_in,align,tile_n,m", K3_CASES,
+                         ids=[c[0] for c in K3_CASES])
+def test_expert_kernel_matches_plain(name, E, c_out, c_in, align, tile_n, m):
+    from repro_torch.models import serving
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(E + m)
+    qt = serving.init_deployed_linear(gen, c_in, c_out, _moe_cfg(align), expert_axis=E,
+                                      tile_n=tile_n, device=dev)["w"]
+    assert qt.experts == E and qt.fused_packed is not None and qt.tile_n == tile_n
+    if name.endswith("gather"):
+        assert qt.fused_perm is not None
+    Kp = -(-c_in // qmk.FUSED_K_ALIGN) * qmk.FUSED_K_ALIGN
+    x = torch.randn((E, m, c_in), generator=gen, device=dev)
+    for cd in (torch.float32, torch.bfloat16):
+        xc = x.to(cd).to(torch.float32)
+        args = (qt.fused_packed, qt.fused_scales, qt.tile_bits)
+        before = ops.launch_counts()["quant_matmul_fused_batched"]
+        got = qmk.quant_matmul_fused_3d(xc, qt.fused_packed, qt.fused_table, qt.fused_scales,
+                                        qt.tile_bits, Kp=Kp, tile_n=tile_n, compute_dtype=cd)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["quant_matmul_fused_batched"] == before + 1
+        ref = qmk.quant_matmul_fused_3d_plain(xc, *args, Kp=Kp, tile_n=tile_n, compute_dtype=cd)
+        bound = qmk.fused_3d_error_bound(xc, *args, Kp=Kp, tile_n=tile_n, compute_dtype=cd)
+        assert torch.isfinite(got).all()
+        assert ((got.double() - ref.double()).abs() <= bound.double()).all(), cd
+        for out_dtype in (torch.float32, torch.bfloat16):
+            y = ops.quant_matmul_fused_batched(x, qt.fused_packed, qt.fused_table,
+                                               qt.fused_scales, qt.fused_perm, qt.tile_bits,
+                                               tile_n, c_in, c_out, compute_dtype=cd,
+                                               out_dtype=out_dtype)
+            cols = (qt.fused_perm if qt.fused_perm is not None
+                    else torch.arange(c_out, device=dev))
+            r, b = ref.index_select(2, cols).double(), bound.index_select(2, cols).double()
+            tol = b
+            if out_dtype == torch.bfloat16:
+                tol = b + torch.exp2(torch.floor(torch.log2(r.abs() + b + 1e-30))) * 2.0 ** -7
+            assert y.dtype == out_dtype and y.shape == (E, m, c_out)
+            assert ((y.double() - r).abs() <= tol).all(), (cd, out_dtype)
+    with pytest.raises(ValueError, match="expert"):
+        qt.matmul(x[0, 0], "cuda")                     # no leading expert axis
+
+
+@pytest.mark.gpu
+def test_pergroup_expert_axis_equals_per_expert_launches():
+    from repro_torch.models import serving
+    dev = _cuda()
+    E = 8
+    gen = torch.Generator(device=dev).manual_seed(5)
+    qt = serving.init_deployed_linear(gen, 7168, 2048, _moe_cfg(128), expert_axis=E,
+                                      device=dev)["w"]
+    assert qt.fused_packed is None and [p.shape[1] for p in qt.packed] == [512, 1152, 384]
+    x = torch.randn((E, 8, 7168), generator=gen, device=dev).to(torch.bfloat16).float()
+    for b, p, sc in zip(qt.bits, qt.packed, qt.scales):
+        before = ops.launch_counts()["quant_matmul"]
+        one = qmk.quant_matmul_2d(x, p, sc, b)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["quant_matmul"] == before + 1
+        each = torch.stack([qmk.quant_matmul_2d(x[e], p[e], sc[e], b) for e in range(E)])
+        assert torch.equal(one, each), f"{b}-bit group: expert axis != per-expert launches"
+        ref = qmk.quant_matmul_2d_plain(x, p, sc, b)
+        mag = (x.double().abs() @ qz.unpack_int(p, b).double().abs().mT) * sc.double().abs()[:, None]
+        assert ((one.double() - ref.double()).abs() <= 2 * (7168 + 2) * 2.0 ** -24 * mag).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k_max", [2048, 32])
+def test_reduced_deepseek_kernel_path_matches_plain_per_sublayer(k_max, monkeypatch):
+    from repro_torch.config import get_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers as L
+    from repro_torch.models import serving
+    dev = _cuda()
+    monkeypatch.setattr(qmk, "K_SINGLE_STEP_MAX", k_max)
+    cfg = get_config("deepseek-v3-671b").reduced()
+    dp = serving.init_deployed_model(cfg, seed=0, device=dev)
+    monkeypatch.setattr(qmk, "K_SINGLE_STEP_MAX", 2048)
+
+    def close(y, ref, what):
+        r = float((y.float() - ref.float()).abs().max()) / max(1.0, float(ref.float().abs().max()))
+        assert torch.isfinite(y).all() and r <= 2.0 ** -5, f"{what}: {r:.4g}"
+
+    B, S = 2, 8
+    toks = torch.randint(0, cfg.vocab_size, (B, S), device=dev)
+    x = dp["embed"][toks].to(cfg.cdtype)
+    positions = torch.arange(S, device=dev)
+    for p in dp["blocks"]:
+        hn = L.apply_norm(x, p["ln1"], cfg.norm)
+        a = {be: serving._deployed_mla_full(p["attn"], cfg, hn, positions, be)[0]
+             for be in ("cuda", "torch")}
+        close(a["cuda"], a["torch"], "MLA prefill")
+        h = x + a["cuda"].to(x.dtype)
+        hn = L.apply_norm(h, p["ln2"], cfg.norm)
+        f = {be: serving._deployed_ffn_full(p["ffn"], cfg, hn, be) for be in ("cuda", "torch")}
+        close(f["cuda"], f["torch"], "MoE prefill")
+        x = h + f["cuda"].to(h.dtype)
+    logits, pf = serving.prefill(dp, cfg, {"tokens": toks}, "cuda", kv_bits=(2, 4, 8))
+    ring = serving.embed_caches(pf, serving.init_caches(cfg, B, 16, (2, 4, 8), dev))
+    spec = serving.kv_specs(cfg, (2, 4, 8))
+    pos = torch.tensor([S, S], device=dev)
+    xd = dp["embed"][toks[:, -1:]].to(cfg.cdtype)
+    p = dp["blocks"][0]
+    hn = L.apply_norm(xd, p["ln1"], cfg.norm)
+    cache = {k: v[0].clone() for k, v in ring.items()}
+    y = attn.mla_decode(p["attn"], cfg, hn, cache, pos,
+                        lambda t, d: serving.dq_linear(t, d, cfg.cdtype, "cuda"), None, spec)[0]
+    new = (cache["ckv"][:, S:S + 1].clone(), cache["ckv_scale"][:, S:S + 1].clone())
+    monkeypatch.setattr(attn.kvq, "quant_channelwise", lambda t, sp: new)
+    y_ref = attn.mla_decode(p["attn"], cfg, hn, {k: v[0].clone() for k, v in ring.items()}, pos,
+                            lambda t, d: serving.dq_linear(t, d, cfg.cdtype, "torch"), None,
+                            spec)[0]
+    monkeypatch.undo()
+    close(y, y_ref, "MLA decode")
+    ffn_in = L.apply_norm(xd + y.to(xd.dtype), p["ln2"], cfg.norm)
+    close(serving._deployed_ffn_full(p["ffn"], cfg, ffn_in, "cuda"),
+          serving._deployed_ffn_full(p["ffn"], cfg, ffn_in, "torch"), "MoE decode")
+    before = ops.launch_counts()
+    out, ring = serving.decode_step(dp, cfg, toks[:, -1:], ring, pos, "cuda", kv_bits=(2, 4, 8))
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    stacks = [blk["ffn"][n]["w"] for blk in dp["blocks"] for n in ("we_gate", "we_up", "we_down")]
+    fused = sum(qt.fused_packed is not None for qt in stacks)
+    per_group = sum(len(qt.bits) for qt in stacks if qt.fused_packed is None)
+    assert after["quant_matmul_fused_batched"] - before["quant_matmul_fused_batched"] == fused
+    assert fused == (3 if k_max == 2048 else 1) * cfg.n_layers
+    linears = [dl["w"] for blk in dp["blocks"] for part in ("attn",) for dl in blk[part].values()
+               if isinstance(dl, dict) and "w" in dl]
+    linears += [dl["w"] for blk in dp["blocks"] for dl in blk["ffn"]["shared"].values()]
+    linears.append(dp["lm_head"]["w"])
+    k2 = per_group + sum(len(qt.bits) for qt in linears if qt.fused_packed is None)
+    assert after["quant_matmul"] - before["quant_matmul"] == k2
+    assert out.shape == (B, 1, cfg.vocab_size) and torch.isfinite(out).all()

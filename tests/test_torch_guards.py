@@ -6,12 +6,14 @@
 * The engine runs on the card unless asked otherwise: with no CUDA device,
   ``Engine.for_tinyml(cfg)`` raises instead of carrying on on the CPU.
 * CPU tensors take the kernels' plain versions (serving, int8 training,
-  and LM serving with a packed KV cache through the decode-attention
-  wrapper) and leave the launch counters at 0.
+  LM serving with a packed KV cache through the decode-attention wrapper,
+  and MoE serving through the expert kernel and the per-group kernel's
+  expert axis) and leave every launch counter at 0.
 * The LM entry points (``serving.init_deployed_model``,
   ``serving.init_caches``, ``ServingEngine``, the
   ``repro_torch.launch.serve`` launcher) run on the card unless asked
-  otherwise: with no CUDA device they raise.
+  otherwise, for qwen1.5-4b and deepseek-v3-671b: with no CUDA device they
+  raise.
 """
 import ast
 import dataclasses
@@ -62,9 +64,17 @@ def test_engine_without_device_needs_the_card():
 
 
 def test_lm_entry_points_without_device_need_the_card():
+    _entry_points_need_the_card("qwen1.5-4b")
+
+
+def test_moe_entry_points_without_device_need_the_card():
+    _entry_points_need_the_card("deepseek-v3-671b")
+
+
+def _entry_points_need_the_card(arch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
-    cfg = get_config("qwen1.5-4b").reduced()
+    cfg = get_config(arch).reduced()
     with pytest.raises(RuntimeError, match="CUDA"):
         serving.init_deployed_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -73,7 +83,7 @@ def test_lm_entry_points_without_device_need_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(cfg, dparams)
     with pytest.raises(RuntimeError, match="CUDA"):
-        serve_launcher.main(["--arch", "qwen1.5-4b", "--reduced", "--requests", "1"])
+        serve_launcher.main(["--arch", arch, "--reduced", "--requests", "1"])
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -93,7 +103,16 @@ def test_cpu_tensors_take_the_plain_versions():
                        kv_bits=(2, 4, 8), device="cpu")
     lm_out = lm.run([Request(np.arange(5, dtype=np.int32), max_tokens=3)])
     assert len(lm_out[0].tokens) == 3 and lm.stats["decode_launches"] == 2
+    moe_cfg = get_config("deepseek-v3-671b").reduced()     # MoE + MLA serving
+    moe_dp = serving.init_deployed_model(moe_cfg, device="cpu")
+    assert moe_dp["blocks"][0]["ffn"]["we_down"]["w"].fused_packed is not None
+    for backend in ("cuda", "cuda-pergroup"):
+        moe = ServingEngine(moe_cfg, moe_dp, backend=backend, max_slots=2, max_len=16,
+                            prefill_len=8, kv_bits=(2, 4, 8), device="cpu")
+        moe_out = moe.run([Request(np.arange(6, dtype=np.int32), max_tokens=3)])
+        assert len(moe_out[0].tokens) == 3 and moe.stats["decode_launches"] == 2
     assert ops.launch_counts() == {"quant_matmul_fused": 0, "quant_matmul": 0,
+                                   "quant_matmul_fused_batched": 0,
                                    "scaled_int8_mm": 0, "decode_attention": 0}
     frozen = eng.forward(batch, PrecisionPolicy.FROZEN)
     for y in outs:

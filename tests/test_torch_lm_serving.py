@@ -316,7 +316,7 @@ def test_options_not_ported_raise(models):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sch.ServingEngine(cfg, dp, device="cpu", **opt)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("deepseek-v3-671b")
+        get_config("arctic-480b")
     with pytest.raises(SystemExit):
         launcher.main(["--arch", "qwen1.5-4b", "--reduced", "--device", "cpu",
                        "--page-size", "16"])

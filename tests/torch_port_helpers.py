@@ -230,3 +230,84 @@ def check_serve(pair, backend):
                               _tensors(pair.batch))
     for ref in ("jnp8", "frozen8"):
         assert_served_close(got8, pair.ref[ref], f"{backend} 8-bit acts vs {ref}")
+
+
+# ---------------------------------------------------------------------------
+# LM parity: feeding the port the reference's cache quantization
+# ---------------------------------------------------------------------------
+
+def feed_cache_quantizers(entries, monkeypatch, drift):
+    """Make the port's cache quantizers (``attention.quant_per_token`` and
+    ``kv_quant.quant_channelwise``) return, in call order, the reference's
+    entries ``(vals, scales)`` (numpy).  Each fed entry must reconstruct the
+    port's own input within half a quantization step plus ``drift`` of the
+    row's largest magnitude (a wrong entry would exceed that): a bf16 value
+    a hair from a rounding boundary can take the other code in the other
+    framework, and a 2-bit code is a whole group amax, which no bf16
+    tolerance bounds.  Returns the iterator over the entries, exhausted
+    when every entry was used."""
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import kv_quant as tkvq
+    it = iter([(torch.from_numpy(np.ascontiguousarray(v)),
+                torch.from_numpy(np.ascontiguousarray(s))) for v, s in entries])
+
+    def fed(quant, spec_of):
+        def fn(t, *spec):
+            vals, scales = next(it)
+            own_vals, own_scales = quant(t, *spec)
+            spec_ = spec_of(spec)
+            deq = (vals.view(torch.int8).to(torch.float32) * scales if spec_ is None
+                   else tkvq.dequant_channelwise(vals, scales, spec_, torch.float32))
+            step = (scales if spec_ is None else torch.repeat_interleave(
+                scales, torch.tensor(spec_.sizes), dim=-1))
+            t32 = t.to(torch.float32)
+            bound = step / 2 + drift * t32.abs().amax(dim=-1, keepdim=True)
+            assert ((deq - t32).abs() <= bound).all()
+            assert own_vals.shape == vals.shape and own_scales.shape == scales.shape
+            return vals, scales
+        return fn
+
+    monkeypatch.setattr(tattn, "quant_per_token", fed(tattn.quant_per_token, lambda spec: None))
+    monkeypatch.setattr(tkvq, "quant_channelwise",
+                        fed(tkvq.quant_channelwise, lambda spec: spec[0]))
+    return it
+
+
+def capture_routing(jmoe, monkeypatch):
+    """Record, in call order, the experts the reference's ``route_topk``
+    picks (numpy ``(T, k)``), also from inside its layer scan (an ordered
+    debug callback).  Returns the list the calls append to."""
+    import jax
+    calls, orig = [], jmoe.route_topk
+
+    def spy(logits, k, routing="softmax"):
+        gates, topi = orig(logits, k, routing)
+        jax.debug.callback(lambda a: calls.append(np.asarray(a)), topi, ordered=True)
+        return gates, topi
+    monkeypatch.setattr(jmoe, "route_topk", spy)
+    return calls
+
+
+def feed_routing(choices, monkeypatch, min_agree):
+    """Make the port's ``moe.route_topk`` take, in call order, the
+    reference's expert choices (numpy ``(T, k)``), with gates computed by
+    the port from its own logits at those experts.  The port's own choice
+    must agree with the reference's on at least ``min_agree`` of the
+    tokens (they part only at near ties).  Returns the iterator over the
+    choices, exhausted when every one was used."""
+    from repro_torch.models import moe as tmoe
+    it, orig = iter(choices), tmoe.route_topk
+
+    def fn(logits, k, routing="softmax"):
+        ref = torch.from_numpy(np.asarray(next(it), np.int64))
+        _, own = orig(logits, k, routing)
+        agree = (torch.sort(own, -1).values == torch.sort(ref, -1).values).all(-1)
+        assert float(agree.double().mean()) >= min_agree
+        x = logits.to(torch.float32)
+        scores = torch.sigmoid(x) if routing == "sigmoid" else x
+        topv = torch.gather(scores, -1, ref)
+        gates = (topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
+                 if routing == "sigmoid" else torch.softmax(topv, -1))
+        return gates, ref
+    monkeypatch.setattr(tmoe, "route_topk", fn)
+    return it
