@@ -199,12 +199,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    port), the bound max(bytes / 3.35 TB/s, 2 E M K N / 989 TFLOP/s bf16),
    x and y counted at 2 bytes.  K2's expert axis over one decode step
    (``we_gate``/``we_up``'s groups at M 8) against the same yardsticks.
+3e. The fused Eq. 5 weight mixture (K6) through the kernel API, run after
+   phase 5 (before 3c): its path is ``ops.fused_mix`` on every SEARCH-phase
+   weight of the four MLPerf-Tiny models, flattened to ``(c_out, -1)`` as
+   ``mixedprec.effective_weight`` sees it (logits of ``randomize_nas(0)`` at
+   tau0, the init's clips), the launch counts zeroed just before and read
+   just after (exactly one K6 launch per weight, nothing else); each result
+   equals ``effective_weight`` and the plain version bitwise.  No model path
+   calls K6, in the reference or in the port.  Then K6 against its plain
+   version (``kernels/ref.fused_mix_ref``), bitwise: qwen1.5-4b's block
+   linears at full width (2560x2560, 6912x2560, 2560x6912) and its lm_head
+   (151936x2560, 1.56 GB of f32), a weight of 524,289 x 4,096 (more than
+   2^31 elements, 8.6 GB; the plain version in row chunks), and edges (N =
+   1, K = 1, N = 257 with K = 513, bit-widths (8,), (2, 8), (4, 8) and
+   (2, 4, 8), bf16 w, a view off the 16-byte grid, alpha = 0, w at +-alpha
+   and beyond, exact half-step ties, one-hot gamma_hat, which must also
+   equal ``quantize_weight``).
+5d. K6 times at each qwen block shape and lm_head, f32 w: device time from
+   ``torch.profiler`` (CUDA events beside it), the plain version's, and the
+   bound max(bytes / 3.35 TB/s, operations / 67 TFLOP/s f32) with w read
+   and the f32 output written once and 2 + 5 |P| operations an element;
+   summed over a block's seven linears.  No single PyTorch call computes
+   the mixture, so there is no library yardstick.
 6. The kernel summary line (K1 at the resnet8 shapes, K2 over one
    qwen1.5-4b decode step with its expert axis over one deepseek-v3 decode
    step beside it, K4 at the qwen decode shape, K5 over one resnet8 int8
-   training step, K3 at deepseek-v3's ``we_down`` decode shape), the card's
-   name and power limit, and the last line ``{"ok": true, "device":
-   {...}}``.
+   training step, K3 at deepseek-v3's ``we_down`` decode shape, K6 over one
+   qwen block's linears with lm_head beside it), the card's name and power
+   limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a CUDA device, and when run outside the repository
 (it needs ``src/repro_torch``).
@@ -1062,7 +1084,7 @@ def moe_serving(dev, card, ops, gen):
             "quant_matmul": sum(len(qt.bits) for qt in linears + stacks
                                 if qt.fused_packed is None),
             "quant_matmul_fused_batched": sum(qt.fused_packed is not None for qt in stacks),
-            "scaled_int8_mm": 0, "decode_attention": 0}
+            "scaled_int8_mm": 0, "decode_attention": 0, "fused_mix": 0}
     check(want["quant_matmul_fused_batched"] == cfg.n_layers
           and sum(len(qt.bits) for qt in stacks if qt.fused_packed is None)
           == 2 * 3 * cfg.n_layers, f"launches per step: {want}")
@@ -1301,6 +1323,203 @@ def moe_serving(dev, card, ops, gen):
     del dparams
     torch.cuda.empty_cache()
     return report, k3, k2_experts, path_launches
+
+# ---------------------------------------------------------------------------
+# The fused Eq. 5 weight mixture (K6) through the kernel API
+# ---------------------------------------------------------------------------
+
+# qwen1.5-4b's decoder-block linears at full width, (N, K) = (c_out, c_in)
+# and how many a block has: q, k, v, o; gate, up; down
+QWEN_BLOCK = (((2560, 2560), 4), ((6912, 2560), 2), ((2560, 6912), 1))
+QWEN_LM_HEAD = (151936, 2560)
+K6_BIG = (524289, 4096)          # N * K = 2,147,487,744 > 2^31 elements
+K6_CHUNK_ROWS = 65536            # rows of the plain version at a time on K6_BIG
+
+
+def k6_ops(n, k, nb):
+    """f32 operations of the mixture: a clip (2) and, per bit-width, a
+    division, a round, two products and a sum (5) an element; per row the
+    floor and the |P| steps."""
+    return n * k * (2 + 5 * nb) + n * (1 + nb)
+
+
+def k6_bytes(n, k, nb, w_bytes=4):
+    """w read once, the f32 output written once, gamma_hat and alpha read once."""
+    return n * k * (w_bytes + 4) + n * (nb + 1) * 4
+
+
+def k6_phase(dev, card, ops, engines):
+    """Phase 3e: the fused Eq. 5 mixture (K6) through the kernel API.
+
+    The path: ``ops.fused_mix`` on every SEARCH-phase weight of the four
+    MLPerf-Tiny models, flattened to ``(c_out, -1)`` as ``effective_weight``
+    sees it (randomized logits at tau0, the init's clips), the launch counts
+    zeroed just before and read just after; each result equals
+    ``mixedprec.effective_weight`` and the plain version bitwise.  Then the
+    kernel against its plain version, bitwise, at qwen1.5-4b's block linears
+    and lm_head at full width, at a weight of more than 2^31 elements (the
+    plain version in row chunks), and at edges; then times.  Returns the
+    report and the K6 row of the kernels line."""
+    from repro_torch.core import mixedprec as mp
+    from repro_torch.core import quantizers as qz
+    from repro_torch.kernels import fake_quant as fqk
+    from repro_torch.kernels import ref as kref
+    from repro_torch.models import tinyml
+
+    report = {}
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def inputs(n, k, nb, dtype=torch.float32):
+        """Seeded ``w (n, k)``, a softmaxed ``gamma_hat (n, nb)`` and clips at
+        0.5-1 of each row's largest magnitude, drawn a chunk of rows at a time."""
+        w = torch.empty((n, k), dtype=torch.float32, device=dev)
+        for r0 in range(0, n, K6_CHUNK_ROWS):
+            w[r0:r0 + K6_CHUNK_ROWS].normal_(generator=gen)
+        g = torch.softmax(torch.randn((n, nb), generator=gen, device=dev), -1)
+        amax = torch.cat([w[r0:r0 + K6_CHUNK_ROWS].abs().amax(-1)
+                          for r0 in range(0, n, K6_CHUNK_ROWS)])
+        a = amax * (0.5 + 0.5 * torch.rand(n, generator=gen, device=dev))
+        return w.to(dtype), g, a
+
+    # -- the path: the kernel API on every search-phase weight -----------------
+    sites = []
+    for mname in tinyml.TINY_CONFIGS:
+        eng = engines[(mname, False)]
+        qcfg = eng.quant_cfg
+        for site in eng.nas:
+            w = eng.params[site]["w"]
+            c_out = w.shape[0]
+            g = mp.softmax_tau(eng.nas[site]["gamma"], eng.driver.tau)
+            sites.append((f"{mname}/{site}", eng, site, w.reshape(c_out, -1),
+                          g.expand(c_out, -1).contiguous(), eng.params[site]["aw"].reshape(-1),
+                          tuple(qcfg.weight_bits)))
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        outs = [ops.fused_mix(w2, g, a, bits) for _, _, _, w2, g, a, bits in sites]
+    torch.cuda.synchronize()
+    path_launches = ops.launch_counts()
+    check(path_launches == {**{k: 0 for k in path_launches}, "fused_mix": len(sites)},
+          f"K6 path: {path_launches} for {len(sites)} weights")
+    rows, errs = [], []
+    with torch.no_grad():
+        for (label, eng, site, w2, g, a, bits), y in zip(sites, outs):
+            p, nas = eng.params[site], eng.nas[site]
+            want = mp.effective_weight(p["w"], nas["gamma"], p["aw"], eng.driver.tau,
+                                       eng.quant_cfg).reshape(w2.shape)
+            plain = kref.fused_mix_ref(w2, g, a, bits)
+            ok = torch.equal(y, want) and torch.equal(y, plain)
+            errs.append(float((y - plain).abs().max()))
+            rows.append(dict(case=label, N=w2.shape[0], K=w2.shape[1],
+                             equals_effective_weight_and_plain=ok))
+            check(ok and bool(torch.isfinite(y).all()),
+                  f"K6 {label}: ops.fused_mix != effective_weight / plain bitwise")
+    log(f"[k6] path: ops.fused_mix on {len(sites)} search-phase weights of the four "
+        f"MLPerf-Tiny models, launches {path_launches}; each equals "
+        f"mixedprec.effective_weight and the plain version bitwise")
+
+    # -- 3e. the kernel against its plain version, bitwise ----------------------
+    def held(label, w, g, a, bits, chunk=None):
+        y = fqk.fused_mix_2d(w, g, a, bits)
+        torch.cuda.synchronize()
+        err, same = 0.0, True
+        step = chunk or w.shape[0]
+        for r0 in range(0, w.shape[0], step):
+            sl = slice(r0, r0 + step)
+            plain = kref.fused_mix_ref(w[sl], g[sl], a[sl], bits)
+            same = same and torch.equal(y[sl], plain)
+            err = max(err, float((y[sl] - plain).abs().max()))
+            del plain
+        rows.append(dict(case=label, N=w.shape[0], K=w.shape[1], bits=list(bits),
+                         w_dtype=str(w.dtype), bitwise=same, max_abs_err=err))
+        errs.append(err)
+        check(same, f"K6 != its plain version bitwise: {label}")
+        log("[k6] " + json.dumps(rows[-1]))
+        return y
+
+    for (n, k), count in QWEN_BLOCK:
+        held(f"qwen block {n}x{k} (x{count})", *inputs(n, k, 3), (2, 4, 8))
+    held("qwen lm_head", *inputs(*QWEN_LM_HEAD, 3), (2, 4, 8))
+    torch.cuda.empty_cache()
+    big = inputs(*K6_BIG, 3)
+    check(big[0].numel() > 2 ** 31, "the big case exceeds 2^31 elements")
+    held(f"N*K > 2^31 ({K6_BIG[0]}x{K6_BIG[1]})", *big, (2, 4, 8), chunk=K6_CHUNK_ROWS)
+    del big
+    torch.cuda.empty_cache()
+    for label, n, k, bits, dtype in (
+            ("N=1", 1, 4096, (2, 4, 8), torch.float32),
+            ("K=1", 300, 1, (2, 4, 8), torch.float32),
+            ("N=257 K=513", 257, 513, (2, 4, 8), torch.float32),
+            ("bits (8,)", 64, 2560, (8,), torch.float32),
+            ("bits (2, 8)", 64, 2560, (2, 8), torch.float32),
+            ("bf16 w", 2560, 2560, (2, 4, 8), torch.bfloat16),
+            ("bf16 w N=257 K=513", 257, 513, (4, 8), torch.bfloat16)):
+        held(label, *inputs(n, k, len(bits), dtype), bits)
+    w, g, a = inputs(64, 1024, 3)
+    flat = torch.empty(w.numel() + 1, device=dev)         # off the 16-byte grid
+    wv = flat[1:].view(w.shape)
+    wv.copy_(w)
+    held("misaligned view (one element at a time)", wv, g, a, (2, 4, 8))
+    # alpha = 0 (the 1e-6 floor), w at +-alpha and beyond, exact half-step ties
+    w, g, a = inputs(8, 512, 3)
+    a[0] = 0.0
+    a[1:] = 1.75                                           # 2-bit step 1.75, 4-bit 0.25
+    w[1:, :7] = torch.tensor([1.75, -1.75, 3.0, -9.0, 0.875, -0.875, 0.0], device=dev)
+    held("alpha 0, w at +-alpha, half-step ties", w, g, a, (2, 4, 8))
+    w, _, a = inputs(2560, 2560, 3)
+    for i, b in enumerate((2, 4, 8)):
+        onehot = torch.zeros((2560, 3), device=dev)
+        onehot[:, i] = 1.0
+        y = held(f"one-hot gamma_hat at {b} bits", w, onehot, a, (2, 4, 8))
+        check(torch.equal(y, qz.quantize_weight(w, a[:, None], b)),
+              f"K6 with one-hot gamma_hat != quantize_weight at {b} bits")
+    log(f"[k6] {len(rows)} cases bitwise equal to the plain version (one-hot gamma_hat "
+        f"equals quantize_weight)")
+    report["checks"] = rows
+
+    # -- 5d. times at qwen1.5-4b's block linears and lm_head (f32 w) -------------
+    def timed(n, k):
+        w, g, a = inputs(n, k, 3)
+        row = dict(N=n, K=k)
+        fns = {"k6": lambda: fqk.fused_mix_2d(w, g, a, (2, 4, 8)),
+               "plain": lambda: kref.fused_mix_ref(w, g, a, (2, 4, 8))}
+        for key, fn in fns.items():
+            row[f"{key}_events_ms"] = cuda_ms(fn, iters=10, warmup=2)
+            dev_ms = device_ms(fn, iters=10, warmup=1)
+            row[f"{key}_ms"] = row[f"{key}_events_ms"] if dev_ms is None else dev_ms
+            row[f"{key}_timer"] = "events" if dev_ms is None else "profiler"
+        row["bytes_ms"] = k6_bytes(n, k, 3) / PEAK_BYTES_PER_S * 1e3
+        row["ops_ms"] = k6_ops(n, k, 3) / PEAK_F32_FLOP_PER_S * 1e3
+        del w, g, a
+        torch.cuda.empty_cache()
+        return row
+
+    block = {"k6_ms": 0.0, "k6_events_ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0,
+             "ops_ms": 0.0, "bound_ms": 0.0}
+    times = []
+    for (n, k), count in QWEN_BLOCK:
+        row = timed(n, k)
+        row["per_block"] = count
+        for key in ("k6_ms", "k6_events_ms", "plain_ms", "bytes_ms", "ops_ms"):
+            block[key] += count * row[key]
+        block["bound_ms"] += count * max(row["bytes_ms"], row["ops_ms"])
+        times.append(row)
+        log("[times] K6 " + json.dumps(row) + f" | {card}")
+    head = timed(*QWEN_LM_HEAD)
+    head["bound_ms"] = max(head["bytes_ms"], head["ops_ms"])
+    log("[times] K6 qwen lm_head " + json.dumps(head) + f" | {card}")
+    log(f"[times] K6 over one qwen1.5-4b block's seven linears: {json.dumps(block)}; "
+        f"library: none (no single PyTorch call computes the Eq. 5 mixture) | {card}")
+    report.update(times=times, block=block, lm_head=head, path_launches=path_launches)
+    k6 = dict(name="fused_mix", route="cuda",
+              source="src/repro_torch/kernels/csrc/fake_quant.cu",
+              replaces="src/repro/kernels/fake_quant.py:26",
+              launches=path_launches["fused_mix"], max_abs_err=max(errs),
+              ms=block["k6_ms"], plain_ms=block["plain_ms"], bound_ms=block["bound_ms"],
+              bound_by="bytes" if block["bytes_ms"] >= block["ops_ms"] else "operations",
+              library_ms=None,
+              lm_head=dict(ms=head["k6_ms"], plain_ms=head["plain_ms"],
+                           bound_ms=head["bound_ms"]))
+    return report, k6
 
 
 def main() -> int:
@@ -1635,7 +1854,8 @@ def main() -> int:
                 if mname == "resnet8-cifar10" and backend == "cuda":
                     check(launches == {"quant_matmul_fused": n_sites, "quant_matmul": 0,
                                        "quant_matmul_fused_batched": 0,
-                                       "scaled_int8_mm": 0, "decode_attention": 0},
+                                       "scaled_int8_mm": 0, "decode_attention": 0,
+                                       "fused_mix": 0},
                           f"resnet8: {launches} for {n_sites} sites")
                 err = (y - frozen).abs()
                 outs[backend] = y
@@ -2046,6 +2266,11 @@ def main() -> int:
     report["k5_times"] = k5_times
     report["train_step"] = step_times
 
+    # -- 3e, 5d. the fused Eq. 5 mixture (K6) through the kernel API --------------
+    k6_report, k6 = k6_phase(dev, card, ops, engines)
+    report["k6"] = k6_report
+    torch.cuda.empty_cache()
+
     # -- 3c, 4c, 5b. the LM serving path: qwen1.5-4b at full width and depth ------
     lm_report, k2_lm, k4_lm = lm_serving(dev, card, ops, gen)
     report["lm"] = lm_report
@@ -2084,6 +2309,7 @@ def main() -> int:
              bound_by=k5_bound_by, library_ms=k5_sum["library_ms"]),
         k4_lm,
         k3_moe,
+        k6,
     ]
     log(f"[summary] K1 times are sums over the {len(per_site)} resnet8 GEMM sites at "
         f"batch {BATCH} (one serve; K2 there: {total('pergroup_ms'):.6g} ms, bound {gb:.6g}, "
@@ -2093,9 +2319,12 @@ def main() -> int:
         f"decode shape (4 slots x 20 kv-heads, positions 256-540 of a 1024 ring, kv_bits "
         f"(2, 4, 8)), K5's over the {len(k5_times)} products of one resnet8 int8 training "
         f"step at batch {BATCH}, K3's one call at deepseek-v3's we_down decode shape (256 "
-        f"experts x 8 rows, Kp 2048, N 7168; bound and library in bf16); K1 launches are the "
-        f"tinyml serving path's and the MoE path's, K2's the qwen and MoE paths', K4's the "
-        f"qwen path's, K5's the training path's, K3's the MoE path's; {card}")
+        f"experts x 8 rows, Kp 2048, N 7168; bound and library in bf16), K6's over the seven "
+        f"linears of one qwen1.5-4b block at full width (f32 w; lm_head beside it; no "
+        f"library call computes the mixture); K1 launches are the tinyml serving path's and "
+        f"the MoE path's, K2's the qwen and MoE paths', K4's the qwen path's, K5's the "
+        f"training path's, K3's the MoE path's, K6's the kernel API's over the tinyml "
+        f"search-phase weights (no model path calls K6, in the reference or the port); {card}")
     report["kernels"] = kernels
     if opts.out:
         Path(opts.out).parent.mkdir(parents=True, exist_ok=True)

@@ -436,8 +436,10 @@ class QTensor:
         return self._concat_restore(outs)
 
     def conv2d(self, x: torch.Tensor, stride=1, padding: str = "SAME",
-               groups: int = 1, backend: str = "torch") -> torch.Tensor:
-        """NHWC conv ``x (N, H, W, C) -> (N, Ho, Wo, c_out)`` fully packed.
+               groups: int = 1, backend: str = "torch",
+               compute_dtype=torch.float32) -> torch.Tensor:
+        """NHWC conv ``x (N, H, W, C) -> (N, Ho, Wo, c_out)`` fully packed,
+        in ``compute_dtype`` as :meth:`matmul` takes it.
 
         Dense convs lower to im2col patches and delegate to :meth:`matmul`.
         Depthwise weights (``groups == c_out``, tail ``(1, kh, kw)``) contract
@@ -455,7 +457,8 @@ class QTensor:
             raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
         kh, kw = self.kernel_shape[-2:]
         if groups == 1:
-            return self.matmul(qc.im2col(x, kh, kw, stride, padding), backend)
+            return self.matmul(qc.im2col(x, kh, kw, stride, padding), backend,
+                               compute_dtype)
         if groups != self.c_out or self.kernel_shape[0] != 1 \
                 or x.shape[-1] != groups:
             raise NotImplementedError(
@@ -468,8 +471,8 @@ class QTensor:
         outs, offset = [], 0
         for b, p, s in zip(self.bits, self.packed, self.scales):
             rows = p.shape[-2]
-            w = self._group_dense(b, p, s)                  # (rows, kh*kw)
-            seg = patches[..., offset: offset + rows, :].to(torch.float32)
+            w = self._group_dense(b, p, s).to(compute_dtype)    # (rows, kh*kw)
+            seg = patches[..., offset: offset + rows, :].to(compute_dtype)
             outs.append(torch.einsum("...ck,ck->...c", seg, w))
             offset += rows
         return self._concat_restore(outs)

@@ -29,6 +29,7 @@ from typing import Callable, Iterable, Optional
 
 import torch
 
+from repro_torch.api.engine import resolve_device
 from repro_torch.api.policy import PrecisionPolicy
 from repro_torch.core import mixedprec as mp
 from repro_torch.core import regularizers as reg
@@ -88,15 +89,17 @@ class SearchDriver:
     phases.  ``data_epochs()`` returns a fresh iterable of batches for one
     epoch.  The phases may be driven one by one (``Engine`` does) or through
     :func:`run_search`; the four ``*_step`` methods run one step each, and
-    :meth:`gradients` gives a step's loss and gradients without taking it."""
+    :meth:`gradients` gives a step's loss and gradients without taking it.
+    It runs on the card unless ``device`` names another (``None`` means
+    ``"cuda"``, and with no card that raises)."""
 
     def __init__(self, apply_fn: Callable, loss_fn: Callable, specs: dict,
                  params: dict, nas: dict, settings: SearchSettings,
-                 device="cpu"):
+                 device=None):
         s = settings
         self.apply_fn, self.loss_fn, self.specs = apply_fn, loss_fn, specs
         self.settings = s
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.params = opt_mod.tree_map(lambda t: t.to(self.device), params)
         self.nas = opt_mod.tree_map(lambda t: t.to(self.device), nas)
         self.tau = torch.tensor(s.cfg.tau0, dtype=torch.float32, device=self.device)
@@ -252,9 +255,11 @@ class SearchDriver:
 def run_search(apply_fn: Callable, loss_fn: Callable, specs: dict,
                params: dict, nas: dict, data_epochs: Callable[[], Iterable],
                settings: SearchSettings, eval_fn: Optional[Callable] = None,
-               device="cpu") -> SearchResult:
-    """Alg. 1 end to end (warmup -> search -> fine-tune).
-    ``eval_fn(params, nas, policy)`` adds a metric to the fine-tune history."""
+               device=None) -> SearchResult:
+    """Alg. 1 end to end (warmup -> search -> fine-tune) on ``device``: the
+    card unless the caller asks for another (``None`` means ``"cuda"``, and
+    with no card that raises).  ``eval_fn(params, nas, policy)`` adds a
+    metric to the fine-tune history."""
     driver = SearchDriver(apply_fn, loss_fn, specs, params, nas, settings,
                           device=device)
     driver.warmup(data_epochs)

@@ -47,6 +47,10 @@ SIGNATURES = {
         "decode_attention_f32acc": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I]
                                    + [_I] * 15 + [_F, _P],
     },
+    "fake_quant.cu": {
+        # w, w_bf16, gamma, alpha, N, K, nb, b0, b1, b2, out, stream
+        "fused_mix_f32": [_P, _I, _P, _P, _LL, _LL, _I, _I, _I, _I, _P, _P],
+    },
 }
 
 _LIBS: dict = {}

@@ -1,17 +1,23 @@
-"""Public wrappers around the packed GEMM kernels (leading batch dims, K
-padding and the output channel order) and the launch counters of every
-kernel wrapper of the port.
+"""The public kernel API: wrappers around the packed GEMM kernels (leading
+batch dims, K padding and the output channel order), the packed conv, the
+fused Eq. 5 mixture, and the launch counters of every kernel wrapper of the
+port.
 
 Counterpart of ``repro.kernels.ops`` (``quant_matmul``,
-``quant_matmul_fused``, ``quant_matmul_fused_batched``).  ``compute_dtype`` rounds x before the product and
-``out_dtype`` the result, as in the reference; the kernels themselves read
-and write f32.  The reference pads M up to a tile multiple
-(``_pick_bm``) and x up to ``Kp`` before its kernels; the CUDA kernels mask
-ragged M and read missing K columns as zeros instead, so here nothing is
-copied: the wrappers only flatten, launch and restore the channel order.
+``quant_matmul_fused``, ``quant_matmul_fused_batched``, ``qtensor_matmul``,
+``quant_conv2d``, ``qtensor_conv2d``, ``fused_mix``; ``count_launches`` in
+place of ``count_pallas_launches``); the reference's multi-device wrappers
+``quant_matmul_fused_tp``/``_batched_ep`` are not ported.  ``compute_dtype``
+rounds x before the product and ``out_dtype`` the result, as in the
+reference; the kernels themselves read and write f32.  The reference pads M
+up to a tile multiple (``_pick_bm``) and x up to ``Kp`` before its kernels;
+the CUDA kernels mask ragged M and read missing K columns as zeros instead,
+so here nothing is copied: the wrappers only flatten, launch and restore
+the channel order.
 
 Launch counters: :func:`launch_counts` / :func:`reset_launch_counts` read
-and clear the ``launches`` int of each kernel wrapper.
+and clear the ``launches`` int of each kernel wrapper; :func:`count_launches`
+counts one call's.
 """
 from __future__ import annotations
 
@@ -21,7 +27,9 @@ import torch
 
 from repro_torch.core import quantizers as qz
 from repro_torch.kernels import decode_attention as datt
+from repro_torch.kernels import fake_quant as fqk
 from repro_torch.kernels import int8_matmul as imk
+from repro_torch.kernels import quant_conv as qc
 from repro_torch.kernels import quant_matmul as qmk
 
 KERNEL_WRAPPERS = {
@@ -30,6 +38,7 @@ KERNEL_WRAPPERS = {
     "quant_matmul_fused_batched": qmk.quant_matmul_fused_3d,
     "scaled_int8_mm": imk.scaled_int8_mm,
     "decode_attention": datt.decode_attention,
+    "fused_mix": fqk.fused_mix_2d,
 }
 
 
@@ -40,6 +49,18 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+
+
+def count_launches(fn, *args, **kwargs) -> dict:
+    """Kernel launches per wrapper name that ONE call ``fn(*args, **kwargs)``
+    makes: the counters are zeroed, ``fn`` runs once, and the counts are
+    read.  The counterpart of the reference's ``count_pallas_launches``,
+    but a count at run time, not a trace: a wrapper counts where it
+    launches its kernel, so a call on CPU tensors (the plain versions)
+    counts 0 everywhere."""
+    reset_launch_counts()
+    fn(*args, **kwargs)
+    return launch_counts()
 
 
 def _check_c_in(x: torch.Tensor, c_in: int) -> None:
@@ -137,3 +158,49 @@ def quant_matmul_fused_batched(x: torch.Tensor, fused_packed: torch.Tensor,
                                   Kp=Kp, tile_n=tile_n, compute_dtype=compute_dtype)
     y = y.index_select(2, fused_perm) if fused_perm is not None else y[..., :c_out]
     return y.to(out_dtype).reshape(E, *lead, c_out)
+
+
+def qtensor_matmul(x: torch.Tensor, qt, out_dtype=torch.float32) -> torch.Tensor:
+    """``x (..., c_in) @ QTensor -> (..., c_out)`` on the kernel path.
+
+    Typed entry point for :class:`repro_torch.api.qtensor.QTensor`: the
+    routing (fused single launch or per group), concat and order restore
+    live in ``QTensor.matmul``; this wrapper pins ``backend="cuda"`` and
+    computes in ``out_dtype`` (f32 by default)."""
+    return qt.matmul(x, backend="cuda", compute_dtype=out_dtype)
+
+
+def quant_conv2d(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                 bits: int, c_in: int, kernel_hw: tuple, stride=1,
+                 padding: str = "SAME", out_dtype=torch.float32,
+                 compute_dtype=torch.float32) -> torch.Tensor:
+    """Packed conv of ONE precision group: im2col, then one launch of the
+    per-group GEMM.
+
+    ``x (N, H, W, C)`` NHWC against ``packed (n, K/f)`` where ``c_in = C *
+    kh * kw`` is the flattened, channel-major contraction axis (``(c_out, C,
+    kh, kw).reshape(c_out, -1)``) -> ``(N, Ho, Wo, n)``.  The dense float
+    kernel is never built: the packed bytes go to the kernel, which unpacks
+    them.  The group concat and channel-order restore of a multi-precision
+    weight live in ``QTensor.conv2d``."""
+    kh, kw = kernel_hw
+    patches = qc.im2col(x, kh, kw, stride, padding)
+    return quant_matmul(patches, packed, scale, bits, c_in,
+                        compute_dtype=compute_dtype, out_dtype=out_dtype)
+
+
+def qtensor_conv2d(x: torch.Tensor, qt, stride=1, padding: str = "SAME",
+                   groups: int = 1, out_dtype=torch.float32) -> torch.Tensor:
+    """NHWC ``x`` * conv :class:`QTensor` -> ``(N, Ho, Wo, c_out)`` on the
+    kernel path: :func:`qtensor_matmul` for convolutions (the im2col, group
+    loop, concat and order restore live in ``QTensor.conv2d``)."""
+    return qt.conv2d(x, stride=stride, padding=padding, groups=groups,
+                     backend="cuda", compute_dtype=out_dtype)
+
+
+def fused_mix(w: torch.Tensor, gamma_hat: torch.Tensor, alpha: torch.Tensor,
+              bitwidths=(2, 4, 8)) -> torch.Tensor:
+    """The fused Eq. 5 weight mixture of ``w (N, K)``: one launch of the
+    mixture kernel for any ``(N, K)`` (the kernel masks its own edges, so
+    nothing is padded).  Forward only (``kernels/fake_quant.py``)."""
+    return fqk.fused_mix_2d(w, gamma_hat, alpha, bitwidths)

@@ -42,6 +42,16 @@ on a machine that has only PyTorch:
   bf16 ulp more; one launch per call.
 * The per-group kernel's expert axis equals per-expert launches bitwise at
   deepseek-v3's ``we_gate`` group shapes (8 experts), in one launch.
+* The fused Eq. 5 mixture kernel (``ops.fused_mix``) equals its plain
+  version (``kernels/ref.fused_mix_ref``) bitwise at edges (N = 1, K = 1,
+  N = 257 with K = 513, bitwidths (8,), (2, 8), (2, 4, 8), bf16 w, K odd, a
+  row with alpha = 0, w at +-alpha, a misaligned view that takes the scalar
+  path), one launch per call; one-hot gamma_hat equals the quantizer; a CPU
+  operand, a wrong dtype or an input that requires grad raises.
+* ``ops.count_launches`` of a resnet8 serve: one fused launch per site and
+  nothing else; the kernel API's ``quant_conv2d`` (one per-group launch),
+  ``qtensor_matmul`` and ``qtensor_conv2d`` (one fused launch each) match
+  their CPU results.
 * Reduced deepseek-v3-671b on the card: each MLA and MoE sub-layer of the
   kernel path within 2^-5 * max(1, max|y|) of the plain backend on the
   same input (prefill and one decode step, the plain decode fed the kernel
@@ -582,3 +592,111 @@ def test_reduced_deepseek_kernel_path_matches_plain_per_sublayer(k_max, monkeypa
     k2 = per_group + sum(len(qt.bits) for qt in linears if qt.fused_packed is None)
     assert after["quant_matmul"] - before["quant_matmul"] == k2
     assert out.shape == (B, 1, cfg.vocab_size) and torch.isfinite(out).all()
+
+
+# -- K6: the fused Eq. 5 weight mixture ---------------------------------------
+
+K6_CASES = [
+    # (name, N, K, bitwidths, w dtype)
+    ("N=1", 1, 4096, (2, 4, 8), torch.float32),
+    ("K=1", 300, 1, (2, 4, 8), torch.float32),
+    ("N=257 K=513", 257, 513, (2, 4, 8), torch.float32),
+    ("8-bit only", 64, 256, (8,), torch.float32),
+    ("2 and 8", 64, 256, (2, 8), torch.float32),
+    ("bf16 w", 96, 2560, (2, 4, 8), torch.bfloat16),
+    ("bf16 w, K odd", 33, 77, (4, 8), torch.bfloat16),
+]
+
+
+def _k6_inputs(seed, n, k, nb, dtype, dev):
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((n, k)).astype(np.float32)
+    logits = rng.standard_normal((n, nb)).astype(np.float32)
+    g = torch.softmax(torch.from_numpy(logits), -1)
+    a = (np.abs(w).max(-1) * rng.uniform(0.5, 1.0, n)).astype(np.float32)
+    a[0] = 0.0                                     # a row on the 1e-6 floor
+    w[min(1, n - 1), : min(k, 2)] = [a[min(1, n - 1)], -a[min(1, n - 1)]][: min(k, 2)]
+    return (torch.from_numpy(w).to(dtype).to(dev), g.to(dev), torch.from_numpy(a).to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,n,k,bits,dtype", K6_CASES, ids=[c[0] for c in K6_CASES])
+def test_fused_mix_equals_plain_bitwise(name, n, k, bits, dtype):
+    from repro_torch.kernels import fake_quant as fqk
+    from repro_torch.kernels import ref as kref
+    dev = _cuda()
+    w, g, a = _k6_inputs(n + k, n, k, len(bits), dtype, dev)
+    before = ops.launch_counts()["fused_mix"]
+    y = ops.fused_mix(w, g, a, bits)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_mix"] == before + 1
+    assert y.dtype == torch.float32 and y.shape == (n, k)
+    assert torch.equal(y, kref.fused_mix_ref(w, g, a, bits)), name
+    assert torch.equal(y.cpu(), fqk.fused_mix_2d(w.cpu(), g.cpu(), a.cpu(), bits)), name
+    if k % 4 == 0 and n > 1:                      # a view off the 16-byte grid: scalar path
+        flat = torch.empty(n * k + 1, dtype=dtype, device=dev)
+        wv = flat[1:].view(n, k)
+        wv.copy_(w)
+        assert torch.equal(ops.fused_mix(wv, g, a, bits), y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [(2, 4, 8), (8,), (2, 8)], ids=str)
+def test_fused_mix_onehot_equals_quantizer_on_the_card(bits):
+    dev = _cuda()
+    w, _, a = _k6_inputs(5, 64, 640, len(bits), torch.float32, dev)
+    for i, b in enumerate(bits):
+        g = torch.zeros((64, len(bits)), device=dev)
+        g[:, i] = 1.0
+        assert torch.equal(ops.fused_mix(w, g, a, bits), qz.quantize_weight(w, a[:, None], b))
+
+
+@pytest.mark.gpu
+def test_fused_mix_raises_instead_of_falling_back():
+    dev = _cuda()
+    w, g, a = _k6_inputs(6, 8, 16, 3, torch.float32, dev)
+    with pytest.raises(ValueError):
+        ops.fused_mix(w, g.cpu(), a)
+    with pytest.raises(TypeError):
+        ops.fused_mix(w.half(), g, a)
+    with pytest.raises(RuntimeError, match="effective_weight"):
+        ops.fused_mix(w.clone().requires_grad_(), g, a)
+
+
+@pytest.mark.gpu
+def test_count_launches_resnet8_is_one_fused_launch_per_site():
+    dev = _cuda()
+    cfg = tinyml.TINY_CONFIGS["resnet8-cifar10"]
+    eng = Engine.for_tinyml(cfg, seed=0).randomize_nas(0)
+    eng.deploy(align=1)
+    batch = next(iter(SyntheticTiny(cfg, n=8, seed=0).batches(8)))
+    counts = ops.count_launches(eng.serve, batch)
+    n_sites = sum(1 for s in eng.deployed_params if s in eng.nas)
+    assert eng.device == dev and n_sites == 10
+    assert counts == {**{k: 0 for k in ops.KERNEL_WRAPPERS}, "quant_matmul_fused": n_sites}
+
+
+@pytest.mark.gpu
+def test_kernel_api_conv_and_qtensor_wrappers_on_the_card():
+    """``ops.quant_conv2d`` is one per-group launch, ``ops.qtensor_matmul``
+    one fused launch and ``ops.qtensor_conv2d`` one fused launch for a dense
+    conv; each matches its CPU (plain) result."""
+    dev = _cuda()
+    rng = np.random.default_rng(9)
+    w = rng.standard_normal((16, 8, 3, 3)).astype(np.float32)
+    qt = QTensor.from_assignment(w, rng.choice([2, 4, 8], size=16),
+                                 np.abs(w).reshape(16, -1).max(-1), tile_n="auto")
+    gq = qt.to(dev)
+    x = torch.from_numpy(rng.standard_normal((2, 9, 9, 8)).astype(np.float32))
+    counts = ops.count_launches(ops.qtensor_conv2d, x.to(dev), gq, stride=2)
+    assert counts == {**{k: 0 for k in ops.KERNEL_WRAPPERS}, "quant_matmul_fused": 1}
+    _close(ops.qtensor_conv2d(x.to(dev), gq, stride=2), ops.qtensor_conv2d(x, qt, stride=2))
+    xm = torch.from_numpy(rng.standard_normal((5, 72)).astype(np.float32))
+    assert ops.count_launches(ops.qtensor_matmul, xm.to(dev), gq)["quant_matmul_fused"] == 1
+    _close(ops.qtensor_matmul(xm.to(dev), gq), ops.qtensor_matmul(xm, qt))
+    b, p, s = qt.bits[0], qt.packed[0], qt.scales[0]
+    args = (b, 72, (3, 3))
+    counts = ops.count_launches(ops.quant_conv2d, x.to(dev), p.to(dev), s.to(dev), *args)
+    assert counts["quant_matmul"] == 1
+    _close(ops.quant_conv2d(x.to(dev), p.to(dev), s.to(dev), *args),
+           ops.quant_conv2d(x, p, s, *args))

@@ -3,8 +3,9 @@
 * No module of ``src/repro_torch/`` or ``bench_torch/``, and not
   ``chip_smoke.py``, imports ``jax`` or the reference package ``repro``
   (an AST scan of every import).
-* The engine runs on the card unless asked otherwise: with no CUDA device,
-  ``Engine.for_tinyml(cfg)`` raises instead of carrying on on the CPU.
+* The engine and the search driver run on the card unless asked otherwise:
+  with no CUDA device, ``Engine.for_tinyml(cfg)``, ``SearchDriver(...)`` and
+  ``run_search(...)`` raise instead of carrying on on the CPU.
 * CPU tensors take the kernels' plain versions (serving, int8 training,
   LM serving with a packed KV cache through the decode-attention wrapper,
   and MoE serving through the expert kernel and the per-group kernel's
@@ -27,7 +28,7 @@ from repro_torch.api import Engine, PrecisionPolicy, QTensor
 from repro_torch.api.scheduler import Request, ServingEngine
 from repro_torch.config import get_config
 from repro_torch.launch import serve as serve_launcher
-from repro_torch.core.search import SearchSettings
+from repro_torch.core.search import SearchDriver, SearchSettings, run_search
 from repro_torch.data.pipeline import SyntheticTiny
 from repro_torch.kernels import ops
 from repro_torch.models import serving, tinyml
@@ -61,6 +62,22 @@ def test_engine_without_device_needs_the_card():
         Engine.for_tinyml(tinyml.TINY_CONFIGS["dae-ad"])
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine.for_tinyml(tinyml.TINY_CONFIGS["dae-ad"], device="cuda")
+
+
+def test_search_entry_points_without_device_need_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    cfg = tinyml.TINY_CONFIGS["dae-ad"]
+    init_fn, apply_fn, specs = tinyml.build(cfg)
+    p0, n0 = init_fn(torch.Generator().manual_seed(0))
+    settings = SearchSettings(cfg=cfg.quant)
+    loss = lambda p, b: tinyml.task_loss(cfg, p, b)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SearchDriver(apply_fn, loss, specs, p0, n0, settings)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_search(apply_fn, loss, specs, p0, n0, lambda: [], settings)
+    assert SearchDriver(apply_fn, loss, specs, p0, n0, settings,
+                        device="cpu").device.type == "cpu"
 
 
 def test_lm_entry_points_without_device_need_the_card():
@@ -113,7 +130,8 @@ def test_cpu_tensors_take_the_plain_versions():
         assert len(moe_out[0].tokens) == 3 and moe.stats["decode_launches"] == 2
     assert ops.launch_counts() == {"quant_matmul_fused": 0, "quant_matmul": 0,
                                    "quant_matmul_fused_batched": 0,
-                                   "scaled_int8_mm": 0, "decode_attention": 0}
+                                   "scaled_int8_mm": 0, "decode_attention": 0,
+                                   "fused_mix": 0}
     frozen = eng.forward(batch, PrecisionPolicy.FROZEN)
     for y in outs:
         assert y.device.type == "cpu" and y.shape == (2, 10)

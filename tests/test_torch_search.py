@@ -348,7 +348,7 @@ def test_run_search_composes_the_phases():
     data = SyntheticTiny(cfg, n=32, seed=1)
     res = tsearch.run_search(apply_fn, lambda p, b: ttiny.task_loss(cfg, p, b), specs,
                              p0, n0, lambda: data.batches(16), s,
-                             eval_fn=lambda p, n, pol: torch.tensor(0.5))
+                             eval_fn=lambda p, n, pol: torch.tensor(0.5), device="cpu")
     assert [h["phase"] for h in res.history] == ["warmup", "search", "search", "finetune"]
     assert res.history[-1]["metric"] == 0.5
     assert res.tau.dtype == torch.float32

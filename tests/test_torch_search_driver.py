@@ -57,7 +57,7 @@ def _driver_pair(train_compute="f32", n=64, bs=16, model="dae-ad"):
                               p0, n0, js)
     tp, tn = bridge.params_from_numpy(tree_to_numpy(p0), tree_to_numpy(n0))
     td = tsearch.SearchDriver(t_apply, lambda p, b: ttiny.task_loss(tcfg, p, b), t_specs,
-                              tp, tn, ts)
+                              tp, tn, ts, device="cpu")
     batches = list(SyntheticTiny(tcfg, n=n, seed=0).batches(bs))
     return jd, td, batches
 
@@ -363,7 +363,7 @@ def test_driver_int8_with_sr_is_seeded_and_converges():
     for name, tc, seed in (("f32", "f32", 0), ("a", "int8", 0), ("b", "int8", 0), ("c", "int8", 1)):
         s = tsearch.SearchSettings(cfg=cfg.quant, train_compute=tc, sr_seed=seed)
         d = tsearch.SearchDriver(apply_fn, lambda p, b: ttiny.task_loss(cfg, p, b), specs,
-                                 p0, n0, s)
+                                 p0, n0, s, device="cpu")
         runs[name] = [float(d.warmup_step(batch)) for _ in range(8)]
     assert runs["a"] == runs["b"] and runs["a"] != runs["c"]
     drop = runs["f32"][0] - runs["f32"][-1]
@@ -381,7 +381,7 @@ def test_theta_step_with_fixed_activation_bits():
     init_fn, apply_fn, specs = ttiny.build(cfg)
     p0, n0 = init_fn(torch.Generator().manual_seed(0))
     d = tsearch.SearchDriver(apply_fn, lambda p, b: ttiny.task_loss(cfg, p, b), specs, p0, n0,
-                             tsearch.SearchSettings(cfg=cfg.quant, lam=1e-6))
+                             tsearch.SearchSettings(cfg=cfg.quant, lam=1e-6), device="cpu")
     batch = next(iter(SyntheticTiny(cfg, n=16, seed=0).batches(16)))
     lt, lr = d.theta_step(batch)
     assert torch.isfinite(lt) and torch.isfinite(lr)
@@ -396,4 +396,5 @@ def test_driver_rejects_unknown_train_compute():
     p0, n0 = init_fn(torch.Generator().manual_seed(0))
     with pytest.raises(ValueError):
         tsearch.SearchDriver(apply_fn, None, specs, p0, n0,
-                             tsearch.SearchSettings(cfg=cfg.quant, train_compute="int4"))
+                             tsearch.SearchSettings(cfg=cfg.quant, train_compute="int4"),
+                             device="cpu")
