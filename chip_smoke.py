@@ -119,10 +119,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (2, 4, 8), q f32 and bf16, out bf16 and f32), each within
    ``decode_attention.error_bound``: the f32 forward-error bound of its two
    dots and its softmax, plus one out-dtype ulp for a weight or an output
-   rounded to the neighbouring value.  The per-group GEMM (K2) with bf16 x
-   at every group shape of qwen1.5-4b at decode (M = 4) and prefill
-   (M = 4 x 512), within 2 (K + 2) u sum |x w s|; the fused GEMM (K1)
-   equals K2 bitwise on bf16 x at a 2048-deep qwen-width weight.
+   rounded to the neighbouring value.  The per-group GEMM (K2) at bf16
+   compute, which past K_SINGLE_STEP_MAX runs its tensor-core routine, at
+   every group shape of qwen1.5-4b at decode (M = 4) and prefill
+   (M = 4 x 512) and at edges (K 2052, 2560 with x 2557 wide, 6912; N 1,
+   15, 17, 640, 1126; M 1, 4, 8, 9, 70, 2048; 2, 4 and 8 bits), within
+   2 (K + 2) u sum |x w s|, each row with its routine (``path``) and worst
+   error over that bound, each launch counted on the tensor-core path iff
+   it took it; the fused GEMM (K1) equals K2 bitwise on bf16 x at a
+   2048-deep qwen-width weight (both on the SIMT routine).
 4c. The LM serving path: ``serving.init_deployed_model(get_config(
    "qwen1.5-4b"), seed=0)`` on the card (40 layers, d_model 2560, vocab
    151936; at this width every linear is per-group), then
@@ -133,7 +138,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    after.  Gates, inside the path on its own operands (none of them
    launches a kernel): every engine step launches K4 once per layer in a
    decode step with a packed cache and never in a prefill, and K2 once per
-   precision group of every linear; each decoder block of a run's first 3
+   precision group of every linear, each of those on the tensor-core
+   routine (``ops.mma_launch_counts``; every qwen linear has K > 2048);
+   each decoder block of a run's first 3
    decode steps and of the prefills before them, on the same input, within
    2^-5 x max(1, max|y|) of the plain backend (``"torch"``) on the card (bf16
    rounds at other points on the two paths), the plain decode block fed the
@@ -155,20 +162,29 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and ``F.scaled_dot_product_attention`` on the dequantized bf16 ring (the
    library yardstick, never used by the port), bound: the bytes of the
    entries <= pos with their scales, q and the output, over 3.35 TB/s.  K2
-   at every group shape of one decode step (M = 4), timed once a shape and
-   counted as often as the step calls it, against a bf16 ``torch.matmul``
-   of the bf16 x with the bf16-rounded dequantized weight and the bound
-   max(bytes / 3.35 TB/s, 2 M N K / 989 TFLOP/s bf16), x and y counted at
-   2 bytes (the function is the reference's bf16 dot).
+   at every group shape of one decode step (M = 4) and one prefill forward
+   (M = 4 x 512, lm_head excluded), timed once a shape and counted as often
+   as the step calls it: its tensor-core routine, its SIMT routine (the
+   earlier design, f32 compute on the same bf16 values), its plain
+   version, a bf16 ``torch.matmul`` of the bf16 x with the bf16-rounded
+   dequantized weight and the bound max(bytes / 3.35 TB/s, 2 M N K / 989
+   TFLOP/s bf16), x and y counted at 2 bytes (the function is the
+   reference's bf16 dot).  Device time from the profiler; where it loses a
+   kernel's events, from a CUDA graph of back-to-back calls (the host is
+   slower than a kernel of a few microseconds, so the event loop would time
+   the host); each row names its timer.
 3d. The MoE path's kernels against their plain versions: the expert-batched
    fused GEMM (K3) at deepseek-v3-671b's ``we_down`` (256 experts, Kp 2048,
    N 7168) at decode (M 8, the capacity floor) and prefill capacity (M 40),
    bf16 and f32 compute, and at edges (E 1, M 1, M 70 not a multiple of the
    row tile, tile_n 16 and 128, a stack with an output gather, out bf16
-   and f32), each f32 sum within 2 (K + 2) u sum |x w| with w the rounded
+   and f32; 256 experts at M 9 (tile 128) and M 70 (tile 16), one at M 9
+   (tile 16)), each f32 sum within 2 (K + 2) u sum |x w| with w the rounded
    dequantized weight (``quant_matmul.fused_3d_error_bound``), a bf16
-   output one bf16 ulp more.  K2's expert axis equals per-expert K2
-   launches bitwise at ``we_gate``'s group shapes (16 experts).
+   output one bf16 ulp more, each row with its routine (the tensor cores at
+   bf16 compute, tile_n >= 16) and each launch counted on it iff it took
+   it.  K2's expert axis equals per-expert K2 launches bitwise at
+   ``we_gate``'s group shapes (16 experts), on both routines.
 4d. The MoE + MLA serving path: ``serving.init_deployed_model`` of
    ``get_config("deepseek-v3-671b")`` with its depth cut to 2 layers
    (``dataclasses.replace``; every width as published: d_model 7168, 128
@@ -181,7 +197,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    Gates: every engine step launches K3 once per layer (``we_down``), K2
    once per precision group of every per-group linear and stack (the
    expert axis: 2 x 3 launches a layer for ``we_gate``/``we_up``, never one
-   per expert) and K1 once per fused linear; each sub-layer (MLA
+   per expert) and K1 once per fused linear, every K3 launch and every K2
+   launch past K_SINGLE_STEP_MAX on the tensor-core routine; each
+   sub-layer (MLA
    attention, MoE FFN) of each block of a run's first 3 decode steps and
    of the prefills before them within 2^-5 x max(1, max|y|) of the plain
    backend on the card on the same input, the plain MLA decode fed the
@@ -194,11 +212,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    medians), tokens per second, resident KV bytes, packed weight bytes per
    layer; one profiled decode step (4 slots at position 200): device busy,
    idle share, top kernels.  K3 at ``we_down``'s decode and prefill shapes:
-   its device time, its plain version, a bf16 ``torch.bmm`` on the
-   bf16-rounded dequantized stack (the library yardstick, never used by the
-   port), the bound max(bytes / 3.35 TB/s, 2 E M K N / 989 TFLOP/s bf16),
-   x and y counted at 2 bytes.  K2's expert axis over one decode step
-   (``we_gate``/``we_up``'s groups at M 8) against the same yardsticks.
+   its device time on the tensor-core routine and on its SIMT routine (the
+   earlier design, timed in the same run), its plain version, a bf16
+   ``torch.bmm`` on the bf16-rounded dequantized stack (the library
+   yardstick, never used by the port), the bound max(bytes / 3.35 TB/s,
+   2 E M K N / 989 TFLOP/s bf16), x and y counted at 2 bytes.  K2's expert
+   axis over one decode step (``we_gate``/``we_up``'s groups at M 8) against
+   the same yardsticks.
 3e. The fused Eq. 5 weight mixture (K6) through the kernel API, run after
    phase 5 (before 3c): its path is ``ops.fused_mix`` on every SEARCH-phase
    weight of the four MLPerf-Tiny models, flattened to ``(c_out, -1)`` as
@@ -222,8 +242,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    summed over a block's seven linears.  No single PyTorch call computes
    the mixture, so there is no library yardstick.
 6. The kernel summary line (K1 at the resnet8 shapes, K2 over one
-   qwen1.5-4b decode step with its expert axis over one deepseek-v3 decode
-   step beside it, K4 at the qwen decode shape, K5 over one resnet8 int8
+   qwen1.5-4b decode step with its SIMT routine's time, its prefill forward
+   and its expert axis over one deepseek-v3 decode step beside it, K4 at the qwen decode shape, K5 over one resnet8 int8
    training step, K3 at deepseek-v3's ``we_down`` decode shape, K6 over one
    qwen block's linears with lm_head beside it), the card's name and power
    limit, and the last line ``{"ok": true, "device": {...}}``.
@@ -308,6 +328,43 @@ def device_ms(fn, iters=20, warmup=3):
     if us <= 0 or len(events) != per_call * iters:
         return None
     return us / iters / 1e3
+
+
+def graph_ms(fn, iters=10, replays=5):
+    """Device time per call of ``fn`` from a CUDA graph of ``iters``
+    back-to-back calls, replayed ``replays`` times between CUDA events: the
+    kernels' time with the host's gaps between launches taken out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph
+    return ms
+
+
+def kernel_ms(fn, iters, loop_ms, graph=True):
+    """(ms, timer) per call of a kernel wrapper: the profiler's device time;
+    where it loses events, a CUDA graph of back-to-back calls (``graph``:
+    the wrapper launches our kernels or one library call, nothing that
+    synchronises); else ``loop_ms``, the event loop, which a host slower
+    than a few-microsecond kernel turns into host time."""
+    dev = device_ms(fn, iters=iters)
+    if dev is not None:
+        return dev, "profiler"
+    if graph:
+        return graph_ms(fn, iters), "graph"
+    return loop_ms, "events"
 
 
 def host_ms(fn, iters=20, warmup=3) -> float:
@@ -546,30 +603,54 @@ def lm_serving(dev, card, ops, gen):
         log("[k4] " + json.dumps(row))
     report["k4_edge_checks"] = k4_rows
 
-    # K2 with bf16 x at the qwen decode (4 slots) and prefill (4 x 512) shapes
+    # K2 with bf16 x (its routine by qmk.pergroup_path: the tensor cores past
+    # K_SINGLE_STEP_MAX) at the qwen decode (4 slots) and prefill (4 x 512)
+    # shapes and at edges, against its plain version
     shapes = {}          # (bits, N, K) -> (packed, scale, calls per decode step)
     for qt in linears:
         for b, pk, sc in zip(qt.bits, qt.packed, qt.scales):
             key = (b, pk.shape[0], qt.c_in)
             n_calls = shapes[key][2] + 1 if key in shapes else 1
             shapes[key] = (pk, sc, n_calls)
+
+    def k2_check(x, pk, sc, b, **case):
+        """One bf16 K2 call against its plain version, within 2 (K + 2) u
+        sum |x w s|; the launch must count on the tensor-core path iff
+        ``pergroup_path`` says so."""
+        K = pk.shape[-1] * qz.pack_factor(b)
+        path = qmk.pergroup_path(K, torch.bfloat16)
+        before = qmk.quant_matmul_2d.mma_launches
+        y = qmk.quant_matmul_2d(x.to(torch.bfloat16), pk, sc, b, torch.bfloat16)
+        mma = qmk.quant_matmul_2d.mma_launches - before
+        ref = qmk.quant_matmul_2d_plain(x, pk, sc, b)
+        w = qz.unpack_int(pk, b).to(torch.float32)
+        mag = (F.pad(x.abs(), (0, K - x.shape[-1])) @ w.abs().T).double() * sc.abs().double()
+        d = (y.double() - ref.double()).abs()
+        r = float((d / (2 * (K + 2) * U * mag + 1e-30)).max())
+        row = dict(**case, M=x.shape[0], N=pk.shape[0], K=K, Kx=x.shape[1], bits=b, path=path,
+                   max_abs_err=float(d.max()), worst_err_over_bound=r)
+        check(r <= 1.0 and bool(torch.isfinite(y).all()) and mma == (path == "mma"),
+              f"K2 (bf16 x) off its plain version or its path: {row}, {mma} mma launches")
+        return row
+
     k2_rows = []
     for m in (LM_SLOTS, LM_SLOTS * LM_PREFILL):
         for (b, N, K), (pk, sc, calls) in shapes.items():
             if m > LM_SLOTS and N > 50000:
                 continue                                  # the lm_head sees one token a slot
             x = torch.from_numpy(gen.standard_normal((m, K)).astype(np.float32)).to(dev)
-            x = x.to(torch.bfloat16).to(torch.float32)
-            y = qmk.quant_matmul_2d(x, pk, sc, b)
-            ref = qmk.quant_matmul_2d_plain(x, pk, sc, b)
-            w = qz.unpack_int(pk, b).to(torch.float32)
-            mag = (x.abs() @ w.abs().T).double() * sc.abs().double()
-            d = (y.double() - ref.double()).abs()
-            r = float((d / (2 * (K + 2) * U * mag + 1e-30)).max())
-            k2_rows.append(dict(M=m, N=N, K=K, bits=b, calls_per_step=calls,
-                                max_abs_err=float(d.max()), worst_err_over_tol=r))
-            check(r <= 1.0 and bool(torch.isfinite(y).all()), f"K2 (bf16 x) off its plain "
-                  f"version at M={m} N={N} K={K} {b}-bit: {r:.3g}")
+            k2_rows.append(k2_check(x.to(torch.bfloat16).float(), pk, sc, b,
+                                    case="qwen", calls_per_step=calls))
+    for K, Kx in ((2052, 2052), (2560, 2557), (6912, 6912)):   # K % 16 != 0; x narrower
+        for b in (2, 4, 8):
+            for N in (1, 15, 17, 640, 1126):
+                q = gen.integers(-(1 << (b - 1)), 1 << (b - 1), size=(N, K)).astype(np.int8)
+                pk = qz.pack_int(torch.from_numpy(q).to(dev), b)
+                sc = torch.from_numpy(gen.uniform(0.5, 1.5, N).astype(np.float32)).to(dev)
+                for m in (1, 4, 8, 9, 70, 2048):
+                    x = torch.from_numpy(gen.standard_normal((m, Kx)).astype(np.float32))
+                    k2_rows.append(k2_check(x.to(dev).to(torch.bfloat16).float(), pk, sc, b,
+                                            case="edge"))
     torch.cuda.synchronize()
     for row in k2_rows:
         log("[k2-bf16] " + json.dumps(row))
@@ -578,11 +659,16 @@ def lm_serving(dev, card, ops, gen):
     check(small.fused_packed is not None, "a 2048-deep qwen-width linear has the fused layout")
     xb = torch.from_numpy(gen.standard_normal((LM_SLOTS * 8, 2048)).astype(np.float32)
                           ).to(dev).to(torch.bfloat16)
+    mma_before = ops.mma_launch_counts()
     fused_eq = torch.equal(small.matmul(xb, "cuda", torch.bfloat16),
                            small.matmul(xb, "cuda-pergroup", torch.bfloat16))
     check(fused_eq, "K1 != K2 bitwise on bf16 inputs")
+    check(ops.mma_launch_counts() == mma_before, "K2 at Kp 2048 left the SIMT routine")
+    worst = max(r["worst_err_over_bound"] for r in k2_rows)
     log(f"[k2-bf16] {len(k2_rows)} products within 2 (K + 2) u sum |x w s| of the plain "
-        f"version; K1 == K2 bitwise on bf16 x at 2048 -> 2560 (tile_n {small.tile_n})")
+        f"version (worst {worst:.4g} of it; {sum(r['path'] == 'mma' for r in k2_rows)} on the "
+        f"tensor-core path); K1 == K2 bitwise on bf16 x at 2048 -> 2560 (tile_n "
+        f"{small.tile_n}, both SIMT)")
     report["k2_bf16_checks"] = k2_rows
 
     # -- 4c. the main path: ServingEngine(backend="cuda") for each kv_bits ------
@@ -600,19 +686,23 @@ def lm_serving(dev, card, ops, gen):
             step = eng.step
 
             def checked_step(eng=eng, step=step, steps=steps, kv_bits=kv_bits):
-                before = ops.launch_counts()
+                before, mma_before = ops.launch_counts(), ops.mma_launch_counts()
                 gates.on = steps["decode"] < LM_GATED_STEPS
                 out = step()
                 torch.cuda.synchronize()
-                after = ops.launch_counts()
+                after, mma_after = ops.launch_counts(), ops.mma_launch_counts()
                 if out["kind"] in steps:
                     steps[out["kind"]] += 1
                     k4 = after["decode_attention"] - before["decode_attention"]
                     k2 = after["quant_matmul"] - before["quant_matmul"]
+                    k2_mma = mma_after["quant_matmul"] - mma_before["quant_matmul"]
                     want = cfg.n_layers if out["kind"] == "decode" and kv_bits else 0
                     check(k4 == want, f"kv {kv_bits} {out['kind']}: {k4} K4 launches, want {want}")
                     check(k2 == groups_per_step, f"kv {kv_bits} {out['kind']}: {k2} K2 "
                           f"launches, want {groups_per_step} (the precision groups)")
+                    check(k2_mma == groups_per_step, f"kv {kv_bits} {out['kind']}: {k2_mma} K2 "
+                          f"launches on the tensor cores, want all {groups_per_step} (K > "
+                          f"{qmk.K_SINGLE_STEP_MAX})")
                 gates.on = False
                 return out
             eng.step = checked_step
@@ -626,14 +716,16 @@ def lm_serving(dev, card, ops, gen):
                                       useful_tokens=eng.stats["useful_tokens"],
                                       kv_bytes_resident=eng.kv_bytes_resident())
             del eng
-    lm_launches = ops.launch_counts()
-    log(f"[lm] launches over the LM path: {lm_launches}; blocks within "
+    lm_launches, lm_mma = ops.launch_counts(), ops.mma_launch_counts()
+    check(lm_mma["quant_matmul"] == lm_launches["quant_matmul"],
+          f"a K2 launch of the LM path left the tensor cores: {lm_mma}")
+    log(f"[lm] launches over the LM path: {lm_launches} (tensor-core path: {lm_mma}); blocks within "
         f"{max(gates.block_ratios):.4g} of the tolerance ({len(gates.block_ratios)} checked), "
         f"{gates.entry_checks} fed cache entries in bounds, K4 within "
         f"{max(gates.k4_ratios):.4g} of its bound on {gates.k4_cases} live launches")
     check(lm_launches["decode_attention"] > 0 and lm_launches["quant_matmul"] > 0,
           f"a kernel of the LM path never launched: {lm_launches}")
-    report.update(path=runs, path_launches=lm_launches,
+    report.update(path=runs, path_launches=lm_launches, path_mma_launches=lm_mma,
                   worst_block_err_over_tol=max(gates.block_ratios), blocks_checked=len(gates.block_ratios),
                   worst_k4_err_over_bound=max(gates.k4_ratios), k4_live_checks=gates.k4_cases)
 
@@ -772,41 +864,57 @@ def lm_serving(dev, card, ops, gen):
         log("[times] K4 " + json.dumps(row) + f" | {card}")
     report["k4_times"] = k4_times
 
-    # K2 over one decode step at the qwen shapes: each distinct group shape
-    # timed once and counted as often as a step calls it.  The function is
-    # bf16 x times integer codes into a bf16 result (the reference's bf16
+    # K2 at every qwen group shape, over one decode step (M = 4) and one
+    # prefill forward (M = 4 x 512, lm_head excluded): each distinct group
+    # shape timed once and counted as often as a step calls it.  The function
+    # is bf16 x times integer codes into a bf16 result (the reference's bf16
     # dot), so the bound reads x and writes y at 2 bytes and counts the
     # products at the bf16 tensor-core peak, and the library yardstick is a
-    # bf16 matmul with the bf16-rounded dequantized weight.
-    k2_step = {"k2_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+    # bf16 matmul with the bf16-rounded dequantized weight.  "simt" is the
+    # earlier design (the SIMT routine, f32 compute on the same bf16 values).
+    sums = {m: {"k2_ms": 0.0, "simt_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0}
+            for m in (LM_SLOTS, LM_SLOTS * LM_PREFILL)}
     k2_time_rows = []
-    for (b, N, K), (pk, sc, calls) in shapes.items():
-        xb = torch.from_numpy(gen.standard_normal((LM_SLOTS, K)).astype(np.float32)).to(dev)
-        xb = xb.to(torch.bfloat16)
-        x = xb.to(torch.float32)
-        wdeq = (qz.unpack_int(pk, b).to(torch.float32) * sc[:, None]).to(torch.bfloat16)
-        fns = {"k2": lambda: qmk.quant_matmul_2d(x, pk, sc, b),
-               "plain": lambda: qmk.quant_matmul_2d_plain(x, pk, sc, b),
-               "library": lambda: torch.matmul(xb, wdeq.T)}
-        row = dict(M=LM_SLOTS, N=N, K=K, bits=b, calls_per_step=calls)
-        for key, fn in fns.items():
-            row[f"{key}_loop_ms"] = cuda_ms(fn, iters=20)
-            dev_ms = device_ms(fn, iters=10)
-            row[f"{key}_ms"] = row[f"{key}_loop_ms"] if dev_ms is None else dev_ms
-        nbytes = 2 * LM_SLOTS * K + pk.numel() + 4 * N + 2 * LM_SLOTS * N
-        row["bytes_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
-        row["ops_ms"] = 2.0 * LM_SLOTS * N * K / PEAK_BF16_FLOP_PER_S * 1e3
-        for key in ("k2_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms"):
-            k2_step[key] += calls * row[key]
-        k2_time_rows.append(row)
-        log("[times] K2 qwen decode " + json.dumps(row) + f" | {card}")
-    k2_step["bound_ms"] = sum(r["calls_per_step"] * max(r["bytes_ms"], r["ops_ms"])
-                              for r in k2_time_rows)
-    k2_step["bound_by"] = "bytes" if k2_step["bytes_ms"] >= k2_step["ops_ms"] else "operations"
+    for m in sums:
+        for (b, N, K), (pk, sc, calls) in shapes.items():
+            if m > LM_SLOTS and N > 50000:
+                continue                                  # the lm_head sees one token a slot
+            xb = torch.from_numpy(gen.standard_normal((m, K)).astype(np.float32)).to(dev)
+            xb = xb.to(torch.bfloat16)
+            x = xb.to(torch.float32)
+            wdeq = (qz.unpack_int(pk, b).to(torch.float32) * sc[:, None]).to(torch.bfloat16)
+            fns = {"k2": lambda: qmk.quant_matmul_2d(xb, pk, sc, b, torch.bfloat16),
+                   "simt": lambda: qmk.quant_matmul_2d(x, pk, sc, b),
+                   "plain": lambda: qmk.quant_matmul_2d_plain(x, pk, sc, b),
+                   "library": lambda: torch.matmul(xb, wdeq.T)}
+            row = dict(M=m, N=N, K=K, bits=b, calls_per_step=calls,
+                       path=qmk.pergroup_path(K, torch.bfloat16))
+            for key, fn in fns.items():
+                row[f"{key}_loop_ms"] = cuda_ms(fn, iters=20)
+                row[f"{key}_ms"], row[f"{key}_timer"] = kernel_ms(
+                    fn, 10, row[f"{key}_loop_ms"], graph=key != "plain")
+            nbytes = 2 * m * K + pk.numel() + 4 * N + 2 * m * N
+            row["bytes_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+            row["ops_ms"] = 2.0 * m * N * K / PEAK_BF16_FLOP_PER_S * 1e3
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            for key in sums[m]:
+                sums[m][key] += calls * row[key]
+            k2_time_rows.append(row)
+            log(f"[times] K2 qwen {'decode' if m == LM_SLOTS else 'prefill'} "
+                + json.dumps(row) + f" | {card}")
+            del wdeq
+    for m, tot in sums.items():
+        tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
+    k2_step, k2_prefill = sums[LM_SLOTS], sums[LM_SLOTS * LM_PREFILL]
     log(f"[times] K2 over one qwen1.5-4b decode step ({groups_per_step} launches): "
         f"{json.dumps(k2_step)} | {card}")
+    log(f"[times] K2 over one qwen1.5-4b prefill forward of {LM_SLOTS} x {LM_PREFILL} tokens "
+        f"({groups_per_step - len(dparams['lm_head']['w'].bits)} launches, lm_head excluded): "
+        f"{json.dumps(k2_prefill)} | {card}")
     report["k2_qwen_times"] = k2_time_rows
     report["k2_qwen_decode_step"] = k2_step
+    report["k2_qwen_prefill_forward"] = k2_prefill
 
     k4_row = k4_times["(2, 4, 8)"]
     k4 = dict(name="decode_attention", route="cuda",
@@ -820,8 +928,11 @@ def lm_serving(dev, card, ops, gen):
               library_ms=k4_row["library_ms"])
     k2 = dict(ms=k2_step["k2_ms"], plain_ms=k2_step["plain_ms"], bound_ms=k2_step["bound_ms"],
               bound_by=k2_step["bound_by"], library_ms=k2_step["library_ms"],
-              launches=lm_launches["quant_matmul"],
-              max_abs_err=max(r["max_abs_err"] for r in k2_rows))
+              launches=lm_launches["quant_matmul"], mma_launches=lm_mma["quant_matmul"],
+              simt_ms=k2_step["simt_ms"],
+              max_abs_err=max(r["max_abs_err"] for r in k2_rows),
+              prefill=dict((k, k2_prefill[k]) for k in ("k2_ms", "simt_ms", "library_ms",
+                                                          "bound_ms", "bound_by")))
     return report, k2, k4
 
 
@@ -951,7 +1062,7 @@ def k3_bytes(E, M, Kp, N, qt):
 def moe_serving(dev, card, ops, gen):
     """Phases 3d, 4d and 5c: deepseek-v3-671b at full width, 2 layers.
     Returns the report, the K3 row of the kernels line, the K2 expert-axis
-    figures and the path's launch counts."""
+    figures and the path's launch counts (all, and on the tensor cores)."""
     import dataclasses
 
     from repro_torch.api import sampling as smp
@@ -1006,8 +1117,11 @@ def moe_serving(dev, card, ops, gen):
         x = rand((E, m, qt.c_in))
         xc = x.to(cd).to(torch.float32)
         args = (qt.fused_packed, qt.fused_scales, qt.tile_bits)
+        path = qmk.fused_3d_path(qt.tile_n, cd)
+        before = qmk.quant_matmul_fused_3d.mma_launches
         got = qmk.quant_matmul_fused_3d(xc, qt.fused_packed, qt.fused_table, qt.fused_scales,
                                         qt.tile_bits, Kp=Kp, tile_n=qt.tile_n, compute_dtype=cd)
+        mma = qmk.quant_matmul_fused_3d.mma_launches - before
         ref = qmk.quant_matmul_fused_3d_plain(xc, *args, Kp=Kp, tile_n=qt.tile_n,
                                               compute_dtype=cd)
         bound = qmk.fused_3d_error_bound(xc, *args, Kp=Kp, tile_n=qt.tile_n, compute_dtype=cd)
@@ -1024,10 +1138,10 @@ def moe_serving(dev, card, ops, gen):
         worst_out = float(((y.double() - r).abs() / (b + ulp + 1e-30)).max())
         row = dict(case=label, E=E, M=m, Kp=Kp, N=qt.c_out, tile_n=qt.tile_n,
                    gather=qt.fused_perm is not None, compute=str(cd), out=str(out_dtype),
-                   max_abs_err=float(d.max()), worst_err_over_bound=worst,
+                   path=path, max_abs_err=float(d.max()), worst_err_over_bound=worst,
                    worst_out_err_over_bound=worst_out)
-        check(bool(torch.isfinite(got).all()) and worst <= 1.0 and worst_out <= 1.0,
-              f"K3 off its plain version: {row}")
+        check(bool(torch.isfinite(got).all()) and worst <= 1.0 and worst_out <= 1.0
+              and mma == (path == "mma"), f"K3 off its plain version or its path: {row}")
         return row
 
     k3_rows = []
@@ -1043,7 +1157,13 @@ def moe_serving(dev, card, ops, gen):
              ("M40 tile16", serving.init_deployed_linear(
                  g, 64, 96, small_cfg, expert_axis=3, tile_n=16, device=dev)["w"], 40),
              ("M8 tile128 K200", serving.init_deployed_linear(
-                 g, 200, 384, cfg, expert_axis=4, device=dev)["w"], 8)]
+                 g, 200, 384, cfg, expert_axis=4, device=dev)["w"], 8),
+             ("E256 M9 tile128", serving.init_deployed_linear(
+                 g, 2048, 256, cfg, expert_axis=256, device=dev)["w"], 9),
+             ("E256 M70 tile16", serving.init_deployed_linear(
+                 g, 2048, 256, small_cfg, expert_axis=256, tile_n=16, device=dev)["w"], 70),
+             ("E1 M9 tile16", serving.init_deployed_linear(
+                 g, 2048, 64, small_cfg, expert_axis=1, tile_n=16, device=dev)["w"], 9)]
     check(edges[1][1].fused_perm is not None, "the gather stack must gather")
     for label, qt, m in edges:
         for cd in (torch.bfloat16, torch.float32):
@@ -1054,22 +1174,30 @@ def moe_serving(dev, card, ops, gen):
         log("[k3] " + json.dumps(row))
     report["k3_checks"] = k3_rows
 
-    # K2's expert axis == per-expert launches, bitwise, at we_gate's group shapes
+    # K2's expert axis == per-expert launches, bitwise, at we_gate's group
+    # shapes, on both routines (bf16 compute: the tensor cores)
     n_slice, Kg = min(16, wg.experts), wg.c_in
     k2e_rows = []
     xg = rand((n_slice, 8, Kg), torch.bfloat16).float()
-    for b, pk, sc in zip(wg.bits, wg.packed, wg.scales):
-        one = qmk.quant_matmul_2d(xg, pk[:n_slice].contiguous(), sc[:n_slice].contiguous(), b)
-        each = torch.stack([qmk.quant_matmul_2d(xg[e], pk[e], sc[e], b) for e in range(n_slice)])
-        ref = qmk.quant_matmul_2d_plain(xg, pk[:n_slice], sc[:n_slice], b)
-        mag = (xg.double().abs() @ qz.unpack_int(pk[:n_slice], b).double().abs().mT
-               ) * sc[:n_slice].double().abs()[:, None]
-        r = float(((one.double() - ref.double()).abs() / (2 * (Kg + 2) * U * mag + 1e-30)).max())
-        same = torch.equal(one, each)
-        k2e_rows.append(dict(bits=b, E=n_slice, M=8, N=pk.shape[1], K=Kg, bitwise=same,
-                             worst_err_over_tol=r,
-                             max_abs_err=float((one.double() - ref.double()).abs().max())))
-        check(same and r <= 1.0, f"K2 expert axis: {k2e_rows[-1]}")
+    for cd in (torch.bfloat16, torch.float32):
+        for b, pk, sc in zip(wg.bits, wg.packed, wg.scales):
+            pks, scs = pk[:n_slice].contiguous(), sc[:n_slice].contiguous()
+            before = qmk.quant_matmul_2d.mma_launches
+            one = qmk.quant_matmul_2d(xg, pks, scs, b, cd)
+            mma = qmk.quant_matmul_2d.mma_launches - before
+            each = torch.stack([qmk.quant_matmul_2d(xg[e], pk[e], sc[e], b, cd)
+                                for e in range(n_slice)])
+            ref = qmk.quant_matmul_2d_plain(xg, pks, scs, b)
+            mag = (xg.double().abs() @ qz.unpack_int(pks, b).double().abs().mT
+                   ) * scs.double().abs()[:, None]
+            r = float(((one.double() - ref.double()).abs()
+                       / (2 * (Kg + 2) * U * mag + 1e-30)).max())
+            same = torch.equal(one, each)
+            path = qmk.pergroup_path(Kg, cd)
+            k2e_rows.append(dict(bits=b, E=n_slice, M=8, N=pk.shape[1], K=Kg, path=path,
+                                 bitwise=same, worst_err_over_bound=r,
+                                 max_abs_err=float((one.double() - ref.double()).abs().max())))
+            check(same and r <= 1.0 and mma == (path == "mma"), f"K2 expert axis: {k2e_rows[-1]}")
     for row in k2e_rows:
         log("[k2-experts] " + json.dumps(row))
     report["k2_expert_checks"] = k2e_rows
@@ -1088,6 +1216,17 @@ def moe_serving(dev, card, ops, gen):
     check(want["quant_matmul_fused_batched"] == cfg.n_layers
           and sum(len(qt.bits) for qt in stacks if qt.fused_packed is None)
           == 2 * 3 * cfg.n_layers, f"launches per step: {want}")
+    # every K2 launch past K_SINGLE_STEP_MAX and every K3 launch on the tensor cores
+    want_mma = {"quant_matmul": sum(
+                    qmk.pergroup_path(p.shape[-1] * qz.pack_factor(b), torch.bfloat16) == "mma"
+                    for qt in linears + stacks if qt.fused_packed is None
+                    for b, p in zip(qt.bits, qt.packed)),
+                "quant_matmul_fused_batched": sum(
+                    qmk.fused_3d_path(qt.tile_n, torch.bfloat16) == "mma"
+                    for qt in stacks if qt.fused_packed is not None)}
+    check(want_mma["quant_matmul_fused_batched"] == cfg.n_layers
+          and want_mma["quant_matmul"] >= 2 * 3 * cfg.n_layers,
+          f"tensor-core launches per step: {want_mma}")
     reqs, arrivals = ds_trace(cfg)
     log(f"[moe] trace: {len(reqs)} requests, prompts {[len(r.tokens) for r in reqs]}, "
         f"max_tokens {[r.max_tokens for r in reqs]}, arrivals {arrivals}; launches per engine "
@@ -1103,15 +1242,18 @@ def moe_serving(dev, card, ops, gen):
             step = eng.step
 
             def checked_step(step=step, steps=steps, kv_bits=kv_bits):
-                before = ops.launch_counts()
+                before, mma_before = ops.launch_counts(), ops.mma_launch_counts()
                 gates.on = steps["decode"] < DS_GATED_STEPS
                 out = step()
                 torch.cuda.synchronize()
-                after = ops.launch_counts()
+                after, mma_after = ops.launch_counts(), ops.mma_launch_counts()
                 if out["kind"] in steps:
                     steps[out["kind"]] += 1
                     got = {k: after[k] - before[k] for k in after}
                     check(got == want, f"kv {kv_bits} {out['kind']}: launches {got}, want {want}")
+                    got = {k: mma_after[k] - mma_before[k] for k in mma_after}
+                    check(got == want_mma, f"kv {kv_bits} {out['kind']}: tensor-core launches "
+                          f"{got}, want {want_mma}")
                 gates.on = False
                 return out
             eng.step = checked_step
@@ -1125,16 +1267,18 @@ def moe_serving(dev, card, ops, gen):
                                       useful_tokens=eng.stats["useful_tokens"],
                                       kv_bytes_resident=eng.kv_bytes_resident())
             del eng
-    path_launches = ops.launch_counts()
+    path_launches, path_mma = ops.launch_counts(), ops.mma_launch_counts()
     worst = {k: max(v) for k, v in gates.ratios.items()}
-    log(f"[moe] launches over the MoE path: {path_launches}; sub-layers within {json.dumps(worst)} "
+    log(f"[moe] launches over the MoE path: {path_launches} (tensor-core path: {path_mma}, "
+        f"{json.dumps(want_mma)} a step); sub-layers within {json.dumps(worst)} "
         f"of the tolerance ({sum(len(v) for v in gates.ratios.values())} checked), "
         f"{gates.entry_checks} fed latent entries in bounds; runs {json.dumps(runs)}")
     check(all(path_launches[k] > 0 for k in ("quant_matmul", "quant_matmul_fused",
                                              "quant_matmul_fused_batched")),
           f"a kernel of the MoE path never launched: {path_launches}")
     check(all(len(v) > 0 for v in gates.ratios.values()), "every sub-layer kind was checked")
-    report.update(path=runs, path_launches=path_launches, worst_sublayer_err_over_tol=worst,
+    report.update(path=runs, path_launches=path_launches, path_mma_launches=path_mma,
+                  worst_sublayer_err_over_tol=worst,
                   sublayers_checked={k: len(v) for k, v in gates.ratios.items()},
                   fed_latent_entries=gates.entry_checks)
 
@@ -1245,23 +1389,36 @@ def moe_serving(dev, card, ops, gen):
                                     Kp=Kp, tile_n=wd.tile_n,
                                     compute_dtype=torch.bfloat16).to(torch.bfloat16)
     k3_times = {}
+
+    def k3_simt(x):
+        """K3 on its SIMT routine at bf16 compute: the earlier design, timed
+        beside the tensor-core one in this run."""
+        path = qmk.fused_3d_path
+        qmk.fused_3d_path = lambda tile_n, compute_dtype: "simt"
+        try:
+            return qmk.quant_matmul_fused_3d(x, wd.fused_packed, wd.fused_table,
+                                             wd.fused_scales, wd.tile_bits, Kp=Kp,
+                                             tile_n=wd.tile_n, compute_dtype=torch.bfloat16)
+        finally:
+            qmk.fused_3d_path = path
     for m in (8, 40):
         xb = rand((E, m, Kp), torch.bfloat16)
         x = xb.float()
         fns = {"k3": lambda: qmk.quant_matmul_fused_3d(
-                   x, wd.fused_packed, wd.fused_table, wd.fused_scales, wd.tile_bits, Kp=Kp,
+                   xb, wd.fused_packed, wd.fused_table, wd.fused_scales, wd.tile_bits, Kp=Kp,
                    tile_n=wd.tile_n, compute_dtype=torch.bfloat16),
+               "simt": lambda: k3_simt(x),
                "plain": lambda: qmk.quant_matmul_fused_3d_plain(
                    x, wd.fused_packed, wd.fused_scales, wd.tile_bits, Kp=Kp, tile_n=wd.tile_n,
                    compute_dtype=torch.bfloat16),
                "library": lambda: torch.bmm(xb, wb.mT)}
-        row = dict(E=E, M=m, Kp=Kp, N=N, tile_n=wd.tile_n, T=len(wd.tile_bits))
+        row = dict(E=E, M=m, Kp=Kp, N=N, tile_n=wd.tile_n, T=len(wd.tile_bits),
+                   path=qmk.fused_3d_path(wd.tile_n, torch.bfloat16))
         for key, fn in fns.items():
-            iters = 3 if key == "plain" else 10
+            iters = 3 if key in ("plain", "simt") else 10
             row[f"{key}_loop_ms"] = cuda_ms(fn, iters=iters, warmup=1)
-            dev_ms = device_ms(fn, iters=iters, warmup=1)
-            row[f"{key}_ms"] = row[f"{key}_loop_ms"] if dev_ms is None else dev_ms
-            row[f"{key}_timer"] = "events" if dev_ms is None else "profiler"
+            row[f"{key}_ms"], row[f"{key}_timer"] = kernel_ms(
+                fn, iters, row[f"{key}_loop_ms"], graph=key not in ("plain", "simt"))
         nb = k3_bytes(E, m, Kp, N, wd)
         row.update(bytes=nb, bytes_ms=nb / PEAK_BYTES_PER_S * 1e3,
                    ops_ms=2.0 * E * m * Kp * N / PEAK_BF16_FLOP_PER_S * 1e3)
@@ -1272,8 +1429,8 @@ def moe_serving(dev, card, ops, gen):
 
     # K2's expert axis over one decode step: we_gate's and we_up's groups at
     # M = 8 (each shape timed once, counted as often as a step launches it)
-    k2e_step = {"k2_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
-                "ops_ms": 0.0, "bound_ms": 0.0}
+    k2e_step = {"k2_ms": 0.0, "simt_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0}
     k2e_times = []
     x8b = rand((E, 8, Kg), torch.bfloat16)
     x8 = x8b.float()
@@ -1282,19 +1439,21 @@ def moe_serving(dev, card, ops, gen):
         wgb = torch.empty(pk.shape[:2] + (Kg,), dtype=torch.bfloat16, device=dev)
         for sl in qmk.expert_chunks(E, pk.shape[1] * Kg):
             wgb[sl] = (qz.unpack_int(pk[sl], b).float() * sc[sl, :, None]).to(torch.bfloat16)
-        fns = {"k2": lambda: qmk.quant_matmul_2d(x8, pk, sc, b),
+        fns = {"k2": lambda: qmk.quant_matmul_2d(x8b, pk, sc, b, torch.bfloat16),
+               "simt": lambda: qmk.quant_matmul_2d(x8, pk, sc, b),
                "plain": lambda: qmk.quant_matmul_2d_plain(x8, pk, sc, b),
                "library": lambda: torch.bmm(x8b, wgb.mT)}
-        row = dict(bits=b, E=E, M=8, N=pk.shape[1], K=Kg, calls_per_step=calls)
+        row = dict(bits=b, E=E, M=8, N=pk.shape[1], K=Kg, calls_per_step=calls,
+                   path=qmk.pergroup_path(Kg, torch.bfloat16))
         for key, fn in fns.items():
-            iters = 3 if key == "plain" else 10
+            iters = 3 if key in ("plain", "simt") else 10
             row[f"{key}_loop_ms"] = cuda_ms(fn, iters=iters, warmup=1)
-            dev_ms = device_ms(fn, iters=iters, warmup=1)
-            row[f"{key}_ms"] = row[f"{key}_loop_ms"] if dev_ms is None else dev_ms
+            row[f"{key}_ms"], row[f"{key}_timer"] = kernel_ms(
+                fn, iters, row[f"{key}_loop_ms"], graph=key not in ("plain", "simt"))
         nb = 2 * E * 8 * Kg + pk.numel() + 4 * sc.numel() + 2 * E * 8 * pk.shape[1]
         row["bytes_ms"] = nb / PEAK_BYTES_PER_S * 1e3
         row["ops_ms"] = 2.0 * E * 8 * pk.shape[1] * Kg / PEAK_BF16_FLOP_PER_S * 1e3
-        for key in ("k2_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms"):
+        for key in ("k2_ms", "simt_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms"):
             k2e_step[key] += calls * row[key]
         k2e_step["bound_ms"] += calls * max(row["bytes_ms"], row["ops_ms"])
         k2e_times.append(row)
@@ -1305,24 +1464,29 @@ def moe_serving(dev, card, ops, gen):
     report["k2_expert_times"] = k2e_times
     report["k2_expert_decode_step"] = k2e_step
 
-    r8 = k3_times[8]
+    r8, r40 = k3_times[8], k3_times[40]
     k3 = dict(name="quant_matmul_fused_batched", route="cuda",
               source="src/repro_torch/kernels/csrc/quant_matmul.cu",
               replaces="src/repro/kernels/quant_matmul.py:193",
               launches=path_launches["quant_matmul_fused_batched"],
+              mma_launches=path_mma["quant_matmul_fused_batched"],
               max_abs_err=max(r["max_abs_err"] for r in k3_rows),
               ms=r8["k3_ms"], plain_ms=r8["plain_ms"],
               bound_ms=max(r8["bytes_ms"], r8["ops_ms"]),
               bound_by="bytes" if r8["bytes_ms"] >= r8["ops_ms"] else "operations",
-              library_ms=r8["library_ms"])
+              library_ms=r8["library_ms"], simt_ms=r8["simt_ms"],
+              prefill_m40=dict(ms=r40["k3_ms"], simt_ms=r40["simt_ms"],
+                               library_ms=r40["library_ms"],
+                               bound_ms=max(r40["bytes_ms"], r40["ops_ms"])))
     k2_experts = dict(bitwise_equal_to_per_expert_launches=all(r["bitwise"] for r in k2e_rows),
                       launches_per_decode_step=2 * 3 * cfg.n_layers,
-                      decode_step_ms=k2e_step["k2_ms"], plain_ms=k2e_step["plain_ms"],
+                      decode_step_ms=k2e_step["k2_ms"], simt_ms=k2e_step["simt_ms"],
+                      plain_ms=k2e_step["plain_ms"],
                       bound_ms=k2e_step["bound_ms"], library_ms=k2e_step["library_ms"],
                       max_abs_err=max(r["max_abs_err"] for r in k2e_rows))
     del dparams
     torch.cuda.empty_cache()
-    return report, k3, k2_experts, path_launches
+    return report, k3, k2_experts, path_launches, path_mma
 
 # ---------------------------------------------------------------------------
 # The fused Eq. 5 weight mixture (K6) through the kernel API
@@ -2277,7 +2441,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 3d, 4d, 5c. the MoE serving path: deepseek-v3-671b at full width, 2 layers
-    moe_report, k3_moe, k2_experts, moe_launches = moe_serving(dev, card, ops, gen)
+    moe_report, k3_moe, k2_experts, moe_launches, moe_mma = moe_serving(dev, card, ops, gen)
     report["moe"] = moe_report
 
     # -- 6. summary --------------------------------------------------------------
@@ -2295,11 +2459,12 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/quant_matmul.cu",
              replaces="src/repro/kernels/quant_matmul.py:119",
              launches=k2_lm["launches"] + moe_launches["quant_matmul"],
+             mma_launches=k2_lm["mma_launches"] + moe_mma["quant_matmul"],
              max_abs_err=max(max(errs["pergroup"]), k2_lm["max_abs_err"],
                              k2_experts["max_abs_err"]),
              ms=k2_lm["ms"], plain_ms=k2_lm["plain_ms"], bound_ms=k2_lm["bound_ms"],
              bound_by=k2_lm["bound_by"], library_ms=k2_lm["library_ms"],
-             expert_axis=k2_experts),
+             simt_ms=k2_lm["simt_ms"], prefill=k2_lm["prefill"], expert_axis=k2_experts),
         dict(name="scaled_int8_mm", route="cuda",
              source="src/repro_torch/kernels/csrc/int8_matmul.cu",
              replaces="src/repro/kernels/int8_matmul.py:82",

@@ -364,10 +364,10 @@ class QTensor:
         :data:`BACKENDS`.
 
         ``compute_dtype`` is the reference's: x is rounded to it before the
-        product and the result is rounded to it once.  The kernels take x
-        as f32 (a bf16 x times an integer weight is exact in f32, so that
-        is the reference's bf16 dot with f32 accumulation) and scale in
-        f32; the ``"torch"`` backend rounds the dequantized weight to
+        product and the result is rounded to it once.  The kernels sum
+        exact products of the rounded x and the integer weight in f32 (the
+        reference's bf16 dot with f32 accumulation) and scale in f32; the
+        ``"torch"`` backend rounds the dequantized weight to
         ``compute_dtype`` and multiplies in it, as the reference's jnp
         path does.  This method owns the routing and the concat/restore so
         the backends cannot drift.
@@ -381,8 +381,9 @@ class QTensor:
         if self.experts is not None:
             return self._matmul_experts(x, backend, compute_dtype)
         if backend in ("cuda", "cuda-pergroup"):
-            # rounded to compute_dtype once for every group's launch
-            x = x.to(compute_dtype).to(torch.float32)
+            # rounded to compute_dtype once for every group's launch (the
+            # kernel API holds it in the dtype its routine reads)
+            x = x.to(compute_dtype)
         if backend == "cuda" and self.fused_packed is not None:
             return kops.quant_matmul_fused(
                 x, self.fused_packed, self.fused_table, self.fused_scales,
@@ -392,7 +393,8 @@ class QTensor:
             # fused-layout groups are packed at the common Kp; the kernel
             # reads x's missing columns as zeros (the reference pads x)
             def gemm(b, p, s):
-                return kops.quant_matmul(x, p, s, b, self.c_in, out_dtype=compute_dtype)
+                return kops.quant_matmul(x, p, s, b, self.c_in, compute_dtype=compute_dtype,
+                                         out_dtype=compute_dtype)
         else:
             def gemm(b, p, s):
                 w = self._group_dense(b, p, s).to(compute_dtype)
@@ -413,7 +415,7 @@ class QTensor:
         E = self.experts
         kops.check_experts(x, E)
         if backend in ("cuda", "cuda-pergroup"):
-            x = x.to(compute_dtype).to(torch.float32)
+            x = x.to(compute_dtype)
         if backend == "cuda" and self.fused_packed is not None:
             return kops.quant_matmul_fused_batched(
                 x, self.fused_packed, self.fused_table, self.fused_scales,
@@ -421,7 +423,8 @@ class QTensor:
                 self.c_out, compute_dtype=compute_dtype, out_dtype=compute_dtype)
         if backend in ("cuda", "cuda-pergroup"):
             def gemm(b, p, s):
-                return kops.quant_matmul(x, p, s, b, self.c_in, out_dtype=compute_dtype)
+                return kops.quant_matmul(x, p, s, b, self.c_in, compute_dtype=compute_dtype,
+                                         out_dtype=compute_dtype)
         else:
             xc = x.to(compute_dtype).reshape(E, -1, self.c_in)
 

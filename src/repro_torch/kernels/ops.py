@@ -16,8 +16,9 @@ so here nothing is copied: the wrappers only flatten, launch and restore
 the channel order.
 
 Launch counters: :func:`launch_counts` / :func:`reset_launch_counts` read
-and clear the ``launches`` int of each kernel wrapper; :func:`count_launches`
-counts one call's.
+and clear the ``launches`` int of each kernel wrapper (and the
+``mma_launches`` int of the two GEMM wrappers with a tensor-core path, read
+by :func:`mma_launch_counts`); :func:`count_launches` counts one call's.
 """
 from __future__ import annotations
 
@@ -42,13 +43,25 @@ KERNEL_WRAPPERS = {
 }
 
 
+# the wrappers with a tensor-core path beside their SIMT one
+MMA_WRAPPERS = {"quant_matmul": qmk.quant_matmul_2d,
+                "quant_matmul_fused_batched": qmk.quant_matmul_fused_3d}
+
+
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+
+
+def mma_launch_counts() -> dict:
+    """Launches that took the tensor-core path, per wrapper name."""
+    return {name: fn.mma_launches for name, fn in MMA_WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    for fn in MMA_WRAPPERS.values():
+        fn.mma_launches = 0
 
 
 def count_launches(fn, *args, **kwargs) -> dict:
@@ -71,12 +84,14 @@ def _check_c_in(x: torch.Tensor, c_in: int) -> None:
             "kernel's C*kh*kw")
 
 
-def _kernel_x(x: torch.Tensor, c_in: int, compute_dtype) -> torch.Tensor:
-    """x flattened to ``(M, c_in)``, rounded to ``compute_dtype`` and held
-    in f32, as the kernels read it: a bf16 x times an integer weight of at
-    most 8 bits is exact in f32, so the kernels' f32 sums are the
-    reference's bf16 dot with f32 accumulation."""
-    return x.reshape(-1, c_in).to(compute_dtype).to(torch.float32).contiguous()
+def _kernel_x(x: torch.Tensor, c_in: int, compute_dtype, path: str = "simt") -> torch.Tensor:
+    """x flattened to ``(M, c_in)`` and rounded to ``compute_dtype``, as
+    the kernel's routine reads it: held in f32 for the SIMT routine (a bf16
+    x times an integer weight of at most 8 bits is exact in f32, so its f32
+    sums are the reference's bf16 dot with f32 accumulation), bf16 for the
+    tensor-core one."""
+    x = x.reshape(-1, c_in).to(compute_dtype)
+    return (x if path == "mma" else x.to(torch.float32)).contiguous()
 
 
 def check_experts(x: torch.Tensor, E: int) -> None:
@@ -100,15 +115,17 @@ def quant_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"packed K {K} does not correspond to c_in {c_in} "
                          f"at {bits} bits")
     n = packed.shape[-2]
+    path = qmk.pergroup_path(K, compute_dtype)
     if packed.ndim == 3:
         E = packed.shape[0]
         check_experts(x, E)
         lead = x.shape[1:-1]
-        x2 = _kernel_x(x, c_in, compute_dtype).reshape(E, -1, c_in)
-        y = qmk.quant_matmul_2d(x2, packed, scale, bits)
+        x2 = _kernel_x(x, c_in, compute_dtype, path).reshape(E, -1, c_in)
+        y = qmk.quant_matmul_2d(x2, packed, scale, bits, compute_dtype)
         return y.to(out_dtype).reshape(E, *lead, n)
     lead = x.shape[:-1]
-    y = qmk.quant_matmul_2d(_kernel_x(x, c_in, compute_dtype), packed, scale, bits)
+    y = qmk.quant_matmul_2d(_kernel_x(x, c_in, compute_dtype, path), packed, scale, bits,
+                            compute_dtype)
     return y.to(out_dtype).reshape(*lead, n)
 
 
@@ -153,7 +170,8 @@ def quant_matmul_fused_batched(x: torch.Tensor, fused_packed: torch.Tensor,
     _check_c_in(x, c_in)
     Kp = -(-c_in // qmk.FUSED_K_ALIGN) * qmk.FUSED_K_ALIGN
     lead = x.shape[1:-1]
-    x2 = _kernel_x(x, c_in, compute_dtype).reshape(E, -1, c_in)
+    x2 = _kernel_x(x, c_in, compute_dtype,
+                   qmk.fused_3d_path(tile_n, compute_dtype)).reshape(E, -1, c_in)
     y = qmk.quant_matmul_fused_3d(x2, fused_packed, fused_table, fused_scales, tile_bits,
                                   Kp=Kp, tile_n=tile_n, compute_dtype=compute_dtype)
     y = y.index_select(2, fused_perm) if fused_perm is not None else y[..., :c_out]

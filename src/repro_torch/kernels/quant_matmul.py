@@ -22,15 +22,21 @@ All three launch ``csrc/quant_matmul.cu`` (see the note at its top for what
 bounds the kernels on the card and what the design does about it) when
 given CUDA tensors, and run their plain version when given CPU tensors —
 never the other way round, and never a fall-back after a failed launch.
-Each wrapper counts its launches in a plain int attribute, ``launches``.
+Each wrapper counts its launches in a plain int attribute, ``launches``,
+and those that took the tensor-core path in a second one, ``mma_launches``.
 
-The CUDA kernels reduce every output's K terms in ascending order, in one
-f32 FMA chain, with the same device code; so the fused kernel equals the
-per-group kernel bitwise on the card, and an expert's slice of an
-expert-axis launch equals its own launch.  The plain versions use
-``torch.matmul`` and agree with the kernels to f32 rounding; the plain
-expert versions walk the experts in chunks (a deepseek-v3 expert stack
-dequantized at once is 8.5 GB in f32).
+Two device routines.  The SIMT one reduces every output's K terms in
+ascending order, in one f32 FMA chain; the fused kernel and the per-group
+kernel at f32 compute or K <= ``K_SINGLE_STEP_MAX`` run it, so the two
+equal each other bitwise on the card.  At bf16 compute the per-group kernel
+past ``K_SINGLE_STEP_MAX`` and the expert kernel at ``tile_n >= 16`` run the
+tensor-core routine (:func:`pergroup_path`, :func:`fused_3d_path`): exact
+bf16 products, f32 sums in the tensor cores' order, K split over the warps
+of a block by :func:`mma_plan`, which depends on M alone, so an expert's
+slice of an expert-axis launch still equals its own launch.  The plain
+versions use ``torch.matmul`` and agree with the kernels to f32 rounding;
+the plain expert versions walk the experts in chunks (a deepseek-v3 expert
+stack dequantized at once is 8.5 GB in f32).
 """
 from __future__ import annotations
 
@@ -197,6 +203,54 @@ def quant_matmul_fused_3d_plain(x: torch.Tensor, fused_packed: torch.Tensor,
     return out
 
 
+# compute dtypes the expert kernel rounds its dequantized tiles to
+FUSED_3D_COMPUTE = (torch.float32, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# Path choice (pure functions of the shapes, read by the CPU tests)
+# ---------------------------------------------------------------------------
+
+def pergroup_path(K: int, compute_dtype) -> str:
+    """The per-group kernel's routine for a packed depth ``K``: ``"mma"``
+    (bf16 tensor cores) at bf16 compute past ``K_SINGLE_STEP_MAX``, else
+    ``"simt"``, the routine the fused kernel shares, so that the two stay
+    bitwise equal wherever a weight can have both layouts."""
+    return "mma" if compute_dtype == torch.bfloat16 and K > K_SINGLE_STEP_MAX else "simt"
+
+
+def fused_3d_path(tile_n: int, compute_dtype) -> str:
+    """The expert kernel's routine: ``"mma"`` at bf16 compute when a tile
+    holds whole 16-channel fragments (``tile_n >= 16``), else ``"simt"``."""
+    return "mma" if compute_dtype == torch.bfloat16 and tile_n >= 16 else "simt"
+
+
+# (token fragments of 8 a warp, warps splitting K, warps splitting N)
+MMA_DECODE_PLAN = (1, 4, 4)
+MMA_MID_PLAN = (8, 1, 8)
+MMA_PREFILL_PLAN = (4, 1, 8)
+
+
+def mma_plan(M: int) -> tuple:
+    """The tensor-core block shape for ``M`` rows.  At ``M <= 8`` (decode)
+    one 8-token fragment a warp and K split over 4 warps of the same 64
+    channels; at ``M <= 64`` (a MoE expert's prefill capacity) all rows in
+    one 64-token tile, so the weights stream once, 8 warps of 16 channels
+    each walking all of K; above it (prefill) 32-token tiles.  A function
+    of M alone, never of the expert count or the grid: the K split fixes
+    the order of the sums (the channel warps change none)."""
+    if M <= 8:
+        return MMA_DECODE_PLAN
+    return MMA_MID_PLAN if M <= 64 else MMA_PREFILL_PLAN
+
+
+def fused_3d_mma_plan(M: int, tile_n: int) -> tuple:
+    """:func:`mma_plan` with the channel warps cut so that a block's
+    ``16 * wn`` channels lie inside one ``tile_n``-wide tile."""
+    mf, wk, wn = mma_plan(M)
+    return mf, wk, min(wn, tile_n // 16)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -246,9 +300,12 @@ quant_matmul_fused_2d.launches = 0
 
 
 def quant_matmul_2d(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
-                    bits: int) -> torch.Tensor:
+                    bits: int, compute_dtype=torch.float32) -> torch.Tensor:
     """One precision group: ``x (M, c) @ unpack(packed (N, K/f))^T * scale``
-    -> ``(M, N)`` f32, with ``c <= K`` (missing columns count as zeros).
+    -> ``(M, N)`` f32, with ``c <= K`` (missing columns count as zeros); x
+    already rounded to ``compute_dtype``, which picks the routine
+    (:func:`pergroup_path`).  The SIMT routine reads x as f32; the
+    tensor-core one as bf16 (an f32 x is cast first, one more launch).
 
     With an expert axis (``packed (E, N, K/f)``, ``scale (E, N)``, ``x (E,
     M, c)``) every expert's product is one grid slice of ONE launch ->
@@ -267,26 +324,33 @@ def quant_matmul_2d(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     if scale.shape != packed.shape[:-1]:
         raise ValueError(f"scale {tuple(scale.shape)} does not match packed "
                          f"{tuple(packed.shape)}")
+    mma = pergroup_path(K, compute_dtype) == "mma"
+    if mma and x.dtype == torch.float32:
+        x = x.to(torch.bfloat16)
     _build.check_cuda("quant_matmul_2d", dict(x=x, packed=packed, scale=scale),
-                dict(x=torch.float32, packed=torch.uint8, scale=torch.float32))
+                      dict(x=torch.bfloat16 if mma else torch.float32, packed=torch.uint8,
+                           scale=torch.float32))
     out = torch.empty(x.shape[:-1] + (N,), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0 or E == 0:
         return out
     lib = _build.load("quant_matmul.cu")
     with torch.cuda.device(x.device):
-        rc = lib.qmm_pergroup_f32(
-            x.data_ptr(), M, c, K, packed.data_ptr(), N, scale.data_ptr(),
-            bits, E, out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if mma:
+            rc = lib.qmm_pergroup_mma(x.data_ptr(), M, c, K, packed.data_ptr(), N,
+                                      scale.data_ptr(), bits, E, *mma_plan(M),
+                                      out.data_ptr(), stream)
+        else:
+            rc = lib.qmm_pergroup_f32(x.data_ptr(), M, c, K, packed.data_ptr(), N,
+                                      scale.data_ptr(), bits, E, out.data_ptr(), stream)
     _build.raise_on(rc, "quant_matmul_2d")
     quant_matmul_2d.launches += 1
+    quant_matmul_2d.mma_launches += mma
     return out
 
 
 quant_matmul_2d.launches = 0
-
-
-# compute dtypes the expert kernel rounds its dequantized tiles to
-FUSED_3D_COMPUTE = (torch.float32, torch.bfloat16)
+quant_matmul_2d.mma_launches = 0
 
 
 def quant_matmul_fused_3d(x: torch.Tensor, fused_packed: torch.Tensor,
@@ -295,12 +359,14 @@ def quant_matmul_fused_3d(x: torch.Tensor, fused_packed: torch.Tensor,
                           compute_dtype=torch.float32) -> torch.Tensor:
     """Expert-batched single-launch mixed-precision GEMM (dequant first).
 
-    ``x (E, M, c)`` f32 with ``c <= Kp`` (x already rounded to
-    ``compute_dtype``; missing columns count as zeros); ``fused_packed (E,
-    bytes)`` uint8, every expert's ragged buffer under the ONE schedule
-    ``fused_table_ (T, 2)``; ``fused_scales (E, T * tile_n)``.  Each weight
-    tile is ``round_cd(w_int * scale)`` before the product, f32 sums.
-    Returns ``(E, M, T * tile_n)`` f32 in tile walk order.
+    ``x (E, M, c)`` with ``c <= Kp`` (x already rounded to
+    ``compute_dtype``; missing columns count as zeros): f32 for the SIMT
+    routine, bf16 for the tensor-core one (:func:`fused_3d_path`; an f32 x
+    is cast first); ``fused_packed (E, bytes)`` uint8, every expert's
+    ragged buffer under the ONE schedule ``fused_table_ (T, 2)``;
+    ``fused_scales (E, T * tile_n)``.  Each weight tile is ``round_cd(w_int
+    * scale)`` before the product, f32 sums.  Returns ``(E, M, T * tile_n)``
+    f32 in tile walk order.
     """
     if x.device.type == "cpu":
         return quant_matmul_fused_3d_plain(x, fused_packed, fused_scales, tile_bits,
@@ -323,23 +389,34 @@ def quant_matmul_fused_3d(x: torch.Tensor, fused_packed: torch.Tensor,
                          f"the schedule needs {nbytes}")
     if fused_table_.shape != (T, 2) or fused_scales.shape != (E, T * tile_n):
         raise ValueError("fused table/scales do not match the schedule")
+    mma = fused_3d_path(tile_n, compute_dtype) == "mma"
+    if mma and x.dtype == torch.float32:
+        x = x.to(torch.bfloat16)
     _build.check_cuda("quant_matmul_fused_3d",
                       dict(x=x, packed=fused_packed, table=fused_table_, scales=fused_scales),
-                      dict(x=torch.float32, packed=torch.uint8, table=torch.int32,
-                           scales=torch.float32))
+                      dict(x=torch.bfloat16 if mma else torch.float32, packed=torch.uint8,
+                           table=torch.int32, scales=torch.float32))
     out = torch.empty((E, M, T * tile_n), dtype=torch.float32, device=x.device)
     if M == 0 or E == 0:
         return out
     lib = _build.load("quant_matmul.cu")
     with torch.cuda.device(x.device):
-        rc = lib.qmm_fused_experts_f32(
-            x.data_ptr(), M, c, Kp, fused_packed.data_ptr(), nbytes,
-            fused_table_.data_ptr(), fused_scales.data_ptr(), T, tile_n, E,
-            int(compute_dtype == torch.bfloat16), out.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if mma:
+            rc = lib.qmm_fused_experts_mma(
+                x.data_ptr(), M, c, Kp, fused_packed.data_ptr(), nbytes,
+                fused_table_.data_ptr(), fused_scales.data_ptr(), T, tile_n, E,
+                *fused_3d_mma_plan(M, tile_n), out.data_ptr(), stream)
+        else:
+            rc = lib.qmm_fused_experts_f32(
+                x.data_ptr(), M, c, Kp, fused_packed.data_ptr(), nbytes,
+                fused_table_.data_ptr(), fused_scales.data_ptr(), T, tile_n, E,
+                int(compute_dtype == torch.bfloat16), out.data_ptr(), stream)
     _build.raise_on(rc, "quant_matmul_fused_3d")
     quant_matmul_fused_3d.launches += 1
+    quant_matmul_fused_3d.mma_launches += mma
     return out
 
 
 quant_matmul_fused_3d.launches = 0
+quant_matmul_fused_3d.mma_launches = 0

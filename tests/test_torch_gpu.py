@@ -42,6 +42,15 @@ on a machine that has only PyTorch:
   bf16 ulp more; one launch per call.
 * The per-group kernel's expert axis equals per-expert launches bitwise at
   deepseek-v3's ``we_gate`` group shapes (8 experts), in one launch.
+* The tensor-core path (bf16 compute): the per-group kernel past
+  ``K_SINGLE_STEP_MAX`` against its plain version within 2 (K + 2) u sum
+  |x w s| at K 2052 (K % 16 != 0, rows not 16-byte aligned), 2560 with x
+  narrower than K, and 6912, N 1 to 1126, M 1 to 2048; its expert axis
+  bitwise per-expert launches (16 experts, K 7168, M 8); K1 still equals
+  K2 bitwise on bf16 x at Kp 2048 (the SIMT path); the expert kernel
+  within ``fused_3d_error_bound`` at M 1 to 70, 1 and 256 experts, tile_n
+  16 and 128, out bf16 and f32; each counted in ``mma_launches``; a CPU
+  operand and a refused launch raise, with no fall-back.
 * The fused Eq. 5 mixture kernel (``ops.fused_mix``) equals its plain
   version (``kernels/ref.fused_mix_ref``) bitwise at edges (N = 1, K = 1,
   N = 257 with K = 513, bitwidths (8,), (2, 8), (2, 4, 8), bf16 w, K odd, a
@@ -700,3 +709,137 @@ def test_kernel_api_conv_and_qtensor_wrappers_on_the_card():
     assert counts["quant_matmul"] == 1
     _close(ops.quant_conv2d(x.to(dev), p.to(dev), s.to(dev), *args),
            ops.quant_conv2d(x, p, s, *args))
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core path (bf16 compute): K2 past K_SINGLE_STEP_MAX and K3
+# ---------------------------------------------------------------------------
+
+def _k2_case(dev, rng, N, K, bits):
+    q = rng.integers(-(1 << (bits - 1)), 1 << (bits - 1), size=(N, K)).astype(np.int8)
+    packed = qz.pack_int(torch.from_numpy(q), bits).to(dev)
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, N).astype(np.float32)).to(dev)
+    return packed, scale
+
+
+def _k2_bound(x, packed, scale, bits):
+    w = qz.unpack_int(packed, bits).double()
+    xa = torch.nn.functional.pad(x.double().abs(), (0, w.shape[-1] - x.shape[-1]))
+    return 2 * (w.shape[-1] + 2) * 2.0 ** -24 * (xa @ w.abs().mT) * scale.double().abs()[..., None, :]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", (2, 4, 8))
+@pytest.mark.parametrize("K,Kx", [(2052, 2052), (2560, 2557), (6912, 6912)])
+def test_pergroup_mma_matches_plain(K, Kx, bits):
+    dev = _cuda()
+    rng = np.random.default_rng(K + bits)
+    assert qmk.pergroup_path(K, torch.bfloat16) == "mma"
+    for N in (1, 15, 17, 640, 1126):
+        packed, scale = _k2_case(dev, rng, N, K, bits)
+        for M in (1, 4, 8, 9, 70, 2048):
+            x = torch.from_numpy(rng.standard_normal((M, Kx)).astype(np.float32)).to(dev)
+            x = x.to(torch.bfloat16).float()
+            before = (qmk.quant_matmul_2d.launches, qmk.quant_matmul_2d.mma_launches)
+            got = qmk.quant_matmul_2d(x, packed, scale, bits, torch.bfloat16)
+            torch.cuda.synchronize()
+            assert (qmk.quant_matmul_2d.launches, qmk.quant_matmul_2d.mma_launches) == (
+                before[0] + 1, before[1] + 1)
+            ref = qmk.quant_matmul_2d_plain(x, packed, scale, bits)
+            err = (got.double() - ref.double()).abs()
+            assert got.shape == (M, N) and torch.isfinite(got).all()
+            assert (err <= _k2_bound(x, packed, scale, bits)).all(), (N, M)
+
+
+@pytest.mark.gpu
+def test_pergroup_mma_expert_axis_equals_per_expert_launches():
+    from repro_torch.models import serving
+    dev = _cuda()
+    E = 16
+    gen = torch.Generator(device=dev).manual_seed(11)
+    qt = serving.init_deployed_linear(gen, 7168, 2048, _moe_cfg(128), expert_axis=E,
+                                      device=dev)["w"]
+    assert qt.fused_packed is None
+    x = torch.randn((E, 8, 7168), generator=gen, device=dev).to(torch.bfloat16).float()
+    for b, p, sc in zip(qt.bits, qt.packed, qt.scales):
+        before = qmk.quant_matmul_2d.mma_launches
+        one = qmk.quant_matmul_2d(x, p, sc, b, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert qmk.quant_matmul_2d.mma_launches == before + 1
+        each = torch.stack([qmk.quant_matmul_2d(x[e], p[e], sc[e], b, torch.bfloat16)
+                            for e in range(E)])
+        assert qmk.quant_matmul_2d.mma_launches == before + 1 + E
+        assert torch.equal(one, each), f"{b}-bit group: expert axis != per-expert launches"
+        ref = qmk.quant_matmul_2d_plain(x, p, sc, b)
+        assert ((one.double() - ref.double()).abs() <= _k2_bound(x, p, sc, b)).all()
+
+
+@pytest.mark.gpu
+def test_fused_equals_pergroup_bitwise_on_bf16_x_at_kp_2048():
+    dev = _cuda()
+    qt = _qtensor(3, 640, 2048, "auto", _mixed).to(dev)
+    assert qt.fused_packed is not None
+    x = torch.randn((33, 2048), generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev).to(torch.bfloat16)
+    before = ops.mma_launch_counts()
+    fused = qt.matmul(x, "cuda", torch.bfloat16)
+    pergroup = qt.matmul(x, "cuda-pergroup", torch.bfloat16)
+    torch.cuda.synchronize()
+    assert ops.mma_launch_counts() == before, "Kp 2048 must stay on the SIMT routine"
+    assert torch.equal(fused, pergroup), "K1 != K2 bitwise on bf16 x"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,tile_n", [(1, 128), (1, 16), (256, 128), (256, 16)])
+@pytest.mark.parametrize("m", [1, 8, 9, 40, 70])
+def test_expert_kernel_mma_matches_plain(E, tile_n, m):
+    from repro_torch.models import serving
+    dev = _cuda()
+    c_in, c_out = 2048, 256                       # a we_down slice, cut to fit 256 experts
+    gen = torch.Generator(device=dev).manual_seed(E * 100 + m)
+    qt = serving.init_deployed_linear(gen, c_in, c_out, _moe_cfg(16), expert_axis=E,
+                                      tile_n=tile_n, device=dev)["w"]
+    assert qt.fused_packed is not None and qt.tile_n == tile_n
+    assert qmk.fused_3d_path(tile_n, torch.bfloat16) == "mma"
+    Kp = c_in
+    x = torch.randn((E, m, c_in), generator=gen, device=dev)
+    xc = x.to(torch.bfloat16).float()
+    args = (qt.fused_packed, qt.fused_scales, qt.tile_bits)
+    before = qmk.quant_matmul_fused_3d.mma_launches
+    got = qmk.quant_matmul_fused_3d(xc, qt.fused_packed, qt.fused_table, qt.fused_scales,
+                                    qt.tile_bits, Kp=Kp, tile_n=tile_n,
+                                    compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert qmk.quant_matmul_fused_3d.mma_launches == before + 1
+    ref = qmk.quant_matmul_fused_3d_plain(xc, *args, Kp=Kp, tile_n=tile_n,
+                                          compute_dtype=torch.bfloat16)
+    bound = qmk.fused_3d_error_bound(xc, *args, Kp=Kp, tile_n=tile_n,
+                                     compute_dtype=torch.bfloat16)
+    assert torch.isfinite(got).all()
+    assert ((got.double() - ref.double()).abs() <= bound.double()).all()
+    for out_dtype in (torch.float32, torch.bfloat16):
+        y = ops.quant_matmul_fused_batched(x, qt.fused_packed, qt.fused_table, qt.fused_scales,
+                                           qt.fused_perm, qt.tile_bits, tile_n, c_in, c_out,
+                                           compute_dtype=torch.bfloat16, out_dtype=out_dtype)
+        cols = (qt.fused_perm if qt.fused_perm is not None
+                else torch.arange(c_out, device=dev))
+        r, b = ref.index_select(2, cols).double(), bound.index_select(2, cols).double()
+        tol = b
+        if out_dtype == torch.bfloat16:
+            tol = b + torch.exp2(torch.floor(torch.log2(r.abs() + b + 1e-30))) * 2.0 ** -7
+        assert y.dtype == out_dtype and ((y.double() - r).abs() <= tol).all(), out_dtype
+
+
+@pytest.mark.gpu
+def test_mma_path_raises_instead_of_falling_back(monkeypatch):
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    packed, scale = _k2_case(dev, rng, 64, 2560, 4)
+    x = torch.zeros((4, 2560), device=dev)
+    with pytest.raises(ValueError):                    # a CPU operand
+        qmk.quant_matmul_2d(x, packed.cpu(), scale, 4, torch.bfloat16)
+    before = (qmk.quant_matmul_2d.launches, qmk.quant_matmul_2d.mma_launches)
+    monkeypatch.setattr(qmk, "mma_plan", lambda M: (2, 2, 2))     # no such kernel
+    with pytest.raises(RuntimeError, match="quant_matmul_2d"):
+        qmk.quant_matmul_2d(x, packed, scale, 4, torch.bfloat16)
+    assert (qmk.quant_matmul_2d.launches, qmk.quant_matmul_2d.mma_launches) == before
