@@ -127,7 +127,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    2 (K + 2) u sum |x w s|, each row with its routine (``path``) and worst
    error over that bound, each launch counted on the tensor-core path iff
    it took it; the fused GEMM (K1) equals K2 bitwise on bf16 x at a
-   2048-deep qwen-width weight (both on the SIMT routine).
+   2048-deep qwen-width weight (both on the tensor-core routine, each
+   launch counted there).  K4's edges include the split of the ring across
+   blocks (``decode_attention.k4_plan``, each row with its ``plan``): pos at
+   the blocks' edges, hd 96/160/256, 4 channel groups, pos past S, and pos
+   < 0, which must give NaN as the plain version does.
 4c. The LM serving path: ``serving.init_deployed_model(get_config(
    "qwen1.5-4b"), seed=0)`` on the card (40 layers, d_model 2560, vocab
    151936; at this width every linear is per-group), then
@@ -157,9 +161,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 5b. LM times (host clock, a synchronize after each engine step): prefill
    ms per admission and decode-step ms (medians), tokens per second of the
    trace, resident KV bytes, per kv_bits; one profiled decode step (4 slots
-   at position 400): device busy time, idle share, top kernels.  K4 at the
-   decode shape (positions 256-540 of the 1024 ring), its plain version
-   and ``F.scaled_dot_product_attention`` on the dequantized bf16 ring (the
+   at position 400): device busy time, idle share, top kernels, device
+   launches (``kernels``).  K4 at the decode shape (positions 256-540 of the
+   1024 ring, and all 4 slots at 1023; each row with its ``plan``), its
+   plain version and ``F.scaled_dot_product_attention`` on the dequantized
+   bf16 ring (the
    library yardstick, never used by the port), bound: the bytes of the
    entries <= pos with their scales, q and the output, over 3.35 TB/s.  K2
    at every group shape of one decode step (M = 4) and one prefill forward
@@ -184,7 +190,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    output one bf16 ulp more, each row with its routine (the tensor cores at
    bf16 compute, tile_n >= 16) and each launch counted on it iff it took
    it.  K2's expert axis equals per-expert K2 launches bitwise at
-   ``we_gate``'s group shapes (16 experts), on both routines.
+   ``we_gate``'s group shapes (16 experts), on both routines.  The fused
+   GEMM (K1) at bf16 compute (``[k1-bf16]`` rows, each with its routine,
+   ``path``, and ``worst_err_over_bound``): layer 0's ``wq_b`` (M 1, 4, 9),
+   ``wkv_b`` (M 70 and 4 x 512, every cached latent of the 4 slots) and the
+   shared expert's ``w_down`` (M 4, 8), and edges (tile_n 16, 32, 128, Kp
+   300 to 2044), within 2 (K + 2) u sum |x w s|, each launch counted on the
+   tensor-core path iff it took it, and equal to K2 bitwise on the same
+   bf16 x.
 4d. The MoE + MLA serving path: ``serving.init_deployed_model`` of
    ``get_config("deepseek-v3-671b")`` with its depth cut to 2 layers
    (``dataclasses.replace``; every width as published: d_model 7168, 128
@@ -198,8 +211,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    once per precision group of every per-group linear and stack (the
    expert axis: 2 x 3 launches a layer for ``we_gate``/``we_up``, never one
    per expert) and K1 once per fused linear, every K3 launch and every K2
-   launch past K_SINGLE_STEP_MAX on the tensor-core routine; each
-   sub-layer (MLA
+   launch past K_SINGLE_STEP_MAX and every K1 launch on the tensor-core
+   routine; each sub-layer (MLA
    attention, MoE FFN) of each block of a run's first 3 decode steps and
    of the prefills before them within 2^-5 x max(1, max|y|) of the plain
    backend on the card on the same input, the plain MLA decode fed the
@@ -218,7 +231,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    yardstick, never used by the port), the bound max(bytes / 3.35 TB/s,
    2 E M K N / 989 TFLOP/s bf16), x and y counted at 2 bytes.  K2's expert
    axis over one decode step (``we_gate``/``we_up``'s groups at M 8) against
-   the same yardsticks.
+   the same yardsticks.  K1 at deepseek's ``wq_b`` (M 4, Kp 1536, N 24576),
+   ``wkv_b`` (M 2048, Kp 512, N 32768) and shared ``w_down`` (M 4, Kp 2048,
+   N 7168) at bf16 (``[times] K1 deepseek`` rows): its tensor-core routine,
+   its SIMT routine (f32 compute on the same bf16 values, the earlier
+   design), its plain version, a bf16 ``torch.matmul`` on the bf16-rounded
+   dequantized weight, the bound max(bytes / 3.35 TB/s, 2 M N K / 989
+   TFLOP/s bf16), each with its timer.
 3e. The fused Eq. 5 weight mixture (K6) through the kernel API, run after
    phase 5 (before 3c): its path is ``ops.fused_mix`` on every SEARCH-phase
    weight of the four MLPerf-Tiny models, flattened to ``(c_out, -1)`` as
@@ -241,7 +260,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and the f32 output written once and 2 + 5 |P| operations an element;
    summed over a block's seven linears.  No single PyTorch call computes
    the mixture, so there is no library yardstick.
-6. The kernel summary line (K1 at the resnet8 shapes, K2 over one
+6. The kernel summary line (K1 at the resnet8 shapes with deepseek's three
+   K1 shapes beside them and the launches of both paths, K2 over one
    qwen1.5-4b decode step with its SIMT routine's time, its prefill forward
    and its expert axis over one deepseek-v3 decode step beside it, K4 at the qwen decode shape, K5 over one resnet8 int8
    training step, K3 at deepseek-v3's ``we_down`` decode shape, K6 over one
@@ -572,7 +592,13 @@ def lm_serving(dev, card, ops, gen):
     edge = [(4, 20, 1, 128, 1024, 8, [300, 511, 0, 1023]),
             (4, 20, 1, 128, 1024, (2, 4, 8), [0, 1023, 512, 77]),
             (2, 2, 4, 64, 1000, 4, [999, 37]), (2, 2, 16, 128, 77, (2, 8), [76, 5]),
-            (2, 4, 1, 128, 40, (2, 4, 8), [39, 33]), (1, 3, 3, 16, 12, (2, 4, 8), [0])]
+            (2, 4, 1, 128, 40, (2, 4, 8), [39, 33]), (1, 3, 3, 16, 12, (2, 4, 8), [0]),
+            # the ring's split across blocks: block edges (P 3 at 4 x 20 heads, 32-token
+            # tiles), hd 96/160/256, 4 groups, pos past S, pos < 0 (NaN, as the plain)
+            (4, 20, 1, 128, 1024, (2, 4, 8), [95, 96, 191, 192]),
+            (2, 8, 8, 96, 200, (2, 8), [250, 63]), (2, 2, 2, 160, 129, (2, 4, 4, 8), [128, 31]),
+            (2, 1, 8, 256, 64, (4, 8), [-1, 33])]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for B, KV, rep, hd, S, kv_bits, pos in edge:
         spec = kvq.spec_for(kv_bits, hd)
         k, v = (torch.from_numpy(gen.standard_normal((B, KV, S, hd)).astype(np.float32)).to(dev)
@@ -580,6 +606,7 @@ def lm_serving(dev, card, ops, gen):
         kp, ks = kvq.quant_channelwise(k, spec)
         vp, vs = kvq.quant_channelwise(v, spec)
         p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        live = p >= 0
         for q_dtype in (torch.float32, torch.bfloat16):
             q = torch.from_numpy(gen.standard_normal((B, KV, rep, hd)).astype(np.float32)
                                  ).to(dev).to(q_dtype)
@@ -587,16 +614,18 @@ def lm_serving(dev, card, ops, gen):
                 y = datt.decode_attention(q, kp, ks, vp, vs, p, spec.bits, spec.sizes, out_dtype)
                 ref = datt.decode_attention_plain(q, kp, ks, vp, vs, p, spec.bits, spec.sizes,
                                                   out_dtype)
-                bound = datt.error_bound(q, kvq.dequant_channelwise(kp, ks, spec, out_dtype),
-                                         kvq.dequant_channelwise(vp, vs, spec, out_dtype),
-                                         p, out_dtype)
-                d = (y.double() - ref.double()).abs()
+                bound = datt.error_bound(
+                    q[live], kvq.dequant_channelwise(kp, ks, spec, out_dtype)[live],
+                    kvq.dequant_channelwise(vp, vs, spec, out_dtype)[live], p[live], out_dtype)
+                d = (y[live].double() - ref[live].double()).abs()
                 row = dict(case=f"B{B} KV{KV} rep{rep} hd{hd} S{S} kv{kv_bits} pos{pos}",
                            q=str(q_dtype), out=str(out_dtype),
+                           plan=datt.k4_plan(B, KV, rep, hd, S, sms),
                            max_abs_err=float(d.max()), worst_err_over_bound=float((d / bound).max()),
                            unequal_share=float((d > 0).double().mean()))
                 k4_rows.append(row)
-                check(bool(torch.isfinite(y).all()) and row["worst_err_over_bound"] <= 1.0,
+                check(bool(torch.isfinite(y[live]).all()) and row["worst_err_over_bound"] <= 1.0
+                      and bool(torch.isnan(y[~live]).all() and torch.isnan(ref[~live]).all()),
                       f"K4 off its plain version: {row}")
     torch.cuda.synchronize()
     for row in k4_rows:
@@ -662,13 +691,16 @@ def lm_serving(dev, card, ops, gen):
     mma_before = ops.mma_launch_counts()
     fused_eq = torch.equal(small.matmul(xb, "cuda", torch.bfloat16),
                            small.matmul(xb, "cuda-pergroup", torch.bfloat16))
+    mma_after = ops.mma_launch_counts()
     check(fused_eq, "K1 != K2 bitwise on bf16 inputs")
-    check(ops.mma_launch_counts() == mma_before, "K2 at Kp 2048 left the SIMT routine")
+    check(mma_after["quant_matmul_fused"] - mma_before["quant_matmul_fused"] == 1
+          and mma_after["quant_matmul"] - mma_before["quant_matmul"] == len(small.bits),
+          "K1 and K2 at bf16 and Kp 2048 must both take the tensor-core routine")
     worst = max(r["worst_err_over_bound"] for r in k2_rows)
     log(f"[k2-bf16] {len(k2_rows)} products within 2 (K + 2) u sum |x w s| of the plain "
         f"version (worst {worst:.4g} of it; {sum(r['path'] == 'mma' for r in k2_rows)} on the "
         f"tensor-core path); K1 == K2 bitwise on bf16 x at 2048 -> 2560 (tile_n "
-        f"{small.tile_n}, both SIMT)")
+        f"{small.tile_n}, both on the tensor cores)")
     report["k2_bf16_checks"] = k2_rows
 
     # -- 4c. the main path: ServingEngine(backend="cuda") for each kv_bits ------
@@ -827,17 +859,21 @@ def lm_serving(dev, card, ops, gen):
         del eng
     report["times"] = times
 
-    # K4 at the path's decode shape: 4 slots at positions 256-540 of a 1024 ring
+    # K4 at the path's decode shape: 4 slots at positions 256-540 of a 1024 ring,
+    # and with every slot at the ring's end (pos 1023)
     kvh, hd = cfg.n_kv_heads, cfg.head_dim
     k4_times = {}
-    for kv_bits in (8, (2, 4, 8)):
+    plan = datt.k4_plan(LM_SLOTS, kvh, 1, hd, LM_MAX_LEN,
+                        torch.cuda.get_device_properties(dev).multi_processor_count)
+    for kv_bits, pos_list, key in ((8, [256, 380, 470, 540], "8"),
+                                   ((2, 4, 8), [256, 380, 470, 540], "(2, 4, 8)"),
+                                   ((2, 4, 8), [LM_MAX_LEN - 1] * LM_SLOTS, "(2, 4, 8) pos 1023")):
         spec = kvq.spec_for(kv_bits, hd)
         k, v = (torch.from_numpy(gen.standard_normal((LM_SLOTS, kvh, LM_MAX_LEN, hd))
                                  .astype(np.float32)).to(dev) for _ in range(2))
         kp, ks = kvq.quant_channelwise(k, spec)
         vp, vs = kvq.quant_channelwise(v, spec)
         q = torch.from_numpy(gen.standard_normal((LM_SLOTS, kvh, 1, hd)).astype(np.float32)).to(dev)
-        pos_list = [256, 380, 470, 540]
         p = torch.tensor(pos_list, dtype=torch.int32, device=dev)
         kf = kvq.dequant_channelwise(kp, ks, spec, torch.bfloat16)
         vf = kvq.dequant_channelwise(vp, vs, spec, torch.bfloat16)
@@ -849,18 +885,17 @@ def lm_serving(dev, card, ops, gen):
                                                             spec.sizes),
                "library": lambda: F.scaled_dot_product_attention(qb, kf, vf, attn_mask=mask)}
         row = dict(B=LM_SLOTS, KV=kvh, rep=1, hd=hd, S=LM_MAX_LEN, pos=pos_list,
-                   kv_bits=str(kv_bits))
-        for key, fn in fns.items():
-            row[f"{key}_loop_ms"] = cuda_ms(fn, iters=50)
-            dev_ms = device_ms(fn, iters=20)
-            row[f"{key}_ms"] = row[f"{key}_loop_ms"] if dev_ms is None else dev_ms
-            row[f"{key}_timer"] = "events" if dev_ms is None else "profiler"
+                   kv_bits=str(kv_bits), plan=dict(P=plan, blocks=LM_SLOTS * kvh * plan))
+        for name, fn in fns.items():
+            row[f"{name}_loop_ms"] = cuda_ms(fn, iters=50)
+            row[f"{name}_ms"], row[f"{name}_timer"] = kernel_ms(
+                fn, 20, row[f"{name}_loop_ms"], graph=name != "plain")
         nbytes = k4_bytes(LM_SLOTS, kvh, 1, hd, spec.packed_bytes, spec.n_groups, pos_list,
                           LM_MAX_LEN, 4, 2)
         flops = 4.0 * sum(pp + 1 for pp in pos_list) * kvh * hd
         row.update(bytes=nbytes, bytes_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
                    ops_ms=flops / PEAK_F32_FLOP_PER_S * 1e3)
-        k4_times[str(kv_bits)] = row
+        k4_times[key] = row
         log("[times] K4 " + json.dumps(row) + f" | {card}")
     report["k4_times"] = k4_times
 
@@ -916,7 +951,7 @@ def lm_serving(dev, card, ops, gen):
     report["k2_qwen_decode_step"] = k2_step
     report["k2_qwen_prefill_forward"] = k2_prefill
 
-    k4_row = k4_times["(2, 4, 8)"]
+    k4_row, k4_end = k4_times["(2, 4, 8)"], k4_times["(2, 4, 8) pos 1023"]
     k4 = dict(name="decode_attention", route="cuda",
               source="src/repro_torch/kernels/csrc/decode_attention.cu",
               replaces="src/repro/kernels/decode_attention.py:82",
@@ -925,7 +960,10 @@ def lm_serving(dev, card, ops, gen):
               ms=k4_row["k4_ms"], plain_ms=k4_row["plain_ms"],
               bound_ms=max(k4_row["bytes_ms"], k4_row["ops_ms"]),
               bound_by="bytes" if k4_row["bytes_ms"] >= k4_row["ops_ms"] else "operations",
-              library_ms=k4_row["library_ms"])
+              library_ms=k4_row["library_ms"], plan=k4_row["plan"],
+              pos_1023=dict(ms=k4_end["k4_ms"], plain_ms=k4_end["plain_ms"],
+                            library_ms=k4_end["library_ms"],
+                            bound_ms=max(k4_end["bytes_ms"], k4_end["ops_ms"])))
     k2 = dict(ms=k2_step["k2_ms"], plain_ms=k2_step["plain_ms"], bound_ms=k2_step["bound_ms"],
               bound_by=k2_step["bound_by"], library_ms=k2_step["library_ms"],
               launches=lm_launches["quant_matmul"], mma_launches=lm_mma["quant_matmul"],
@@ -1202,6 +1240,56 @@ def moe_serving(dev, card, ops, gen):
         log("[k2-experts] " + json.dumps(row))
     report["k2_expert_checks"] = k2e_rows
 
+    # K1 at bf16 compute (its tensor-core routine wherever tile_n >= 16, as on
+    # every deepseek weight with the fused layout) against its plain version,
+    # within 2 (K + 2) u sum |x w s|: layer 0's MLA wq_b and wkv_b and the shared
+    # expert's w_down at their path's rows (wkv_b: every cached latent of the 4
+    # slots) and at edges; each launch counted on its routine, and K1 == K2
+    # bitwise on the same bf16 x (both on the tensor cores)
+    attn0 = dparams["blocks"][0]["attn"]
+    k1_sites = {"wq_b": attn0["wq_b"]["w"], "wkv_b": attn0["wkv_b"]["w"],
+                "w_down": ffn0["shared"]["w_down"]["w"]}
+    check(all(qt.fused_packed is not None and qt.tile_n == 128 for qt in k1_sites.values()),
+          "wq_b, wkv_b and the shared w_down: the fused layout at tile 128")
+    k1_cases = [(n, k1_sites[n], m) for n, ms in (("wq_b", (1, DS_SLOTS, 9)),
+                                                   ("wkv_b", (70, DS_SLOTS * DS_MAX_LEN)),
+                                                   ("w_down", (DS_SLOTS, 8)))
+                for m in ms]
+    for label, c_in, c_out, tile_n in (("tile16 K300", 300, 96, 16), ("tile32 K2044", 2044, 64, 32),
+                                       ("tile128 K512 N200", 512, 200, 128)):
+        qt = serving.init_deployed_linear(g, c_in, c_out, small_cfg, tile_n=tile_n, device=dev)["w"]
+        k1_cases += [(label, qt, m) for m in (1, 9, 70)]
+
+    def k1_check(label, qt, m):
+        Kp = -(-qt.c_in // qmk.FUSED_K_ALIGN) * qmk.FUSED_K_ALIGN
+        x = rand((m, qt.c_in), torch.bfloat16)
+        path = qmk.fused_2d_path(qt.tile_n, torch.bfloat16)
+        before = qmk.quant_matmul_fused_2d.mma_launches
+        got = qmk.quant_matmul_fused_2d(x, qt.fused_packed, qt.fused_table, qt.fused_scales,
+                                        qt.tile_bits, Kp=Kp, tile_n=qt.tile_n,
+                                        compute_dtype=torch.bfloat16)
+        mma = qmk.quant_matmul_fused_2d.mma_launches - before
+        ref = qmk.quant_matmul_fused_2d_plain(x.float(), qt.fused_packed, qt.fused_scales,
+                                              qt.tile_bits, Kp=Kp, tile_n=qt.tile_n)
+        w = qmk.fused_dense_int(qt.fused_packed, qt.tile_bits, Kp, qt.tile_n).float()
+        xa = torch.nn.functional.pad(x.float().abs(), (0, Kp - qt.c_in))
+        mag = (xa @ w.abs().T).double() * qt.fused_scales.double().abs()
+        d = (got.double() - ref.double()).abs()
+        r = float((d / (2 * (Kp + 2) * U * mag + 1e-30)).max())
+        same = torch.equal(qt.matmul(x, "cuda", torch.bfloat16),
+                           qt.matmul(x, "cuda-pergroup", torch.bfloat16))
+        row = dict(case=label, M=m, Kp=Kp, N=qt.c_out, tile_n=qt.tile_n, path=path,
+                   max_abs_err=float(d.max()), worst_err_over_bound=r, k1_equals_k2=same)
+        check(bool(torch.isfinite(got).all()) and r <= 1.0 and mma == (path == "mma") and same,
+              f"K1 (bf16 x) off its plain version, its path or K2: {row}")
+        return row
+
+    k1_rows = [k1_check(*case) for case in k1_cases]
+    torch.cuda.synchronize()
+    for row in k1_rows:
+        log("[k1-bf16] " + json.dumps(row))
+    report["k1_bf16_checks"] = k1_rows
+
     # -- 4d. the main path: ServingEngine(backend="cuda") for each kv_bits -------
     layers = dparams["blocks"]
     linears = [dl["w"] for blk in layers for dl in blk["attn"].values() if "w" in dl]
@@ -1217,7 +1305,10 @@ def moe_serving(dev, card, ops, gen):
           and sum(len(qt.bits) for qt in stacks if qt.fused_packed is None)
           == 2 * 3 * cfg.n_layers, f"launches per step: {want}")
     # every K2 launch past K_SINGLE_STEP_MAX and every K3 launch on the tensor cores
-    want_mma = {"quant_matmul": sum(
+    want_mma = {"quant_matmul_fused": sum(
+                    qmk.fused_2d_path(qt.tile_n, torch.bfloat16) == "mma"
+                    for qt in linears if qt.fused_packed is not None),
+                "quant_matmul": sum(
                     qmk.pergroup_path(p.shape[-1] * qz.pack_factor(b), torch.bfloat16) == "mma"
                     for qt in linears + stacks if qt.fused_packed is None
                     for b, p in zip(qt.bits, qt.packed)),
@@ -1225,8 +1316,9 @@ def moe_serving(dev, card, ops, gen):
                     qmk.fused_3d_path(qt.tile_n, torch.bfloat16) == "mma"
                     for qt in stacks if qt.fused_packed is not None)}
     check(want_mma["quant_matmul_fused_batched"] == cfg.n_layers
-          and want_mma["quant_matmul"] >= 2 * 3 * cfg.n_layers,
-          f"tensor-core launches per step: {want_mma}")
+          and want_mma["quant_matmul"] >= 2 * 3 * cfg.n_layers
+          and want_mma["quant_matmul_fused"] == want["quant_matmul_fused"] == 3 * cfg.n_layers,
+          f"tensor-core launches per step (every K1 launch among them): {want_mma}")
     reqs, arrivals = ds_trace(cfg)
     log(f"[moe] trace: {len(reqs)} requests, prompts {[len(r.tokens) for r in reqs]}, "
         f"max_tokens {[r.max_tokens for r in reqs]}, arrivals {arrivals}; launches per engine "
@@ -1427,6 +1519,44 @@ def moe_serving(dev, card, ops, gen):
     del wb
     report["k3_times"] = {str(k): v for k, v in k3_times.items()}
 
+    # K1 at deepseek's three fused linears at bf16: wq_b and the shared w_down at
+    # decode (M 4), wkv_b over every cached latent of the 4 slots (M 4 x 512):
+    # its tensor-core routine, its SIMT routine (f32 compute on the same bf16
+    # values, the earlier design), its plain version, a bf16 matmul on the
+    # bf16-rounded dequantized weight (the library yardstick), and the bound
+    # max(bytes / 3.35 TB/s, 2 M N K / 989 TFLOP/s), x and y at 2 bytes
+    k1_times = {}
+    for name, m in (("wq_b", DS_SLOTS), ("wkv_b", DS_SLOTS * DS_MAX_LEN), ("w_down", DS_SLOTS)):
+        qt = k1_sites[name]
+        Kp = -(-qt.c_in // qmk.FUSED_K_ALIGN) * qmk.FUSED_K_ALIGN
+        xb = rand((m, qt.c_in), torch.bfloat16)
+        x = xb.float()
+        wbq = qt.dequantize().to(torch.bfloat16)
+        fargs = (qt.fused_packed, qt.fused_table, qt.fused_scales, qt.tile_bits)
+        fns = {"k1": lambda: qmk.quant_matmul_fused_2d(xb, *fargs, Kp=Kp, tile_n=qt.tile_n,
+                                                       compute_dtype=torch.bfloat16),
+               "simt": lambda: qmk.quant_matmul_fused_2d(x, *fargs, Kp=Kp, tile_n=qt.tile_n),
+               "plain": lambda: qmk.quant_matmul_fused_2d_plain(
+                   x, qt.fused_packed, qt.fused_scales, qt.tile_bits, Kp=Kp, tile_n=qt.tile_n),
+               "library": lambda: torch.matmul(xb, wbq.T)}
+        row = dict(site=name, M=m, Kp=Kp, N=qt.c_out, tile_n=qt.tile_n, T=len(qt.tile_bits),
+                   path=qmk.fused_2d_path(qt.tile_n, torch.bfloat16))
+        for key, fn in fns.items():
+            iters = 3 if key in ("plain", "simt") else 10
+            row[f"{key}_loop_ms"] = cuda_ms(fn, iters=iters, warmup=1)
+            row[f"{key}_ms"], row[f"{key}_timer"] = kernel_ms(
+                fn, iters, row[f"{key}_loop_ms"], graph=key != "plain")
+        nb = (2 * m * qt.c_in + qt.fused_packed.numel() + 4 * qt.fused_scales.numel()
+              + 4 * qt.fused_table.numel() + 2 * m * qt.c_out)
+        row.update(bytes=nb, bytes_ms=nb / PEAK_BYTES_PER_S * 1e3,
+                   ops_ms=2.0 * m * qt.c_in * qt.c_out / PEAK_BF16_FLOP_PER_S * 1e3)
+        row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+        row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
+        k1_times[name] = row
+        log("[times] K1 deepseek " + json.dumps(row) + f" | {card}")
+        del wbq
+    report["k1_times"] = k1_times
+
     # K2's expert axis over one decode step: we_gate's and we_up's groups at
     # M = 8 (each shape timed once, counted as often as a step launches it)
     k2e_step = {"k2_ms": 0.0, "simt_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
@@ -1478,6 +1608,13 @@ def moe_serving(dev, card, ops, gen):
               prefill_m40=dict(ms=r40["k3_ms"], simt_ms=r40["simt_ms"],
                                library_ms=r40["library_ms"],
                                bound_ms=max(r40["bytes_ms"], r40["ops_ms"])))
+    k1_deepseek = dict(max_abs_err=max(r["max_abs_err"] for r in k1_rows),
+                       launches=path_launches["quant_matmul_fused"],
+                       mma_launches=path_mma["quant_matmul_fused"],
+                       **{name: dict((k, r[k]) for k in ("M", "Kp", "N", "k1_ms", "k1_timer",
+                                                         "simt_ms", "plain_ms", "library_ms",
+                                                         "bound_ms", "bound_by"))
+                          for name, r in k1_times.items()})
     k2_experts = dict(bitwise_equal_to_per_expert_launches=all(r["bitwise"] for r in k2e_rows),
                       launches_per_decode_step=2 * 3 * cfg.n_layers,
                       decode_step_ms=k2e_step["k2_ms"], simt_ms=k2e_step["simt_ms"],
@@ -1486,7 +1623,7 @@ def moe_serving(dev, card, ops, gen):
                       max_abs_err=max(r["max_abs_err"] for r in k2e_rows))
     del dparams
     torch.cuda.empty_cache()
-    return report, k3, k2_experts, path_launches, path_mma
+    return report, k3, k2_experts, k1_deepseek, path_launches, path_mma
 
 # ---------------------------------------------------------------------------
 # The fused Eq. 5 weight mixture (K6) through the kernel API
@@ -2441,7 +2578,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 3d, 4d, 5c. the MoE serving path: deepseek-v3-671b at full width, 2 layers
-    moe_report, k3_moe, k2_experts, moe_launches, moe_mma = moe_serving(dev, card, ops, gen)
+    moe_report, k3_moe, k2_experts, k1_moe, moe_launches, moe_mma = moe_serving(dev, card, ops,
+                                                                                gen)
     report["moe"] = moe_report
 
     # -- 6. summary --------------------------------------------------------------
@@ -2452,9 +2590,13 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/quant_matmul.cu",
              replaces="src/repro/kernels/quant_matmul.py:193",
              launches=launches["quant_matmul_fused"] + moe_launches["quant_matmul_fused"],
-             max_abs_err=max(errs["fused"]),
+             mma_launches=moe_mma["quant_matmul_fused"],
+             max_abs_err=max(max(errs["fused"]), k1_moe["max_abs_err"]),
              ms=total("fused_ms"), plain_ms=total("fused_plain_ms"), bound_ms=fb,
-             bound_by=fby, library_ms=total("library_ms")),
+             bound_by=fby, library_ms=total("library_ms"),
+             launches_by_path=dict(tinyml=launches["quant_matmul_fused"],
+                                   deepseek=moe_launches["quant_matmul_fused"]),
+             deepseek=k1_moe),
         dict(name="quant_matmul_pergroup", route="cuda",
              source="src/repro_torch/kernels/csrc/quant_matmul.cu",
              replaces="src/repro/kernels/quant_matmul.py:119",

@@ -388,7 +388,7 @@ class QTensor:
             return kops.quant_matmul_fused(
                 x, self.fused_packed, self.fused_table, self.fused_scales,
                 self.fused_perm, self.tile_bits, self.tile_n, self.c_in,
-                self.c_out, out_dtype=compute_dtype)
+                self.c_out, compute_dtype=compute_dtype, out_dtype=compute_dtype)
         if backend in ("cuda", "cuda-pergroup"):
             # fused-layout groups are packed at the common Kp; the kernel
             # reads x's missing columns as zeros (the reference pads x)

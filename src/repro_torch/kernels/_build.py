@@ -38,20 +38,21 @@ SIGNATURES = {
         "qmm_fused_experts_f32": [_P, _LL, _I, _I, _P, _LL, _P, _P, _I, _I, _I, _I, _P, _P],
         # x, M, Kx, K, packed, N, scale, bits, E, mf, wk, wn, out, stream
         "qmm_pergroup_mma": [_P, _LL, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
-        # x, M, Kx, Kp, packed, expert_bytes, table, scales, T, tile_n, E, mf,
-        # wk, wn, out, stream
-        "qmm_fused_experts_mma": [_P, _LL, _I, _I, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _I,
-                                  _P, _P],
+        # x, M, Kx, Kp, packed, expert_bytes, table, scales, T, tile_n, E, dq,
+        # mf, wk, wn, out, stream
+        "qmm_fused_mma": [_P, _LL, _I, _I, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _P, _P],
     },
     "int8_matmul.cu": {
         # a, b, sa, sb, M, N, K, bn, kchunk, ws, out, stream
         "i8mm_f32": [_P, _P, _P, _P, _LL, _I, _LL, _I, _LL, _P, _P, _P],
     },
     "decode_attention.cu": {
-        # q, q_bf16, k_packed, k_scales, v_packed, v_scales, pos, scratch, out,
-        # out_bf16, B, KV, rep, hd, S, NB, G, bits[4], sizes[4], sqrt_hd, stream
-        "decode_attention_f32acc": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I]
-                                   + [_I] * 15 + [_F, _P],
+        # q, q_bf16, k_packed, k_scales, v_packed, v_scales, pos, scratch, part,
+        # out, out_bf16, B, KV, rep, hd, S, NB, G, bits[4], sizes[4], sqrt_hd, P,
+        # stream
+        "decode_attention_f32acc": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I]
+                                   + [_I] * 15 + [_F, _I, _P],
     },
     "fake_quant.cu": {
         # w, w_bf16, gamma, alpha, N, K, nb, b0, b1, b2, out, stream

@@ -1,9 +1,9 @@
 // Packed mixed-precision GEMMs for Hopper (sm_90a): x in (f32 for the SIMT
 // routine, bf16 for the tensor-core one), f32 out.
 //
-// Two device routines serve five kernels.
+// Two device routines serve six kernels.
 //
-// `tile_gemm` (SIMT, f32 FMA chains) serves:
+// `simt_tile` (SIMT, f32 FMA chains) serves, at f32 compute:
 // * `fused_kernel`, the Pallas kernel `_fused_kernel` of
 //   src/repro/kernels/quant_matmul.py in its 2-D form (`quant_matmul_fused_2d`,
 //   dequant_first=False): one launch over a whole deployed weight whose
@@ -18,31 +18,56 @@
 //   widths below 16: each weight tile is round_cd(w_int * s) before the
 //   product, every expert's ragged buffer under ONE tile table.
 // Each output's K terms are summed by one thread in ascending k with fmaf
-// from 0, then scaled (not for the expert kernel, whose tiles are scaled
-// first).  K1 and K2 run the same routine, so a weight served through the
-// fused layout equals its per-group form bitwise: the port's version of the
-// reference's contract, gated in chip_smoke.py and the tests.  That is why
-// K1, and K2 wherever the padded K is <= K_SINGLE_STEP_MAX (2048, the
-// deepest fused layout), keep this routine: the tinyml models (f32) and
-// the LM paths' K1 linears depend on the two being equal.  It walks K in
-// 32-deep chunks through shared memory with the next chunk's loads in
-// flight; a 64-row token tile.
+// from 0, then scaled with __fmul_rn (not for the expert kernel, whose tiles
+// are scaled first).  That chain is the whole contract: whatever the block
+// shape, K1 and K2 give a weight served through the fused layout and its
+// per-group form the same bits (the reference's contract, gated in
+// chip_smoke.py and the tests), and the tinyml layers stay within 1e-4 of
+// FROZEN.  No TF32, no split of K.
 //
-// `skinny_mma_tile` (bf16 tensor cores, `mma.sync.m16n8k16`) serves the LM
-// paths at bf16 compute:
-// * `pergroup_mma_kernel`: K2 where K > K_SINGLE_STEP_MAX (every qwen1.5-4b
-//   linear at full width, deepseek-v3's we_gate/we_up expert stacks, its
-//   MLA projections with c_in 7168 or 16384 and lm_head), one group a
-//   launch, the expert axis on `blockIdx.z` as above;
+// What bounds it.  The tinyml GEMMs (resnet8 at batch 64: M 4096-65536 rows
+// of im2col patches, Kp 28-576, N 10-64) read x once and do at most 64
+// products a value, so their bound is x's bytes; the FMAs come second.
+// What holds the routine is the shared memory that feeds the FMAs: a
+// thread's float4 read costs the SM 4 cycles, and the design spends 2 bytes
+// of it an FMA where the SM serves 1 (a 4 x 4 register tile; 8 x 8 would
+// leave resnet8's M 4096-16384 layers too few blocks for 132 SMs).  The
+// design:
+// * a register tile of 4 rows x 4 channels a thread, read from shared
+//   memory as float4 (4 k values of a row of x; 4 channels of w), so a
+//   thread does 64 FMAs for 8 vector loads, broadcast across the threads
+//   that share a row or a channel quad;
+// * block shapes per TILE_N: 256 threads, TILE_N / 4 of them across the
+//   channels and the rest across rows, 4 rows a thread (1 below 16
+//   channels), so narrow tiles take 256 rows a block; fewer rows a thread,
+//   which would give resnet8's M 4096-16384 layers more blocks than SMs,
+//   measured slower at every resnet8 shape;
+// * x staged by cp.async (16-byte copies where rows are 16-byte aligned,
+//   else 4-byte ones, zero-filled past the edges) into two stages of
+//   row-major shared memory (rows padded to 36 floats: the float4 reads of
+//   eight rows are conflict-free), the packed bytes through registers and
+//   unpacked once a chunk into a k-major tile; one barrier a 32-deep chunk,
+//   the next chunk in flight during the FMAs.
+//
+// `skinny_mma_tile` (bf16 tensor cores, `mma.sync.m16n8k16`) serves every
+// GEMM at bf16 compute with whole 16-channel fragments:
+// * `fused_mma_kernel`: K1 at tile widths >= 16 (every LM weight with the
+//   fused layout: deepseek-v3's wq_b, wkv_b, shared w_down), scaled after
+//   the sum as K1 is;
+// * `pergroup_mma_kernel`: K2 at every K (every qwen1.5-4b linear at full
+//   width, deepseek-v3's we_gate/we_up expert stacks, its MLA projections
+//   with c_in 7168 or 16384 and lm_head), one group a launch, the expert
+//   axis on `blockIdx.z` as above;
 // * `fused_experts_mma_kernel`: K3 at tile widths >= 16 (deepseek's
 //   we_down, tile 128), one precision per 16-channel fragment.
-// At decode these GEMMs move their packed bytes once for 4-8 tokens: a
-// deepseek we_down step streams 2.0 GB for 60 GFLOP, qwen's 843 group
-// launches 1.9 GB.  So what bounds them is the bytes, and, for launches of
-// a few MB, the launch latency.  The SIMT routine's 64-row tile held 4-8
-// real rows (8-16x the FMAs the products need) and its blocks walked all of
-// K alone, so it was bound by FMA issue and one block's walk of K.  The
-// design here:
+// A block's sums depend on (bits, K, M) alone, through the plan (below), so
+// a K1 tile and the K2 group it came from sum the same products in the same
+// order: K1 == K2 bitwise at bf16 too.  At decode these GEMMs move their
+// packed bytes once for 4-8 tokens: a deepseek we_down step streams 2.0 GB
+// for 60 GFLOP, qwen's 843 group launches 1.9 GB.  So what bounds them is
+// the bytes, and, for launches of a few MB, the launch latency; MLA's wkv_b
+// over the 2048 cached latents (Kp 512, N 32768) is bound by its products
+// and its 268 MB f32 output.  The design:
 // * Tokens on the narrow side of the product.  A (16 x 16) is 16 output
 //   channels of weight codes, unpacked in registers to bf16 (exact), or for
 //   K3 round_bf16(w_int * s) (__fmul_rn then __float2bfloat16_rn, as
@@ -65,27 +90,30 @@
 // * K split inside the block, deterministically: WK warps take interleaved
 //   chunks of the same 16 channels, each accumulating in its own mma chain
 //   in ascending chunk order; the block adds the WK partial sums in shared
-//   memory in a fixed order (__fadd_rn), then scales (K2) or stores (K3).
+//   memory in a fixed order (__fadd_rn), then scales (K1, K2) or stores (K3).
 //   No atomics.  The plan (MF, WK, WN) is a function of M alone
 //   (`quant_matmul.mma_plan`) and WN (channel warps) does not change any
 //   sum, so a block's result depends on neither E nor the grid: an
-//   expert's slice of an expert-axis launch is its own launch, bit for bit.
-//   At decode a block streams its channels' K at a rate of its own, so a
-//   group of few 64-channel blocks (qwen's N 512-1408 at K 6912) leaves the
-//   card idle; splitting K across blocks would fix the sums' order by the
-//   split, which may not depend on E, and slowed the expert axis: not done.
+//   expert's slice of an expert-axis launch is its own launch, bit for bit,
+//   and a K1 block (WN cut to tile_n / 16) sums as the K2 block of its
+//   channels.  At decode a block streams its channels' K at a rate of its
+//   own, so a group of few 64-channel blocks (qwen's N 512-1408 at K 6912)
+//   leaves the card idle; splitting K across blocks would fix the sums'
+//   order by the split, which may not depend on E, and slowed the expert
+//   axis: not done.
 // Numerics: the products are exact (bf16 x bf16 in f32); the tensor core
 // adds a step's 16 products and the running sum in its own order and
 // rounding, so the result is held to the f32 forward-error bound
-// 2 (K + 2) u sum |x w s| against the plain version, as before.  No TF32
-// anywhere; f32 compute keeps `tile_gemm`.
+// 2 (K + 2) u sum |x w s| against the plain version.  No TF32 anywhere;
+// f32 compute keeps `simt_tile`.
 //
 // Edges handled in the kernels, not by padding: ragged M (rows >= M read
 // as 0 and are not stored), x narrower than K (columns >= Kx read as 0,
 // the reference's zero padding of x), ragged N, tile byte segments at any
-// offset; in the tensor-core path, rows that are not 16-byte aligned are
-// loaded element by element (an edge; the LM shapes are aligned).  Offsets into a stack are 64-bit: one
-// deepseek-v3 we_down stack is 2.0 GB.
+// offset; rows that are not 16-byte aligned are loaded in smaller pieces
+// (an edge: the LM shapes are aligned, the tinyml ones but for conv0's 27
+// columns).  Offsets into a stack are 64-bit: one deepseek-v3 we_down stack
+// is 2.0 GB.
 //
 // C interface (bound with ctypes): each entry point launches on the given
 // stream, allocates nothing and returns cudaGetLastError().
@@ -97,18 +125,47 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBK = 32;  // K chunk staged through shared memory
+constexpr int kBK = 32;  // K chunk of the SIMT routine
 
-// Thread layout for a block that computes BM x TILE_N outputs.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async with zero fill: `bytes` of the source are copied, the rest of
+// the destination is zeroed (bytes = 0 reads nothing).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Block shape of the SIMT routine for TILE_N channels: a thread holds kRM
+// rows x kCN channels.
 template <int TILE_N>
-struct Geom {
-  static constexpr int kThreadsN = TILE_N < 16 ? TILE_N : 16;
-  static constexpr int kCN = TILE_N / kThreadsN;        // columns per thread
+struct Simt {
+  static constexpr int kN = TILE_N;
+  static constexpr int kCN = TILE_N < 4 ? TILE_N : 4;      // channels a thread holds
+  static constexpr int kThreadsN = TILE_N / kCN;
   static constexpr int kThreadsM = kThreads / kThreadsN;
-  static constexpr int kBM = kThreadsM * 4 < 256 ? kThreadsM * 4 : 256;
-  static constexpr int kRM = kBM / kThreadsM;           // rows per thread
-  static constexpr int kXStride = kBM + 1;              // padded: no bank conflicts
-  static constexpr int kXIters = kBM * kBK / kThreads;  // x loads per thread per chunk
+  static constexpr int kRM = TILE_N < 16 ? 1 : 4;           // rows a thread holds
+  static constexpr int kBM = kThreadsM * kRM;               // rows a block: 32 to 256
+  static constexpr int kXStride = kBK + 4;                   // floats a staged x row
+  static constexpr int kXFloats = kBM * kXStride;
+  static constexpr int kWFloats = kBK * TILE_N;
+  static constexpr int kSmem = 2 * (kXFloats + kWFloats) * 4;   // two stages
 };
 
 template <int BITS>
@@ -123,47 +180,28 @@ __device__ __forceinline__ float unpack_value(uint8_t byte, int j) {
   }
 }
 
-// acc[i][j] += x[row i] * w[col j] at one k: the only arithmetic of the
-// K loop, so every output is one ascending fmaf chain.
-template <int TILE_N>
-__device__ __forceinline__ void fma_step(const float* xs, const float* ws, int kk, int tm, int tn,
-                                         float (&acc)[Geom<TILE_N>::kRM][Geom<TILE_N>::kCN]) {
-  using G = Geom<TILE_N>;
-  float xv[G::kRM], wv[G::kCN];
-#pragma unroll
-  for (int i = 0; i < G::kRM; ++i) xv[i] = xs[kk * G::kXStride + tm + i * G::kThreadsM];
-#pragma unroll
-  for (int j = 0; j < G::kCN; ++j) wv[j] = ws[kk * TILE_N + tn + j * G::kThreadsN];
-#pragma unroll
-  for (int i = 0; i < G::kRM; ++i)
-#pragma unroll
-    for (int j = 0; j < G::kCN; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
-}
-
-// Chunk staging.  Every global load of a chunk is issued before any of
-// its values is used (unrolled into registers), and the next chunk's loads
-// are issued before the current chunk's FMAs, so they are in flight while
-// the block computes.
-template <int TILE_N>
-__device__ __forceinline__ void load_x(const float* __restrict__ x, int64_t M, int Kx,
-                                       int64_t m0, int k0, float (&xr)[Geom<TILE_N>::kXIters]) {
-  using G = Geom<TILE_N>;
-#pragma unroll
-  for (int it = 0; it < G::kXIters; ++it) {
-    const int idx = threadIdx.x + it * kThreads;
-    const int64_t m = m0 + idx / kBK;
-    const int k = k0 + idx % kBK;
-    xr[it] = (m < M && k < Kx) ? x[m * Kx + k] : 0.0f;
-  }
-}
-
-template <int TILE_N>
-__device__ __forceinline__ void store_x(float* xs, const float (&xr)[Geom<TILE_N>::kXIters]) {
-  using G = Geom<TILE_N>;
-#pragma unroll
-  for (int it = 0; it < G::kXIters; ++it) {
-    const int idx = threadIdx.x + it * kThreads;
-    xs[(idx % kBK) * G::kXStride + idx / kBK] = xr[it];   // transposed to k-major
+// Stage x rows [m0, m0 + BM) x columns [k0, k0 + kBK) into a row-major tile:
+// rows >= M and columns >= Kx zero.  x_vec: Kx % 4 == 0 and x 16-byte aligned.
+template <class G>
+__device__ __forceinline__ void fill_x_simt(float* xs, const float* __restrict__ x, int64_t M,
+                                            int Kx, int64_t m0, int k0, bool x_vec) {
+  if (x_vec) {
+    constexpr int kUnits = kBK / 4;
+    for (int i = threadIdx.x; i < G::kBM * kUnits; i += kThreads) {
+      const int r = i / kUnits, c = i % kUnits;
+      const int64_t m = m0 + r;
+      const int k = k0 + 4 * c;
+      const bool ok = m < M && k < Kx;
+      cp_async16(xs + r * G::kXStride + 4 * c, ok ? x + m * Kx + k : x, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < G::kBM * kBK; i += kThreads) {
+      const int r = i / kBK, c = i % kBK;
+      const int64_t m = m0 + r;
+      const int k = k0 + c;
+      const bool ok = m < M && k < Kx;
+      cp_async4(xs + r * G::kXStride + c, ok ? x + m * Kx + k : x, ok ? 4 : 0);
+    }
   }
 }
 
@@ -188,8 +226,8 @@ __device__ __forceinline__ void load_w(const uint8_t* __restrict__ w, int w_row_
   }
 }
 
-// Unpacked weights to shared memory.  DEQUANT_FIRST (the expert kernel)
-// stores w_int * scale[n] instead, rounded to bf16 when round_bf16.
+// Unpacked weights to the k-major tile ws[k][n].  DEQUANT_FIRST (the expert
+// kernel) stores w_int * scale[n] instead, rounded to bf16 when round_bf16.
 template <int BITS, int TILE_N, bool DEQUANT_FIRST>
 __device__ __forceinline__ void store_w(float* ws,
                                         const uint8_t (&wr)[WChunk<BITS, TILE_N>::kIters],
@@ -215,58 +253,115 @@ __device__ __forceinline__ void store_w(float* ws,
   }
 }
 
+// The kCN channel values of a thread at one k, from the k-major tile.
+template <int CN>
+__device__ __forceinline__ void w_at(const float* wk, float (&wv)[CN]) {
+  if constexpr (CN == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(wk);
+    wv[0] = v.x; wv[1] = v.y; wv[2] = v.z; wv[3] = v.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < CN; ++j) wv[j] = wk[j];
+  }
+}
+
+// Four k steps of a thread's RM x CN outputs: the only arithmetic of the K
+// loop, so every output stays one ascending fmaf chain.
+template <class G, int RM = G::kRM>
+__device__ __forceinline__ void simt_quad(const float* xs, const float* ws, int k, int tm,
+                                          int tn, float (&acc)[RM][G::kCN]) {
+  float4 xv[RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+    xv[i] = *reinterpret_cast<const float4*>(xs + (tm + i * G::kThreadsM) * G::kXStride + k);
+  float wv[4][G::kCN];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) w_at<G::kCN>(ws + (k + q) * G::kN + tn * G::kCN, wv[q]);
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const float xq = q == 0 ? xv[i].x : q == 1 ? xv[i].y : q == 2 ? xv[i].z : xv[i].w;
+#pragma unroll
+      for (int j = 0; j < G::kCN; ++j) acc[i][j] = fmaf(xq, wv[q][j], acc[i][j]);
+    }
+}
+
+// One k step (the last, partial chunk).
+template <class G, int RM = G::kRM>
+__device__ __forceinline__ void simt_step(const float* xs, const float* ws, int k, int tm,
+                                          int tn, float (&acc)[RM][G::kCN]) {
+  float wv[G::kCN];
+  w_at<G::kCN>(ws + k * G::kN + tn * G::kCN, wv);
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const float xq = xs[(tm + i * G::kThreadsM) * G::kXStride + k];
+#pragma unroll
+    for (int j = 0; j < G::kCN; ++j) acc[i][j] = fmaf(xq, wv[j], acc[i][j]);
+  }
+}
+
 // One (BM x TILE_N) output tile of y = (x @ w_int^T) * scale, or with
 // DEQUANT_FIRST of y = x @ round_cd(w_int * scale)^T.
 //   x      (M, Kx) row-major f32; columns Kx..K-1 read as 0
 //   w      TILE_N rows of K/F packed bytes each (row stride w_row_bytes);
 //          rows >= n_valid read as 0 and are not stored
 //   out    row stride ldo; column 0 of the tile at `out`
+//   smem   Simt<TILE_N>::kSmem bytes, 16-byte aligned
 template <int BITS, int TILE_N, bool DEQUANT_FIRST = false>
-__device__ __forceinline__ void tile_gemm(
+__device__ __forceinline__ void simt_tile(
     const float* __restrict__ x, int64_t M, int Kx, int K,
     const uint8_t* __restrict__ w, int w_row_bytes, int n_valid,
     const float* __restrict__ scale, float* __restrict__ out, int64_t ldo,
-    int64_t m0, float* xs, float* ws, bool round_bf16 = false) {
-  using G = Geom<TILE_N>;
+    int64_t m0, float* smem, bool x_vec, bool round_bf16 = false) {
+  using G = Simt<TILE_N>;
+  constexpr int RM = G::kRM;
+  float* xs[2] = {smem, smem + G::kXFloats};
+  float* ws[2] = {smem + 2 * G::kXFloats, smem + 2 * G::kXFloats + G::kWFloats};
   const int tid = threadIdx.x;
   const int tn = tid % G::kThreadsN;
   const int tm = tid / G::kThreadsN;
 
-  float acc[G::kRM][G::kCN];
+  float acc[RM][G::kCN];
 #pragma unroll
-  for (int i = 0; i < G::kRM; ++i)
+  for (int i = 0; i < RM; ++i)
 #pragma unroll
     for (int j = 0; j < G::kCN; ++j) acc[i][j] = 0.0f;
 
-  float xr[G::kXIters];
+  const int nchunks = (K + kBK - 1) / kBK;
   uint8_t wr[WChunk<BITS, TILE_N>::kIters];
-  load_x<TILE_N>(x, M, Kx, m0, 0, xr);
+  fill_x_simt<G>(xs[0], x, M, Kx, m0, 0, x_vec);
+  cp_async_commit();
   load_w<BITS, TILE_N>(w, w_row_bytes, n_valid, 0, wr);
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    store_x<TILE_N>(xs, xr);
-    store_w<BITS, TILE_N, DEQUANT_FIRST>(ws, wr, scale, round_bf16);
-    __syncthreads();
-    if (k0 + kBK < K) {                 // next chunk in flight during the FMAs
-      load_x<TILE_N>(x, M, Kx, m0, k0 + kBK, xr);
-      load_w<BITS, TILE_N>(w, w_row_bytes, n_valid, k0 + kBK, wr);
+  store_w<BITS, TILE_N, DEQUANT_FIRST>(ws[0], wr, scale, round_bf16);
+  for (int c = 0; c < nchunks; ++c) {
+    cp_async_wait<0>();
+    __syncthreads();                    // chunk c staged; every thread is past chunk c - 1
+    const bool next = c + 1 < nchunks;
+    if (next) {                         // chunk c + 1 in flight during the FMAs
+      fill_x_simt<G>(xs[(c + 1) & 1], x, M, Kx, m0, (c + 1) * kBK, x_vec);
+      cp_async_commit();
+      load_w<BITS, TILE_N>(w, w_row_bytes, n_valid, (c + 1) * kBK, wr);
     }
-    const int kc = K - k0 < kBK ? K - k0 : kBK;
+    const float* xc = xs[c & 1];
+    const float* wc = ws[c & 1];
+    const int kc = K - c * kBK < kBK ? K - c * kBK : kBK;
     if (kc == kBK) {
-#pragma unroll 8
-      for (int kk = 0; kk < kBK; ++kk) fma_step<TILE_N>(xs, ws, kk, tm, tn, acc);
+#pragma unroll
+      for (int k = 0; k < kBK; k += 4) simt_quad<G>(xc, wc, k, tm, tn, acc);
     } else {
-      for (int kk = 0; kk < kc; ++kk) fma_step<TILE_N>(xs, ws, kk, tm, tn, acc);
+      for (int k = 0; k < kc; ++k) simt_step<G>(xc, wc, k, tm, tn, acc);
     }
-    __syncthreads();
+    if (next) store_w<BITS, TILE_N, DEQUANT_FIRST>(ws[(c + 1) & 1], wr, scale, round_bf16);
   }
 
 #pragma unroll
-  for (int i = 0; i < G::kRM; ++i) {
+  for (int i = 0; i < RM; ++i) {
     const int64_t m = m0 + tm + i * G::kThreadsM;
     if (m >= M) continue;
 #pragma unroll
     for (int j = 0; j < G::kCN; ++j) {
-      const int n = tn + j * G::kThreadsN;
+      const int n = tn * G::kCN + j;
       if (n < n_valid) out[m * ldo + n] = DEQUANT_FIRST ? acc[i][j] : __fmul_rn(acc[i][j], scale[n]);
     }
   }
@@ -275,25 +370,26 @@ __device__ __forceinline__ void tile_gemm(
 // grid (ceil(M / BM), T): block (i, t) computes rows [i*BM, i*BM+BM) of
 // output tile t.  table[2t] = bits, table[2t+1] = byte offset of the tile.
 template <int TILE_N>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 fused_kernel(const float* __restrict__ x, int64_t M, int Kx, int Kp,
              const uint8_t* __restrict__ packed, const int* __restrict__ table,
-             const float* __restrict__ scales, float* __restrict__ out, int64_t ldo) {
-  using G = Geom<TILE_N>;
-  __shared__ float xs[kBK * G::kXStride];
-  __shared__ float ws[kBK * TILE_N];
+             const float* __restrict__ scales, float* __restrict__ out, int64_t ldo, int x_vec) {
+  using G = Simt<TILE_N>;
+  extern __shared__ __align__(16) unsigned char simt_smem[];
+  float* sm = reinterpret_cast<float*>(simt_smem);
   const int t = blockIdx.y;
   const int bits = table[2 * t];
   const uint8_t* w = packed + table[2 * t + 1];
   const int64_t m0 = int64_t(blockIdx.x) * G::kBM;
   const float* s = scales + int64_t(t) * TILE_N;
   float* o = out + int64_t(t) * TILE_N;
+  const bool xv = x_vec != 0;
   if (bits == 2) {
-    tile_gemm<2, TILE_N>(x, M, Kx, Kp, w, Kp / 4, TILE_N, s, o, ldo, m0, xs, ws);
+    simt_tile<2, TILE_N>(x, M, Kx, Kp, w, Kp / 4, TILE_N, s, o, ldo, m0, sm, xv);
   } else if (bits == 4) {
-    tile_gemm<4, TILE_N>(x, M, Kx, Kp, w, Kp / 2, TILE_N, s, o, ldo, m0, xs, ws);
+    simt_tile<4, TILE_N>(x, M, Kx, Kp, w, Kp / 2, TILE_N, s, o, ldo, m0, sm, xv);
   } else {
-    tile_gemm<8, TILE_N>(x, M, Kx, Kp, w, Kp, TILE_N, s, o, ldo, m0, xs, ws);
+    simt_tile<8, TILE_N>(x, M, Kx, Kp, w, Kp, TILE_N, s, o, ldo, m0, sm, xv);
   }
 }
 
@@ -302,14 +398,13 @@ constexpr int kPerGroupTileN = 64;
 // grid (ceil(M / BM), ceil(N / 64), E); per expert e: x (M, Kx),
 // packed (N, K / F), scale (N,), out (M, N), each stack's slices contiguous.
 template <int BITS>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 pergroup_kernel(const float* __restrict__ x, int64_t M, int Kx, int K,
                 const uint8_t* __restrict__ packed, int N,
-                const float* __restrict__ scale, float* __restrict__ out) {
-  using G = Geom<kPerGroupTileN>;
+                const float* __restrict__ scale, float* __restrict__ out, int x_vec) {
+  using G = Simt<kPerGroupTileN>;
   constexpr int F = 8 / BITS;
-  __shared__ float xs[kBK * G::kXStride];
-  __shared__ float ws[kBK * kPerGroupTileN];
+  extern __shared__ __align__(16) unsigned char simt_smem[];
   const int64_t e = blockIdx.z;
   x += e * M * Kx;
   packed += e * N * int64_t(K / F);
@@ -318,8 +413,9 @@ pergroup_kernel(const float* __restrict__ x, int64_t M, int Kx, int K,
   const int n0 = blockIdx.y * kPerGroupTileN;
   const int n_valid = N - n0 < kPerGroupTileN ? N - n0 : kPerGroupTileN;
   const int64_t m0 = int64_t(blockIdx.x) * G::kBM;
-  tile_gemm<BITS, kPerGroupTileN>(x, M, Kx, K, packed + int64_t(n0) * (K / F), K / F,
-                                  n_valid, scale + n0, out + n0, N, m0, xs, ws);
+  simt_tile<BITS, kPerGroupTileN>(x, M, Kx, K, packed + int64_t(n0) * (K / F), K / F,
+                                      n_valid, scale + n0, out + n0, N, m0,
+                                      reinterpret_cast<float*>(simt_smem), x_vec != 0);
 }
 
 // grid (ceil(M / BM), T, E): block (i, t, e) computes rows [i*BM, i*BM+BM)
@@ -327,14 +423,14 @@ pergroup_kernel(const float* __restrict__ x, int64_t M, int Kx, int K,
 // of expert_bytes at packed + e * expert_bytes (the table's offsets are
 // within it), scales (T * TILE_N,), out (M, T * TILE_N).
 template <int TILE_N>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 fused_experts_kernel(const float* __restrict__ x, int64_t M, int Kx, int Kp,
                      const uint8_t* __restrict__ packed, int64_t expert_bytes,
                      const int* __restrict__ table, const float* __restrict__ scales,
-                     float* __restrict__ out, int T, int round_bf16) {
-  using G = Geom<TILE_N>;
-  __shared__ float xs[kBK * G::kXStride];
-  __shared__ float ws[kBK * TILE_N];
+                     float* __restrict__ out, int T, int round_bf16, int x_vec) {
+  using G = Simt<TILE_N>;
+  extern __shared__ __align__(16) unsigned char simt_smem[];
+  float* sm = reinterpret_cast<float*>(simt_smem);
   const int t = blockIdx.y;
   const int64_t e = blockIdx.z;
   const int64_t ldo = int64_t(T) * TILE_N;
@@ -344,49 +440,69 @@ fused_experts_kernel(const float* __restrict__ x, int64_t M, int Kx, int Kp,
   const float* s = scales + e * ldo + int64_t(t) * TILE_N;
   float* o = out + e * M * ldo + int64_t(t) * TILE_N;
   const int64_t m0 = int64_t(blockIdx.x) * G::kBM;
-  const bool rb = round_bf16 != 0;
+  const bool rb = round_bf16 != 0, xv = x_vec != 0;
   if (bits == 2) {
-    tile_gemm<2, TILE_N, true>(xe, M, Kx, Kp, w, Kp / 4, TILE_N, s, o, ldo, m0, xs, ws, rb);
+    simt_tile<2, TILE_N, true>(xe, M, Kx, Kp, w, Kp / 4, TILE_N, s, o, ldo, m0, sm, xv, rb);
   } else if (bits == 4) {
-    tile_gemm<4, TILE_N, true>(xe, M, Kx, Kp, w, Kp / 2, TILE_N, s, o, ldo, m0, xs, ws, rb);
+    simt_tile<4, TILE_N, true>(xe, M, Kx, Kp, w, Kp / 2, TILE_N, s, o, ldo, m0, sm, xv, rb);
   } else {
-    tile_gemm<8, TILE_N, true>(xe, M, Kx, Kp, w, Kp, TILE_N, s, o, ldo, m0, xs, ws, rb);
+    simt_tile<8, TILE_N, true>(xe, M, Kx, Kp, w, Kp, TILE_N, s, o, ldo, m0, sm, xv, rb);
   }
 }
 
-template <int TILE_N>
-void launch_fused(const float* x, int64_t M, int Kx, int Kp, const uint8_t* packed,
-                  const int* table, const float* scales, int T, float* out,
-                  cudaStream_t stream) {
-  using G = Geom<TILE_N>;
-  const dim3 grid(static_cast<unsigned>((M + G::kBM - 1) / G::kBM), static_cast<unsigned>(T));
-  fused_kernel<TILE_N><<<grid, kThreads, 0, stream>>>(x, M, Kx, Kp, packed, table, scales,
-                                                      out, int64_t(T) * TILE_N);
+// Dynamic shared memory above 48 KB needs the kernel's attribute, set once.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 template <int TILE_N>
-void launch_fused_experts(const float* x, int64_t M, int Kx, int Kp, const uint8_t* packed,
-                          int64_t expert_bytes, const int* table, const float* scales,
-                          int T, int E, int round_bf16, float* out, cudaStream_t stream) {
-  using G = Geom<TILE_N>;
+int launch_fused(const float* x, int64_t M, int Kx, int Kp, const uint8_t* packed,
+                 const int* table, const float* scales, int T, float* out, bool x_vec,
+                 cudaStream_t stream) {
+  using G = Simt<TILE_N>;
+  auto kernel = fused_kernel<TILE_N>;
+  static const cudaError_t attr = allow_smem(kernel, G::kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(static_cast<unsigned>((M + G::kBM - 1) / G::kBM), static_cast<unsigned>(T));
+  kernel<<<grid, kThreads, G::kSmem, stream>>>(x, M, Kx, Kp, packed, table, scales, out,
+                                               int64_t(T) * TILE_N, x_vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int TILE_N>
+int launch_fused_experts(const float* x, int64_t M, int Kx, int Kp, const uint8_t* packed,
+                         int64_t expert_bytes, const int* table, const float* scales,
+                         int T, int E, int round_bf16, float* out, bool x_vec,
+                         cudaStream_t stream) {
+  using G = Simt<TILE_N>;
+  auto kernel = fused_experts_kernel<TILE_N>;
+  static const cudaError_t attr = allow_smem(kernel, G::kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(static_cast<unsigned>((M + G::kBM - 1) / G::kBM), static_cast<unsigned>(T),
                   static_cast<unsigned>(E));
-  fused_experts_kernel<TILE_N><<<grid, kThreads, 0, stream>>>(
-      x, M, Kx, Kp, packed, expert_bytes, table, scales, out, T, round_bf16);
+  kernel<<<grid, kThreads, G::kSmem, stream>>>(x, M, Kx, Kp, packed, expert_bytes, table,
+                                               scales, out, T, round_bf16, x_vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int BITS>
-void launch_pergroup(const float* x, int64_t M, int Kx, int K, const uint8_t* packed,
-                     int N, const float* scale, int E, float* out, cudaStream_t stream) {
-  using G = Geom<kPerGroupTileN>;
+int launch_pergroup(const float* x, int64_t M, int Kx, int K, const uint8_t* packed,
+                    int N, const float* scale, int E, float* out, bool x_vec,
+                    cudaStream_t stream) {
+  using G = Simt<kPerGroupTileN>;
+  auto kernel = pergroup_kernel<BITS>;
+  static const cudaError_t attr = allow_smem(kernel, G::kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(static_cast<unsigned>((M + G::kBM - 1) / G::kBM),
                   static_cast<unsigned>((N + kPerGroupTileN - 1) / kPerGroupTileN),
                   static_cast<unsigned>(E));
-  pergroup_kernel<BITS><<<grid, kThreads, 0, stream>>>(x, M, Kx, K, packed, N, scale, out);
+  kernel<<<grid, kThreads, G::kSmem, stream>>>(x, M, Kx, K, packed, N, scale, out, x_vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core path: `skinny_mma_tile` and its two kernels
+// The tensor-core path: `skinny_mma_tile` and its three kernels
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaStages = 3;   // cp.async ring depth
@@ -427,26 +543,6 @@ struct MmaPlan {
   static constexpr int kSmem = kMmaStages * kStageBytes > kRedBytes
                                    ? kMmaStages * kStageBytes : kRedBytes;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// cp.async with zero fill: `bytes` of the source are copied, the rest of
-// the destination is zeroed (bytes = 0 reads nothing).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -729,37 +825,64 @@ pergroup_mma_kernel(const uint16_t* __restrict__ x, int64_t M, int Kx, int K,
                                            x_vec != 0, w_vec != 0);
 }
 
-// grid (ceil(M / BM), T * tile_n / BN, E): block (i, j, e) computes rows
-// [i*BM, i*BM+BM) of the BN columns j*BN.. (in walk order, inside one tile)
-// of expert e.  Per expert as `fused_experts_kernel`, x bf16.
+// Rows [m0, m0 + BM) of the BN columns col0.. (in walk order, inside one
+// tile) of one ragged fused buffer: x (M, Kx) bf16, packed its buffer,
+// scales (T * tile_n,), out (M, T * tile_n).  DQ: K3's tiles,
+// round_bf16(w_int * s) before the product; else K1's, scaled after it.
+template <int MF, int WK, int WN, bool DQ>
+__device__ __forceinline__ void fused_mma_tile(const uint16_t* __restrict__ x, int64_t M,
+                                               int Kx, int Kp, const uint8_t* __restrict__ packed,
+                                               const int* __restrict__ table,
+                                               const float* __restrict__ scales,
+                                               float* __restrict__ out, int T, int tile_n,
+                                               int col0, int64_t m0, unsigned char* smem,
+                                               bool xv, bool wv) {
+  constexpr int kBN = 16 * WN;
+  const int tile = col0 / tile_n;
+  const int bits = table[2 * tile];
+  const int64_t ldo = int64_t(T) * tile_n;
+  const int64_t rb = Kp / (8 / bits);
+  const uint8_t* w = packed + table[2 * tile + 1] + int64_t(col0 - tile * tile_n) * rb;
+  const float* s = scales + col0;
+  float* o = out + col0;
+  if (bits == 2) {
+    skinny_mma_tile<2, MF, WK, WN, DQ>(x, M, Kx, Kp, w, rb, kBN, s, o, ldo, m0, smem, xv, wv);
+  } else if (bits == 4) {
+    skinny_mma_tile<4, MF, WK, WN, DQ>(x, M, Kx, Kp, w, rb, kBN, s, o, ldo, m0, smem, xv, wv);
+  } else {
+    skinny_mma_tile<8, MF, WK, WN, DQ>(x, M, Kx, Kp, w, rb, kBN, s, o, ldo, m0, smem, xv, wv);
+  }
+}
+
+// grid (ceil(M / BM), T * tile_n / BN): block (i, j) computes rows
+// [i*BM, i*BM+BM) of the BN columns j*BN.. of the fused GEMM (K1), x bf16.
+template <int MF, int WK, int WN>
+__global__ void __launch_bounds__(32 * WK * WN)
+fused_mma_kernel(const uint16_t* __restrict__ x, int64_t M, int Kx, int Kp,
+                 const uint8_t* __restrict__ packed, int64_t expert_bytes,
+                 const int* __restrict__ table, const float* __restrict__ scales,
+                 float* __restrict__ out, int T, int tile_n, int x_vec, int w_vec) {
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  fused_mma_tile<MF, WK, WN, false>(x, M, Kx, Kp, packed, table, scales, out, T, tile_n,
+                                    blockIdx.y * 16 * WN, int64_t(blockIdx.x) * 8 * MF,
+                                    mma_smem, x_vec != 0, w_vec != 0);
+}
+
+// grid (ceil(M / BM), T * tile_n / BN, E): as `fused_mma_kernel` for expert
+// blockIdx.z (K3).  Per expert as `fused_experts_kernel`, x bf16.
 template <int MF, int WK, int WN>
 __global__ void __launch_bounds__(32 * WK * WN)
 fused_experts_mma_kernel(const uint16_t* __restrict__ x, int64_t M, int Kx, int Kp,
                          const uint8_t* __restrict__ packed, int64_t expert_bytes,
                          const int* __restrict__ table, const float* __restrict__ scales,
                          float* __restrict__ out, int T, int tile_n, int x_vec, int w_vec) {
-  constexpr int kBN = 16 * WN;
   extern __shared__ __align__(16) unsigned char mma_smem[];
-  const int col0 = blockIdx.y * kBN;
-  const int tile = col0 / tile_n;
-  const int bits = table[2 * tile];
   const int64_t e = blockIdx.z;
   const int64_t ldo = int64_t(T) * tile_n;
-  const int64_t rb = Kp / (8 / bits);
-  const uint8_t* w = packed + e * expert_bytes + table[2 * tile + 1]
-                     + int64_t(col0 - tile * tile_n) * rb;
-  const uint16_t* xe = x + e * M * Kx;
-  const float* s = scales + e * ldo + col0;
-  float* o = out + e * M * ldo + col0;
-  const int64_t m0 = int64_t(blockIdx.x) * 8 * MF;
-  const bool xv = x_vec != 0, wv = w_vec != 0;
-  if (bits == 2) {
-    skinny_mma_tile<2, MF, WK, WN, true>(xe, M, Kx, Kp, w, rb, kBN, s, o, ldo, m0, mma_smem, xv, wv);
-  } else if (bits == 4) {
-    skinny_mma_tile<4, MF, WK, WN, true>(xe, M, Kx, Kp, w, rb, kBN, s, o, ldo, m0, mma_smem, xv, wv);
-  } else {
-    skinny_mma_tile<8, MF, WK, WN, true>(xe, M, Kx, Kp, w, rb, kBN, s, o, ldo, m0, mma_smem, xv, wv);
-  }
+  fused_mma_tile<MF, WK, WN, true>(x + e * M * Kx, M, Kx, Kp, packed + e * expert_bytes, table,
+                                   scales + e * ldo, out + e * M * ldo, T, tile_n,
+                                   blockIdx.y * 16 * WN, int64_t(blockIdx.x) * 8 * MF,
+                                   mma_smem, x_vec != 0, w_vec != 0);
 }
 
 template <int BITS, int MF, int WK, int WN>
@@ -768,8 +891,7 @@ int launch_pergroup_mma(const uint16_t* x, int64_t M, int Kx, int K, const uint8
                         cudaStream_t stream) {
   using P = MmaPlan<BITS, MF, WK, WN>;
   auto kernel = pergroup_mma_kernel<BITS, MF, WK, WN>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
+  static const cudaError_t attr = allow_smem(kernel, P::kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(static_cast<unsigned>((M + P::kBM - 1) / P::kBM),
                   static_cast<unsigned>((N + P::kBN - 1) / P::kBN), static_cast<unsigned>(E));
@@ -778,20 +900,21 @@ int launch_pergroup_mma(const uint16_t* x, int64_t M, int Kx, int K, const uint8
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MF, int WK, int WN>
-int launch_fused_experts_mma(const uint16_t* x, int64_t M, int Kx, int Kp,
-                             const uint8_t* packed, int64_t expert_bytes, const int* table,
-                             const float* scales, int T, int tile_n, int E, float* out,
-                             bool x_vec, bool w_vec, cudaStream_t stream) {
+// One launch of the fused buffer's tensor-core kernel: K1 (DQ false, E 1)
+// or K3 (DQ true).
+template <int MF, int WK, int WN, bool DQ>
+int launch_fused_mma(const uint16_t* x, int64_t M, int Kx, int Kp, const uint8_t* packed,
+                     int64_t expert_bytes, const int* table, const float* scales, int T,
+                     int tile_n, int E, float* out, bool x_vec, bool w_vec,
+                     cudaStream_t stream) {
   constexpr int kSmem2 = MmaPlan<2, MF, WK, WN>::kSmem, kSmem4 = MmaPlan<4, MF, WK, WN>::kSmem,
                 kSmem8 = MmaPlan<8, MF, WK, WN>::kSmem;
   constexpr int kSmem = kSmem2 > kSmem4 ? (kSmem2 > kSmem8 ? kSmem2 : kSmem8)
                                         : (kSmem4 > kSmem8 ? kSmem4 : kSmem8);
   constexpr int kBM = 8 * MF, kBN = 16 * WN;
   if (tile_n % kBN) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = fused_experts_mma_kernel<MF, WK, WN>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  auto kernel = DQ ? fused_experts_mma_kernel<MF, WK, WN> : fused_mma_kernel<MF, WK, WN>;
+  static const cudaError_t attr = allow_smem(kernel, kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(static_cast<unsigned>((M + kBM - 1) / kBM),
                   static_cast<unsigned>(int64_t(T) * tile_n / kBN), static_cast<unsigned>(E));
@@ -804,6 +927,9 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 }  // namespace
 
+// The SIMT routine, x f32.
+#define QMM_SIMT_TILES(CASE) CASE(1) CASE(2) CASE(4) CASE(8) CASE(16) CASE(32) CASE(64) CASE(128)
+
 extern "C" int qmm_fused_f32(const void* x, long long M, int Kx, int Kp,
                              const void* packed, const void* table, const void* scales,
                              int T, int tile_n, void* out, void* stream) {
@@ -813,18 +939,12 @@ extern "C" int qmm_fused_f32(const void* x, long long M, int Kx, int Kp,
   const auto* s = static_cast<const float*>(scales);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (tile_n) {
-    case 1: launch_fused<1>(xf, M, Kx, Kp, p, tb, s, T, o, st); break;
-    case 2: launch_fused<2>(xf, M, Kx, Kp, p, tb, s, T, o, st); break;
-    case 4: launch_fused<4>(xf, M, Kx, Kp, p, tb, s, T, o, st); break;
-    case 8: launch_fused<8>(xf, M, Kx, Kp, p, tb, s, T, o, st); break;
-    case 16: launch_fused<16>(xf, M, Kx, Kp, p, tb, s, T, o, st); break;
-    case 32: launch_fused<32>(xf, M, Kx, Kp, p, tb, s, T, o, st); break;
-    case 64: launch_fused<64>(xf, M, Kx, Kp, p, tb, s, T, o, st); break;
-    case 128: launch_fused<128>(xf, M, Kx, Kp, p, tb, s, T, o, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const bool xv = Kx % 4 == 0 && aligned16(x);
+#define QMM_F(TN) \
+  if (tile_n == TN) return launch_fused<TN>(xf, M, Kx, Kp, p, tb, s, T, o, xv, st);
+  QMM_SIMT_TILES(QMM_F)
+#undef QMM_F
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int qmm_pergroup_f32(const void* x, long long M, int Kx, int K,
@@ -836,13 +956,13 @@ extern "C" int qmm_pergroup_f32(const void* x, long long M, int Kx, int K,
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   if (E < 1 || E > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const bool xv = Kx % 4 == 0 && aligned16(x);
   switch (bits) {
-    case 2: launch_pergroup<2>(xf, M, Kx, K, p, N, s, E, o, st); break;
-    case 4: launch_pergroup<4>(xf, M, Kx, K, p, N, s, E, o, st); break;
-    case 8: launch_pergroup<8>(xf, M, Kx, K, p, N, s, E, o, st); break;
+    case 2: return launch_pergroup<2>(xf, M, Kx, K, p, N, s, E, o, xv, st);
+    case 4: return launch_pergroup<4>(xf, M, Kx, K, p, N, s, E, o, xv, st);
+    case 8: return launch_pergroup<8>(xf, M, Kx, K, p, N, s, E, o, xv, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int qmm_fused_experts_f32(const void* x, long long M, int Kx, int Kp,
@@ -857,24 +977,21 @@ extern "C" int qmm_fused_experts_f32(const void* x, long long M, int Kx, int Kp,
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   if (E < 1 || E > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  switch (tile_n) {
-    case 1: launch_fused_experts<1>(xf, M, Kx, Kp, p, expert_bytes, tb, s, T, E, round_bf16, o, st); break;
-    case 2: launch_fused_experts<2>(xf, M, Kx, Kp, p, expert_bytes, tb, s, T, E, round_bf16, o, st); break;
-    case 4: launch_fused_experts<4>(xf, M, Kx, Kp, p, expert_bytes, tb, s, T, E, round_bf16, o, st); break;
-    case 8: launch_fused_experts<8>(xf, M, Kx, Kp, p, expert_bytes, tb, s, T, E, round_bf16, o, st); break;
-    case 16: launch_fused_experts<16>(xf, M, Kx, Kp, p, expert_bytes, tb, s, T, E, round_bf16, o, st); break;
-    case 32: launch_fused_experts<32>(xf, M, Kx, Kp, p, expert_bytes, tb, s, T, E, round_bf16, o, st); break;
-    case 64: launch_fused_experts<64>(xf, M, Kx, Kp, p, expert_bytes, tb, s, T, E, round_bf16, o, st); break;
-    case 128: launch_fused_experts<128>(xf, M, Kx, Kp, p, expert_bytes, tb, s, T, E, round_bf16, o, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const bool xv = Kx % 4 == 0 && aligned16(x);
+#define QMM_E(TN)                                                                          \
+  if (tile_n == TN)                                                                        \
+    return launch_fused_experts<TN>(xf, M, Kx, Kp, p, expert_bytes, tb, s, T, E, round_bf16, \
+                                    o, xv, st);
+  QMM_SIMT_TILES(QMM_E)
+#undef QMM_E
+  return static_cast<int>(cudaErrorInvalidValue);
 }
+#undef QMM_SIMT_TILES
 
 // The tensor-core path, x bf16.  (mf, wk, wn) is the plan of
-// `quant_matmul.mma_plan`: (1, 4, 4) at M <= 8 (decode), (8, 1, 8) at
-// M <= 64, (4, 1, 8) above (prefill); for the expert kernel wn is cut to
-// tile_n / 16 where that is smaller.
+// `quant_matmul.mma_plan`: (1, 4, 4) at M <= 8 (decode), (8, 1, 8) above;
+// for the fused kernels wn is cut to tile_n / 16 where that is smaller
+// (`fused_3d_mma_plan`).
 extern "C" int qmm_pergroup_mma(const void* x, long long M, int Kx, int K, const void* packed,
                                 int N, const void* scale, int bits, int E, int mf, int wk,
                                 int wn, void* out, void* stream) {
@@ -890,7 +1007,7 @@ extern "C" int qmm_pergroup_mma(const void* x, long long M, int Kx, int K, const
 #define QMM_PG(B, MF, WK, WN)                                                           \
   if (bits == B && plan == MF * 100 + WK * 10 + WN)                                      \
     return launch_pergroup_mma<B, MF, WK, WN>(xb, M, Kx, K, p, N, s, E, o, xv, wv, st);
-#define QMM_PG_PLANS(B) QMM_PG(B, 1, 4, 4) QMM_PG(B, 8, 1, 8) QMM_PG(B, 4, 1, 8)
+#define QMM_PG_PLANS(B) QMM_PG(B, 1, 4, 4) QMM_PG(B, 8, 1, 8)
   QMM_PG_PLANS(2)
   QMM_PG_PLANS(4)
   QMM_PG_PLANS(8)
@@ -899,31 +1016,34 @@ extern "C" int qmm_pergroup_mma(const void* x, long long M, int Kx, int K, const
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int qmm_fused_experts_mma(const void* x, long long M, int Kx, int Kp,
-                                     const void* packed, long long expert_bytes,
-                                     const void* table, const void* scales, int T, int tile_n,
-                                     int E, int mf, int wk, int wn, void* out, void* stream) {
+// The fused buffer on the tensor cores: K3 (dq 1, E experts, each tile
+// rounded before the product) or K1 (dq 0, E 1, expert_bytes 0, scaled
+// after the sum).
+extern "C" int qmm_fused_mma(const void* x, long long M, int Kx, int Kp, const void* packed,
+                             long long expert_bytes, const void* table, const void* scales,
+                             int T, int tile_n, int E, int dq, int mf, int wk, int wn,
+                             void* out, void* stream) {
   const auto* xb = static_cast<const uint16_t*>(x);
   const auto* p = static_cast<const uint8_t*>(packed);
   const auto* tb = static_cast<const int*>(table);
   const auto* s = static_cast<const float*>(scales);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  if (E < 1 || E > 65535 || Kp % 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (E < 1 || E > 65535 || Kp % 4 || (!dq && E != 1)) return static_cast<int>(cudaErrorInvalidValue);
   const bool xv = Kx % 8 == 0 && aligned16(x);
   const bool wv = Kp % 64 == 0 && expert_bytes % 16 == 0 && aligned16(packed);
   const int plan = mf * 100 + wk * 10 + wn;
-#define QMM_FE(MF, WK, WN)                                                                 \
+#define QMM_FM(MF, WK, WN)                                                                 \
   if (plan == MF * 100 + WK * 10 + WN)                                                     \
-    return launch_fused_experts_mma<MF, WK, WN>(xb, M, Kx, Kp, p, expert_bytes, tb, s, T,  \
-                                                tile_n, E, o, xv, wv, st);
-#define QMM_FE_WN(MF, WK) QMM_FE(MF, WK, 1) QMM_FE(MF, WK, 2) QMM_FE(MF, WK, 4)
-  QMM_FE_WN(1, 4)
-  QMM_FE_WN(8, 1)
-  QMM_FE(8, 1, 8)
-  QMM_FE_WN(4, 1)
-  QMM_FE(4, 1, 8)
-#undef QMM_FE_WN
-#undef QMM_FE
+    return dq ? launch_fused_mma<MF, WK, WN, true>(xb, M, Kx, Kp, p, expert_bytes, tb, s, T, \
+                                                   tile_n, E, o, xv, wv, st)               \
+              : launch_fused_mma<MF, WK, WN, false>(xb, M, Kx, Kp, p, expert_bytes, tb, s, \
+                                                    T, tile_n, E, o, xv, wv, st);
+#define QMM_FM_WN(MF, WK) QMM_FM(MF, WK, 1) QMM_FM(MF, WK, 2) QMM_FM(MF, WK, 4)
+  QMM_FM_WN(1, 4)
+  QMM_FM_WN(8, 1)
+  QMM_FM(8, 1, 8)
+#undef QMM_FM_WN
+#undef QMM_FM
   return static_cast<int>(cudaErrorInvalidValue);
 }

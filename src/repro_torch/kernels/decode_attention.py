@@ -30,8 +30,28 @@ from repro_torch.kernels import _build
 from repro_torch.models import kv_quant as kvq
 
 MAX_GROUPS = 4          # channel groups the kernel takes
-MAX_HEAD_DIM = 256      # channels a lane of the kernel holds: hd / 32
+MAX_HEAD_DIM = 256      # channels of a head: a lane holds hd / 8 of them
 MAX_OUTPUTS = 2048      # rep * hd outputs of one block
+K4_TILE = 32            # tokens a tile of the ring
+K4_SMS = 132            # SMs of an H100 SXM, the plan's default
+
+
+def k4_blocks_per_sm(hd: int) -> int:
+    """Blocks of the kernel an SM holds at once, as its launch bounds ask
+    the compiler for them: 4 for heads of hd <= 128, 2 for wider ones (the
+    entry point checks the card's own occupancy)."""
+    return 4 if hd <= 128 else 2
+
+
+def k4_plan(B: int, KV: int, rep: int, hd: int, S: int, sms: int = K4_SMS) -> int:
+    """P, the blocks that split one (slot, kv-head) ring: as many as
+    :func:`k4_blocks_per_sm` resident blocks on each of ``sms`` SMs allow,
+    at most one a 32-token tile of the ring.  A function of the shapes
+    alone, never of ``pos`` (on the card), so a decode step's launch is the
+    same whatever the positions.  Block ``p`` takes tiles ``p, p + P, ...``
+    below ``pos + 1``."""
+    tiles = max(1, -(-S // K4_TILE))
+    return max(1, min(tiles, sms * k4_blocks_per_sm(hd) // max(1, B * KV)))
 
 
 def attend(q: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
@@ -153,9 +173,13 @@ def decode_attention(q, k_packed, k_scales, v_packed, v_scales, pos,
                       dict(q=q.dtype, k_packed=torch.uint8, k_scales=torch.float32,
                            v_packed=torch.uint8, v_scales=torch.float32, pos=torch.int32))
     out = torch.empty((B, KV, rep, hd), dtype=out_dtype, device=q.device)
-    scratch = torch.empty((B, KV, rep, S), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
+    P = k4_plan(B, KV, rep, hd, S,
+                torch.cuda.get_device_properties(q.device).multi_processor_count)
+    scratch = torch.empty((B, KV, rep, S), dtype=torch.float32, device=q.device)
+    # per block: its max and its sum per query head, its partial value dot
+    part = torch.empty((B * KV * P * rep * (hd + 2),), dtype=torch.float32, device=q.device)
     gb = list(spec.bits) + [0] * (MAX_GROUPS - G)
     gn = list(spec.sizes) + [0] * (MAX_GROUPS - G)
     lib = _build.load("decode_attention.cu")
@@ -163,9 +187,9 @@ def decode_attention(q, k_packed, k_scales, v_packed, v_scales, pos,
         rc = lib.decode_attention_f32acc(
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_packed.data_ptr(),
             k_scales.data_ptr(), v_packed.data_ptr(), v_scales.data_ptr(), pos.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
-            B, KV, rep, hd, S, NB, G, *gb, *gn, math.sqrt(hd),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            scratch.data_ptr(), part.data_ptr(), out.data_ptr(),
+            int(out_dtype == torch.bfloat16), B, KV, rep, hd, S, NB, G, *gb, *gn,
+            math.sqrt(hd), P, torch.cuda.current_stream(q.device).cuda_stream)
     _build.raise_on(rc, "decode_attention")
     decode_attention.launches += 1
     return out

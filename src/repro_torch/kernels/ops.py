@@ -17,7 +17,7 @@ the channel order.
 
 Launch counters: :func:`launch_counts` / :func:`reset_launch_counts` read
 and clear the ``launches`` int of each kernel wrapper (and the
-``mma_launches`` int of the two GEMM wrappers with a tensor-core path, read
+``mma_launches`` int of the three GEMM wrappers with a tensor-core path, read
 by :func:`mma_launch_counts`); :func:`count_launches` counts one call's.
 """
 from __future__ import annotations
@@ -44,7 +44,8 @@ KERNEL_WRAPPERS = {
 
 
 # the wrappers with a tensor-core path beside their SIMT one
-MMA_WRAPPERS = {"quant_matmul": qmk.quant_matmul_2d,
+MMA_WRAPPERS = {"quant_matmul_fused": qmk.quant_matmul_fused_2d,
+                "quant_matmul": qmk.quant_matmul_2d,
                 "quant_matmul_fused_batched": qmk.quant_matmul_fused_3d}
 
 
@@ -84,7 +85,7 @@ def _check_c_in(x: torch.Tensor, c_in: int) -> None:
             "kernel's C*kh*kw")
 
 
-def _kernel_x(x: torch.Tensor, c_in: int, compute_dtype, path: str = "simt") -> torch.Tensor:
+def _kernel_x(x: torch.Tensor, c_in: int, compute_dtype, path: str) -> torch.Tensor:
     """x flattened to ``(M, c_in)`` and rounded to ``compute_dtype``, as
     the kernel's routine reads it: held in f32 for the SIMT routine (a bf16
     x times an integer weight of at most 8 bits is exact in f32, so its f32
@@ -147,8 +148,9 @@ def quant_matmul_fused(x: torch.Tensor, fused_packed: torch.Tensor,
     Kp = -(-c_in // qmk.FUSED_K_ALIGN) * qmk.FUSED_K_ALIGN
     lead = x.shape[:-1]
     y = qmk.quant_matmul_fused_2d(
-        _kernel_x(x, c_in, compute_dtype), fused_packed,
-        fused_table, fused_scales, tile_bits, Kp=Kp, tile_n=tile_n)
+        _kernel_x(x, c_in, compute_dtype, qmk.fused_2d_path(tile_n, compute_dtype)),
+        fused_packed, fused_table, fused_scales, tile_bits, Kp=Kp, tile_n=tile_n,
+        compute_dtype=compute_dtype)
     y = y.index_select(1, fused_perm) if fused_perm is not None else y[:, :c_out]
     return y.to(out_dtype).reshape(*lead, c_out)
 

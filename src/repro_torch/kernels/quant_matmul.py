@@ -25,18 +25,21 @@ never the other way round, and never a fall-back after a failed launch.
 Each wrapper counts its launches in a plain int attribute, ``launches``,
 and those that took the tensor-core path in a second one, ``mma_launches``.
 
-Two device routines.  The SIMT one reduces every output's K terms in
-ascending order, in one f32 FMA chain; the fused kernel and the per-group
-kernel at f32 compute or K <= ``K_SINGLE_STEP_MAX`` run it, so the two
-equal each other bitwise on the card.  At bf16 compute the per-group kernel
-past ``K_SINGLE_STEP_MAX`` and the expert kernel at ``tile_n >= 16`` run the
-tensor-core routine (:func:`pergroup_path`, :func:`fused_3d_path`): exact
-bf16 products, f32 sums in the tensor cores' order, K split over the warps
-of a block by :func:`mma_plan`, which depends on M alone, so an expert's
-slice of an expert-axis launch still equals its own launch.  The plain
-versions use ``torch.matmul`` and agree with the kernels to f32 rounding;
-the plain expert versions walk the experts in chunks (a deepseek-v3 expert
-stack dequantized at once is 8.5 GB in f32).
+Two device routines, picked by pure functions of the shapes
+(:func:`fused_2d_path`, :func:`pergroup_path`, :func:`fused_3d_path`).  At
+f32 compute every kernel runs the SIMT one, which reduces every output's K
+terms in ascending order in one f32 FMA chain (its block shape changes no
+sum).  At bf16 compute the per-group kernel
+at every K and the fused and expert kernels at ``tile_n >= 16`` run the
+tensor-core routine: exact bf16 products, f32 sums in the tensor cores'
+order, K split over the warps of a block by :func:`mma_plan`, which depends
+on M alone, so an expert's slice of an expert-axis launch equals its own
+launch and a fused tile sums as the per-group launch of its channels.  So
+the fused and per-group kernels equal each other bitwise on the card at
+f32, and at bf16 wherever ``tile_n >= 16``.  The plain versions use
+``torch.matmul`` and agree with the kernels to f32 rounding; the plain
+expert versions walk the experts in chunks (a deepseek-v3 expert stack
+dequantized at once is 8.5 GB in f32).
 """
 from __future__ import annotations
 
@@ -211,37 +214,42 @@ FUSED_3D_COMPUTE = (torch.float32, torch.bfloat16)
 # Path choice (pure functions of the shapes, read by the CPU tests)
 # ---------------------------------------------------------------------------
 
+def fused_2d_path(tile_n: int, compute_dtype) -> str:
+    """The fused kernel's routine: ``"mma"`` (bf16 tensor cores) at bf16
+    compute when a tile holds whole 16-channel fragments (``tile_n >=
+    16``), else ``"simt"``."""
+    return "mma" if compute_dtype == torch.bfloat16 and tile_n >= 16 else "simt"
+
+
 def pergroup_path(K: int, compute_dtype) -> str:
     """The per-group kernel's routine for a packed depth ``K``: ``"mma"``
-    (bf16 tensor cores) at bf16 compute past ``K_SINGLE_STEP_MAX``, else
-    ``"simt"``, the routine the fused kernel shares, so that the two stay
-    bitwise equal wherever a weight can have both layouts."""
-    return "mma" if compute_dtype == torch.bfloat16 and K > K_SINGLE_STEP_MAX else "simt"
+    at bf16 compute (at every K, so that a weight with the fused layout,
+    ``K <= K_SINGLE_STEP_MAX``, sums as its fused tiles do), else
+    ``"simt"``, the routine the fused kernel takes at f32."""
+    return "mma" if compute_dtype == torch.bfloat16 else "simt"
 
 
 def fused_3d_path(tile_n: int, compute_dtype) -> str:
     """The expert kernel's routine: ``"mma"`` at bf16 compute when a tile
     holds whole 16-channel fragments (``tile_n >= 16``), else ``"simt"``."""
-    return "mma" if compute_dtype == torch.bfloat16 and tile_n >= 16 else "simt"
+    return fused_2d_path(tile_n, compute_dtype)
 
 
 # (token fragments of 8 a warp, warps splitting K, warps splitting N)
 MMA_DECODE_PLAN = (1, 4, 4)
-MMA_MID_PLAN = (8, 1, 8)
-MMA_PREFILL_PLAN = (4, 1, 8)
+MMA_TILE_PLAN = (8, 1, 8)
 
 
 def mma_plan(M: int) -> tuple:
     """The tensor-core block shape for ``M`` rows.  At ``M <= 8`` (decode)
     one 8-token fragment a warp and K split over 4 warps of the same 64
-    channels; at ``M <= 64`` (a MoE expert's prefill capacity) all rows in
-    one 64-token tile, so the weights stream once, 8 warps of 16 channels
-    each walking all of K; above it (prefill) 32-token tiles.  A function
+    channels; above it 64-token tiles, so the weights stream once for a MoE
+    expert's prefill capacity (M <= 64), 8 warps of 16 channels each
+    walking all of K (64-token tiles measured 3-19% faster than 32-token
+    ones at M 256-2048, with the same sums: neither splits K).  A function
     of M alone, never of the expert count or the grid: the K split fixes
     the order of the sums (the channel warps change none)."""
-    if M <= 8:
-        return MMA_DECODE_PLAN
-    return MMA_MID_PLAN if M <= 64 else MMA_PREFILL_PLAN
+    return MMA_DECODE_PLAN if M <= 8 else MMA_TILE_PLAN
 
 
 def fused_3d_mma_plan(M: int, tile_n: int) -> tuple:
@@ -257,14 +265,18 @@ def fused_3d_mma_plan(M: int, tile_n: int) -> tuple:
 
 def quant_matmul_fused_2d(x: torch.Tensor, fused_packed: torch.Tensor,
                           fused_table_: torch.Tensor, fused_scales: torch.Tensor,
-                          tile_bits: tuple, *, Kp: int, tile_n: int) -> torch.Tensor:
+                          tile_bits: tuple, *, Kp: int, tile_n: int,
+                          compute_dtype=torch.float32) -> torch.Tensor:
     """Single-launch mixed-precision GEMM over the ragged fused buffer.
 
-    ``x (M, c)`` f32 with ``c <= Kp`` (the missing columns count as zeros,
-    which is the reference's padding of x to ``Kp``); ``fused_packed`` the
-    1-D uint8 buffer; ``fused_table_`` its ``(T, 2)`` int32 schedule
-    (:func:`fused_table`, on the same device); ``fused_scales (T*tile_n,)``.
-    Returns ``(M, T * tile_n)`` f32 in tile walk order.
+    ``x (M, c)`` with ``c <= Kp`` (the missing columns count as zeros,
+    which is the reference's padding of x to ``Kp``), already rounded to
+    ``compute_dtype``, which picks the routine (:func:`fused_2d_path`): f32
+    for the SIMT one, bf16 for the tensor-core one (an f32 x is cast
+    first); ``fused_packed`` the 1-D uint8 buffer; ``fused_table_`` its
+    ``(T, 2)`` int32 schedule (:func:`fused_table`, on the same device);
+    ``fused_scales (T*tile_n,)``.  Returns ``(M, T * tile_n)`` f32 in tile
+    walk order.
     """
     if x.device.type == "cpu":
         return quant_matmul_fused_2d_plain(x, fused_packed, fused_scales,
@@ -277,26 +289,38 @@ def quant_matmul_fused_2d(x: torch.Tensor, fused_packed: torch.Tensor,
         raise ValueError(f"x width {c} does not fit Kp {Kp}")
     if fused_table_.shape != (T, 2) or fused_scales.shape != (T * tile_n,):
         raise ValueError("fused table/scales do not match the schedule")
+    mma = fused_2d_path(tile_n, compute_dtype) == "mma"
+    if mma and x.dtype == torch.float32:
+        x = x.to(torch.bfloat16)
     _build.check_cuda("quant_matmul_fused_2d",
                 dict(x=x, packed=fused_packed, table=fused_table_,
                      scales=fused_scales),
-                dict(x=torch.float32, packed=torch.uint8, table=torch.int32,
-                     scales=torch.float32))
+                dict(x=torch.bfloat16 if mma else torch.float32, packed=torch.uint8,
+                     table=torch.int32, scales=torch.float32))
     out = torch.empty((M, T * tile_n), dtype=torch.float32, device=x.device)
     if M == 0:
         return out
     lib = _build.load("quant_matmul.cu")
     with torch.cuda.device(x.device):
-        rc = lib.qmm_fused_f32(
-            x.data_ptr(), M, c, Kp, fused_packed.data_ptr(),
-            fused_table_.data_ptr(), fused_scales.data_ptr(), T, tile_n,
-            out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if mma:
+            rc = lib.qmm_fused_mma(
+                x.data_ptr(), M, c, Kp, fused_packed.data_ptr(), 0, fused_table_.data_ptr(),
+                fused_scales.data_ptr(), T, tile_n, 1, 0, *fused_3d_mma_plan(M, tile_n),
+                out.data_ptr(), stream)
+        else:
+            rc = lib.qmm_fused_f32(
+                x.data_ptr(), M, c, Kp, fused_packed.data_ptr(),
+                fused_table_.data_ptr(), fused_scales.data_ptr(), T, tile_n,
+                out.data_ptr(), stream)
     _build.raise_on(rc, "quant_matmul_fused_2d")
     quant_matmul_fused_2d.launches += 1
+    quant_matmul_fused_2d.mma_launches += mma
     return out
 
 
 quant_matmul_fused_2d.launches = 0
+quant_matmul_fused_2d.mma_launches = 0
 
 
 def quant_matmul_2d(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
@@ -403,9 +427,9 @@ def quant_matmul_fused_3d(x: torch.Tensor, fused_packed: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if mma:
-            rc = lib.qmm_fused_experts_mma(
+            rc = lib.qmm_fused_mma(
                 x.data_ptr(), M, c, Kp, fused_packed.data_ptr(), nbytes,
-                fused_table_.data_ptr(), fused_scales.data_ptr(), T, tile_n, E,
+                fused_table_.data_ptr(), fused_scales.data_ptr(), T, tile_n, E, 1,
                 *fused_3d_mma_plan(M, tile_n), out.data_ptr(), stream)
         else:
             rc = lib.qmm_fused_experts_f32(

@@ -42,12 +42,23 @@ on a machine that has only PyTorch:
   bf16 ulp more; one launch per call.
 * The per-group kernel's expert axis equals per-expert launches bitwise at
   deepseek-v3's ``we_gate`` group shapes (8 experts), in one launch.
+* The fused kernel's SIMT routine (f32) against its plain version within
+  2 (K + 2) u sum |x w s| at resnet8's ten GEMM shapes at batch 64 and at
+  edges (tile_n 1 to 128, ragged M and N, x narrower than Kp), and equal to
+  the per-group kernel bitwise; its tensor-core routine (bf16, tile_n >=
+  16) within the same bound at M 1 to 2048 and Kp 300 to 2048 (deepseek's
+  wq_b, wkv_b and shared w_down depths), and equal to the per-group kernel
+  bitwise there (both on the tensor cores), each launch counted.
+* The decode-attention kernel's split of the ring across blocks: rep 1 to
+  16, hd 64 to 256, 1 to 4 channel groups, pos at the blocks' edges, below
+  0 (NaN, as the plain version) and past S, within ``error_bound``; a split
+  that cannot be resident at once raises.
 * The tensor-core path (bf16 compute): the per-group kernel past
   ``K_SINGLE_STEP_MAX`` against its plain version within 2 (K + 2) u sum
   |x w s| at K 2052 (K % 16 != 0, rows not 16-byte aligned), 2560 with x
   narrower than K, and 6912, N 1 to 1126, M 1 to 2048; its expert axis
-  bitwise per-expert launches (16 experts, K 7168, M 8); K1 still equals
-  K2 bitwise on bf16 x at Kp 2048 (the SIMT path); the expert kernel
+  bitwise per-expert launches (16 experts, K 7168, M 8); K1 equals K2
+  bitwise on bf16 x at Kp 2048 (both on the tensor cores); the expert kernel
   within ``fused_3d_error_bound`` at M 1 to 70, 1 and 256 experts, tile_n
   16 and 128, out bf16 and f32; each counted in ``mma_launches``; a CPU
   operand and a refused launch raise, with no fall-back.
@@ -373,6 +384,56 @@ def test_decode_attention_matches_plain(B, KV, rep, hd, S, kv_bits, pos, q_dtype
     bound = datt.error_bound(q, kf, vf, p, out_dtype)
     diff = (got.double() - ref.double()).abs()
     assert torch.isfinite(got).all() and (diff <= bound).all(), float((diff / bound).max())
+
+
+K4_SPLIT_CASES = [
+    # (B, KV, rep, hd, S, kv_bits, pos): P = 3 at qwen's 4 x 20 heads (block
+    # edges at 96 tokens), tiles of 32; pos < 0 gives NaN, pos >= S the ring
+    (4, 20, 1, 128, 1024, (2, 4, 8), [-1, 1023, 95, 96]),
+    (4, 4, 2, 64, 300, 4, [31, 32, 299, 400]),
+    (1, 8, 8, 96, 200, (2, 8), [250]),
+    (2, 2, 16, 128, 77, (2, 4, 4, 8), [63, 64]),
+    (2, 2, 1, 160, 129, 8, [128, 0]),
+    (2, 1, 8, 256, 64, (4, 8), [-1, 33]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,KV,rep,hd,S,kv_bits,pos", K4_SPLIT_CASES, ids=str)
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_decode_attention_split_matches_plain(B, KV, rep, hd, S, kv_bits, pos, q_dtype,
+                                              out_dtype):
+    from repro_torch.kernels import decode_attention as datt
+    from repro_torch.models import kv_quant as kvq
+    dev = _cuda()
+    spec, q, kp, ks, vp, vs = _k4_case(dev, B, KV, rep, hd, S, kv_bits, q_dtype, hd + rep)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    before = datt.decode_attention.launches
+    got = datt.decode_attention(q, kp, ks, vp, vs, p, spec.bits, spec.sizes, out_dtype)
+    torch.cuda.synchronize()
+    assert datt.decode_attention.launches == before + 1
+    ref = datt.decode_attention_plain(q, kp, ks, vp, vs, p, spec.bits, spec.sizes, out_dtype)
+    live = p >= 0
+    assert torch.isnan(got[~live]).all() and torch.isnan(ref[~live]).all()
+    kf = kvq.dequant_channelwise(kp, ks, spec, out_dtype)
+    vf = kvq.dequant_channelwise(vp, vs, spec, out_dtype)
+    bound = datt.error_bound(q[live], kf[live], vf[live], p[live], out_dtype)
+    diff = (got[live].double() - ref[live].double()).abs()
+    assert torch.isfinite(got[live]).all() and (diff <= bound).all(), float((diff / bound).max())
+
+
+@pytest.mark.gpu
+def test_decode_attention_raises_when_the_split_cannot_be_resident(monkeypatch):
+    from repro_torch.kernels import decode_attention as datt
+    dev = _cuda()
+    spec, q, kp, ks, vp, vs = _k4_case(dev, 1, 2, 2, 16, 8, 4, torch.float32, 0)
+    p = torch.tensor([3], dtype=torch.int32, device=dev)
+    monkeypatch.setattr(datt, "k4_plan", lambda *a, **k: 100000)
+    before = datt.decode_attention.launches
+    with pytest.raises(RuntimeError, match="decode_attention"):
+        datt.decode_attention(q, kp, ks, vp, vs, p, spec.bits, spec.sizes)
+    assert datt.decode_attention.launches == before
 
 
 @pytest.mark.gpu
@@ -785,8 +846,76 @@ def test_fused_equals_pergroup_bitwise_on_bf16_x_at_kp_2048():
     fused = qt.matmul(x, "cuda", torch.bfloat16)
     pergroup = qt.matmul(x, "cuda-pergroup", torch.bfloat16)
     torch.cuda.synchronize()
-    assert ops.mma_launch_counts() == before, "Kp 2048 must stay on the SIMT routine"
+    after = ops.mma_launch_counts()
+    assert (after["quant_matmul_fused"] - before["quant_matmul_fused"],
+            after["quant_matmul"] - before["quant_matmul"]) == (1, len(qt.bits)), \
+        "K1 and K2 at bf16 must both take the tensor-core routine"
     assert torch.equal(fused, pergroup), "K1 != K2 bitwise on bf16 x"
+
+
+# resnet8-cifar10's ten GEMMs at batch 64: (M, c_in, c_out, tile_n)
+RESNET8_GEMMS = [(65536, 27, 16, 16), (65536, 144, 16, 16), (16384, 144, 32, 32),
+                 (16384, 288, 32, 32), (16384, 16, 32, 32), (4096, 288, 64, 64),
+                 (4096, 576, 64, 64), (4096, 32, 64, 64), (64, 64, 10, 8)]
+K1_EDGES = [(1, 256, 2, 1), (300, 64, 2, 2), (77, 40, 12, 4), (1, 3, 12, 8), (1000, 27, 16, 16),
+            (257, 300, 200, 128), (129, 2047, 64, 32), (33, 100, 70, 64), (5, 4, 128, 128)]
+
+
+def _fused_bound(x, qt, Kp):
+    w = qmk.fused_dense_int(qt.fused_packed, qt.tile_bits, Kp, qt.tile_n).double()
+    xa = torch.nn.functional.pad(x.double().abs(), (0, Kp - x.shape[1]))
+    return 2 * (Kp + 2) * 2.0 ** -24 * (xa @ w.abs().T) * qt.fused_scales.double().abs()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,c_in,c_out,tile_n", RESNET8_GEMMS + K1_EDGES, ids=str)
+def test_fused_simt_matches_plain_and_pergroup(m, c_in, c_out, tile_n):
+    dev = _cuda()
+    qt = _qtensor(m + c_in, c_out, c_in, tile_n, _mixed).to(dev)
+    assert qt.fused_packed is not None and qt.tile_n == tile_n
+    Kp = -(-c_in // qmk.FUSED_K_ALIGN) * qmk.FUSED_K_ALIGN
+    for c in sorted({c_in, max(1, c_in - 3)}):                 # x narrower than Kp
+        x = torch.randn((m, c), generator=torch.Generator(device=dev).manual_seed(c), device=dev)
+        args = (x, qt.fused_packed, qt.fused_table, qt.fused_scales, qt.tile_bits)
+        before = (qmk.quant_matmul_fused_2d.launches, qmk.quant_matmul_fused_2d.mma_launches)
+        got = qmk.quant_matmul_fused_2d(*args, Kp=Kp, tile_n=tile_n)
+        torch.cuda.synchronize()
+        assert (qmk.quant_matmul_fused_2d.launches, qmk.quant_matmul_fused_2d.mma_launches) == (
+            before[0] + 1, before[1])
+        ref = qmk.quant_matmul_fused_2d_plain(x, qt.fused_packed, qt.fused_scales,
+                                              qt.tile_bits, Kp=Kp, tile_n=tile_n)
+        assert torch.isfinite(got).all()
+        assert ((got.double() - ref.double()).abs() <= _fused_bound(x, qt, Kp)).all(), c
+    x = torch.randn((m, c_in), generator=torch.Generator(device=dev).manual_seed(m), device=dev)
+    assert torch.equal(qt.matmul(x, "cuda"), qt.matmul(x, "cuda-pergroup")), "K1 != K2 bitwise"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in,c_out,tile_n", [(512, 1024, 128), (1536, 512, 128),
+                                               (2048, 384, 128), (300, 96, 16), (2044, 64, 32)])
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 70, 2048])
+def test_fused_mma_matches_plain_and_pergroup(c_in, c_out, tile_n, m):
+    from repro_torch.models import serving
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(c_in + m)
+    qt = serving.init_deployed_linear(gen, c_in, c_out, _moe_cfg(16), tile_n=tile_n,
+                                      device=dev)["w"]
+    assert qt.fused_packed is not None and qt.tile_n == tile_n
+    assert qmk.fused_2d_path(tile_n, torch.bfloat16) == "mma"
+    Kp = -(-c_in // qmk.FUSED_K_ALIGN) * qmk.FUSED_K_ALIGN
+    x = torch.randn((m, c_in), generator=gen, device=dev).to(torch.bfloat16)
+    args = (x, qt.fused_packed, qt.fused_table, qt.fused_scales, qt.tile_bits)
+    before = (qmk.quant_matmul_fused_2d.launches, qmk.quant_matmul_fused_2d.mma_launches)
+    got = qmk.quant_matmul_fused_2d(*args, Kp=Kp, tile_n=tile_n, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (qmk.quant_matmul_fused_2d.launches, qmk.quant_matmul_fused_2d.mma_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = qmk.quant_matmul_fused_2d_plain(x.float(), qt.fused_packed, qt.fused_scales,
+                                          qt.tile_bits, Kp=Kp, tile_n=tile_n)
+    assert torch.isfinite(got).all()
+    assert ((got.double() - ref.double()).abs() <= _fused_bound(x.float(), qt, Kp)).all()
+    assert torch.equal(qt.matmul(x, "cuda", torch.bfloat16),
+                       qt.matmul(x, "cuda-pergroup", torch.bfloat16)), "K1 != K2 bitwise at bf16"
 
 
 @pytest.mark.gpu
