@@ -40,7 +40,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (forward, grad-input and grad-weight of each dense site, captured from
    a live step) and at edge shapes (M = 1, N = 1, K = 1, K = 3,
    K = 65536, K = K_INT32_EXACT_MAX with the worst-case sum, a transposed
-   operand made contiguous); K_INT32_EXACT_MAX + 1 must raise; the card's
+   operand made contiguous), each row with its class and plan (``k5_plan``:
+   kernel, BM, BN, splits); every call runs the int8 tensor cores
+   (``mma_launches`` counts each); K_INT32_EXACT_MAX + 1 must raise; the
+   card's
    ``rowwise_quantize`` equals the CPU's bitwise, and stochastic rounding
    with one seed twice gives the same bits.
 4b. The training path: ``Engine.for_tinyml(cfg, SearchSettings(
@@ -104,11 +107,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and one profiled serve each: device busy time, top kernels, and the idle
    share 1 - busy / serve time, against both the median serve and the
    profiled serve itself (unclamped: a negative share exposes a mismatch).
-   K5 at each of the 30 GEMM shapes of one resnet8 int8 training step: its
-   device time, CUDA-event time, the plain version's time, ``torch._int_mm``
-   on operands zero-padded to its shape rules plus the same epilogue (the
-   library yardstick, never used by the port), and the bound
-   max(bytes / 3.35 TB/s, 2 M N K / 1979 TOP/s int8).  The training step
+   K5 at each of the 30 GEMM shapes of one resnet8 int8 training step and
+   of one dae-ad step (the launch-floor class: M 64, grad-weight K 64),
+   each row with its class, plan and the device kernels one call puts on
+   the card (the profiler's count): its device time, CUDA-event time, the
+   plain version's time, ``torch._int_mm`` on operands zero-padded to its
+   shape rules plus the same epilogue (the library yardstick, never used by
+   the port), each device time from ``torch.profiler`` or, where it loses
+   events, a CUDA graph of back-to-back calls, and the bound max(bytes /
+   3.35 TB/s, 2 M N K / 1979 TOP/s int8); sums per model and per class.
+   The training step
    time (host clock, median of 10 after 3 warm-ups) per model and compute
    mode, and one profiled step each: device busy time, top kernels, idle
    share.
@@ -263,9 +271,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 6. The kernel summary line (K1 at the resnet8 shapes with deepseek's three
    K1 shapes beside them and the launches of both paths, K2 over one
    qwen1.5-4b decode step with its SIMT routine's time, its prefill forward
-   and its expert axis over one deepseek-v3 decode step beside it, K4 at the qwen decode shape, K5 over one resnet8 int8
-   training step, K3 at deepseek-v3's ``we_down`` decode shape, K6 over one
-   qwen block's linears with lm_head beside it), the card's name and power
+   and its expert axis over one deepseek-v3 decode step beside it, K4 at
+   the qwen decode shape, K5 over one resnet8 int8 training step with its
+   tensor-core launches and dae-ad's step beside it, K3 at deepseek-v3's
+   ``we_down`` decode shape, K6 over one qwen block's linears with lm_head
+   beside it), the card's name and power
    limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a CUDA device, and when run outside the repository
@@ -1314,7 +1324,8 @@ def moe_serving(dev, card, ops, gen):
                     for b, p in zip(qt.bits, qt.packed)),
                 "quant_matmul_fused_batched": sum(
                     qmk.fused_3d_path(qt.tile_n, torch.bfloat16) == "mma"
-                    for qt in stacks if qt.fused_packed is not None)}
+                    for qt in stacks if qt.fused_packed is not None),
+                "scaled_int8_mm": 0}
     check(want_mma["quant_matmul_fused_batched"] == cfg.n_layers
           and want_mma["quant_matmul"] >= 2 * 3 * cfg.n_layers
           and want_mma["quant_matmul_fused"] == want["quant_matmul_fused"] == 3 * cfg.n_layers,
@@ -2066,16 +2077,25 @@ def main() -> int:
         torch.zeros((1, kmax + 1), dtype=torch.int8, device=dev),
         torch.ones(1, device=dev), torch.ones(1, device=dev))),
         "K = K_INT32_EXACT_MAX + 1 must raise")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def k5_plan_row(M, N, K):
+        p = imk.k5_plan(M, N, K, sms)
+        return {"class": p.cls, "kernel": p.kernel, "BM": p.bm, "BN": p.bn, "nf": p.nf,
+                "wm": p.wm, "wn": p.wn, "grid_m": p.grid_m, "tiles_m": p.tiles_m,
+                "tiles_n": p.tiles_n, "splits": p.splits, "kper": p.kper}
+
     k5_rows = []
     for label, a, b, sa, sb in [c for cs in k5_cases.values() for c in cs] + k5_edges:
+        before = (imk.scaled_int8_mm.launches, imk.scaled_int8_mm.mma_launches)
         y = imk.scaled_int8_mm(a, b, sa, sb)
         ref = imk.scaled_int8_mm_plain(a, b, sa, sb)
         same = torch.equal(y, ref)
         check(bool(torch.isfinite(y).all()), f"K5 output not finite: {label}")
-        bn, kchunk = imk.launch_shape(a.shape[0], b.shape[0], a.shape[1],
-                                      torch.cuda.get_device_properties(dev).multi_processor_count)
-        k5_rows.append(dict(case=label, M=a.shape[0], N=b.shape[0], K=a.shape[1], bn=bn,
-                            k_splits=-(-a.shape[1] // kchunk), bitwise=same,
+        check((imk.scaled_int8_mm.launches - before[0], imk.scaled_int8_mm.mma_launches
+               - before[1]) == (1, 1), f"K5 must launch the tensor-core routine once: {label}")
+        k5_rows.append(dict(case=label, M=a.shape[0], N=b.shape[0], K=a.shape[1],
+                            **k5_plan_row(a.shape[0], b.shape[0], a.shape[1]), bitwise=same,
                             max_abs_err=float((y - ref).abs().max())))
         check(same, f"K5 != its plain version bitwise: {label}")
     xq = torch.from_numpy(gen.standard_normal((257, 333)).astype(np.float32) * 3)
@@ -2089,7 +2109,8 @@ def main() -> int:
     torch.cuda.synchronize()
     for row in k5_rows:
         log("[k5] " + json.dumps(row))
-    log(f"[k5] {len(k5_rows)} products bitwise equal to the plain version; K > "
+    log(f"[k5] {len(k5_rows)} products bitwise equal to the plain version, each one "
+        f"tensor-core launch; K > "
         f"K_INT32_EXACT_MAX and a non-contiguous operand raise; rowwise_quantize card == CPU; "
         f"SR deterministic per seed")
     report["k5_checks"] = k5_rows
@@ -2417,9 +2438,12 @@ def main() -> int:
         log(f"[train] {mname}: int8 ends the warmup {gap:.6g} from f32, half the f32 drop "
             f"is {drop / 2:.6g}")
         check(gap < drop / 2, f"{mname}: int8 ends {gap} from f32, more than half its drop")
-    train_launches = ops.launch_counts()
-    log(f"[train] launches over the training path: {train_launches}")
+    train_launches, train_mma = ops.launch_counts(), ops.mma_launch_counts()
+    log(f"[train] launches over the training path: {train_launches}; tensor-core launches "
+        f"{train_mma}")
     check(train_launches["scaled_int8_mm"] > 0, "K5 never launched on the training path")
+    check(train_mma["scaled_int8_mm"] == train_launches["scaled_int8_mm"],
+          "every K5 launch of the training path runs the tensor-core routine")
     report["train_card_vs_cpu"] = grad_rows
     report["train_path"] = train_rows
     report["train_path_launches"] = train_launches
@@ -2518,31 +2542,53 @@ def main() -> int:
         bt = torch.nn.functional.pad(b, (0, kp - K, 0, np_ - N)).t()
         return lambda: torch._int_mm(ap, bt)[:M, :N].float() * sa[:, None] * sb[None, :]
 
-    k5_times = []
-    for label, a, b, sa, sb in k5_cases["resnet8-cifar10"]:
-        M, K = a.shape
-        N = b.shape[0]
-        lib = int_mm_library(a, b, sa, sb)
-        check(torch.equal(lib(), imk.scaled_int8_mm_plain(a, b, sa, sb)),
-              f"the library yardstick computes another function: {label}")
-        row = dict(case=label, M=M, N=N, K=K)
-        fns = {"k5": lambda: imk.scaled_int8_mm(a, b, sa, sb),
-               "plain": lambda: imk.scaled_int8_mm_plain(a, b, sa, sb), "library": lib}
-        for key, fn in fns.items():
-            row[f"{key}_loop_ms"] = cuda_ms(fn, iters=20)
-            dev_ms = device_ms(fn, iters=10)
-            row[f"{key}_ms"] = row[f"{key}_loop_ms"] if dev_ms is None else dev_ms
-            row[f"{key}_timer"] = "events" if dev_ms is None else "profiler"
-        row["bytes_ms"] = (M * K + N * K + 4 * (M + N) + 4 * M * N) / PEAK_BYTES_PER_S * 1e3
-        row["ops_ms"] = 2.0 * M * N * K / PEAK_INT8_OP_PER_S * 1e3
-        k5_times.append(row)
-        log("[times] K5 " + json.dumps(row))
-    k5_sum = {key: sum(r[key] for r in k5_times)
-              for key in ("k5_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
-    k5_bound = sum(max(r["bytes_ms"], r["ops_ms"]) for r in k5_times)
-    k5_bound_by = "bytes" if k5_sum["bytes_ms"] >= k5_sum["ops_ms"] else "operations"
-    log(f"[times] K5 over one resnet8 training step ({len(k5_times)} products): "
-        f"{json.dumps(k5_sum)}, bound {k5_bound:.6f} ms ({k5_bound_by}) | {card}")
+    def k5_timed(cases):
+        rows = []
+        for label, a, b, sa, sb in cases:
+            M, K = a.shape
+            N = b.shape[0]
+            lib = int_mm_library(a, b, sa, sb)
+            check(torch.equal(lib(), imk.scaled_int8_mm_plain(a, b, sa, sb)),
+                  f"the library yardstick computes another function: {label}")
+            row = dict(case=label, M=M, N=N, K=K, **k5_plan_row(M, N, K))
+            fns = {"k5": lambda: imk.scaled_int8_mm(a, b, sa, sb),
+                   "plain": lambda: imk.scaled_int8_mm_plain(a, b, sa, sb), "library": lib}
+            for key, fn in fns.items():
+                # where the profiler loses events, a CUDA graph of back-to-back
+                # calls: the event loop of a few-microsecond call is host time
+                row[f"{key}_loop_ms"] = cuda_ms(fn, iters=20)
+                row[f"{key}_ms"], row[f"{key}_timer"] = kernel_ms(fn, 10, row[f"{key}_loop_ms"])
+            row["k5_device_ops"] = len(device_kernels(fns["k5"])[0])
+            row["bytes_ms"] = (M * K + N * K + 4 * (M + N) + 4 * M * N) / PEAK_BYTES_PER_S * 1e3
+            row["ops_ms"] = 2.0 * M * N * K / PEAK_INT8_OP_PER_S * 1e3
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
+            rows.append(row)
+            log("[times] K5 " + json.dumps(row) + f" | {card}")
+        return rows
+
+    def k5_summed(rows, what):
+        total = {key: sum(r[key] for r in rows)
+                 for key in ("k5_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms", "bound_ms",
+                             "k5_device_ops")}
+        total["bound_by"] = "bytes" if total["bytes_ms"] >= total["ops_ms"] else "operations"
+        total["products"] = len(rows)
+        total["by_class"] = {
+            cls: {key: sum(r[key] for r in rows if r["class"] == cls)
+                  for key in ("k5_ms", "bound_ms", "library_ms")}
+            | {"products": sum(r["class"] == cls for r in rows)}
+            for cls in sorted({r["class"] for r in rows})}
+        log(f"[times] K5 over one {what} training step ({len(rows)} products): "
+            f"{json.dumps(total)} | {card}")
+        return total
+
+    k5_times = k5_timed(k5_cases["resnet8-cifar10"])
+    k5_sum = k5_summed(k5_times, "resnet8")
+    k5_bound, k5_bound_by = k5_sum["bound_ms"], k5_sum["bound_by"]
+    check(all(r["k5_device_ops"] == 1 for r in k5_times if r["k5_timer"] == "profiler"),
+          "a K5 call (a split one included) must put one kernel on the device")
+    k5_dae = k5_timed(k5_cases["dae-ad"])
+    k5_dae_sum = k5_summed(k5_dae, "dae-ad")
 
     # training step time (a search-phase W step) and where one step's time goes
     step_times = {}
@@ -2564,7 +2610,8 @@ def main() -> int:
             top=[dict(kernel=k[:80], launches=n, ms=t) for k, (n, t) in top])
         log(f"[train-step] {mname}/{tc}: " + json.dumps(step_times[f"{mname}/{tc}"])
             + f" | {card}")
-    report["k5_times"] = k5_times
+    report["k5_times"] = dict(resnet8=k5_times, resnet8_sum=k5_sum, dae_ad=k5_dae,
+                              dae_ad_sum=k5_dae_sum)
     report["train_step"] = step_times
 
     # -- 3e, 5d. the fused Eq. 5 mixture (K6) through the kernel API --------------
@@ -2611,9 +2658,13 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/int8_matmul.cu",
              replaces="src/repro/kernels/int8_matmul.py:82",
              launches=train_launches["scaled_int8_mm"],
+             mma_launches=train_mma["scaled_int8_mm"],
              max_abs_err=max(r["max_abs_err"] for r in k5_rows),
              ms=k5_sum["k5_ms"], plain_ms=k5_sum["plain_ms"], bound_ms=k5_bound,
-             bound_by=k5_bound_by, library_ms=k5_sum["library_ms"]),
+             bound_by=k5_bound_by, library_ms=k5_sum["library_ms"],
+             dae_ad=dict(ms=k5_dae_sum["k5_ms"], plain_ms=k5_dae_sum["plain_ms"],
+                         bound_ms=k5_dae_sum["bound_ms"], bound_by=k5_dae_sum["bound_by"],
+                         library_ms=k5_dae_sum["library_ms"], products=len(k5_dae))),
         k4_lm,
         k3_moe,
         k6,
@@ -2630,7 +2681,8 @@ def main() -> int:
         f"linears of one qwen1.5-4b block at full width (f32 w; lm_head beside it; no "
         f"library call computes the mixture); K1 launches are the tinyml serving path's and "
         f"the MoE path's, K2's the qwen and MoE paths', K4's the qwen path's, K5's the "
-        f"training path's, K3's the MoE path's, K6's the kernel API's over the tinyml "
+        f"training path's (all on the int8 tensor cores; dae-ad's 30 products beside it), "
+        f"K3's the MoE path's, K6's the kernel API's over the tinyml "
         f"search-phase weights (no model path calls K6, in the reference or the port); {card}")
     report["kernels"] = kernels
     if opts.out:

@@ -44,8 +44,10 @@ SIGNATURES = {
                           _P, _P],
     },
     "int8_matmul.cu": {
-        # a, b, sa, sb, M, N, K, bn, kchunk, ws, out, stream
-        "i8mm_f32": [_P, _P, _P, _P, _LL, _I, _LL, _I, _LL, _P, _P, _P],
+        # a, b, sa, sb, M, N, K, kind, nf, wm, wn, grid_m, tiles_n, splits, kper,
+        # ws, counters, out, stream
+        "i8mm_tc": [_P, _P, _P, _P, _LL, _I, _LL, _I, _I, _I, _I, _LL, _I, _I, _LL,
+                    _P, _P, _P, _P],
     },
     "decode_attention.cu": {
         # q, q_bf16, k_packed, k_scales, v_packed, v_scales, pos, scratch, part,

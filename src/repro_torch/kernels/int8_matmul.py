@@ -11,8 +11,10 @@ int8 with int32 sums, and dequantized in a fused epilogue:
   tensors it launches ``csrc/int8_matmul.cu`` (see the note at its top for
   what bounds it and what its design does about it), on CPU tensors it runs
   :func:`scaled_int8_mm_plain` — never the other way round, and never a
-  fall-back after a failed launch.  It counts its launches in a plain int
-  attribute, ``launches``.
+  fall-back after a failed launch.  Every launch runs the int8 tensor
+  cores, by the plan of :func:`k5_plan` (one launch a product, a split one
+  included); it counts them in two plain ints, ``launches`` and
+  ``mma_launches``.
 * :func:`scaled_int8_mm_plain` sums the int8 products in float64, which is
   exact (``K * 127^2 < 2^31 < 2^53``), converts to int32 and applies the same
   epilogue in the same order; so it equals the kernel on the card, and the
@@ -27,6 +29,7 @@ properties and not to the reference's bits.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -35,10 +38,6 @@ from repro_torch.kernels import _build
 
 # K ceiling for exact int32 accumulation: K * 127 * 127 <= 2^31 - 1.
 K_INT32_EXACT_MAX = (2 ** 31 - 1) // (127 * 127)
-
-BK = 32                    # K bytes per chunk of the kernel (its split granule)
-TILE_NS = (16, 32, 64)     # tile widths the kernel takes; BM = 4096 / BN
-MIN_SPLIT_K = 16 * BK      # least K a split-K block walks
 
 
 def rowwise_quantize(x: torch.Tensor, seed: Optional[int] = None):
@@ -72,18 +71,153 @@ def scaled_int8_mm_plain(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
         * sb.to(torch.float32)[None, :]
 
 
-def launch_shape(M: int, N: int, K: int, sms: int) -> tuple:
-    """``(bn, kchunk)`` of one launch: the tile width follows N; K is split
-    over blocks (``kchunk < K``) when the output tiles are fewer than two
-    per SM and K is deep enough to give each split ``MIN_SPLIT_K``."""
-    bn = next(t for t in TILE_NS if N <= t or t == TILE_NS[-1])
-    tiles = -(-M // (4096 // bn)) * -(-N // bn)
-    k_chunks = -(-K // BK)
-    splits = 1
-    if tiles < 2 * sms:
-        splits = max(1, min(-(-2 * sms // tiles), k_chunks * BK // MIN_SPLIT_K))
-    per_split = -(-k_chunks // splits)
-    return bn, per_split * BK
+# The kernel's plan constants (``csrc/int8_matmul.cu``).
+K5_STEP = 32                      # K bytes of one mma (m16n8k32)
+K5_CHUNK = 128                    # K bytes a stage of the split kernel's ring; the split granule
+K5_STAGES = 4                     # the ring's stages
+K5_NF = (1, 2, 3, 4, 6, 8, 9, 12, 16, 18)   # 8-column fragments a warp takes (built instances)
+K5_MAX_WARPS = 8                  # warps of a split-kernel block
+SPLIT_ROWS_MAX = 128              # a split-kernel block's a and b rows (its ring: 72 KB)
+K5_SMEM_MAX = 232448              # dynamic shared memory a block may use
+TINY_MNK = 1 << 20                # M N K at or below it: a tiny product
+SPLIT_MIN_K = 1024                # least K of a tall-K product (split across blocks)
+SPLIT_BLOCKS_PER_SM = 1           # a split product's blocks: about this many an SM
+PANEL_WARPS = 4                   # warps of a panel-kernel block (wm x wn)
+PANEL_NF_MAX = 8                  # a panel warp's fragments (wider measured slower)
+PANEL_BLOCKS_PER_SM = 4           # a panel product's M-tile walkers: this many an SM
+
+
+@dataclasses.dataclass(frozen=True)
+class K5Plan:
+    """One launch of ``scaled_int8_mm``: the product's class, the kernel that
+    runs it and its grid.  A warp computes 16 rows x ``8 nf`` columns; a
+    block ``wm`` x ``wn`` warps, ``bm`` x ``bn``.  ``panel``: ``grid_m``
+    blocks along M walk the ``tiles_m`` M tiles (block x takes x, x +
+    grid_m, ...), ``tiles_n`` along N.  ``split``: ``grid_m == tiles_m``,
+    and K is cut into ``splits`` ranges of ``kper`` bytes (the last one
+    shorter)."""
+    cls: str          # "tall-m", "tall-k" or "tiny"
+    kernel: str       # "panel" or "split"
+    nf: int
+    wm: int
+    wn: int
+    grid_m: int
+    tiles_m: int
+    tiles_n: int
+    splits: int
+    kper: int
+
+    @property
+    def bm(self) -> int:
+        return 16 * self.wm
+
+    @property
+    def bn(self) -> int:
+        return 8 * self.nf * self.wn
+
+    def k_ranges(self, K: int) -> list:
+        """The K byte ranges of the splits, in split order."""
+        return [(z * self.kper, min(K, (z + 1) * self.kper)) for z in range(self.splits)]
+
+
+def _stage_bytes(nf: int) -> int:
+    """Shared bytes of a warp's staged epilogue tile (``Stage<NF>``)."""
+    return 16 * (8 * nf + (40 - (8 * nf) % 32) % 32) * 4
+
+
+def panel_smem(wm: int, wn: int, nf: int, K: int) -> int:
+    """Dynamic shared memory of ``panel_kernel`` (``PanelSmem``), for
+    16-byte aligned rows (K % 16 == 0) or not."""
+    bm, bn = 16 * wm, 8 * nf * wn
+    kp = -(-K // K5_STEP) * K5_STEP
+    stride = kp + 16
+    aligned = K % 16 == 0
+    raw = 0 if aligned else max(2 * ((bm * K + 47) // 16 * 16), (bn * K + 47) // 16 * 16)
+    return bn * stride + (2 if aligned else 1) * bm * stride + raw + wm * wn * _stage_bytes(nf)
+
+
+def _cover_n(nfr: int, wns, nf_max: int = K5_NF[-1]) -> tuple:
+    """``(wn, nf, tiles_n)`` covering ``nfr`` 8-column fragments with ``wn``
+    from ``wns`` and ``wn nf <= nf_max``: the least padded fragments plus two
+    for each tile (each tile reads a again), then the fewest tiles, then the
+    most warps."""
+    best = None
+    for wn in wns:
+        for nf in (f for f in K5_NF if wn * f <= nf_max):
+            tiles = -(-nfr // (wn * nf))
+            key = (tiles * wn * nf + 2 * tiles, tiles, -wn)
+            if best is None or key < best[0]:
+                best = (key, (wn, nf, tiles))
+    return best[1]
+
+
+def k5_plan(M: int, N: int, K: int, sms: int) -> K5Plan:
+    """The launch of one ``M x N x K`` product on a card of ``sms`` SMs, by
+    product class:
+
+    * ``tall-k`` (K >= ``SPLIT_MIN_K`` and at least M and N: the
+      grad-weight products): the split kernel, the block covering up to 64
+      rows in 16-row steps and at most ``SPLIT_ROWS_MAX`` rows of a and b,
+      K split (in ``K5_CHUNK`` multiples) to about ``SPLIT_BLOCKS_PER_SM``
+      blocks an SM when the output's tiles are fewer than the SMs, and
+      finer where a split would take more than the ring's ``K5_STAGES``
+      chunks (each block's K then is in flight at once);
+    * ``tiny`` (M N K <= ``TINY_MNK``): the split kernel, one or a few
+      blocks, no split;
+    * ``tall-m`` (the rest: the forward and grad-input products): the panel
+      kernel, ``PANEL_WARPS`` warps a block, its ``wm`` the largest of 4, 2,
+      1 that still gives a tile to every other SM (the other warps split
+      N), ``PANEL_BLOCKS_PER_SM`` walkers an SM; the split kernel without a
+      split where no panel fits in shared memory.
+    """
+    nfr, mfr = -(-N // 8), -(-M // 16)
+    kpad = -(-K // K5_CHUNK) * K5_CHUNK
+    # the split kernel's tile: up to 64 rows, 16 at a time; N under the row cap
+    swm = min(4, mfr)
+    swn, snf, stiles_n = _cover_n(nfr, range(1, K5_MAX_WARPS // swm + 1),
+                                  (SPLIT_ROWS_MAX - 16 * swm) // 8)
+    stiles_m = -(-mfr // swm)
+    tall_k = K >= SPLIT_MIN_K and K >= max(M, N)
+    if tall_k or M * N * K <= TINY_MNK:
+        splits, kper = 1, kpad
+        tiles = stiles_m * stiles_n
+        if tall_k and tiles < sms:
+            chunks = kpad // K5_CHUNK
+            want = max(-(-SPLIT_BLOCKS_PER_SM * sms // tiles), -(-chunks // K5_STAGES))
+            kper = -(-chunks // min(want, chunks)) * K5_CHUNK
+            splits = -(-K // kper)
+        return K5Plan("tall-k" if tall_k else "tiny", "split", snf, swm, swn, stiles_m,
+                      stiles_m, stiles_n, splits, kper)
+    for wm in (4, 2, 1):
+        wn = PANEL_WARPS // wm
+        _, nf, tiles_n = _cover_n(nfr, (wn,), PANEL_NF_MAX * wn)
+        smem = panel_smem(wm, wn, nf, K)
+        if 2 * -(-M // (16 * wm)) * tiles_n >= sms and smem <= K5_SMEM_MAX:
+            break
+    if smem > K5_SMEM_MAX:
+        return K5Plan("tall-m", "split", snf, swm, swn, stiles_m, stiles_m, stiles_n, 1, kpad)
+    tiles_m = -(-M // (16 * wm))
+    rounds = -(-tiles_m * tiles_n // (PANEL_BLOCKS_PER_SM * sms))    # tiles a walker takes
+    grid_m = -(-tiles_m // rounds)
+    return K5Plan("tall-m", "panel", nf, wm, wn, grid_m, tiles_m, tiles_n, 1, K)
+
+
+# Split-K workspace and arrival counters, per (device, stream): zeroed once
+# here and left zeroed by every split launch (see ``scaled_int8_mm``).
+_SPLIT_BUFFERS: dict = {}
+
+
+def _split_buffers(device: torch.device, stream: int, ints: int, tiles: int) -> tuple:
+    key = (device.index, stream)
+    ws, counters = _SPLIT_BUFFERS.get(key, (None, None))
+    if ws is None or ws.numel() < ints or counters.numel() < tiles:
+        ints = max(ints, 0 if ws is None else ws.numel())
+        tiles = max(tiles, 0 if counters is None else counters.numel())
+        ws = torch.zeros(1 << (ints - 1).bit_length(), dtype=torch.int32, device=device)
+        counters = torch.zeros(1 << (tiles - 1).bit_length(), dtype=torch.int32,
+                               device=device)
+        _SPLIT_BUFFERS[key] = (ws, counters)
+    return ws, counters
 
 
 def scaled_int8_mm(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
@@ -93,6 +227,16 @@ def scaled_int8_mm(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
     ``backend="cuda"`` launches the kernel on CUDA tensors (which must be
     contiguous) and runs the plain version on CPU tensors;
     ``backend="torch"`` runs the plain version on either device.
+
+    A product that :func:`k5_plan` splits over K is one launch: its blocks
+    add their int32 partial tiles into a workspace, count their arrival on
+    the tile's counter, and the last one applies the epilogue and leaves
+    workspace and counters zeroed again.  Both buffers are zeroed once per
+    (device, stream) and kept here for every later split product on that
+    stream, whatever its shape (they grow, zeroed, when a product needs
+    more).  That is safe because one stream runs its launches one after the
+    other: no two launches that share the buffers overlap, and each finds
+    them as the last one left them, zeroed.
     """
     M, K = a.shape
     N = b.shape[0]
@@ -117,20 +261,28 @@ def scaled_int8_mm(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
     if K == 0:
         return out.zero_()
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-    bn, kchunk = launch_shape(M, N, K, sms)
-    ws = (torch.zeros((M, N), dtype=torch.int32, device=a.device) if kchunk < K
-          else None)
+    plan = k5_plan(M, N, K, sms)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    ws = counters = None
+    if plan.splits > 1:
+        ws, counters = _split_buffers(a.device, stream, plan.tiles_m * plan.tiles_n
+                                      * plan.bm * plan.bn, plan.tiles_m * plan.tiles_n)
     lib = _build.load("int8_matmul.cu")
     with torch.cuda.device(a.device):
-        rc = lib.i8mm_f32(a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(),
-                          M, N, K, bn, kchunk, None if ws is None else ws.data_ptr(),
-                          out.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
+        rc = lib.i8mm_tc(a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(), M, N, K,
+                         0 if plan.kernel == "panel" else 1, plan.nf, plan.wm, plan.wn,
+                         plan.grid_m, plan.tiles_n, plan.splits, plan.kper,
+                         None if ws is None else ws.data_ptr(),
+                         None if counters is None else counters.data_ptr(),
+                         out.data_ptr(), stream)
     _build.raise_on(rc, "scaled_int8_mm")
     scaled_int8_mm.launches += 1
+    scaled_int8_mm.mma_launches += 1
     return out
 
 
 scaled_int8_mm.launches = 0
+scaled_int8_mm.mma_launches = 0
 
 
 def int8_matmul(a: torch.Tensor, b: torch.Tensor, seed_a: Optional[int] = None,

@@ -17,7 +17,7 @@ the channel order.
 
 Launch counters: :func:`launch_counts` / :func:`reset_launch_counts` read
 and clear the ``launches`` int of each kernel wrapper (and the
-``mma_launches`` int of the three GEMM wrappers with a tensor-core path, read
+``mma_launches`` int of the four GEMM wrappers with a tensor-core path, read
 by :func:`mma_launch_counts`); :func:`count_launches` counts one call's.
 """
 from __future__ import annotations
@@ -43,10 +43,11 @@ KERNEL_WRAPPERS = {
 }
 
 
-# the wrappers with a tensor-core path beside their SIMT one
+# the wrappers with a tensor-core path (K5 has no other)
 MMA_WRAPPERS = {"quant_matmul_fused": qmk.quant_matmul_fused_2d,
                 "quant_matmul": qmk.quant_matmul_2d,
-                "quant_matmul_fused_batched": qmk.quant_matmul_fused_3d}
+                "quant_matmul_fused_batched": qmk.quant_matmul_fused_3d,
+                "scaled_int8_mm": imk.scaled_int8_mm}
 
 
 def launch_counts() -> dict:

@@ -13,8 +13,13 @@ on a machine that has only PyTorch:
 * Each kernel agrees with its plain PyTorch version: rtol 1e-5,
   atol 1e-5 * max|y| (f32 sums of the same products in other orders).
 * A CUDA call with an operand on the CPU raises instead of falling back.
-* The int8 training GEMM (``scaled_int8_mm``) equals its plain version
-  bitwise at edge shapes and on the split-K path; the card's
+* The int8 training GEMM (``scaled_int8_mm``, int8 tensor cores) equals
+  its plain version bitwise in every class of ``k5_plan`` (resnet8 and
+  dae-ad shapes, K 1, 3, 16, 27 and ``K_INT32_EXACT_MAX``, M 10 and 16, N
+  27, split K), on operands whose rows are not 16-byte aligned, and on
+  split products of several shapes back to back on one stream (the split
+  buffers reset themselves); a call is one device kernel and counts one
+  launch and one tensor-core launch; the card's
   ``rowwise_quantize`` equals the CPU's bitwise; one int8 ``int8_linear``
   backward with a fixed SR seed equals its plain version bitwise (the same
   generator on the same device gives both the same uniforms).
@@ -232,21 +237,89 @@ def _i8(rng, m, k, dev):
     return torch.from_numpy(rng.integers(-127, 128, size=(m, k)).astype(np.int8)).to(dev)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("m,n,k", [(1, 64, 144), (4096, 1, 576), (300, 40, 1), (77, 5, 3),
-                                   (16, 144, 65536), (3, 2, imk.K_INT32_EXACT_MAX),
-                                   (65536, 16, 27), (100, 130, 384), (1, 1, 1)])
-def test_scaled_int8_mm_equals_plain_bitwise(m, n, k):
-    dev = _cuda()
-    rng = np.random.default_rng(m + n + k)
-    a, b = _i8(rng, m, k, dev), _i8(rng, n, k, dev)
+def _k5_operands(rng, m, n, k, dev):
     sa = torch.from_numpy(rng.uniform(1e-4, 0.1, m).astype(np.float32)).to(dev)
     sb = torch.from_numpy(rng.uniform(1e-4, 0.1, n).astype(np.float32)).to(dev)
-    before = ops.launch_counts()["scaled_int8_mm"]
+    return _i8(rng, m, k, dev), _i8(rng, n, k, dev), sa, sb
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k,cls", [
+    (1, 64, 144, "tiny"), (4096, 1, 576, "tall-m"), (300, 40, 1, "tiny"), (77, 5, 3, "tiny"),
+    (16, 144, 65536, "tall-k"), (3, 2, imk.K_INT32_EXACT_MAX, "tall-k"),
+    (65536, 16, 27, "tall-m"), (100, 130, 384, "tall-m"), (1, 1, 1, "tiny"),
+    (65536, 27, 16, "tall-m"),      # resnet8 conv0 grad-input: N 27, K 16
+    (16, 27, 65536, "tall-k"),      # conv0 grad-weight: N 27, split
+    (65536, 144, 16, "tall-m"),     # conv1 grad-input: the largest output
+    (4096, 576, 64, "tall-m"), (4096, 64, 576, "tall-m"), (64, 576, 4096, "tall-k"),
+    (10, 64, 64, "tiny"), (64, 10, 64, "tiny"), (64, 64, 10, "tiny"),
+    (64, 128, 640, "tall-m"), (640, 128, 64, "tall-m"), (64, 128, 8, "tiny"),
+    (1000, 300, 1000, "tall-m"),    # panel rows not 16-byte aligned, K 1000
+    (200, 3, 4099, "tall-k"),       # split ranges past a ragged K
+])
+def test_scaled_int8_mm_equals_plain_bitwise(m, n, k, cls):
+    dev = _cuda()
+    assert imk.k5_plan(m, n, k, torch.cuda.get_device_properties(dev)
+                       .multi_processor_count).cls == cls
+    a, b, sa, sb = _k5_operands(np.random.default_rng(m + n + k), m, n, k, dev)
+    before = (ops.launch_counts()["scaled_int8_mm"], ops.mma_launch_counts()["scaled_int8_mm"])
     y = imk.scaled_int8_mm(a, b, sa, sb)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["scaled_int8_mm"] == before + 1
+    assert (ops.launch_counts()["scaled_int8_mm"],
+            ops.mma_launch_counts()["scaled_int8_mm"]) == (before[0] + 1, before[1] + 1)
     assert torch.equal(y, imk.scaled_int8_mm_plain(a, b, sa, sb))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [(65536, 16, 27), (1000, 300, 1000), (16, 27, 65536),
+                                   (77, 5, 3)])
+def test_scaled_int8_mm_misaligned_operands_equal_plain(m, n, k):
+    """Contiguous views that start 1 and 3 bytes into their storage: no row
+    is 16-byte aligned, whatever K."""
+    dev = _cuda()
+    rng = np.random.default_rng(k)
+    a = _i8(rng, 1, m * k + 1, dev).view(-1)[1:].view(m, k)
+    b = _i8(rng, 1, n * k + 3, dev).view(-1)[3:].view(n, k)
+    sa = torch.from_numpy(rng.uniform(1e-4, 0.1, m).astype(np.float32)).to(dev)
+    sb = torch.from_numpy(rng.uniform(1e-4, 0.1, n).astype(np.float32)).to(dev)
+    y = imk.scaled_int8_mm(a, b, sa, sb)
+    assert torch.equal(y, imk.scaled_int8_mm_plain(a, b, sa, sb))
+
+
+@pytest.mark.gpu
+def test_scaled_int8_mm_split_buffers_reset_between_products():
+    """Split products of two shapes back to back on one stream, twice: each
+    equals its plain version bitwise, so every launch found the workspace
+    and the arrival counters zeroed, as the one before left them."""
+    dev = _cuda()
+    rng = np.random.default_rng(7)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = [_k5_operands(rng, 16, 144, 65536, dev), _k5_operands(rng, 64, 576, 4096, dev),
+             _k5_operands(rng, 3, 2, 20000, dev)]
+    assert all(imk.k5_plan(a.shape[0], b.shape[0], a.shape[1], sms).splits > 1
+               for a, b, _, _ in cases)
+    refs = [imk.scaled_int8_mm_plain(*c) for c in cases]
+    outs = [imk.scaled_int8_mm(*c) for _ in range(2) for c in cases]
+    torch.cuda.synchronize()
+    for i, y in enumerate(outs):
+        assert torch.equal(y, refs[i % len(cases)]), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [(16, 144, 65536), (65536, 144, 16), (64, 10, 64)])
+def test_scaled_int8_mm_is_one_device_kernel(m, n, k):
+    """One wrapper call puts exactly one kernel on the device, a split
+    product included (no zeroing, no second epilogue kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = _cuda()
+    args = _k5_operands(np.random.default_rng(3), m, n, k, dev)
+    imk.scaled_int8_mm(*args)                       # the split buffers exist
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        imk.scaled_int8_mm(*args)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1, kernels
 
 
 @pytest.mark.gpu

@@ -19,6 +19,7 @@ its plain version.  Tolerances:
 Stochastic rounding cannot draw ``jax.random``'s numbers, so it is held by
 the properties of ``tests/test_qtrain.py`` on the port alone.
 """
+import collections
 import dataclasses
 
 import jax
@@ -35,6 +36,7 @@ from repro_torch.api.policy import PrecisionPolicy as TPolicy
 from repro_torch.kernels import int8_matmul as tim
 from repro_torch.kernels import ops
 from repro_torch.models import layers as TL
+from repro_torch.models import tinyml
 from repro_torch.qtrain import linear as tqt
 
 from torch_port_helpers import assert_array_bytes_equal
@@ -122,20 +124,87 @@ def test_k_guard_and_contraction_mismatch_raise():
         tim.scaled_int8_mm(a[:, :4], b[:, :4], torch.ones(1), torch.ones(2), backend="pallas")
 
 
-@pytest.mark.parametrize("m,n,k,bn,split", [
-    (65536, 16, 144, 16, False),     # resnet8 forward: tall, one K chunk
-    (16, 144, 65536, 64, True),      # resnet8 grad-weight: tall K, split
-    (64, 10, 64, 16, False),         # fc forward: one tile
-    (10, 64, 64, 64, False),         # fc grad-weight: K too short to split
-    (4096, 576, 64, 64, False),      # enough tiles: no split
-])
-def test_launch_shape(m, n, k, bn, split):
-    got_bn, kchunk = tim.launch_shape(m, n, k, sms=132)
-    assert got_bn == bn and kchunk % tim.BK == 0
-    assert (kchunk < k) == split
-    if split:
-        blocks = -(-m // (4096 // bn)) * -(-n // bn) * -(-k // kchunk)
-        assert 132 <= blocks <= 2 * 132 and kchunk >= tim.MIN_SPLIT_K
+def _k5_shapes():
+    """The (M, N, K) of the three int8 products of every dense site of
+    resnet8 and dae-ad at batch 64, from the models' layer specs (as
+    ``chip_smoke.py``'s ``k5_roles``), with their ids."""
+    out = []
+    for mname in ("resnet8-cifar10", "dae-ad"):
+        for site, spec in tinyml.build(tinyml.TINY_CONFIGS[mname])[2].items():
+            per = spec.weights_per_channel
+            m = 64 * spec.ops // (spec.c_out * per)          # B * Ho * Wo (FC: B)
+            out += [pytest.param(m, spec.c_out, per, "forward", id=f"{mname}/{site}/forward"),
+                    pytest.param(m, per, spec.c_out, "grad-input",
+                                 id=f"{mname}/{site}/grad-input"),
+                    pytest.param(spec.c_out, per, m, "grad-weight",
+                                 id=f"{mname}/{site}/grad-weight")]
+    return out
+
+
+K5_CASES = _k5_shapes() + [
+    pytest.param(*shape, "edge", id=f"edge-{shape[0]}x{shape[1]}x{shape[2]}")
+    for shape in [(1, 64, 144), (4096, 1, 576), (300, 40, 1), (77, 5, 3), (1, 1, 1),
+                  (3, 2, tim.K_INT32_EXACT_MAX), (100, 130, 384), (7, 13, 27), (70, 9, 300),
+                  (1000, 300, 1000), (200, 3, 4099), (65536, 1024, 1000)]]
+
+
+def test_k5_cases_cover_both_models():
+    assert sum(1 for c in K5_CASES if c.id.startswith("resnet8")) == 30
+    assert sum(1 for c in K5_CASES if c.id.startswith("dae-ad")) == 30
+
+
+@pytest.mark.parametrize("m,n,k,role", K5_CASES)
+@pytest.mark.parametrize("sms", [132])
+def test_k5_plan(m, n, k, role, sms):
+    plan = tim.k5_plan(m, n, k, sms)
+    assert plan == tim.k5_plan(m, n, k, sms)
+    assert plan.nf in tim.K5_NF
+    # the block grid covers M x N exactly once
+    assert plan.tiles_m * plan.bm >= m > (plan.tiles_m - 1) * plan.bm
+    assert plan.tiles_n * plan.bn >= n > (plan.tiles_n - 1) * plan.bn
+    walked = collections.Counter(t for x in range(plan.grid_m)
+                                 for t in range(x, plan.tiles_m, plan.grid_m))
+    assert sorted(walked) == list(range(plan.tiles_m)) and set(walked.values()) == {1}
+    # the split K ranges partition [0, K) in multiples of the chunk, but the last
+    ranges = plan.k_ranges(k)
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    assert all(r0 < r1 for r0, r1 in ranges)
+    assert all(prev[1] == nxt[0] for prev, nxt in zip(ranges, ranges[1:]))
+    assert all((r1 - r0) % tim.K5_CHUNK == 0 and (r1 - r0) % 32 == 0 for r0, r1 in ranges[:-1])
+    # a split only where the output's tiles underfill the SMs
+    assert plan.splits == 1 or plan.tiles_m * plan.tiles_n < sms
+    assert plan.splits == 1 or plan.cls == "tall-k"
+    if plan.kernel == "panel":
+        assert plan.wm * plan.wn == tim.PANEL_WARPS and plan.splits == 1
+        assert tim.panel_smem(plan.wm, plan.wn, plan.nf, k) <= tim.K5_SMEM_MAX
+    else:
+        assert plan.grid_m == plan.tiles_m and plan.wm * plan.wn <= tim.K5_MAX_WARPS
+    if role == "grad-weight":
+        # 16-row granularity: no tile pads M by 16 rows or more
+        assert plan.tiles_m * plan.bm - m < 16
+    if role == "grad-weight" and m * n * k > tim.TINY_MNK:
+        assert plan.cls in ("tall-k", "tall-m") and (plan.cls == "tall-k") == (k >= 1024)
+    if role in ("forward", "grad-input") and m * n * k > tim.TINY_MNK:
+        assert plan.cls == "tall-m"
+
+
+def _k5_emulation(a, b, sa, sb, plan):
+    """The kernel's arithmetic under ``plan`` in plain torch: each split's
+    int32 partial sums (exact int64 products of its K range, each within
+    int32), added in split order, then the epilogue in its order."""
+    acc = torch.zeros((a.shape[0], b.shape[0]), dtype=torch.int32)
+    for k0, k1 in plan.k_ranges(a.shape[1]):
+        part = a[:, k0:k1].to(torch.int64) @ b[:, k0:k1].to(torch.int64).T
+        assert int(part.abs().max()) < 2 ** 31
+        acc += part.to(torch.int32)
+    return acc.to(torch.float32) * sa[:, None] * sb[None, :]
+
+
+@pytest.mark.parametrize("m,n,k,role", [c for c in K5_CASES if np.prod(c.values[:3]) < 4e8])
+def test_k5_plan_emulation_equals_plain_bitwise(m, n, k, role):
+    a, b, sa, sb = (torch.from_numpy(v) for v in _int8_operands(m + 7 * n + k, m, n, k))
+    plan = tim.k5_plan(m, n, k, 132)
+    assert torch.equal(_k5_emulation(a, b, sa, sb, plan), tim.scaled_int8_mm_plain(a, b, sa, sb))
 
 
 # ---------------------------------------------------------------------------

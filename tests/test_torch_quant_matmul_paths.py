@@ -43,6 +43,7 @@ from repro.kernels import ops as jops
 from repro_torch import bridge
 from repro_torch.config import DeploySpec, get_config
 from repro_torch.core import quantizers as tqz
+from repro_torch.kernels import int8_matmul as imk
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quant_matmul as qmk
 from repro_torch.models import serving
@@ -185,7 +186,8 @@ def test_qtensor_fused_matmul_hands_compute_dtype_down(monkeypatch, c_in, c_out,
         assert torch.equal(y, want)
 
 
-_ZERO_MMA = {"quant_matmul_fused": 0, "quant_matmul": 0, "quant_matmul_fused_batched": 0}
+_ZERO_MMA = {"quant_matmul_fused": 0, "quant_matmul": 0, "quant_matmul_fused_batched": 0,
+             "scaled_int8_mm": 0}
 
 
 def test_mma_counters_reset_and_stay_zero_on_the_cpu():
@@ -197,8 +199,10 @@ def test_mma_counters_reset_and_stay_zero_on_the_cpu():
     packed, scale = _group(rng, 8, 2560, 2)
     x = torch.from_numpy(rng.standard_normal((3, 2560)).astype(np.float32)).to(torch.bfloat16)
     qmk.quant_matmul_2d(x, packed, scale, 2, torch.bfloat16)
+    imk.scaled_int8_mm(torch.ones((4, 40), dtype=torch.int8),
+                       torch.ones((3, 40), dtype=torch.int8), torch.ones(4), torch.ones(3))
     assert tops.mma_launch_counts() == _ZERO_MMA
-    assert tops.launch_counts()["quant_matmul"] == 0
+    assert tops.launch_counts()["quant_matmul"] == tops.launch_counts()["scaled_int8_mm"] == 0
 
 
 def _jpacked(seed, n, k, bits):
