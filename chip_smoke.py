@@ -268,6 +268,43 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and the f32 output written once and 2 + 5 |P| operations an element;
    summed over a block's seven linears.  No single PyTorch call computes
    the mixture, so there is no library yardstick.
+3f, 4e, 5e. The other LM families, one after another, each freed before the
+   next: ``serving.init_deployed_model`` from seed 0 on the card at every
+   published width of stablelm-12b, minicpm-2b, chatglm3-6b (full depth),
+   phi-3-vision-4.2b (the VLM), arctic-480b (depth cut from 35 to 2
+   layers, its packed bytes computed and printed), mamba2-780m (SSM) and
+   zamba2-1.2b (hybrid), then ``ServingEngine(backend="cuda", max_slots=4,
+   max_len=1024)`` on a staggered trace (6 requests, 8-16 new tokens,
+   prompts of 64-256 tokens at a prefill width of 256; the VLM's 600-800 at
+   1024, each with its 576 ``prefix_embeds`` from the trace's generator)
+   under kv_bits (2, 4, 8) (mamba2 has no ring).  The launch counts are
+   zeroed just before each family's run and read just after.  Gates: every
+   engine step launches each fused linear's K1 once (the hybrid's shared
+   block once a group), K2 once per precision group of every other linear
+   (arctic's expert stacks too; K3 never), K4 once per attention
+   application in a decode step and never in a prefill, every K1 and K2
+   launch on the tensor cores; each decoder block and shared-attention
+   application, each of arctic's attention and MoE sub-layers (a near tie
+   among its 128 router scores could flip an expert through a whole block)
+   and each Mamba2 layer of the first 2 decode steps and the prefills
+   before them within 2^-5 x max(1, max|y|) of the plain backend on the same
+   input, decode fed the kernel path's new cache entries and a Mamba2
+   layer fed its kernel path's in_proj output (held itself within 2^-5 of
+   the plain one: the SSM chain carries its bf16 roundings ~4x), every K4
+   launch of those steps within its bound.  For mamba2 and zamba2 the first
+   prefill's final state of the first, middle and last layers is held to
+   the token-by-token recurrence (``ssm.ssd_step``) over the same conv
+   outputs within 2^-12 of its largest value (the scan's f32 differences of
+   cumulative decays up to ~3500), and the first layer's also to
+   ``mamba2_decode`` token by token within 2^-5 (its one-token conv rounds
+   once, as the reference's), with its conv ring equal.  K4 at each
+   family's decode shape (4 slots over a 1024 ring, kv (2, 4, 8)) at
+   positions 0, 255 and 1023 within ``error_bound`` of its plain version,
+   timed beside SDPA's device time and its bound (``[times] K4 <family>``).
+   Times (``[families-times]``): a clean run of the trace (prefill and
+   decode-step ms, host clock, medians; tokens per second) and one profiled
+   decode step at position 200 (device busy, idle share, device launches,
+   top kernels); peak memory and the family's seconds.
 6. The kernel summary line (K1 at the resnet8 shapes with deepseek's three
    K1 shapes beside them and the launches of both paths, K2 over one
    qwen1.5-4b decode step with its SIMT routine's time, its prefill forward
@@ -275,8 +312,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the qwen decode shape, K5 over one resnet8 int8 training step with its
    tensor-core launches and dae-ad's step beside it, K3 at deepseek-v3's
    ``we_down`` decode shape, K6 over one qwen block's linears with lm_head
-   beside it), the card's name and power
-   limit, and the last line ``{"ok": true, "device": {...}}``.
+   beside it; K1, K2 and K4 launches also the seven families' paths', K4's
+   rows at their decode shapes in its ``families`` entry), the card's name
+   and power limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a CUDA device, and when run outside the repository
 (it needs ``src/repro_torch``).
@@ -508,6 +546,16 @@ class LMGates:
         y = self._orig["decode_block"](p, cfg, h, cache, pos, live, kv_spec, backend)
         if not self.on:
             return y
+        y_ref = self._fed_plain(h, cache, pos, live, lambda clone: self._orig["decode_block"](
+            p, cfg, h, clone, pos, live, kv_spec, "torch"))
+        self._ratio(y, y_ref, "decode block")
+        return y
+
+    def _fed_plain(self, h, cache, pos, live, run):
+        """``run(clone)``, the plain decode over a clone of the ring ``cache``
+        the kernel path has just written, with its k and v quantizers fed
+        the entries that path wrote at ``pos`` (each live one checked
+        against the plain path's own value); returns ``run``'s output."""
         B, S = h.shape[0], cache["k"].shape[2]
         bidx, at = torch.arange(B, device=h.device), pos.long().clamp(0, S - 1)
         new = {k: cache[k][bidx, :, at][:, :, None].clone() for k in cache}
@@ -534,13 +582,11 @@ class LMGates:
         self.attn.quant_per_token = fed(orig_q[0], lambda spec: None)
         kvq.quant_channelwise = fed(orig_q[1], lambda spec: spec[0])
         try:
-            clone = {k: v.clone() for k, v in cache.items()}
-            y_ref = self._orig["decode_block"](p, cfg, h, clone, pos, live, kv_spec, "torch")
+            y_ref = run({k: v.clone() for k, v in cache.items()})
         finally:
             self.attn.quant_per_token, kvq.quant_channelwise = orig_q
         check(next(feed, None) is None, "the plain block did not quantize k and v")
-        self._ratio(y, y_ref, "decode block")
-        return y
+        return y_ref
 
     def _decode_attention(self, q, kp, ks, vp, vs, pos, bits, sizes, out_dtype=torch.bfloat16):
         datt, kvq = self.datt, self.kvq
@@ -1637,6 +1683,521 @@ def moe_serving(dev, card, ops, gen):
     return report, k3, k2_experts, k1_deepseek, path_launches, path_mma
 
 # ---------------------------------------------------------------------------
+# The other LM families at full width: stablelm-12b, minicpm-2b,
+# chatglm3-6b, phi-3-vision-4.2b, arctic-480b (2 layers), mamba2-780m and
+# zamba2-1.2b
+# ---------------------------------------------------------------------------
+
+FAMILY_IDS = ("stablelm-12b", "minicpm-2b", "chatglm3-6b", "phi-3-vision-4.2b", "arctic-480b",
+              "mamba2-780m", "zamba2-1.2b")
+FAM_SLOTS, FAM_MAX_LEN = 4, 1024
+FAM_PREFILL, VLM_PREFILL = 256, 1024
+ARCTIC_LAYERS = 2
+FAM_KV = (2, 4, 8)           # every family with a GQA ring; mamba2 has none
+FAM_GATED_STEPS = 2          # decode steps per family with the block and K4 checks
+K4_FAMILY_POS = (0, 255, 1023)
+# the chunked scan's final state against the token-by-token recurrence on the
+# same conv outputs (``ssm.ssd_step``), of the layer state's largest value:
+# the scan takes exp(cum[t] - cum[s]) of cumulative decays that reach ~3500
+# over a 256-token chunk at A = 16, where an f32 ulp is 2.4e-4 (the CPU at
+# full width, bench_torch/ssm_cpu.py: 1.9e-5 and 2.4e-5 of the largest);
+# 2^-12 is 16x below a bf16 ulp
+SSM_STATE_TOL = 2.0 ** -12
+# ``mamba2_decode`` token by token with its own conv, which sums the taps in
+# f32 and rounds once where the sequence conv rounds each product and sum (both
+# as the reference): the recurrence's inputs move by bf16 ulps (0.0074 on the
+# CPU, bench_torch/ssm_cpu.py)
+SSM_DECODE_TOL = 2.0 ** -5
+
+
+def family_trace(cfg, seed=0):
+    """6 requests, 8-16 new tokens, arrivals over 8 ticks; prompts of 64-256
+    tokens, or for a VLM 600-800 (past its 576-token image prefix), each then
+    with ``prefix_embeds`` drawn from the trace's generator."""
+    from repro_torch.api.scheduler import Request
+    rng = np.random.default_rng(seed)
+    vlm = cfg.family == "vlm"
+    lo, hi = (600, 800) if vlm else (64, FAM_PREFILL)
+    reqs, arrivals = [], []
+    for _ in range(6):
+        L = int(rng.integers(lo, hi + 1))
+        gen = int(rng.integers(8, 17))
+        extras = {}
+        if vlm:
+            extras["prefix_embeds"] = rng.standard_normal(
+                (cfg.n_prefix_tokens, cfg.d_model)).astype(np.float32)
+        reqs.append(Request(tokens=rng.integers(0, cfg.vocab_size, (L,)).astype(np.int32),
+                            max_tokens=gen, extras=extras))
+        arrivals.append(int(rng.integers(0, 9)))
+    return reqs, arrivals
+
+
+class FamilyGates(LMGates):
+    """LMGates' checks (every decoder block and shared-attention application
+    against the plain backend on the same input, in decode fed the kernel
+    path's new cache entries; every K4 launch within its bound), and:
+
+    * arctic (``moe``): its attention and MoE FFN sub-layers each on the
+      same input instead of the whole block, as for deepseek: with the same
+      FFN input the two paths' f32 router picks the same experts, while
+      through a whole block a near tie among 128 softmax scores could flip
+      one, which moves a token's whole expert output;
+    * every Mamba2 layer of a prefill and of a decode step (on the same
+      input and cache) against the plain backend within BLOCK_TOL, the
+      plain layer fed the kernel path's ``in_proj`` output, itself within
+      BLOCK_TOL of the plain one: the conv, scan, gate and norm carry
+      in_proj's bf16 roundings ~4x (unfed, layer 0 of mamba2-780m at full
+      width came out at 1.11 of the tolerance on the card, 1.26 on the
+      CPU in ``bench_torch/ssm_cpu.py``), as a fed cache entry stands in
+      for a 2-bit code;
+    * the inputs and final states of the layers in ``ssm_layers`` in the
+      path's first prefill, kept for the state check.
+    """
+
+    def __init__(self, moe=False, ssm_layers=(), n_layers=0):
+        super().__init__()
+        s = self.serving
+        self.moe, self.ssm_layers, self.n_layers = moe, tuple(ssm_layers), n_layers
+        self._orig.update(attn_full=s._deployed_attn_full, ffn=s._deployed_ffn_full,
+                          gqa_decode=self.attn.gqa_decode, mamba_full=s._deployed_mamba_full,
+                          mamba_decode=s.mamba_decode_block)
+        self.ratios: dict = {}
+        self.recorded: dict = {}                # layer -> (x, lens, state)
+        self._mamba_calls = 0
+
+    def __enter__(self):
+        super().__enter__()
+        self.serving._deployed_mamba_full = self._mamba_full
+        self.serving.mamba_decode_block = self._mamba_decode
+        if self.moe:
+            self.serving._deployed_attn_full = self._attn_full
+            self.serving._deployed_ffn_full = self._ffn
+            self.attn.gqa_decode = self._gqa_decode
+        return self
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        for name, key in (("_deployed_mamba_full", "mamba_full"), ("mamba_decode_block",
+                          "mamba_decode"), ("_deployed_attn_full", "attn_full"),
+                          ("_deployed_ffn_full", "ffn")):
+            setattr(self.serving, name, self._orig[key])
+        self.attn.gqa_decode = self._orig["gqa_decode"]
+
+    def _ratio(self, y, y_ref, what):
+        super()._ratio(y, y_ref, what)
+        self.ratios.setdefault(what, []).append(self.block_ratios[-1])
+
+    def _block_forward(self, p, cfg, h, positions, backend="cuda", kv_spec=None):
+        if self.moe:                            # held by sub-layer
+            return self._orig["block_forward"](p, cfg, h, positions, backend, kv_spec)
+        return super()._block_forward(p, cfg, h, positions, backend, kv_spec)
+
+    def _decode_block(self, p, cfg, h, cache, pos, live=None, kv_spec=None, backend="cuda"):
+        if self.moe:
+            return self._orig["decode_block"](p, cfg, h, cache, pos, live, kv_spec, backend)
+        return super()._decode_block(p, cfg, h, cache, pos, live, kv_spec, backend)
+
+    def _attn_full(self, p, cfg, x, positions, causal=True, backend="cuda", build_cache=False,
+                   kv_spec=None):
+        y, c = self._orig["attn_full"](p, cfg, x, positions, causal, backend, build_cache,
+                                       kv_spec)
+        if self.on and backend == "cuda":
+            y_ref, _ = self._orig["attn_full"](p, cfg, x, positions, causal, "torch", False,
+                                               kv_spec)
+            self._ratio(y, y_ref, "attention prefill")
+        return y, c
+
+    def _ffn(self, p, cfg, x, backend="cuda"):
+        y = self._orig["ffn"](p, cfg, x, backend)
+        if self.on and backend == "cuda":
+            self._ratio(y, self._orig["ffn"](p, cfg, x, "torch"),
+                        "moe decode" if x.shape[1] == 1 else "moe prefill")
+        return y
+
+    def _gqa_decode(self, p, cfg, x, cache, pos, dq_linear, live=None, kv_spec=None,
+                    backend="cuda"):
+        y, cache = self._orig["gqa_decode"](p, cfg, x, cache, pos, dq_linear, live, kv_spec,
+                                            backend)
+        if self.on and backend == "cuda":
+            y_ref = self._fed_plain(x, cache, pos, live, lambda clone: self._orig["gqa_decode"](
+                p, cfg, x, clone, pos, self.serving._dq(cfg.cdtype, "torch"), live, kv_spec,
+                "torch")[0])
+            self._ratio(y, y_ref, "attention decode")
+        return y, cache
+
+    def _fed_in_proj(self, p, run_kernel, run_plain, what):
+        """``run_kernel()`` and ``run_plain()``, one Mamba2 layer on each path,
+        the plain one fed the kernel path's ``in_proj`` output, which is held
+        to its own within BLOCK_TOL first; the outputs held as a block.
+        Returns the kernel path's result."""
+        dq, seen = self.serving.dq_linear, {}
+
+        def spy(x, dp, compute_dtype=torch.bfloat16, backend="cuda"):
+            y = dq(x, dp, compute_dtype, backend)
+            if dp is not p["in_proj"]:
+                return y
+            if backend == "cuda":
+                seen["in_proj"] = y
+                return y
+            self._ratio(seen["in_proj"], y, "mamba in_proj")
+            return seen["in_proj"]
+        self.serving.dq_linear = spy
+        try:
+            out = run_kernel()
+            ref = run_plain()
+        finally:
+            self.serving.dq_linear = dq
+        self._ratio(out[0] if isinstance(out, tuple) else out,
+                    ref[0] if isinstance(ref, tuple) else ref, what)
+        return out
+
+    def _mamba_full(self, p, cfg, x, backend="cuda", lens=None):
+        if backend != "cuda":
+            return self._orig["mamba_full"](p, cfg, x, backend, lens)
+        if self.on:
+            y, st = self._fed_in_proj(
+                p, lambda: self._orig["mamba_full"](p, cfg, x, backend, lens),
+                lambda: self._orig["mamba_full"](p, cfg, x, "torch", lens), "mamba prefill")
+        else:
+            y, st = self._orig["mamba_full"](p, cfg, x, backend, lens)
+        layer, self._mamba_calls = self._mamba_calls, (self._mamba_calls + 1) % self.n_layers
+        if layer in self.ssm_layers and layer not in self.recorded:
+            self.recorded[layer] = (x.clone(), lens.clone(), {k: v.clone() for k, v in st.items()})
+        return y, st
+
+    def _mamba_decode(self, p, cfg, h, cache, live=None, backend="cuda"):
+        if not (self.on and backend == "cuda"):
+            return self._orig["mamba_decode"](p, cfg, h, cache, live, backend)
+        clone = {k: v.clone() for k, v in cache.items()}
+        return self._fed_in_proj(
+            p, lambda: self._orig["mamba_decode"](p, cfg, h, cache, live, backend),
+            lambda: self._orig["mamba_decode"](p, cfg, h, clone, live, "torch"), "mamba decode")
+
+
+def _qtensors(tree):
+    """Every deployed linear's QTensor in a model tree, in order."""
+    if isinstance(tree, dict):
+        if "w" in tree and hasattr(tree["w"], "bits"):
+            yield tree["w"]
+            return
+        for v in tree.values():
+            yield from _qtensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _qtensors(v)
+
+
+def family_launches(cfg, dparams, qmk):
+    """The kernel launches of one engine step (a prefill or a decode step
+    without K4) and the tensor-core ones, from the model's linears: each
+    linear once a step (the hybrid's shared block once a group)."""
+    from repro_torch.models import serving
+    uses = [(qt, 1) for qt in _qtensors(dparams["blocks"])]
+    if "shared_attn" in dparams:
+        uses += [(qt, serving.n_attn_groups(cfg)) for qt in _qtensors(dparams["shared_attn"])]
+    uses.append((dparams["lm_head"]["w"], 1))
+    bf16 = torch.bfloat16
+    fused2 = [(qt, n) for qt, n in uses if qt.fused_packed is not None and qt.experts is None]
+    fused3 = [(qt, n) for qt, n in uses if qt.fused_packed is not None and qt.experts]
+    groups = [(qt, n) for qt, n in uses if qt.fused_packed is None]
+    want = {"quant_matmul_fused": sum(n for _, n in fused2),
+            "quant_matmul": sum(n * len(qt.bits) for qt, n in groups),
+            "quant_matmul_fused_batched": sum(n for _, n in fused3),
+            "scaled_int8_mm": 0, "decode_attention": 0, "fused_mix": 0}
+    want_mma = {"quant_matmul_fused": sum(n for qt, n in fused2
+                                          if qmk.fused_2d_path(qt.tile_n, bf16) == "mma"),
+                "quant_matmul": sum(n * len(qt.bits) for qt, n in groups
+                                    if qmk.pergroup_path(qt.c_in, bf16) == "mma"),
+                "quant_matmul_fused_batched": sum(n for qt, n in fused3
+                                                  if qmk.fused_3d_path(qt.tile_n, bf16) == "mma"),
+                "scaled_int8_mm": 0}
+    return want, want_mma, uses
+
+
+def serve_family(arch, dev, card, ops, gen):
+    """One family of phases 3f, 4e and 5e: build, serve, check, time.
+    Returns the report, the path's launches (all, and on the tensor
+    cores), the K4 rows at its decode shape (None without attention) and
+    weak references to the model's tensors (the caller checks that they
+    die with this call's frame)."""
+    import dataclasses
+    import weakref
+
+    import torch.nn.functional as F
+
+    from repro_torch.api.scheduler import ServingEngine
+    from repro_torch.config import get_config
+    from repro_torch.kernels import decode_attention as datt
+    from repro_torch.kernels import quant_matmul as qmk
+    from repro_torch.models import kv_quant as kvq
+    from repro_torch.models import layers as L
+    from repro_torch.models import serving
+    from repro_torch.models import ssm as ssm_mod
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    t_fam = time.perf_counter()
+    full = get_config(arch)
+    cfg = (dataclasses.replace(full, n_layers=ARCTIC_LAYERS) if arch == "arctic-480b"
+           else full)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dparams = serving.init_deployed_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(len(dparams["blocks"]) == cfg.n_layers and dparams["embed"].shape
+          == (full.vocab_size, full.d_model), f"{arch} at its published width")
+    want, want_mma, uses = family_launches(cfg, dparams, qmk)
+    layer_bytes = sum(qt.memory_bits // 8 for qt in _qtensors(dparams["blocks"][0]))
+    rep = dict(init_s=init_s, layers=cfg.n_layers, packed_weight_bytes_layer0=layer_bytes,
+               packed_weight_bytes=sum(qt.memory_bits // 8 for qt, _ in uses),
+               launches_per_step=want, mma_launches_per_step=want_mma)
+    if cfg.n_layers != full.n_layers:
+        rep["cut"] = dict(n_layers=[full.n_layers, cfg.n_layers],
+                          packed_weight_bytes_all_layers=full.n_layers * layer_bytes,
+                          packed_weight_bytes_cut=cfg.n_layers * layer_bytes)
+    check(want["quant_matmul_fused_batched"] == 0, f"{arch}: K3 is not on this path")
+    check(want_mma == {k: want[k] for k in want_mma},
+          f"{arch}: every K1/K2 launch on the tensor cores, {want_mma} of {want}")
+    n_attn = (0 if cfg.family == "ssm" else serving.n_attn_groups(cfg)
+              if cfg.family == "hybrid" else cfg.n_layers)   # K4 launches a decode step
+    kv_bits = None if cfg.family == "ssm" else FAM_KV
+    log(f"[families] {arch}: {cfg.n_layers} layers (published {full.n_layers}), d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, deployed on the card in {init_s:.2f} s; "
+        f"packed weight bytes {json.dumps({k: v for k, v in rep.items() if 'bytes' in k or k == 'cut'})}"
+        f"; launches per engine step {json.dumps(want)}")
+
+    # -- 4e. the main path: ServingEngine(backend="cuda") on the trace ---------
+    reqs, arrivals = family_trace(cfg)
+    prefill_len = VLM_PREFILL if cfg.family == "vlm" else FAM_PREFILL
+    mamba = cfg.family in ("ssm", "hybrid")
+    gates = FamilyGates(moe=bool(cfg.n_experts), n_layers=cfg.n_layers,
+                        ssm_layers=(0, cfg.n_layers // 2, cfg.n_layers - 1) if mamba else ())
+    steps = {"prefill": 0, "decode": 0}
+    ops.reset_launch_counts()
+    with gates:
+        eng = ServingEngine(cfg, dparams, backend="cuda", max_slots=FAM_SLOTS,
+                            max_len=FAM_MAX_LEN, prefill_len=prefill_len, kv_bits=kv_bits)
+        step = eng.step
+
+        def checked_step(step=step):
+            before, mma_before = ops.launch_counts(), ops.mma_launch_counts()
+            gates.on = steps["decode"] < FAM_GATED_STEPS
+            out = step()
+            torch.cuda.synchronize()
+            after, mma_after = ops.launch_counts(), ops.mma_launch_counts()
+            if out["kind"] in steps:
+                steps[out["kind"]] += 1
+                got = {k: after[k] - before[k] for k in after}
+                k4 = n_attn if out["kind"] == "decode" and kv_bits else 0
+                check(got == dict(want, decode_attention=k4),
+                      f"{arch} {out['kind']}: launches {got}, want {want} and K4 {k4}")
+                got = {k: mma_after[k] - mma_before[k] for k in mma_after}
+                check(got == want_mma, f"{arch} {out['kind']}: tensor-core launches {got}, "
+                      f"want {want_mma}")
+            gates.on = False
+            return out
+        eng.step = checked_step
+        t0 = time.perf_counter()
+        outs = eng.run(reqs, arrivals)
+        gated_s = time.perf_counter() - t0
+    launches, mma = ops.launch_counts(), ops.mma_launch_counts()
+    check(sorted(outs) == list(range(len(reqs)))
+          and all(len(outs[i].tokens) == reqs[i].max_tokens for i in outs),
+          f"{arch}: every request served in full")
+    check(launches["quant_matmul"] > 0 and (launches["decode_attention"] > 0) == bool(n_attn)
+          and (launches["quant_matmul_fused"] > 0) == (want["quant_matmul_fused"] > 0),
+          f"{arch}: a kernel of the path never launched: {launches}")
+    worst = {k: max(v) for k, v in gates.ratios.items()}
+    kinds = ({"attention prefill", "attention decode", "moe prefill", "moe decode"}
+             if cfg.n_experts else set())
+    kinds |= {"mamba prefill", "mamba decode", "mamba in_proj"} if mamba else set()
+    kinds |= {"prefill block", "decode block"} if cfg.family in ("dense", "vlm", "hybrid") else set()
+    check(set(worst) == kinds, f"{arch}: checked {sorted(worst)}, want {sorted(kinds)}")
+    check(not n_attn or gates.k4_cases > 0, f"{arch}: no K4 launch was checked")
+    rep.update(steps=dict(steps), gated_run_s=gated_s, path_launches=launches,
+               path_mma_launches=mma, worst_err_over_tol=worst,
+               checked={k: len(v) for k, v in gates.ratios.items()},
+               fed_cache_entries=gates.entry_checks, k4_live_checks=gates.k4_cases,
+               worst_k4_err_over_bound=max(gates.k4_ratios) if gates.k4_ratios else None,
+               kv_bytes_resident=eng.kv_bytes_resident(), useful_tokens=eng.stats["useful_tokens"])
+    log(f"[families] {arch} path: prompts {[len(r.tokens) for r in reqs]}, max_tokens "
+        f"{[r.max_tokens for r in reqs]}, arrivals {arrivals}, kv_bits {kv_bits}; {steps} "
+        f"steps in {gated_s:.2f} s; launches {launches} (tensor cores {mma}); within "
+        f"{json.dumps(worst)} of the tolerance ({json.dumps(rep['checked'])} checked), "
+        f"{gates.entry_checks} fed cache entries, K4 within "
+        f"{rep['worst_k4_err_over_bound']} of its bound on {gates.k4_cases} launches")
+
+    # -- the SSM state: the prefill's final state against the recurrence -----
+    if mamba:
+        d_inner, H, N, P = ssm_mod.dims(cfg)
+        ssm_rows = []
+        check(sorted(gates.recorded) == sorted(set(gates.ssm_layers)),
+              f"{arch}: layers recorded {sorted(gates.recorded)}")
+        for layer, (x, lens, st) in sorted(gates.recorded.items()):
+            p = dparams["blocks"][layer]
+            cd = cfg.cdtype
+            zx = serving.dq_linear(L.apply_norm(x, p["ln"], cfg.norm), p["in_proj"], cd, "cuda")
+            xbc = ssm_mod.causal_conv(zx[..., d_inner:2 * d_inner + 2 * N],
+                                      p["conv_w"].to(cd), p["conv_b"].to(cd))
+            h = torch.zeros_like(st["h"])
+            cache = ssm_mod.init_ssm_cache(cfg, x.shape[0], device=dev)
+            for t in range(x.shape[1]):
+                live = t < lens
+                h_new, _ = ssm_mod.ssd_step(h, xbc[:, t], zx[:, t, -H:], p, cfg)
+                h = torch.where(live[:, None, None, None], h_new, h)
+                if layer == 0:              # the decode step, its in_proj row fed
+
+                    def dq(xx, dp, t=t):
+                        return (zx[:, t:t + 1] if dp is p["in_proj"]
+                                else serving.dq_linear(xx, dp, cd, "torch"))
+                    ssm_mod.mamba2_decode(p, cfg, x[:, t:t + 1], cache, dq, live)
+            big = float(st["h"].abs().max())
+            row = dict(layer=layer, tokens=lens.tolist(),
+                       scan_vs_recurrence=float((h - st["h"]).abs().max()) / big)
+            check(row["scan_vs_recurrence"] <= SSM_STATE_TOL,
+                  f"{arch}: the prefill state is off the recurrence: {row}")
+            if layer == 0:
+                row["scan_vs_decode"] = float((cache["h"] - st["h"]).abs().max()) / big
+                row["conv_ring_equal"] = bool(torch.equal(cache["conv"], st["conv"]))
+                check(row["scan_vs_decode"] <= SSM_DECODE_TOL and row["conv_ring_equal"],
+                      f"{arch}: the prefill state is off mamba2_decode's: {row}")
+            ssm_rows.append(row)
+        log(f"[families] {arch} SSM state: {json.dumps(ssm_rows)} (recurrence within "
+            f"{SSM_STATE_TOL:.3g}, mamba2_decode within {SSM_DECODE_TOL:.3g} of the largest)")
+        rep["ssm_state_checks"] = ssm_rows
+    gates.recorded.clear()
+
+    # -- 3f. K4 at the family's decode shape -------------------------------
+    if n_attn:
+        KV, hd = cfg.n_kv_heads, cfg.head_dim
+        rp = cfg.n_heads // KV
+        spec = kvq.spec_for(FAM_KV, hd)
+        S = FAM_MAX_LEN
+        k, v = (torch.from_numpy(gen.standard_normal((FAM_SLOTS, KV, S, hd))
+                                 .astype(np.float32)).to(dev) for _ in range(2))
+        kp, ks = kvq.quant_channelwise(k, spec)
+        vp, vs = kvq.quant_channelwise(v, spec)
+        q = torch.from_numpy(gen.standard_normal((FAM_SLOTS, KV, rp, hd)).astype(np.float32)
+                             ).to(dev)
+        kf = kvq.dequant_channelwise(kp, ks, spec, torch.bfloat16)
+        vf = kvq.dequant_channelwise(vp, vs, spec, torch.bfloat16)
+        qb = q.to(torch.bfloat16)
+        plan = datt.k4_plan(FAM_SLOTS, KV, rp, hd, S, sms)
+        rows = {}
+        for at in K4_FAMILY_POS:
+            p4 = torch.full((FAM_SLOTS,), at, dtype=torch.int32, device=dev)
+            y = datt.decode_attention(q, kp, ks, vp, vs, p4, spec.bits, spec.sizes)
+            ref = datt.decode_attention_plain(q, kp, ks, vp, vs, p4, spec.bits, spec.sizes)
+            bound = datt.error_bound(q, kf, vf, p4, torch.bfloat16)
+            d = (y.double() - ref.double()).abs()
+            mask = torch.arange(S, device=dev)[None, None, None, :] <= p4[:, None, None, None]
+            fns = {"k4": lambda p4=p4: datt.decode_attention(q, kp, ks, vp, vs, p4, spec.bits,
+                                                             spec.sizes),
+                   "plain": lambda p4=p4: datt.decode_attention_plain(
+                       q, kp, ks, vp, vs, p4, spec.bits, spec.sizes),
+                   "library": lambda mask=mask: F.scaled_dot_product_attention(
+                       qb, kf, vf, attn_mask=mask)}
+            row = dict(B=FAM_SLOTS, KV=KV, rep=rp, hd=hd, S=S, pos=at, kv_bits=str(FAM_KV),
+                       plan=dict(P=plan, blocks=FAM_SLOTS * KV * plan),
+                       max_abs_err=float(d.max()),
+                       worst_err_over_bound=float((d / bound).max()))
+            check(bool(torch.isfinite(y).all()) and row["worst_err_over_bound"] <= 1.0,
+                  f"{arch}: K4 off its plain version: {row}")
+            for name, fn in fns.items():
+                row[f"{name}_loop_ms"] = cuda_ms(fn, iters=20)
+                row[f"{name}_ms"], row[f"{name}_timer"] = kernel_ms(
+                    fn, 10, row[f"{name}_loop_ms"], graph=name != "plain")
+            nbytes = k4_bytes(FAM_SLOTS, KV, rp, hd, spec.packed_bytes, spec.n_groups,
+                              [at] * FAM_SLOTS, S, 4, 2)
+            flops = 4.0 * FAM_SLOTS * (at + 1) * KV * rp * hd
+            row.update(bytes=nbytes, bytes_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+                       ops_ms=flops / PEAK_F32_FLOP_PER_S * 1e3)
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
+            rows[at] = row
+            log(f"[times] K4 {arch} " + json.dumps(row) + f" | {card}")
+        rep["k4"] = {str(at): r for at, r in rows.items()}
+        del k, v, kp, ks, vp, vs, kf, vf
+
+    # -- 5e. times: a clean run of the trace and one profiled decode step ---
+    eng = ServingEngine(cfg, dparams, backend="cuda", max_slots=FAM_SLOTS,
+                        max_len=FAM_MAX_LEN, prefill_len=prefill_len, kv_bits=kv_bits)
+    step_ms = {"prefill": [], "decode": []}
+    step = eng.step
+
+    def timed_step(step=step):
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        if out["kind"] in step_ms:
+            step_ms[out["kind"]].append((time.perf_counter() - t0) * 1e3)
+        return out
+    eng.step = timed_step
+    t0 = time.perf_counter()
+    eng.run(reqs, arrivals)
+    run_s = time.perf_counter() - t0
+    pos = torch.full((FAM_SLOTS,), 200, dtype=torch.int32, device=dev)
+    toks = torch.zeros((FAM_SLOTS, 1), dtype=torch.int64, device=dev)
+
+    def one_step():
+        serving.decode_step(dparams, cfg, toks, eng.caches, pos, "cuda", kv_bits=kv_bits)
+    events, profiled_ms = device_kernels(one_step)
+    busy = sum(t for _, t in events) / 1e3
+    by_name: dict = {}
+    for kname, t in events:
+        n, tot = by_name.get(kname, (0, 0.0))
+        by_name[kname] = (n + 1, tot + t / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    dec = statistics.median(step_ms["decode"])
+    rep["times"] = dict(
+        run_s=run_s, useful_tokens=eng.stats["useful_tokens"],
+        tokens_per_s=eng.stats["useful_tokens"] / run_s,
+        prefill_ms_median=statistics.median(step_ms["prefill"]),
+        prefills=len(step_ms["prefill"]), decode_step_ms_median=dec,
+        decode_steps=len(step_ms["decode"]), profiled_step_ms=profiled_ms,
+        device_busy_ms=busy, device_idle_share=1 - busy / dec,
+        profiled_idle_share=1 - busy / profiled_ms, kernels=len(events),
+        top=[dict(kernel=k[:80], launches=n, ms=t) for k, (n, t) in top])
+    rep["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    rep["seconds"] = time.perf_counter() - t_fam
+    log(f"[families-times] {arch} kv {kv_bits}: " + json.dumps(rep["times"])
+        + f"; peak memory {rep['peak_memory_bytes']} B; {rep['seconds']:.1f} s | {card}")
+    refs = [weakref.ref(dparams["embed"])] + [weakref.ref(t) for qt, _ in uses
+                                              for t in qt.packed]
+    return rep, launches, mma, (rows if n_attn else None), refs
+
+
+def families_serving(dev, card, ops, gen):
+    """Phases 3f, 4e and 5e: the seven other LM families at full width, one
+    after another, each model freed before the next is built.  Returns the
+    report and, summed over the families' paths, the K1, K2 and K4 launches
+    (all, and on the tensor cores) with the K4 rows at their decode
+    shapes."""
+    import gc
+
+    t_phase = time.perf_counter()
+    report, totals, totals_mma, k4_rows = {}, {}, {}, {}
+    gc.collect()                     # what the earlier phases left in reference cycles
+    torch.cuda.empty_cache()
+    for arch in FAMILY_IDS:
+        report[arch], launches, mma, rows, refs = serve_family(arch, dev, card, ops, gen)
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(all(ref() is None for ref in refs),
+              f"{arch}: the model is freed before the next is built")
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        for k, v in mma.items():
+            totals_mma[k] = totals_mma.get(k, 0) + v
+        if rows is not None:
+            k4_rows[arch] = rows
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[families] launches over the seven paths: {totals} (tensor cores {totals_mma}); "
+        f"phase {report['phase_s']:.1f} s | {card}")
+    return report, totals, totals_mma, k4_rows
+
+
+# ---------------------------------------------------------------------------
 # The fused Eq. 5 weight mixture (K6) through the kernel API
 # ---------------------------------------------------------------------------
 
@@ -2629,6 +3190,10 @@ def main() -> int:
                                                                                 gen)
     report["moe"] = moe_report
 
+    # -- 3f, 4e, 5e. the other LM families at full width ---------------------------
+    fam_report, fam_launches, fam_mma, fam_k4 = families_serving(dev, card, ops, gen)
+    report["families"] = fam_report
+
     # -- 6. summary --------------------------------------------------------------
     fb, fby = bound("fused")
     gb, gby = bound("pergroup")
@@ -2636,19 +3201,24 @@ def main() -> int:
         dict(name="quant_matmul_fused", route="cuda",
              source="src/repro_torch/kernels/csrc/quant_matmul.cu",
              replaces="src/repro/kernels/quant_matmul.py:193",
-             launches=launches["quant_matmul_fused"] + moe_launches["quant_matmul_fused"],
-             mma_launches=moe_mma["quant_matmul_fused"],
+             launches=(launches["quant_matmul_fused"] + moe_launches["quant_matmul_fused"]
+                       + fam_launches["quant_matmul_fused"]),
+             mma_launches=moe_mma["quant_matmul_fused"] + fam_mma["quant_matmul_fused"],
              max_abs_err=max(max(errs["fused"]), k1_moe["max_abs_err"]),
              ms=total("fused_ms"), plain_ms=total("fused_plain_ms"), bound_ms=fb,
              bound_by=fby, library_ms=total("library_ms"),
              launches_by_path=dict(tinyml=launches["quant_matmul_fused"],
-                                   deepseek=moe_launches["quant_matmul_fused"]),
+                                   deepseek=moe_launches["quant_matmul_fused"],
+                                   families=fam_launches["quant_matmul_fused"]),
              deepseek=k1_moe),
         dict(name="quant_matmul_pergroup", route="cuda",
              source="src/repro_torch/kernels/csrc/quant_matmul.cu",
              replaces="src/repro/kernels/quant_matmul.py:119",
-             launches=k2_lm["launches"] + moe_launches["quant_matmul"],
-             mma_launches=k2_lm["mma_launches"] + moe_mma["quant_matmul"],
+             launches=k2_lm["launches"] + moe_launches["quant_matmul"] + fam_launches["quant_matmul"],
+             mma_launches=(k2_lm["mma_launches"] + moe_mma["quant_matmul"]
+                           + fam_mma["quant_matmul"]),
+             launches_by_path=dict(qwen=k2_lm["launches"], deepseek=moe_launches["quant_matmul"],
+                                   families=fam_launches["quant_matmul"]),
              max_abs_err=max(max(errs["pergroup"]), k2_lm["max_abs_err"],
                              k2_experts["max_abs_err"]),
              ms=k2_lm["ms"], plain_ms=k2_lm["plain_ms"], bound_ms=k2_lm["bound_ms"],
@@ -2665,7 +3235,19 @@ def main() -> int:
              dae_ad=dict(ms=k5_dae_sum["k5_ms"], plain_ms=k5_dae_sum["plain_ms"],
                          bound_ms=k5_dae_sum["bound_ms"], bound_by=k5_dae_sum["bound_by"],
                          library_ms=k5_dae_sum["library_ms"], products=len(k5_dae))),
-        k4_lm,
+        dict(k4_lm, launches=k4_lm["launches"] + fam_launches["decode_attention"],
+             launches_by_path=dict(qwen=k4_lm["launches"],
+                                   families=fam_launches["decode_attention"]),
+             max_abs_err=max([k4_lm["max_abs_err"]] + [r["max_abs_err"] for rows in fam_k4.values()
+                                                      for r in rows.values()]),
+             families={arch: dict(KV=rows[255]["KV"], rep=rows[255]["rep"], hd=rows[255]["hd"],
+                                  plan=rows[255]["plan"], ms=rows[255]["k4_ms"],
+                                  plain_ms=rows[255]["plain_ms"], bound_ms=rows[255]["bound_ms"],
+                                  library_ms=rows[255]["library_ms"],
+                                  pos_1023=dict(ms=rows[1023]["k4_ms"],
+                                                bound_ms=rows[1023]["bound_ms"],
+                                                library_ms=rows[1023]["library_ms"]))
+                       for arch, rows in fam_k4.items()}),
         k3_moe,
         k6,
     ]
@@ -2682,7 +3264,9 @@ def main() -> int:
         f"library call computes the mixture); K1 launches are the tinyml serving path's and "
         f"the MoE path's, K2's the qwen and MoE paths', K4's the qwen path's, K5's the "
         f"training path's (all on the int8 tensor cores; dae-ad's 30 products beside it), "
-        f"K3's the MoE path's, K6's the kernel API's over the tinyml "
+        f"K3's the MoE path's, K1's, K2's and K4's also the seven other families' paths (K4 "
+        f"at each family's decode shape, pos 255 and 1023, in its 'families' entry), K6's the "
+        f"kernel API's over the tinyml "
         f"search-phase weights (no model path calls K6, in the reference or the port); {card}")
     report["kernels"] = kernels
     if opts.out:

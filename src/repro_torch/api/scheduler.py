@@ -46,11 +46,15 @@ class Request:
 
     ``tokens``: (L,) int prompt ids; ``max_tokens``: generated tokens
     INCLUDING the one sampled from the prefill logits; ``eos_id``: stop
-    early when this id is sampled (still counted in the output).
+    early when this id is sampled (still counted in the output);
+    ``extras``: per-request prefill arrays keyed like the batch dict
+    (``prefix_embeds (n_prefix_tokens, d_model)`` for the VLM); the rows of
+    slots not being admitted are zeros.
     """
     tokens: np.ndarray
     max_tokens: int = 16
     eos_id: Optional[int] = None
+    extras: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -162,6 +166,19 @@ class ServingEngine:
             raise ValueError(
                 f"request {rid}: prompt_len {L} + max_tokens {request.max_tokens} "
                 f"overflows the slot ring (max_len={self.max_len})")
+        if self.cfg.family == "vlm" and self.cfg.n_prefix_tokens:
+            # the first n_prefix_tokens positions ARE the image context
+            # (prefill swaps them for prefix_embeds): a shorter prompt would
+            # take its logits inside the prefix and let decode overwrite it,
+            # and a missing embedding would be zero-filled
+            if L <= self.cfg.n_prefix_tokens:
+                raise ValueError(
+                    f"vlm prompt length {L} must exceed n_prefix_tokens="
+                    f"{self.cfg.n_prefix_tokens} (the prefix-embed region)")
+            if "prefix_embeds" not in request.extras:
+                raise ValueError(
+                    "vlm requests need extras['prefix_embeds'] — the admission batch "
+                    "would otherwise swap the prefix region for zeros")
         self._next_rid += 1
         self._pending[rid] = request
         self.queue.append(rid)
@@ -189,7 +206,8 @@ class ServingEngine:
     def kv_bytes_dense(self) -> int:
         """Bytes of the dense ``(max_slots, max_len)`` cache pool at this
         engine's ``kv_bits`` policy: every leaf of the family's cache (GQA's
-        k/v and scales, or MLA's latent, its scales and the rotary key)."""
+        k/v and scales, MLA's latent, its scales and the rotary key, the SSM
+        state and conv ring)."""
         return sum(t.numel() * t.element_size() for t in self.caches.values())
 
     def kv_bytes_resident(self) -> int:
@@ -218,6 +236,10 @@ class ServingEngine:
         del self.queue[:len(take)]
         rows = np.zeros((B, P), np.int64)
         lens = np.ones(B, np.int64)
+        extras: Dict[str, np.ndarray] = {}
+        if self.cfg.family == "vlm" and self.cfg.n_prefix_tokens:
+            extras["prefix_embeds"] = np.zeros(
+                (B, self.cfg.n_prefix_tokens, self.cfg.d_model), np.float32)
         admitted = []
         for slot, rid in zip(free, take):
             req = self._pending.pop(rid)
@@ -225,15 +247,17 @@ class ServingEngine:
             L = toks.shape[0]
             rows[slot, :L] = toks
             lens[slot] = L
+            for k, v in req.extras.items():
+                extras[k][slot] = v
             admitted.append(slot)
             self._live[slot] = True
             self._slots[slot] = _Slot(rid, L, req.max_tokens, req.eos_id)
             self._pos[slot] = L
         dev = self.device
-        logits, pf = serving.prefill(self.dparams, self.cfg,
-                                     {"tokens": torch.from_numpy(rows).to(dev)},
-                                     self.backend, lens=torch.from_numpy(lens).to(dev),
-                                     kv_bits=self.kv_bits)
+        batch = {"tokens": torch.from_numpy(rows).to(dev)}
+        batch.update({k: torch.from_numpy(v).to(dev) for k, v in extras.items()})
+        logits, pf = serving.prefill(self.dparams, self.cfg, batch, self.backend,
+                                     lens=torch.from_numpy(lens).to(dev), kv_bits=self.kv_bits)
         idx = torch.tensor(admitted, dtype=torch.int64, device=dev)
         emb = serving.embed_caches({k: v[:, idx] for k, v in pf.items()},
                                    {k: v[:, idx] for k, v in self.caches.items()})

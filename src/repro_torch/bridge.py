@@ -111,24 +111,47 @@ def _layer(tree, i):
     return tree
 
 
+def _first_array(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            found = _first_array(v)
+            if found is not None:
+                return found
+        return None
+    if isinstance(tree, (tuple, list)):
+        return _first_array(tree[0]) if tree else None
+    return tree if isinstance(tree, np.ndarray) else None
+
+
 def deployed_lm_from_numpy(tree: dict, device="cpu") -> dict:
-    """The reference's deployed LM tree (``serving.init_deployed_model``,
-    dense or MoE family) as the port's: ``{"embed", "blocks", "ln_f",
-    "lm_head"}`` with the bf16 embedding, norms, biases and MoE router, and
-    every deployed linear a QTensor (its fused layout and ``fused_table``
-    too; MoE expert weights as expert stacks).  ``tree`` has numpy leaves
-    and each reference QTensor as its ``{field: value}`` dict (numpy
-    leaves); the reference stacks the blocks along a leading layer axis,
-    the port keeps a list of per-layer dicts."""
+    """The reference's deployed LM tree (``serving.init_deployed_model``)
+    as the port's: ``{"embed", "blocks", "ln_f", "lm_head"}`` (and the
+    hybrid's unstacked ``"shared_attn"`` block) with the bf16 embedding,
+    norms, biases and MoE router, every deployed linear a QTensor (its
+    fused layout and ``fused_table`` too; MoE expert weights as expert
+    stacks, arctic's ``dense_res`` beside them), and a Mamba2 layer's
+    ``A_log``, ``D`` and ``dt_bias`` in f32, its ``conv_w``, ``conv_b``,
+    ``norm`` and ``ln`` in bf16.  ``tree`` has numpy leaves and each
+    reference QTensor as its ``{field: value}`` dict (numpy leaves); the
+    reference stacks the blocks along a leading layer axis, the port keeps
+    a list of per-layer dicts."""
     blocks = tree["blocks"]
-    n_layers = len(blocks["ln1"]["scale"])
+    n_layers = len(_first_array(blocks))
     out = {k: _lm_tree(v, device) for k, v in tree.items() if k != "blocks"}
     out["blocks"] = [_lm_tree(_layer(blocks, i), device) for i in range(n_layers)]
     return out
 
 
 def caches_from_numpy(tree: dict, device="cpu") -> dict:
-    """The reference's dense-ring serving caches (GQA's ``{"k", "v",
-    "k_scale", "v_scale"}`` or MLA's ``{"ckv", "ckv_scale", "krope"}``,
-    stacked per layer) as the port's: the same layout."""
+    """The reference's dense-ring serving caches as the port's flat dict:
+    GQA's ``{"k", "v", "k_scale", "v_scale"}`` and MLA's ``{"ckv",
+    "ckv_scale", "krope"}`` keep their keys; the SSM family's ``{"h",
+    "conv"}`` become ``{"ssm_h", "ssm_conv"}``, and the hybrid's nested
+    ``{"ssm": {...}, "attn": {...}}`` the SSM keys beside the GQA ones.
+    Every leaf keeps its stacked layout."""
+    if "ssm" in tree:
+        return {**caches_from_numpy(tree["ssm"], device),
+                **caches_from_numpy(tree["attn"], device)}
+    if "h" in tree:
+        return {"ssm_" + k: _tensor(v, device) for k, v in tree.items()}
     return {k: _tensor(v, device) for k, v in tree.items()}

@@ -158,18 +158,12 @@ class ArchConfig:
 
 # Registry -------------------------------------------------------------------
 
-ARCH_IDS = ("qwen1.5-4b", "deepseek-v3-671b")
+ARCH_IDS = ("qwen1.5-4b", "deepseek-v3-671b", "stablelm-12b", "minicpm-2b", "chatglm3-6b",
+            "phi-3-vision-4.2b", "arctic-480b", "mamba2-780m", "zamba2-1.2b")
 
 # the rest of the reference's pool, with the ROADMAP.md item that ports each
 NOT_PORTED = {
-    "arctic-480b": "queue 1 item 5 (MoE with the dense residual MLP, dense_res)",
-    "mamba2-780m": "queue 1 item 5 (SSM)",
-    "zamba2-1.2b": "queue 1 item 5 (hybrid SSM)",
     "whisper-small": "queue 1 item 5 (audio encoder-decoder)",
-    "phi-3-vision-4.2b": "queue 1 item 5 (VLM)",
-    "stablelm-12b": "queue 1 item 5 (the other LM families)",
-    "minicpm-2b": "queue 1 item 5 (the other LM families)",
-    "chatglm3-6b": "queue 1 item 5 (the other LM families)",
 }
 
 

@@ -13,6 +13,9 @@ removes.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
         --reduced --device cpu --requests 5 --slots 2 --prompt-len 12 --gen 6
 
+``--arch`` takes every id of ``config.ARCH_IDS`` (dense, VLM, MoE, SSM and
+hybrid families).
+
 Runs on the card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
@@ -29,14 +32,24 @@ from repro_torch.models import serving
 
 
 def build_trace(cfg, args, rng):
-    """Staggered-arrival synthetic trace: ragged prompts, outputs, times."""
+    """Staggered-arrival synthetic trace: ragged prompts, outputs, times.
+    A VLM's prompts run past its image prefix, and each request carries
+    its ``prefix_embeds`` drawn from ``rng`` (the reference's draws, in its
+    order)."""
     reqs, arrivals = [], []
     min_len = max(1, args.prompt_len // 2)
+    vlm = cfg.family == "vlm" and cfg.n_prefix_tokens
+    if vlm:
+        min_len = max(min_len, cfg.n_prefix_tokens + 1)
     for _ in range(args.requests):
         L = int(rng.integers(min_len, args.prompt_len + 1))
         gen = int(rng.integers(max(1, args.gen // 4), args.gen + 1))
+        extras = {}
+        if vlm:
+            extras["prefix_embeds"] = rng.standard_normal(
+                (cfg.n_prefix_tokens, cfg.d_model)).astype(np.float32)
         reqs.append(Request(tokens=rng.integers(0, cfg.vocab_size, (L,)).astype(np.int32),
-                            max_tokens=gen))
+                            max_tokens=gen, extras=extras))
         arrivals.append(int(rng.integers(0, args.stagger + 1)))
     return reqs, arrivals
 

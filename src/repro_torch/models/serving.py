@@ -1,7 +1,10 @@
 """Deployed language-model serving: packed mixed-precision weights and
-quantized KV caches, the dense GQA family and the MoE family with MLA.
+quantized KV caches, for the dense GQA family (and the VLM, whose prompt
+starts with image patch embeddings), the MoE family (GQA or MLA attention,
+arctic's dense residual MLP), the SSM family (Mamba2) and the hybrid
+(Mamba2 layers with one shared attention block).
 
-Counterpart of the dense and MoE parts of ``repro.models.serving``.  Each
+Counterpart of ``repro.models.serving`` but for the audio family.  Each
 linear of the model is a :class:`~repro_torch.api.qtensor.QTensor` with the
 config's static channel-group sizes (``DeploySpec``), packed sub-byte; a
 linear whose contraction fits ``K_SINGLE_STEP_MAX`` also carries the fused
@@ -14,10 +17,14 @@ packed weight bytes, so the bits a channel is given set the decode
 bandwidth.
 
 A deployed linear is ``{"w": QTensor[, "bias": (c_out,) bf16]}``; the model
-is ``{"embed", "blocks": [per-layer dicts], "ln_f", "lm_head"}``.  Caches are
-stacked per layer, with the family's keys (:func:`cache_keys`): GQA rings
-``{"k", "v", "k_scale", "v_scale"}`` each ``(n_layers, B, KV, S, F)``, MLA
-rings ``{"ckv", "ckv_scale", "krope"}`` each ``(n_layers, B, S, F)``.
+is ``{"embed", "blocks": [per-layer dicts], "ln_f", "lm_head"}``, and the
+hybrid's one ``"shared_attn"`` block beside them.  Caches are stacked per
+layer in one flat dict with the family's keys (:func:`cache_keys`): GQA
+rings ``{"k", "v", "k_scale", "v_scale"}`` each ``(n_layers, B, KV, S, F)``,
+MLA rings ``{"ckv", "ckv_scale", "krope"}`` each ``(n_layers, B, S, F)``,
+the SSM state ``{"ssm_h" (n_layers, B, H, P, N), "ssm_conv" (n_layers, B,
+CONV_K - 1, C)}``; the hybrid's GQA rings are stacked per group of
+``attn_every`` layers (one a shared-block application).
 PyTorch runs eagerly: the layer loops are Python loops, and
 :func:`decode_step` updates the caches in place.
 
@@ -40,29 +47,46 @@ from repro_torch.models import attention as attn
 from repro_torch.models import kv_quant as kvq
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 
 GQA_CACHE_KEYS = ("k", "v", "k_scale", "v_scale")
 MLA_CACHE_KEYS = ("ckv", "ckv_scale", "krope")
+SSM_CACHE_KEYS = ("ssm_h", "ssm_conv")          # ssm_mod.init_ssm_cache's "h", "conv"
+ATTN_FAMILIES = ("dense", "vlm", "moe")
 
 
 def _check_ported(cfg) -> None:
     """Raise, naming what is missing, unless the port serves ``cfg``: the
-    dense family and the MoE family (GQA or MLA attention, SwiGLU MLPs)."""
+    dense, VLM, MoE, SSM and hybrid families with SwiGLU MLPs."""
     missing = []
-    if cfg.family not in ("dense", "moe"):
-        missing.append(f"the {cfg.family} family (SSM, hybrid, audio and VLM serving)")
+    if cfg.family not in ATTN_FAMILIES + ("ssm", "hybrid"):
+        missing.append(f"the {cfg.family} family (audio encoder-decoder serving)")
     if cfg.mlp_type != "swiglu":
         missing.append(f"{cfg.mlp_type} MLPs")
-    if cfg.dense_residual_ff:
-        missing.append("the dense residual MLP beside the experts (arctic's dense_res)")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md queue 1 item 5)")
 
 
 def cache_keys(cfg) -> tuple:
-    """The keys of one layer's ring cache: MLA's latent ring or GQA's."""
+    """The keys of the family's caches: MLA's latent ring, GQA's ring, the
+    SSM state, or the hybrid's SSM state and GQA rings."""
+    if cfg.family == "ssm":
+        return SSM_CACHE_KEYS
+    if cfg.family == "hybrid":
+        return SSM_CACHE_KEYS + GQA_CACHE_KEYS
     return MLA_CACHE_KEYS if cfg.use_mla else GQA_CACHE_KEYS
+
+
+def n_attn_groups(cfg) -> int:
+    """The hybrid's shared-block applications: one per group of
+    ``attn_every`` layers."""
+    return -(-cfg.n_layers // cfg.attn_every)
+
+
+def _group(cfg) -> int:
+    """Mamba2 layers a group: ``attn_every`` in the hybrid, all in the SSM."""
+    return cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
 
 
 # ---------------------------------------------------------------------------
@@ -166,6 +190,9 @@ def _init_deployed_ffn(gen, cfg, device):
         if cfg.n_shared_experts:
             sff = ff * cfg.n_shared_experts
             p["shared"] = {"w_gate": dl(d, sff), "w_up": dl(d, sff), "w_down": dl(sff, d)}
+        if cfg.dense_residual_ff:
+            rff = cfg.dense_residual_ff
+            p["dense_res"] = {"w_gate": dl(d, rff), "w_up": dl(d, rff), "w_down": dl(rff, d)}
         return p
     return {"w_gate": dl(d, cfg.d_ff), "w_up": dl(d, cfg.d_ff), "w_down": dl(cfg.d_ff, d)}
 
@@ -175,6 +202,24 @@ def _init_deployed_block(gen, cfg, device):
             "ffn": _init_deployed_ffn(gen, cfg, device),
             "ln1": L.norm_init(cfg.d_model, cfg.norm, torch.bfloat16, device),
             "ln2": L.norm_init(cfg.d_model, cfg.norm, torch.bfloat16, device)}
+
+
+def _init_deployed_mamba(gen, cfg, device):
+    d = cfg.d_model
+    d_inner, H, N, P = ssm_mod.dims(cfg)
+    C = d_inner + 2 * N
+    conv_w = torch.randn((ssm_mod.CONV_K, C), generator=gen, device=device) / 2.0
+    return {
+        "in_proj": init_deployed_linear(gen, d, 2 * d_inner + 2 * N + H, cfg, device=device),
+        "out_proj": init_deployed_linear(gen, d_inner, d, cfg, device=device),
+        "conv_w": conv_w.to(torch.bfloat16),
+        "conv_b": torch.zeros((C,), dtype=torch.bfloat16, device=device),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, device=device)),
+        "D": torch.ones((H,), dtype=torch.float32, device=device),
+        "dt_bias": torch.zeros((H,), dtype=torch.float32, device=device),
+        "norm": L.norm_init(d_inner, "rmsnorm", torch.bfloat16, device),
+        "ln": L.norm_init(d, cfg.norm, torch.bfloat16, device),
+    }
 
 
 def init_deployed_model(cfg, seed: int = 0, device=None) -> dict:
@@ -187,7 +232,11 @@ def init_deployed_model(cfg, seed: int = 0, device=None) -> dict:
     embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen, device=device)
     params = {"embed": (embed * 0.02).to(torch.bfloat16)}
     del embed
-    params["blocks"] = [_init_deployed_block(gen, cfg, device) for _ in range(cfg.n_layers)]
+    init_block = (_init_deployed_mamba if cfg.family in ("ssm", "hybrid")
+                  else _init_deployed_block)
+    params["blocks"] = [init_block(gen, cfg, device) for _ in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        params["shared_attn"] = _init_deployed_block(gen, cfg, device)
     params["ln_f"] = L.norm_init(cfg.d_model, cfg.norm, torch.bfloat16, device)
     params["lm_head"] = init_deployed_linear(gen, cfg.d_model, cfg.vocab_size, cfg,
                                              device=device)
@@ -205,11 +254,12 @@ def _dq(cd, backend):
 def kv_specs(cfg, kv_bits) -> Optional[kvq.KVQuantSpec]:
     """The channel-group spec of the family's rings for the ``kv_bits``
     cache policy (``None``: the int8-per-token cache): over ``head_dim`` for
-    GQA's K and V, over ``kv_lora_rank`` for MLA's latent.  Raises at
-    resolution time (engine construction) when the feature axis cannot take
-    the packing."""
+    GQA's K and V (the hybrid's shared block too), over ``kv_lora_rank`` for
+    MLA's latent; ``ssm`` has no per-token ring, so the policy is a no-op
+    there.  Raises at resolution time (engine construction) when the
+    feature axis cannot take the packing."""
     _check_ported(cfg)
-    if kv_bits is None:
+    if kv_bits is None or cfg.family == "ssm":
         return None
     return kvq.spec_for(kv_bits, cfg.kv_lora_rank if cfg.use_mla else cfg.head_dim)
 
@@ -292,7 +342,9 @@ def _deployed_moe(p, cfg, x, backend="cuda"):
     each add rounded (no atomics: a bf16 sum's order would change its
     result from run to run).  Kept assignments have unique buffer rows, so
     the dispatch is a copy; dropped ones are written to a spare row past
-    the buffer (no host sync) and read back as zeros.
+    the buffer (no host sync) and read back as zeros.  Arctic's dense
+    residual MLP (``dense_res``) adds after the shared expert, as in the
+    reference (arctic has none, so its router is a softmax).
     """
     B, S, d = x.shape
     cd = cfg.cdtype
@@ -318,10 +370,11 @@ def _deployed_moe(p, cfg, x, backend="cuda"):
     out = torch.zeros((T, d), dtype=cd, device=x.device)
     for j in range(k):
         out = out + contrib[:, j]
-    if cfg.n_shared_experts:
-        sp = p["shared"]
-        hs = L.swiglu(dq(xt, sp["w_gate"]), dq(xt, sp["w_up"]))
-        out = out + dq(hs, sp["w_down"])
+    for name in ("shared", "dense_res"):      # the shared expert, arctic's dense MLP
+        if name in p:
+            sp = p[name]
+            hs = L.swiglu(dq(xt, sp["w_gate"]), dq(xt, sp["w_up"]))
+            out = out + dq(hs, sp["w_down"])
     return out.reshape(B, S, d)
 
 
@@ -330,6 +383,55 @@ def _deployed_ffn_full(p, cfg, x, backend="cuda"):
         return _deployed_moe(p, cfg, x, backend)
     dq = _dq(cfg.cdtype, backend)
     return dq(L.swiglu(dq(x, p["w_gate"]), dq(x, p["w_up"])), p["w_down"])
+
+
+def _deployed_mamba_full(p, cfg, x, backend="cuda", lens=None):
+    """One Mamba2 layer over a full sequence, with its pre-norm and residual:
+    ``(x', {"h": final state (B, H, P, N) f32, "conv": conv ring (B,
+    CONV_K - 1, C) bf16})``.
+
+    ``lens (B,)``: the true lengths of a right-padded batch.  Padded steps
+    are exact no-ops on the recurrence (``dt`` zeroed there: decay 1, no
+    input), so the state is each row's at its own last real token, and the
+    conv ring is gathered at ``lens`` (zeros before the sequence start).
+    """
+    B, S, _ = x.shape
+    cd, f32 = cfg.cdtype, torch.float32
+    dq = _dq(cd, backend)
+    d_inner, H, N, P = ssm_mod.dims(cfg)
+    zxbcdt = dq(L.apply_norm(x, p["ln"], cfg.norm), p["in_proj"])
+    z = zxbcdt[..., :d_inner]
+    xbc_in = zxbcdt[..., d_inner:2 * d_inner + 2 * N]
+    xbc = ssm_mod.causal_conv(xbc_in, p["conv_w"].to(cd), p["conv_b"].to(cd))
+    xs = xbc[..., :d_inner].reshape(B, S, H, P)
+    Bm = xbc[..., d_inner:d_inner + N]
+    Cm = xbc[..., d_inner + N:]
+    dt = torch.nn.functional.softplus(zxbcdt[..., -H:].to(f32) + p["dt_bias"])
+    if lens is not None:
+        real = torch.arange(S, device=x.device)[None, :] < lens.to(x.device)[:, None]
+        dt = torch.where(real[..., None], dt, torch.zeros((), device=x.device))
+    y, hT = ssm_mod.ssd_chunked(xs.to(f32), dt, torch.exp(p["A_log"]), Bm.to(f32), Cm.to(f32),
+                                cfg.ssm_chunk)
+    y = y + xs.to(f32) * p["D"][None, None, :, None]
+    y = y.reshape(B, S, d_inner).to(cd)
+    y = L.rmsnorm(y * ssm_mod.silu(z), p["norm"])
+    K1 = ssm_mod.CONV_K - 1
+    if lens is None:
+        conv_tail = xbc_in[:, -K1:]
+    else:
+        idx = lens.to(x.device)[:, None].long() - K1 + torch.arange(K1, device=x.device)[None]
+        tail = torch.gather(xbc_in, 1, idx.clamp_min(0)[..., None].expand(-1, -1, xbc_in.shape[-1]))
+        conv_tail = torch.where((idx >= 0)[..., None], tail, torch.zeros((), dtype=tail.dtype,
+                                                                           device=x.device))
+    return x + dq(y, p["out_proj"]).to(x.dtype), {"h": hT, "conv": conv_tail.to(torch.bfloat16)}
+
+
+def mamba_decode_block(p, cfg, h, cache, live=None, backend="cuda"):
+    """One Mamba2 layer of a decode step over its layer's ``{"h", "conv"}``
+    cache (written in place): ``h (B, 1, d) -> h'``."""
+    y, _ = ssm_mod.mamba2_decode(p, cfg, L.apply_norm(h, p["ln"], cfg.norm), cache,
+                                 _dq(cfg.cdtype, backend), live)
+    return h + y.to(h.dtype)
 
 
 def _last_token(x, lens):
@@ -361,43 +463,74 @@ def prefill(dparams, cfg, batch, backend: str = "cuda", lens=None, kv_bits=None)
 
     ``batch["tokens"] (B, S)``; ``lens`` (B,) the true prompt lengths of a
     right-padded batch: logits are taken at each row's last real token.
-    The caches also hold entries for the padded tail, above each slot's
-    position: decode masks ``<= pos`` and overwrites index ``lens`` first,
-    so they are never attended.  ``kv_bits``: the cache policy
-    (:func:`kv_specs`), the same one ``init_caches``/``decode_step`` take.
+    The attention caches also hold entries for the padded tail, above each
+    slot's position: decode masks ``<= pos`` and overwrites index ``lens``
+    first, so they are never attended; the SSM state stops at ``lens``.
+    ``batch["prefix_embeds"] (B, n, d)`` (a model with ``n_prefix_tokens``,
+    the VLM) replaces the first ``n`` token embeddings, cast to the compute
+    dtype.  ``kv_bits``: the cache policy (:func:`kv_specs`), the same one
+    ``init_caches``/``decode_step`` take.
     """
     cd = cfg.cdtype
     spec = kv_specs(cfg, kv_bits)
     tokens = batch["tokens"]
     x = dparams["embed"][tokens].to(cd)
+    if cfg.n_prefix_tokens and "prefix_embeds" in batch:
+        n = cfg.n_prefix_tokens
+        x = torch.cat([batch["prefix_embeds"].to(x.device).to(cd), x[:, n:]], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
-    per_layer = []
-    for p in dparams["blocks"]:
-        x, c = block_forward(p, cfg, x, positions, backend, spec)
-        per_layer.append(c)
-    caches = {k: torch.stack([c[k] for c in per_layer]) for k in cache_keys(cfg)}
+    blocks = dparams["blocks"]
+    if cfg.family in ATTN_FAMILIES:
+        per_layer = []
+        for p in blocks:
+            x, c = block_forward(p, cfg, x, positions, backend, spec)
+            per_layer.append(c)
+        caches = {k: torch.stack([c[k] for c in per_layer]) for k in cache_keys(cfg)}
+    else:                                   # Mamba2 layers; the hybrid's shared block first
+        rings, states = [], []              # in each group of attn_every
+        for start in range(0, cfg.n_layers, _group(cfg)):
+            if cfg.family == "hybrid":
+                x, c = block_forward(dparams["shared_attn"], cfg, x, positions, backend, spec)
+                rings.append(c)
+            for p in blocks[start:start + _group(cfg)]:
+                x, st = _deployed_mamba_full(p, cfg, x, backend, lens)
+                states.append(st)
+        caches = {"ssm_h": torch.stack([st["h"] for st in states]),
+                  "ssm_conv": torch.stack([st["conv"] for st in states])}
+        caches.update({k: torch.stack([c[k] for c in rings]) for k in GQA_CACHE_KEYS if rings})
     x = L.apply_norm(x, dparams["ln_f"], cfg.norm)
     logits = dq_linear(_last_token(x, lens), dparams["lm_head"], cd, backend)
     return logits.to(torch.float32), caches
 
 
 def init_caches(cfg, batch: int, max_len: int, kv_bits=None, device=None) -> dict:
-    """Empty ring caches on ``device`` (the card by default; it must
-    exist), stacked per layer: ``(n_layers, batch, KV, max_len, F)`` per
-    GQA leaf, ``(n_layers, batch, max_len, F)`` per MLA leaf; ``kv_bits``
-    packs them channel-wise."""
+    """Empty caches on ``device`` (the card by default; it must exist),
+    stacked per layer: ``(n_layers, batch, KV, max_len, F)`` per GQA leaf,
+    ``(n_layers, batch, max_len, F)`` per MLA leaf, the SSM state and conv
+    ring ``(n_layers, batch, ...)``; the hybrid's GQA rings are stacked per
+    group (:func:`n_attn_groups`).  ``kv_bits`` packs the rings
+    channel-wise."""
     spec = kv_specs(cfg, kv_bits)
     device = resolve_device(device)
-    init = attn.init_mla_cache if cfg.use_mla else attn.init_gqa_cache
-    one = init(cfg, batch, max_len, spec, device="meta")
-    return {k: torch.zeros((cfg.n_layers,) + tuple(t.shape), dtype=t.dtype, device=device)
-            for k, t in one.items()}
+    stacks = []                              # (depth, one layer's leaves)
+    if cfg.family in ("ssm", "hybrid"):
+        one = ssm_mod.init_ssm_cache(cfg, batch, device="meta")
+        stacks.append((cfg.n_layers, {"ssm_" + k: t for k, t in one.items()}))
+    if cfg.family == "hybrid":
+        stacks.append((n_attn_groups(cfg),
+                       attn.init_gqa_cache(cfg, batch, max_len, spec, device="meta")))
+    elif cfg.family in ATTN_FAMILIES:
+        init = attn.init_mla_cache if cfg.use_mla else attn.init_gqa_cache
+        stacks.append((cfg.n_layers, init(cfg, batch, max_len, spec, device="meta")))
+    return {k: torch.zeros((depth,) + tuple(t.shape), dtype=t.dtype, device=device)
+            for depth, one in stacks for k, t in one.items()}
 
 
 def embed_caches(prefill_caches: dict, ring: dict) -> dict:
     """Right-pad the S-deep prefill caches along the sequence axis to the
     ring's shape (zero padding is the empty-slot convention: decode masks
-    by position)."""
+    by position); a leaf with no ring axis (the SSM state) is copied as it
+    is."""
     out = {}
     for k, pc in prefill_caches.items():
         full = ring[k]
@@ -433,12 +566,13 @@ def decode_step(dparams, cfg, tokens, caches, pos, backend: str = "cuda",
     ``pos (B,)``: row ``b`` writes its new cache entry at ring index
     ``pos[b]`` and attends to ``<= pos[b]``; a scalar broadcasts.  ``live
     (B,)`` bool: rows with ``live=False`` leave the caches untouched (their
-    logits are garbage).  ``kv_bits`` must be the policy the caches were
-    built with; with a packed GQA cache and ``backend="cuda"`` attention
-    runs the decode-attention kernel, once per layer (MLA has no fused
-    attention dot: its latent ring is dequantized and expanded through the
-    packed ``wkv_b`` linear).  The caches are updated in place and
-    returned.
+    logits are garbage; their SSM state does not move).  ``kv_bits`` must
+    be the policy the caches were built with; with a packed GQA cache and
+    ``backend="cuda"`` attention runs the decode-attention kernel, once per
+    layer (once per shared-block application in the hybrid; MLA has no
+    fused attention dot: its latent ring is dequantized and expanded
+    through the packed ``wkv_b`` linear).  The caches are updated in place
+    and returned.
     """
     spec = kv_specs(cfg, kv_bits)
     cd = cfg.cdtype
@@ -449,9 +583,20 @@ def decode_step(dparams, cfg, tokens, caches, pos, backend: str = "cuda",
         pos = pos.expand(B).contiguous()
     if live is not None:
         live = torch.as_tensor(live, device=x.device)
-    for layer, p in enumerate(dparams["blocks"]):
-        x = decode_block(p, cfg, x, {k: caches[k][layer] for k in cache_keys(cfg)},
-                         pos, live, spec, backend)
+    blocks = dparams["blocks"]
+    if cfg.family in ATTN_FAMILIES:
+        for layer, p in enumerate(blocks):
+            x = decode_block(p, cfg, x, {k: caches[k][layer] for k in cache_keys(cfg)},
+                             pos, live, spec, backend)
+    else:                                   # Mamba2 layers; the hybrid's shared block first
+        for g, start in enumerate(range(0, cfg.n_layers, _group(cfg))):
+            if cfg.family == "hybrid":
+                x = decode_block(dparams["shared_attn"], cfg, x,
+                                 {k: caches[k][g] for k in GQA_CACHE_KEYS}, pos, live, spec,
+                                 backend)
+            for layer in range(start, min(start + _group(cfg), cfg.n_layers)):
+                ssm_cache = {"h": caches["ssm_h"][layer], "conv": caches["ssm_conv"][layer]}
+                x = mamba_decode_block(blocks[layer], cfg, x, ssm_cache, live, backend)
     x = L.apply_norm(x, dparams["ln_f"], cfg.norm)
     logits = dq_linear(x, dparams["lm_head"], cd, backend)
     return logits.to(torch.float32), caches

@@ -468,6 +468,11 @@ K4_SPLIT_CASES = [
     (2, 2, 16, 128, 77, (2, 4, 4, 8), [63, 64]),
     (2, 2, 1, 160, 129, 8, [128, 0]),
     (2, 1, 8, 256, 64, (4, 8), [-1, 33]),
+    # the decode shapes of the other LM families, 4 slots over a 1024-token ring
+    (4, 8, 4, 160, 1024, (2, 4, 8), [0, 255, 1023, 600]),    # stablelm-12b
+    (4, 2, 16, 128, 1024, (2, 4, 8), [0, 255, 1023, 600]),   # chatglm3-6b: rep x hd 2048
+    (4, 32, 1, 96, 1024, (2, 4, 8), [0, 255, 1023, 600]),    # phi-3-vision-4.2b
+    (4, 36, 1, 64, 1024, (2, 4, 8), [0, 255, 1023, 600]),    # minicpm-2b
 ]
 
 
@@ -554,6 +559,35 @@ def test_pergroup_bf16_x_matches_plain_at_qwen_shapes(m, c_in, c_out):
     ulp = torch.exp2(torch.floor(torch.log2(plain.abs().clamp_min(1e-30)))) * 2.0 ** -7
     tol = 2 * (c_in + 2) * 2.0 ** -24 * mag + ulp       # the f32 sums, then one bf16 rounding
     assert ((y.double() - plain).abs() <= tol).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 4, 9])
+def test_pergroup_bf16_x_matches_plain_at_minicpm_lm_head(m):
+    """minicpm-2b's lm_head: c_out 122753 leaves its 8-bit group 24577 wide,
+    an odd N edge of the tensor-core routine."""
+    from repro_torch.config import get_config
+    from repro_torch.models import serving
+    dev = _cuda()
+    cfg = get_config("minicpm-2b")
+    qt = serving.init_deployed_linear(torch.Generator(device=dev).manual_seed(0), cfg.d_model,
+                                      cfg.vocab_size, cfg, device=dev)["w"]
+    assert [p.shape[0] for p in qt.packed] == [30720, 67456, 24577] and qt.fused_packed is None
+    x = torch.randn((m, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(m),
+                    device=dev).to(torch.bfloat16)
+    x32 = x.to(torch.float32)
+    before = ops.mma_launch_counts()["quant_matmul"]
+    y = qt.matmul(x, "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    assert ops.mma_launch_counts()["quant_matmul"] - before == 3 and y.shape == (m, 122753)
+    plain = torch.cat([qmk.quant_matmul_2d_plain(x32, p, sc, b)
+                       for b, p, sc in zip(qt.bits, qt.packed, qt.scales)], dim=-1).double()
+    mag = torch.cat([(x32.double().abs() @ qz.unpack_int(p, b).double().abs().T)
+                     * sc.double().abs() for b, p, sc in zip(qt.bits, qt.packed, qt.scales)],
+                    dim=-1)
+    ulp = torch.exp2(torch.floor(torch.log2(plain.abs().clamp_min(1e-30)))) * 2.0 ** -7
+    tol = 2 * (cfg.d_model + 2) * 2.0 ** -24 * mag + ulp  # the f32 sums, then one bf16 rounding
+    assert torch.isfinite(y).all() and ((y.double() - plain).abs() <= tol).all()
 
 
 @pytest.mark.gpu

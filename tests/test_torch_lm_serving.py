@@ -51,7 +51,8 @@ from repro_torch.launch import serve as launcher
 from repro_torch.models import attention as tattn
 from repro_torch.models import kv_quant as tkvq
 from repro_torch.models import serving as tserving
-from torch_port_helpers import assert_qtensor_equal, lm_tree_to_numpy
+from torch_port_helpers import (assert_engine_matches_each_alone, assert_qtensor_equal,
+                                lm_tree_to_numpy)
 
 LOGIT_TOL = 2.0 ** -5            # of max |logit|: 8 bf16 ulps at the largest
 DRIFT = 2.0 ** -4                # of a cache row's max |value|: 16 bf16 ulps there
@@ -191,37 +192,6 @@ def _trace(cfg):
     return reqs, [0, 0, 1, 3, 5, 6]
 
 
-def _serve_recording(eng, reqs, arrivals, monkeypatch):
-    """``eng.run`` that also records each request's logits rows, step by
-    step (the engine samples every row of every step's logits)."""
-    rec, sample = [], smp.sample
-
-    def spy(logits, params=smp.GREEDY, generator=None):
-        rec.append(logits.detach().clone())
-        return sample(logits, params, generator)
-    monkeypatch.setattr(sch.smp, "sample", spy)
-    order = sorted(range(len(reqs)), key=lambda i: (arrivals[i], i))
-    index, rows, outs, nxt, t = {}, {}, {}, 0, 0
-    while nxt < len(order) or eng.has_work():
-        while nxt < len(order) and arrivals[order[nxt]] <= t:
-            index[eng.submit(reqs[order[nxt]])] = order[nxt]
-            nxt += 1
-        before = [None if s is None else s.rid for s in eng._slots]
-        out = eng.step()
-        if out["kind"] == "prefill":
-            free = [slot for slot, rid in enumerate(before) if rid is None]
-            for slot, rid in zip(free, out["admitted"]):
-                rows.setdefault(index[rid], []).append(rec[-1][slot, 0])
-        elif out["kind"] == "decode":
-            for slot, rid in enumerate(before):
-                if rid is not None:
-                    rows[index[rid]].append(rec[-1][slot, 0])
-        for o in eng.collect():
-            outs[index[o.rid]] = o
-        t += 1
-    return outs, rows
-
-
 @pytest.mark.parametrize("kv_bits", KV_CASES, ids=str)
 @pytest.mark.parametrize("backend", ["torch", "cuda"])
 def test_engine_matches_each_request_alone(models, kv_bits, backend, monkeypatch):
@@ -229,22 +199,7 @@ def test_engine_matches_each_request_alone(models, kv_bits, backend, monkeypatch
     reqs, arrivals = _trace(cfg)
     eng = sch.ServingEngine(cfg, dp, backend=backend, max_slots=B, max_len=M,
                             prefill_len=P, kv_bits=kv_bits, device="cpu")
-    outs, rows = _serve_recording(eng, reqs, arrivals, monkeypatch)
-    assert sorted(outs) == list(range(len(reqs)))
-    assert eng.stats["prefill_launches"] >= 2 and eng.live_slots == 0
-    for i, req in enumerate(reqs):
-        assert len(outs[i].tokens) == req.max_tokens == len(rows[i])
-        L = len(req.tokens)
-        logits, pf = tserving.prefill(dp, cfg, {"tokens": torch.from_numpy(req.tokens).long()[None]},
-                                      backend, kv_bits=kv_bits)
-        ring = tserving.embed_caches(pf, tserving.init_caches(cfg, 1, M, kv_bits, "cpu"))
-        alone = [logits[0, 0]]
-        for j, tok in enumerate(outs[i].tokens[:-1]):
-            logits, ring = tserving.decode_step(dp, cfg, torch.tensor([[int(tok)]]), ring,
-                                                torch.tensor([L + j]), backend, kv_bits=kv_bits)
-            alone.append(logits[0, 0])
-        for j, (got, ref) in enumerate(zip(rows[i], alone)):
-            _assert_logits_close(got.numpy(), ref.numpy(), f"request {i} step {j}")
+    assert_engine_matches_each_alone(eng, reqs, arrivals, LOGIT_TOL, monkeypatch)
 
 
 @pytest.mark.parametrize("backend", ["torch", "cuda"])
@@ -316,7 +271,7 @@ def test_options_not_ported_raise(models):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sch.ServingEngine(cfg, dp, device="cpu", **opt)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("arctic-480b")
+        get_config("whisper-small")
     with pytest.raises(SystemExit):
         launcher.main(["--arch", "qwen1.5-4b", "--reduced", "--device", "cpu",
                        "--page-size", "16"])

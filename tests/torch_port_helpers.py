@@ -311,3 +311,68 @@ def feed_routing(choices, monkeypatch, min_agree):
         return gates, ref
     monkeypatch.setattr(tmoe, "route_topk", fn)
     return it
+
+
+# ---------------------------------------------------------------------------
+# LM serving: the engine's logits against each request served alone
+# ---------------------------------------------------------------------------
+
+def serve_recording(eng, reqs, arrivals, monkeypatch):
+    """``eng.run`` that also records each request's logits rows, step by
+    step (the engine samples every row of every step's logits)."""
+    from repro_torch.api import sampling as smp
+    from repro_torch.api import scheduler as sch
+    rec, sample = [], smp.sample
+
+    def spy(logits, params=smp.GREEDY, generator=None):
+        rec.append(logits.detach().clone())
+        return sample(logits, params, generator)
+    monkeypatch.setattr(sch.smp, "sample", spy)
+    order = sorted(range(len(reqs)), key=lambda i: (arrivals[i], i))
+    index, rows, outs, nxt, t = {}, {}, {}, 0, 0
+    while nxt < len(order) or eng.has_work():
+        while nxt < len(order) and arrivals[order[nxt]] <= t:
+            index[eng.submit(reqs[order[nxt]])] = order[nxt]
+            nxt += 1
+        before = [None if s is None else s.rid for s in eng._slots]
+        out = eng.step()
+        if out["kind"] == "prefill":
+            free = [slot for slot, rid in enumerate(before) if rid is None]
+            for slot, rid in zip(free, out["admitted"]):
+                rows.setdefault(index[rid], []).append(rec[-1][slot, 0])
+        elif out["kind"] == "decode":
+            for slot, rid in enumerate(before):
+                if rid is not None:
+                    rows[index[rid]].append(rec[-1][slot, 0])
+        for o in eng.collect():
+            outs[index[o.rid]] = o
+        t += 1
+    return outs, rows
+
+
+def assert_engine_matches_each_alone(eng, reqs, arrivals, tol, monkeypatch):
+    """Serve the trace on ``eng`` and hold every request's logits, at every
+    step, within ``tol`` of the largest of a prefill and decode of that
+    request alone (its extras in the batch), teacher-forced on the engine's
+    tokens: slot isolation under padding and a live mask."""
+    from repro_torch.models import serving
+    cfg, dp, backend, kv_bits = eng.cfg, eng.dparams, eng.backend, eng.kv_bits
+    outs, rows = serve_recording(eng, reqs, arrivals, monkeypatch)
+    assert sorted(outs) == list(range(len(reqs)))
+    assert eng.stats["prefill_launches"] >= 2 and eng.live_slots == 0
+    for i, req in enumerate(reqs):
+        assert len(outs[i].tokens) == req.max_tokens == len(rows[i])
+        L = len(req.tokens)
+        batch = {"tokens": torch.from_numpy(req.tokens).long()[None]}
+        batch.update({k: torch.from_numpy(v)[None] for k, v in req.extras.items()})
+        logits, pf = serving.prefill(dp, cfg, batch, backend, kv_bits=kv_bits)
+        ring = serving.embed_caches(pf, serving.init_caches(cfg, 1, eng.max_len, kv_bits, "cpu"))
+        alone = [logits[0, 0]]
+        for j, tok in enumerate(outs[i].tokens[:-1]):
+            logits, ring = serving.decode_step(dp, cfg, torch.tensor([[int(tok)]]), ring,
+                                               torch.tensor([L + j]), backend, kv_bits=kv_bits)
+            alone.append(logits[0, 0])
+        for j, (got, ref) in enumerate(zip(rows[i], alone)):
+            got, ref = got.double().numpy(), ref.double().numpy()
+            err = np.abs(got - ref).max() / np.abs(ref).max()
+            assert np.isfinite(got).all() and err <= tol, (i, j, err)
