@@ -166,6 +166,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    agreement of the kernel path with the plain path over the trace, and
    the end-to-end logits distance of the two, teacher-forced on the kernel
    path's tokens for 16 steps (a near tie among 151936 logits can flip).
+   Every engine of phases 4c, 4d and 4e passes ``page_size=None`` (the
+   dense slot rings), so their numbers stay comparable with earlier runs.
+   [paged] runs on the same model: the engine's default paged KV cache
+   (``page_size="auto"``: 16 tokens a page) with ``prefix_sharing=False``
+   on the 4c trace at kv_bits (2, 4, 8): its tokens and schedule stats
+   equal the dense engine's, its resident and peak KV bytes are below the
+   dense pool's, and every step launches K2 once per precision group and
+   K4 once per layer in decode on the gathered ring (counted); then a
+   shared-prefix trace (8 requests: 6 share a 256-token system prompt and
+   carry 16-256 tokens of their own, 1 is the system prompt alone, 1 is
+   unrelated; 8-32 new tokens) at kv_bits 8 with radix prefix sharing and
+   without: at least 6 prefix hits, 6 x 256 cached tokens and exactly one
+   zero-prefill admission; every request but the full hit gives the
+   unshared engine's tokens; the full hit's first-step logits (a decode
+   step over the cached prompt) within 2^-5 x max(1, max|y|) of its prefill
+   logits in the unshared run (at (2, 4, 8) the decode step reads 2-bit
+   keys the prefill never quantized, ~9x that on the CPU), its token
+   agreement reported; pages_peak and the resident bytes below dense.  The
+   dense and paged decode steps (4 slots at position 400) are timed
+   interleaved in this process, with one profiled step each: the launches
+   paging adds.
 5b. LM times (host clock, a synchronize after each engine step): prefill
    ms per admission and decode-step ms (medians), tokens per second of the
    trace, resident KV bytes, per kv_bits; one profiled decode step (4 slots
@@ -228,7 +249,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    row's largest value of the plain path's own).  Reported, not gated: the
    kernel path's logits against the plain path's, teacher-forced for 8
    steps, and the share of (token, layer) routings that pick the same
-   experts on the two paths.
+   experts on the two paths.  [paged]: the same trace at kv_bits (2, 4, 8)
+   over paged MLA latent pools (16 tokens a page): tokens and schedule
+   equal the dense run's (the trace fixes each step's batch, so the rows'
+   expert-capacity coupling is the dense run's), resident bytes below
+   dense, every step's launches as above; dense and paged decode steps
+   timed interleaved (position 200).
 5c. MoE times: prefill ms per admission, decode-step ms (host clock,
    medians), tokens per second, resident KV bytes, packed weight bytes per
    layer; one profiled decode step (4 slots at position 200): device busy,
@@ -305,6 +331,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    decode-step ms, host clock, medians; tokens per second) and one profiled
    decode step at position 200 (device busy, idle share, device launches,
    top kernels); peak memory and the family's seconds.
+3g, 4f, 5f. whisper-small (arXiv 2212.04356) at full width and depth:
+   ``serving.init_deployed_model`` from seed 0 on the card (12 encoder and
+   12 decoder layers x 768, 12 heads of 64, d_ff 3072, vocab 51865, 1500
+   frames), then ``ServingEngine(backend="cuda", max_slots=4, max_len=448,
+   prefill_len=64, kv_bits=(2, 4, 8))`` (448: whisper's decoder context) on
+   a staggered trace (6 requests, prompts of 8-64 tokens, 32-96 new tokens,
+   each with its frames (1500, 768) from the trace's generator), dense and
+   then paged (auto: 16 tokens a page).  Gates: every engine step launches
+   each fused linear's K1 once and K2 once per precision group of
+   ``w_down`` (a prefill: the encoder's and the decoder's linears; a decode
+   step: the decoder's self-attention, the cross query and output, the MLP,
+   lm_head), all on the tensor cores, K4 once per decoder layer in a decode
+   step and never in a prefill; in the dense run each encoder layer and
+   decoder block of the prefills before the third decode step and of the
+   first 2 decode steps within 2^-5 x max(1, max|y|) of the plain backend
+   on the same input, decode fed the kernel path's new self-ring entries,
+   every K4 launch of those steps within its bound; the paged run's tokens
+   and schedule equal the dense run's, its resident and peak KV bytes
+   below dense.  K4 at whisper's decode shape (4 x 12 x 1 x 64 over 448) at
+   positions 0, 255 and 447 within its bound, timed beside SDPA and its
+   bound (``[times] K4 whisper-small``).  Times (``[whisper-times]``): a
+   clean run of the trace dense and paged (prefill and decode-step ms, host
+   clock, medians; tokens per second), one profiled dense decode step at
+   position 200 (busy, idle share, launches, top kernels), the dense and
+   paged decode steps timed interleaved, peak memory.
 6. The kernel summary line (K1 at the resnet8 shapes with deepseek's three
    K1 shapes beside them and the launches of both paths, K2 over one
    qwen1.5-4b decode step with its SIMT routine's time, its prefill forward
@@ -313,7 +364,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    tensor-core launches and dae-ad's step beside it, K3 at deepseek-v3's
    ``we_down`` decode shape, K6 over one qwen block's linears with lm_head
    beside it; K1, K2 and K4 launches also the seven families' paths', K4's
-   rows at their decode shapes in its ``families`` entry), the card's name
+   rows at their decode shapes in its ``families`` entry; K1, K2 and K4
+   launches also whisper-small's paths', K4's row at its decode shape in
+   its ``whisper`` entry; K1-K4 launches also the [paged] runs', each
+   wrapper's ``launches_by_path`` splitting them), the card's name
    and power limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a CUDA device, and when run outside the repository
@@ -535,16 +589,18 @@ class LMGates:
         check(r <= 1.0, f"{what}: kernel path {r:.3g} x the tolerance off the plain path")
         self.block_ratios.append(r)
 
-    def _block_forward(self, p, cfg, h, positions, backend="cuda", kv_spec=None):
-        y, c = self._orig["block_forward"](p, cfg, h, positions, backend, kv_spec)
+    def _block_forward(self, p, cfg, h, positions, backend="cuda", kv_spec=None, enc=None):
+        y, c = self._orig["block_forward"](p, cfg, h, positions, backend, kv_spec, enc)
         if self.on:
-            y_ref, _ = self._orig["block_forward"](p, cfg, h, positions, "torch", kv_spec)
+            y_ref, _ = self._orig["block_forward"](p, cfg, h, positions, "torch", kv_spec, enc)
             self._ratio(y, y_ref, "prefill block")
         return y, c
 
-    def _decode_block(self, p, cfg, h, cache, pos, live=None, kv_spec=None, backend="cuda"):
-        y = self._orig["decode_block"](p, cfg, h, cache, pos, live, kv_spec, backend)
-        if not self.on:
+    def _decode_block(self, p, cfg, h, cache, pos, live=None, kv_spec=None, backend="cuda",
+                      pages=None, page_size=None):
+        y = self._orig["decode_block"](p, cfg, h, cache, pos, live, kv_spec, backend, pages,
+                                       page_size)
+        if not self.on or pages is not None:            # the gates hold the dense runs
             return y
         y_ref = self._fed_plain(h, cache, pos, live, lambda clone: self._orig["decode_block"](
             p, cfg, h, clone, pos, live, kv_spec, "torch"))
@@ -558,7 +614,8 @@ class LMGates:
         against the plain path's own value); returns ``run``'s output."""
         B, S = h.shape[0], cache["k"].shape[2]
         bidx, at = torch.arange(B, device=h.device), pos.long().clamp(0, S - 1)
-        new = {k: cache[k][bidx, :, at][:, :, None].clone() for k in cache}
+        new = {k: cache[k][bidx, :, at][:, :, None].clone()
+               for k in ("k", "v", "k_scale", "v_scale")}     # the self ring's, not cross_*
         feed = iter([(new["k"], new["k_scale"]), (new["v"], new["v_scale"])])
         rows = live if live is not None else torch.ones(B, dtype=torch.bool, device=h.device)
         kvq = self.kvq
@@ -769,7 +826,8 @@ def lm_serving(dev, card, ops, gen):
     with gates:
         for kv_bits in LM_KV:
             eng = ServingEngine(cfg, dparams, backend="cuda", max_slots=LM_SLOTS,
-                                max_len=LM_MAX_LEN, prefill_len=LM_PREFILL, kv_bits=kv_bits)
+                                max_len=LM_MAX_LEN, prefill_len=LM_PREFILL, kv_bits=kv_bits,
+                                page_size=None)
             steps = {"prefill": 0, "decode": 0}
             step = eng.step
 
@@ -802,7 +860,8 @@ def lm_serving(dev, card, ops, gen):
             tokens[("cuda", kv_bits)] = [outs[i].tokens.tolist() for i in range(len(reqs))]
             runs[str(kv_bits)] = dict(steps=dict(steps), gated_run_s=time.perf_counter() - t0,
                                       useful_tokens=eng.stats["useful_tokens"],
-                                      kv_bytes_resident=eng.kv_bytes_resident())
+                                      kv_bytes_resident=eng.kv_bytes_resident(),
+                                      stats=dict(eng.stats))
             del eng
     lm_launches, lm_mma = ops.launch_counts(), ops.mma_launch_counts()
     check(lm_mma["quant_matmul"] == lm_launches["quant_matmul"],
@@ -817,11 +876,17 @@ def lm_serving(dev, card, ops, gen):
                   worst_block_err_over_tol=max(gates.block_ratios), blocks_checked=len(gates.block_ratios),
                   worst_k4_err_over_bound=max(gates.k4_ratios), k4_live_checks=gates.k4_cases)
 
+    # -- 4c [paged]: the paged KV cache and radix prefix sharing on this model ----
+    report["paged"], paged_launches, paged_mma = lm_paged(
+        dev, card, ops, cfg, dparams, reqs, arrivals, tokens[("cuda", PAGED_KV)],
+        runs[str(PAGED_KV)]["stats"], groups_per_step)
+
     # the reference's acceptance pin: on the plain backend the packed 8-bit
     # cache gives the int8-per-token cache's tokens
     for kv_bits in (None, 8):
         eng = ServingEngine(cfg, dparams, backend="torch", max_slots=LM_SLOTS,
-                            max_len=LM_MAX_LEN, prefill_len=LM_PREFILL, kv_bits=kv_bits)
+                            max_len=LM_MAX_LEN, prefill_len=LM_PREFILL, kv_bits=kv_bits,
+                            page_size=None)
         outs = eng.run(reqs, arrivals)
         tokens[("torch", kv_bits)] = [outs[i].tokens.tolist() for i in range(len(reqs))]
         del eng
@@ -872,7 +937,8 @@ def lm_serving(dev, card, ops, gen):
     times = {}
     for kv_bits in LM_KV:
         eng = ServingEngine(cfg, dparams, backend="cuda", max_slots=LM_SLOTS,
-                            max_len=LM_MAX_LEN, prefill_len=LM_PREFILL, kv_bits=kv_bits)
+                            max_len=LM_MAX_LEN, prefill_len=LM_PREFILL, kv_bits=kv_bits,
+                            page_size=None)
         step_ms = {"prefill": [], "decode": []}
         step = eng.step
 
@@ -1027,7 +1093,7 @@ def lm_serving(dev, card, ops, gen):
               max_abs_err=max(r["max_abs_err"] for r in k2_rows),
               prefill=dict((k, k2_prefill[k]) for k in ("k2_ms", "simt_ms", "library_ms",
                                                           "bound_ms", "bound_by")))
-    return report, k2, k4
+    return report, k2, k4, paged_launches, paged_mma
 
 
 # ---------------------------------------------------------------------------
@@ -1109,9 +1175,11 @@ class MoEGates:
             self._ratio(y, y_ref, "moe decode" if x.shape[1] == 1 else "moe prefill")
         return y
 
-    def _mla_decode(self, p, cfg, x, cache, pos, dq_linear, live=None, kv_spec=None):
-        if not self.on:
-            return self._orig["mla_decode"](p, cfg, x, cache, pos, dq_linear, live, kv_spec)
+    def _mla_decode(self, p, cfg, x, cache, pos, dq_linear, live=None, kv_spec=None,
+                    pages=None, page_size=None):
+        if not self.on or pages is not None:            # the gates hold the dense runs
+            return self._orig["mla_decode"](p, cfg, x, cache, pos, dq_linear, live, kv_spec,
+                                            pages=pages, page_size=page_size)
         clone = {k: v.clone() for k, v in cache.items()}
         y, cache = self._orig["mla_decode"](p, cfg, x, cache, pos, dq_linear, live, kv_spec)
         B, S = x.shape[0], cache["ckv"].shape[1]
@@ -1386,7 +1454,8 @@ def moe_serving(dev, card, ops, gen):
     with gates:
         for kv_bits in DS_KV:
             eng = ServingEngine(cfg, dparams, backend="cuda", max_slots=DS_SLOTS,
-                                max_len=DS_MAX_LEN, prefill_len=DS_PREFILL, kv_bits=kv_bits)
+                                max_len=DS_MAX_LEN, prefill_len=DS_PREFILL, kv_bits=kv_bits,
+                                page_size=None)
             steps = {"prefill": 0, "decode": 0}
             step = eng.step
 
@@ -1414,7 +1483,8 @@ def moe_serving(dev, card, ops, gen):
             tokens[kv_bits] = [outs[i].tokens.tolist() for i in range(len(reqs))]
             runs[str(kv_bits)] = dict(steps=dict(steps), gated_run_s=time.perf_counter() - t0,
                                       useful_tokens=eng.stats["useful_tokens"],
-                                      kv_bytes_resident=eng.kv_bytes_resident())
+                                      kv_bytes_resident=eng.kv_bytes_resident(),
+                                      stats=dict(eng.stats))
             del eng
     path_launches, path_mma = ops.launch_counts(), ops.mma_launch_counts()
     worst = {k: max(v) for k, v in gates.ratios.items()}
@@ -1430,6 +1500,32 @@ def moe_serving(dev, card, ops, gen):
                   worst_sublayer_err_over_tol=worst,
                   sublayers_checked={k: len(v) for k, v in gates.ratios.items()},
                   fed_latent_entries=gates.entry_checks)
+
+    # -- 4d [paged]: MLA latent pages on the same trace ---------------------------
+    # the trace fixes each step's batch, so the expert-capacity coupling of
+    # the rows is the dense engine's: tokens and schedule must be equal
+    counts0, mma0 = ops.launch_counts(), ops.mma_launch_counts()
+    zero_mma = {k: 0 for k in mma0}
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, dparams, backend="cuda", max_slots=DS_SLOTS, max_len=DS_MAX_LEN,
+                        prefill_len=DS_PREFILL, kv_bits=PAGED_KV, page_size="auto")
+    check(eng.page_size == 16 and not eng.prefix_sharing, "deepseek: auto page 16, no sharing")
+    outs, kinds, _ = counted_run(eng, reqs, arrivals, ops,
+                                 {"prefill": (want, want_mma), "decode": (want, want_mma),
+                                  "cached": (zero_launches(ops), zero_mma)})
+    paged = dict(check_paged_equals_dense("deepseek-v3-671b", eng, outs, tokens[PAGED_KV],
+                                          runs[str(PAGED_KV)]["stats"]),
+                 steps=kinds, run_s=time.perf_counter() - t0)
+    del eng
+    paged_launches = {k: v - counts0[k] for k, v in ops.launch_counts().items()}
+    paged_mma = {k: v - mma0[k] for k, v in ops.mma_launch_counts().items()}
+    paged.update(launches=paged_launches, mma_launches=paged_mma)
+    log(f"[paged] deepseek-v3-671b on the 4d trace, kv {PAGED_KV}, MLA latent pages of "
+        f"{paged['page_size']}: tokens and schedule equal the dense engine's; "
+        + json.dumps(paged))
+    paged["times"] = paged_vs_dense_steps("deepseek-v3-671b", dev, card, cfg, dparams, PAGED_KV,
+                                          DS_SLOTS, DS_MAX_LEN, 16, 200)
+    report["paged"] = paged
 
     # end-to-end distance of the kernel path's logits from the plain path's,
     # teacher-forced on the kernel path's greedy tokens, and the share of
@@ -1486,7 +1582,8 @@ def moe_serving(dev, card, ops, gen):
     times = {}
     for kv_bits in DS_KV:
         eng = ServingEngine(cfg, dparams, backend="cuda", max_slots=DS_SLOTS,
-                            max_len=DS_MAX_LEN, prefill_len=DS_PREFILL, kv_bits=kv_bits)
+                            max_len=DS_MAX_LEN, prefill_len=DS_PREFILL, kv_bits=kv_bits,
+                            page_size=None)
         step_ms = {"prefill": [], "decode": []}
         step = eng.step
 
@@ -1680,7 +1777,8 @@ def moe_serving(dev, card, ops, gen):
                       max_abs_err=max(r["max_abs_err"] for r in k2e_rows))
     del dparams
     torch.cuda.empty_cache()
-    return report, k3, k2_experts, k1_deepseek, path_launches, path_mma
+    return (report, k3, k2_experts, k1_deepseek, path_launches, path_mma,
+            report["paged"]["launches"], report["paged"]["mma_launches"])
 
 # ---------------------------------------------------------------------------
 # The other LM families at full width: stablelm-12b, minicpm-2b,
@@ -1792,15 +1890,18 @@ class FamilyGates(LMGates):
             return self._orig["block_forward"](p, cfg, h, positions, backend, kv_spec)
         return super()._block_forward(p, cfg, h, positions, backend, kv_spec)
 
-    def _decode_block(self, p, cfg, h, cache, pos, live=None, kv_spec=None, backend="cuda"):
+    def _decode_block(self, p, cfg, h, cache, pos, live=None, kv_spec=None, backend="cuda",
+                      pages=None, page_size=None):
         if self.moe:
-            return self._orig["decode_block"](p, cfg, h, cache, pos, live, kv_spec, backend)
-        return super()._decode_block(p, cfg, h, cache, pos, live, kv_spec, backend)
+            return self._orig["decode_block"](p, cfg, h, cache, pos, live, kv_spec, backend,
+                                              pages, page_size)
+        return super()._decode_block(p, cfg, h, cache, pos, live, kv_spec, backend, pages,
+                                     page_size)
 
     def _attn_full(self, p, cfg, x, positions, causal=True, backend="cuda", build_cache=False,
-                   kv_spec=None):
+                   kv_spec=None, enc=None):
         y, c = self._orig["attn_full"](p, cfg, x, positions, causal, backend, build_cache,
-                                       kv_spec)
+                                       kv_spec, enc)
         if self.on and backend == "cuda":
             y_ref, _ = self._orig["attn_full"](p, cfg, x, positions, causal, "torch", False,
                                                kv_spec)
@@ -1815,10 +1916,10 @@ class FamilyGates(LMGates):
         return y
 
     def _gqa_decode(self, p, cfg, x, cache, pos, dq_linear, live=None, kv_spec=None,
-                    backend="cuda"):
+                    backend="cuda", pages=None, page_size=None):
         y, cache = self._orig["gqa_decode"](p, cfg, x, cache, pos, dq_linear, live, kv_spec,
-                                            backend)
-        if self.on and backend == "cuda":
+                                            backend, pages=pages, page_size=page_size)
+        if self.on and backend == "cuda" and pages is None:
             y_ref = self._fed_plain(x, cache, pos, live, lambda clone: self._orig["gqa_decode"](
                 p, cfg, x, clone, pos, self.serving._dq(cfg.cdtype, "torch"), live, kv_spec,
                 "torch")[0])
@@ -1896,6 +1997,15 @@ def family_launches(cfg, dparams, qmk):
     if "shared_attn" in dparams:
         uses += [(qt, serving.n_attn_groups(cfg)) for qt in _qtensors(dparams["shared_attn"])]
     uses.append((dparams["lm_head"]["w"], 1))
+    want, want_mma = linear_launches(uses, qmk)
+    return want, want_mma, uses
+
+
+def linear_launches(uses, qmk):
+    """The kernel launches, all and on the tensor cores, of running each
+    ``(QTensor, n)`` of ``uses`` n times at bf16 compute: a fused linear
+    one K1 (an expert stack one K3), any other one K2 per precision
+    group."""
     bf16 = torch.bfloat16
     fused2 = [(qt, n) for qt, n in uses if qt.fused_packed is not None and qt.experts is None]
     fused3 = [(qt, n) for qt, n in uses if qt.fused_packed is not None and qt.experts]
@@ -1911,7 +2021,7 @@ def family_launches(cfg, dparams, qmk):
                 "quant_matmul_fused_batched": sum(n for qt, n in fused3
                                                   if qmk.fused_3d_path(qt.tile_n, bf16) == "mma"),
                 "scaled_int8_mm": 0}
-    return want, want_mma, uses
+    return want, want_mma
 
 
 def serve_family(arch, dev, card, ops, gen):
@@ -1923,13 +2033,9 @@ def serve_family(arch, dev, card, ops, gen):
     import dataclasses
     import weakref
 
-    import torch.nn.functional as F
-
     from repro_torch.api.scheduler import ServingEngine
     from repro_torch.config import get_config
-    from repro_torch.kernels import decode_attention as datt
     from repro_torch.kernels import quant_matmul as qmk
-    from repro_torch.models import kv_quant as kvq
     from repro_torch.models import layers as L
     from repro_torch.models import serving
     from repro_torch.models import ssm as ssm_mod
@@ -1976,7 +2082,8 @@ def serve_family(arch, dev, card, ops, gen):
     ops.reset_launch_counts()
     with gates:
         eng = ServingEngine(cfg, dparams, backend="cuda", max_slots=FAM_SLOTS,
-                            max_len=FAM_MAX_LEN, prefill_len=prefill_len, kv_bits=kv_bits)
+                            max_len=FAM_MAX_LEN, prefill_len=prefill_len, kv_bits=kv_bits,
+                            page_size=None)
         step = eng.step
 
         def checked_step(step=step):
@@ -2068,60 +2175,17 @@ def serve_family(arch, dev, card, ops, gen):
     gates.recorded.clear()
 
     # -- 3f. K4 at the family's decode shape -------------------------------
+    rows = None
     if n_attn:
-        KV, hd = cfg.n_kv_heads, cfg.head_dim
-        rp = cfg.n_heads // KV
-        spec = kvq.spec_for(FAM_KV, hd)
-        S = FAM_MAX_LEN
-        k, v = (torch.from_numpy(gen.standard_normal((FAM_SLOTS, KV, S, hd))
-                                 .astype(np.float32)).to(dev) for _ in range(2))
-        kp, ks = kvq.quant_channelwise(k, spec)
-        vp, vs = kvq.quant_channelwise(v, spec)
-        q = torch.from_numpy(gen.standard_normal((FAM_SLOTS, KV, rp, hd)).astype(np.float32)
-                             ).to(dev)
-        kf = kvq.dequant_channelwise(kp, ks, spec, torch.bfloat16)
-        vf = kvq.dequant_channelwise(vp, vs, spec, torch.bfloat16)
-        qb = q.to(torch.bfloat16)
-        plan = datt.k4_plan(FAM_SLOTS, KV, rp, hd, S, sms)
-        rows = {}
-        for at in K4_FAMILY_POS:
-            p4 = torch.full((FAM_SLOTS,), at, dtype=torch.int32, device=dev)
-            y = datt.decode_attention(q, kp, ks, vp, vs, p4, spec.bits, spec.sizes)
-            ref = datt.decode_attention_plain(q, kp, ks, vp, vs, p4, spec.bits, spec.sizes)
-            bound = datt.error_bound(q, kf, vf, p4, torch.bfloat16)
-            d = (y.double() - ref.double()).abs()
-            mask = torch.arange(S, device=dev)[None, None, None, :] <= p4[:, None, None, None]
-            fns = {"k4": lambda p4=p4: datt.decode_attention(q, kp, ks, vp, vs, p4, spec.bits,
-                                                             spec.sizes),
-                   "plain": lambda p4=p4: datt.decode_attention_plain(
-                       q, kp, ks, vp, vs, p4, spec.bits, spec.sizes),
-                   "library": lambda mask=mask: F.scaled_dot_product_attention(
-                       qb, kf, vf, attn_mask=mask)}
-            row = dict(B=FAM_SLOTS, KV=KV, rep=rp, hd=hd, S=S, pos=at, kv_bits=str(FAM_KV),
-                       plan=dict(P=plan, blocks=FAM_SLOTS * KV * plan),
-                       max_abs_err=float(d.max()),
-                       worst_err_over_bound=float((d / bound).max()))
-            check(bool(torch.isfinite(y).all()) and row["worst_err_over_bound"] <= 1.0,
-                  f"{arch}: K4 off its plain version: {row}")
-            for name, fn in fns.items():
-                row[f"{name}_loop_ms"] = cuda_ms(fn, iters=20)
-                row[f"{name}_ms"], row[f"{name}_timer"] = kernel_ms(
-                    fn, 10, row[f"{name}_loop_ms"], graph=name != "plain")
-            nbytes = k4_bytes(FAM_SLOTS, KV, rp, hd, spec.packed_bytes, spec.n_groups,
-                              [at] * FAM_SLOTS, S, 4, 2)
-            flops = 4.0 * FAM_SLOTS * (at + 1) * KV * rp * hd
-            row.update(bytes=nbytes, bytes_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
-                       ops_ms=flops / PEAK_F32_FLOP_PER_S * 1e3)
-            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
-            row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
-            rows[at] = row
-            log(f"[times] K4 {arch} " + json.dumps(row) + f" | {card}")
+        rows = k4_at_decode_shape(arch, dev, card, gen, FAM_SLOTS, cfg.n_kv_heads,
+                                  cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, FAM_MAX_LEN,
+                                  K4_FAMILY_POS, FAM_KV, sms)
         rep["k4"] = {str(at): r for at, r in rows.items()}
-        del k, v, kp, ks, vp, vs, kf, vf
 
     # -- 5e. times: a clean run of the trace and one profiled decode step ---
     eng = ServingEngine(cfg, dparams, backend="cuda", max_slots=FAM_SLOTS,
-                        max_len=FAM_MAX_LEN, prefill_len=prefill_len, kv_bits=kv_bits)
+                        max_len=FAM_MAX_LEN, prefill_len=prefill_len, kv_bits=kv_bits,
+                        page_size=None)
     step_ms = {"prefill": [], "decode": []}
     step = eng.step
 
@@ -2164,7 +2228,61 @@ def serve_family(arch, dev, card, ops, gen):
         + f"; peak memory {rep['peak_memory_bytes']} B; {rep['seconds']:.1f} s | {card}")
     refs = [weakref.ref(dparams["embed"])] + [weakref.ref(t) for qt, _ in uses
                                               for t in qt.packed]
-    return rep, launches, mma, (rows if n_attn else None), refs
+    return rep, launches, mma, rows, refs
+
+
+def k4_at_decode_shape(label, dev, card, gen, B, KV, rp, hd, S, positions, kv_bits, sms):
+    """K4 at a model's decode shape (``B`` slots over an ``S`` ring, every
+    slot at each of ``positions``) within ``error_bound`` of its plain
+    version, timed beside ``F.scaled_dot_product_attention`` on the
+    dequantized bf16 ring and its bound (``[times] K4 <label>`` rows)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as datt
+    from repro_torch.models import kv_quant as kvq
+    spec = kvq.spec_for(kv_bits, hd)
+    k, v = (torch.from_numpy(gen.standard_normal((B, KV, S, hd)).astype(np.float32)).to(dev)
+            for _ in range(2))
+    kp, ks = kvq.quant_channelwise(k, spec)
+    vp, vs = kvq.quant_channelwise(v, spec)
+    q = torch.from_numpy(gen.standard_normal((B, KV, rp, hd)).astype(np.float32)).to(dev)
+    kf = kvq.dequant_channelwise(kp, ks, spec, torch.bfloat16)
+    vf = kvq.dequant_channelwise(vp, vs, spec, torch.bfloat16)
+    qb = q.to(torch.bfloat16)
+    plan = datt.k4_plan(B, KV, rp, hd, S, sms)
+    rows = {}
+    for at in positions:
+        p4 = torch.full((B,), at, dtype=torch.int32, device=dev)
+        y = datt.decode_attention(q, kp, ks, vp, vs, p4, spec.bits, spec.sizes)
+        ref = datt.decode_attention_plain(q, kp, ks, vp, vs, p4, spec.bits, spec.sizes)
+        bound = datt.error_bound(q, kf, vf, p4, torch.bfloat16)
+        d = (y.double() - ref.double()).abs()
+        mask = torch.arange(S, device=dev)[None, None, None, :] <= p4[:, None, None, None]
+        fns = {"k4": lambda p4=p4: datt.decode_attention(q, kp, ks, vp, vs, p4, spec.bits,
+                                                         spec.sizes),
+               "plain": lambda p4=p4: datt.decode_attention_plain(
+                   q, kp, ks, vp, vs, p4, spec.bits, spec.sizes),
+               "library": lambda mask=mask: F.scaled_dot_product_attention(
+                   qb, kf, vf, attn_mask=mask)}
+        row = dict(B=B, KV=KV, rep=rp, hd=hd, S=S, pos=at, kv_bits=str(kv_bits),
+                   plan=dict(P=plan, blocks=B * KV * plan),
+                   max_abs_err=float(d.max()),
+                   worst_err_over_bound=float((d / bound).max()))
+        check(bool(torch.isfinite(y).all()) and row["worst_err_over_bound"] <= 1.0,
+              f"{label}: K4 off its plain version: {row}")
+        for name, fn in fns.items():
+            row[f"{name}_loop_ms"] = cuda_ms(fn, iters=20)
+            row[f"{name}_ms"], row[f"{name}_timer"] = kernel_ms(
+                fn, 10, row[f"{name}_loop_ms"], graph=name != "plain")
+        nbytes = k4_bytes(B, KV, rp, hd, spec.packed_bytes, spec.n_groups, [at] * B, S, 4, 2)
+        flops = 4.0 * B * (at + 1) * KV * rp * hd
+        row.update(bytes=nbytes, bytes_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+                   ops_ms=flops / PEAK_F32_FLOP_PER_S * 1e3)
+        row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+        row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
+        rows[at] = row
+        log(f"[times] K4 {label} " + json.dumps(row) + f" | {card}")
+    return rows
 
 
 def families_serving(dev, card, ops, gen):
@@ -2195,6 +2313,468 @@ def families_serving(dev, card, ops, gen):
     log(f"[families] launches over the seven paths: {totals} (tensor cores {totals_mma}); "
         f"phase {report['phase_s']:.1f} s | {card}")
     return report, totals, totals_mma, k4_rows
+
+
+# ---------------------------------------------------------------------------
+# The paged KV cache ([paged] runs inside phases 4c and 4d) and whisper-small
+# (phases 3g, 4f and 5f)
+# ---------------------------------------------------------------------------
+
+PAGED_KV = (2, 4, 8)
+# the shared-prefix trace's cache policy: a full hit's first token comes from
+# a decode step over the cached (quantized) prompt, where the prefill attends
+# to the unquantized keys and values; at 2- and 4-bit channel groups that
+# moves the logits ~9x past 2^-5 (CPU, reduced qwen: 9.0x at (2, 4, 8), 8.1x
+# at 4, 0.53x at 8), so the full-hit gate holds at 8 bits
+SHARING_KV = 8
+PAGED_STEP_PAIRS = 12        # interleaved dense/paged decode steps timed a model
+SYS_PROMPT = 256             # the shared-prefix trace's system prompt
+
+
+def zero_launches(ops):
+    return {k: 0 for k in ops.launch_counts()}
+
+
+def counted_run(eng, reqs, arrivals, ops, want, target=None):
+    """``eng.run`` on the trace with every step's kernel launches and
+    tensor-core launches held to ``want[kind]`` (a pair of dicts; a
+    ``"cached"`` admission launches nothing), the steps of each kind
+    counted and timed (host clock around the step and a synchronize), and,
+    given ``target`` (a request's index in ``reqs``), the logits row its
+    first token was sampled from (its prefill's, or for a full prefix hit
+    its first decode step's).  Returns ``(outs, kinds, first_logits)``:
+    ``kinds`` holds each kind's count and the median ms of the prefill and
+    decode steps."""
+    from repro_torch.api import scheduler as sch
+    order = sorted(range(len(reqs)), key=lambda i: (arrivals[i], i))
+    rid = None if target is None else order.index(target)
+    kinds = {"prefill": 0, "cached": 0, "decode": 0}
+    step_ms = {"prefill": [], "decode": []}
+    seen = {}
+    sample, step = sch.smp.sample, eng.step
+
+    def spy(logits, params=sch.smp.GREEDY, generator=None):
+        seen["logits"] = logits
+        return sample(logits, params, generator)
+
+    def checked_step():
+        before = [None if s is None else s.rid for s in eng._slots]
+        counts, mma = ops.launch_counts(), ops.mma_launch_counts()
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        kind = out["kind"]
+        if kind in step_ms:
+            step_ms[kind].append((time.perf_counter() - t0) * 1e3)
+        if kind in kinds:
+            kinds[kind] += 1
+            got = {k: v - counts[k] for k, v in ops.launch_counts().items()}
+            got_mma = {k: v - mma[k] for k, v in ops.mma_launch_counts().items()}
+            w, w_mma = want[kind]
+            check(got == w and got_mma == w_mma, f"{eng.cfg.name} page_size {eng.page_size} "
+                  f"{kind}: launches {got} (tensor cores {got_mma}), want {w} ({w_mma})")
+        if rid is not None and "first" not in seen:
+            if kind == "prefill" and rid in out["admitted"]:
+                slot = [None if s is None else s.rid for s in eng._slots].index(rid)
+                seen["first"] = seen["logits"][slot, 0].float().clone()
+            elif kind == "decode" and rid in before:
+                seen["first"] = seen["logits"][before.index(rid), 0].float().clone()
+        return out
+    eng.step = checked_step
+    sch.smp.sample = spy
+    try:
+        outs = eng.run(reqs, arrivals)
+    finally:
+        sch.smp.sample = sample
+        del eng.step
+    check(sorted(outs) == list(range(len(reqs)))
+          and all(len(outs[i].tokens) == reqs[i].max_tokens for i in outs),
+          f"{eng.cfg.name} page_size {eng.page_size}: every request served in full")
+    kinds.update({f"{k}_ms_median": statistics.median(v) for k, v in step_ms.items() if v})
+    return outs, kinds, seen.get("first")
+
+
+def check_paged_equals_dense(label, eng, outs, dense_tokens, dense_stats):
+    """The paged engine's tokens and schedule equal the dense engine's on
+    the same trace and backend (its gathered rings are the dense rings
+    element for element), and its resident KV bytes stay below the dense
+    pool's.  Returns the report."""
+    toks = [outs[i].tokens.tolist() for i in range(len(outs))]
+    same = {k: eng.stats[k] == v for k, v in dense_stats.items()
+            if k not in ("pages_peak", "evictions")}
+    rep = dict(page_size=eng.page_size, tokens_equal=toks == dense_tokens,
+               stats=dict(eng.stats), stats_equal=all(same.values()),
+               kv_bytes_dense=eng.kv_bytes_dense(), kv_bytes_peak=eng.kv_bytes_peak(),
+               kv_bytes_resident=eng.kv_bytes_resident())
+    check(rep["tokens_equal"], f"{label}: the paged engine's tokens != the dense engine's")
+    check(rep["stats_equal"], f"{label}: the paged schedule != the dense one: {same}")
+    check(rep["kv_bytes_peak"] < rep["kv_bytes_dense"]
+          and rep["kv_bytes_resident"] < rep["kv_bytes_dense"],
+          f"{label}: resident KV bytes not below the dense pool's: {rep}")
+    return rep
+
+
+def paged_vs_dense_steps(label, dev, card, cfg, dparams, kv_bits, slots, max_len, page_size,
+                         pos):
+    """One decode step on the dense rings and on the paged pools (every slot
+    at ``pos``, each slot's pages mapped in order), timed interleaved in
+    this process (host clock around the step and a synchronize, medians of
+    PAGED_STEP_PAIRS each; the host drifts up to 2x between runs), and one
+    profiled step each: device busy ms and device launches, and the
+    launches paging adds."""
+    from repro_torch.models import serving
+    pps = max_len // page_size
+    caches = {"dense": serving.init_caches(cfg, slots, max_len, kv_bits, dev),
+              "paged": serving.init_paged_caches(cfg, slots, 1 + slots * pps, page_size,
+                                                 kv_bits, dev)}
+    pages = (1 + torch.arange(slots * pps, device=dev)).reshape(slots, pps)
+    toks = torch.zeros((slots, 1), dtype=torch.int64, device=dev)
+    p = torch.full((slots,), pos, dtype=torch.int32, device=dev)
+    fns = {"dense": lambda: serving.decode_step(dparams, cfg, toks, caches["dense"], p, "cuda",
+                                                kv_bits=kv_bits),
+           "paged": lambda: serving.decode_step(dparams, cfg, toks, caches["paged"], p, "cuda",
+                                                kv_bits=kv_bits, pages=pages,
+                                                page_size=page_size)}
+    times = {k: [] for k in fns}
+    for name in fns:                            # warm-up
+        fns[name]()
+    for i in range(PAGED_STEP_PAIRS):
+        for name in (("dense", "paged") if i % 2 == 0 else ("paged", "dense")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    rep = dict(pos=pos, page_size=page_size, kv_bits=str(kv_bits), pairs=PAGED_STEP_PAIRS)
+    for name, fn in fns.items():
+        events, profiled_ms = device_kernels(fn)
+        rep[f"{name}_step_ms_median"] = statistics.median(times[name])
+        rep[f"{name}_device_busy_ms"] = sum(t for _, t in events) / 1e3
+        rep[f"{name}_launches"] = len(events)
+        rep[f"{name}_profiled_ms"] = profiled_ms
+    rep["launches_added"] = rep["paged_launches"] - rep["dense_launches"]
+    log(f"[paged] {label} decode step, dense vs paged interleaved: " + json.dumps(rep)
+        + f" | {card}")
+    del caches
+    return rep
+
+
+def shared_prefix_trace(cfg, seed=0):
+    """A chat deployment whose requests all begin with one system prompt: 8
+    requests, 6 of them the 256-token system prompt and 16-256 tokens of
+    their own, 1 the system prompt alone (a full hit once it is cached), 1
+    unrelated (64-256 tokens); 8-32 new tokens each; arrivals over 8 ticks,
+    the full hit's after the first shared admission."""
+    from repro_torch.api.scheduler import Request
+    rng = np.random.default_rng(seed)
+    V = cfg.vocab_size
+    system = rng.integers(0, V, SYS_PROMPT).astype(np.int32)
+    prompts = [np.concatenate([system, rng.integers(0, V, int(n)).astype(np.int32)])
+               for n in rng.integers(16, 257, 6)]
+    prompts.append(system.copy())
+    prompts.append(rng.integers(0, V, int(rng.integers(64, 257))).astype(np.int32))
+    reqs = [Request(tokens=t, max_tokens=int(rng.integers(8, 33))) for t in prompts]
+    return reqs, [0, 0, 1, 2, 5, 7, 3, 4]
+
+
+def lm_paged(dev, card, ops, cfg, dparams, reqs, arrivals, dense_tokens, dense_stats,
+             groups_per_step):
+    """The [paged] runs of phase 4c on qwen1.5-4b: the paged engine on the
+    4c trace against the dense engine, then radix prefix sharing on the
+    shared-prefix trace against an unshared paged engine, then the dense
+    and paged decode steps timed interleaved.  Returns the report and the
+    launches (all, on the tensor cores) of the paged runs."""
+    from repro_torch.api.scheduler import ServingEngine
+    zero = zero_launches(ops)
+    zero_mma = {k: 0 for k in ops.mma_launch_counts()}
+    k2 = dict(zero, quant_matmul=groups_per_step)
+    k2_mma = dict(zero_mma, quant_matmul=groups_per_step)
+    want = {"prefill": (k2, k2_mma), "cached": (zero, zero_mma),
+            "decode": (dict(k2, decode_attention=cfg.n_layers), k2_mma)}
+    counts0, mma0 = ops.launch_counts(), ops.mma_launch_counts()
+    report = {}
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, dparams, backend="cuda", max_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                        prefill_len=LM_PREFILL, kv_bits=PAGED_KV, page_size="auto",
+                        prefix_sharing=False)
+    check(eng.page_size == 16, f"qwen auto page size {eng.page_size}, want 16")
+    outs, kinds, _ = counted_run(eng, reqs, arrivals, ops, want)
+    report["bit_identity"] = dict(check_paged_equals_dense("qwen1.5-4b", eng, outs, dense_tokens,
+                                                           dense_stats),
+                                  steps=kinds, run_s=time.perf_counter() - t0)
+    log(f"[paged] qwen1.5-4b on the 4c trace, kv {PAGED_KV}, page {eng.page_size}, no "
+        f"sharing: tokens and schedule equal the dense engine's; "
+        + json.dumps(report["bit_identity"]))
+    del eng
+
+    sreqs, sarr = shared_prefix_trace(cfg)
+    full_hit = len(sreqs) - 2
+    runs = {}
+    for share in (True, False):
+        t0 = time.perf_counter()
+        eng = ServingEngine(cfg, dparams, backend="cuda", max_slots=LM_SLOTS,
+                            max_len=LM_MAX_LEN, prefill_len=LM_PREFILL, kv_bits=SHARING_KV,
+                            page_size="auto", prefix_sharing=share)
+        check(eng.prefix_sharing == share, "qwen shares prefixes by default when paged")
+        outs, kinds, first = counted_run(eng, sreqs, sarr, ops, want, target=full_hit)
+        runs[share] = (outs, first, dict(
+            steps=kinds, run_s=time.perf_counter() - t0, stats=dict(eng.stats),
+            kv_bytes_dense=eng.kv_bytes_dense(), kv_bytes_peak=eng.kv_bytes_peak(),
+            kv_bytes_resident=eng.kv_bytes_resident(),
+            pages_dense=LM_SLOTS * eng.pages_per_slot))
+        del eng
+    (shared, s_first, srep), (unshared, u_first, urep) = runs[True], runs[False]
+    st = srep["stats"]
+    check(st["prefix_hits"] >= 6 and st["cached_tokens"] >= 6 * SYS_PROMPT
+          and st["zero_prefill_admits"] == 1,
+          f"qwen shared-prefix trace: hits {st['prefix_hits']}, cached tokens "
+          f"{st['cached_tokens']}, zero-prefill admits {st['zero_prefill_admits']}")
+    partial = [i for i in range(len(sreqs)) if i != full_hit]
+    check(all(shared[i].tokens.tolist() == unshared[i].tokens.tolist() for i in partial),
+          "qwen: a partial-hit request's tokens != the unshared paged engine's")
+    ratio = float((s_first - u_first).abs().max()) / (
+        BLOCK_TOL * max(1.0, float(u_first.abs().max())))
+    check(ratio <= 1.0, f"qwen full hit: first-step logits {ratio:.3g} x 2^-5 off the prefill's")
+    agree = [a == b for a, b in zip(shared[full_hit].tokens.tolist(),
+                                    unshared[full_hit].tokens.tolist())]
+    check(st["pages_peak"] < srep["pages_dense"]
+          and srep["kv_bytes_resident"] < srep["kv_bytes_dense"]
+          and srep["kv_bytes_peak"] < srep["kv_bytes_dense"],
+          f"qwen shared: pages or resident KV bytes not below dense: {srep}")
+    report["sharing"] = dict(shared=srep, unshared=urep, full_hit_logits_err_over_tol=ratio,
+                             full_hit_token_agreement=sum(agree) / len(agree),
+                             partial_hit_tokens_equal=True,
+                             prompts=[len(r.tokens) for r in sreqs],
+                             max_tokens=[r.max_tokens for r in sreqs], arrivals=sarr)
+    report["sharing"]["kv_bits"] = SHARING_KV
+    log(f"[paged] qwen1.5-4b shared-prefix trace, kv {SHARING_KV} (prompts "
+        f"{report['sharing']['prompts']}, "
+        f"max_tokens {report['sharing']['max_tokens']}, arrivals {sarr}): partial hits' tokens "
+        f"equal the unshared engine's; the full hit's first-step logits within {ratio:.4g} of "
+        f"2^-5 of its prefill's, token agreement {report['sharing']['full_hit_token_agreement']:.3f}"
+        f" (reported); shared {json.dumps(srep)}; unshared {json.dumps(urep)}")
+    launches = {k: v - counts0[k] for k, v in ops.launch_counts().items()}
+    mma = {k: v - mma0[k] for k, v in ops.mma_launch_counts().items()}
+    report["times"] = paged_vs_dense_steps("qwen1.5-4b", dev, card, cfg, dparams, PAGED_KV,
+                                           LM_SLOTS, LM_MAX_LEN, 16, 400)
+    report.update(launches=launches, mma_launches=mma)
+    return report, launches, mma
+
+
+# -- whisper-small ------------------------------------------------------------
+
+WHISPER_SLOTS, WHISPER_MAX_LEN, WHISPER_PREFILL = 4, 448, 64
+WHISPER_KV = (2, 4, 8)
+WHISPER_GATED_STEPS = 2
+K4_WHISPER_POS = (0, 255, 447)
+
+
+def whisper_trace(cfg, seed=0):
+    """6 requests, decoder prompts of 8-64 tokens, 32-96 new tokens,
+    arrivals over 8 ticks, each with its ``frames (1500, 768)`` drawn from
+    the trace's generator."""
+    from repro_torch.api.scheduler import Request
+    rng = np.random.default_rng(seed)
+    reqs, arrivals = [], []
+    for _ in range(6):
+        L = int(rng.integers(8, WHISPER_PREFILL + 1))
+        gen = int(rng.integers(32, 97))
+        frames = rng.standard_normal((cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        reqs.append(Request(tokens=rng.integers(0, cfg.vocab_size, (L,)).astype(np.int32),
+                            max_tokens=gen, extras={"frames": frames}))
+        arrivals.append(int(rng.integers(0, 9)))
+    return reqs, arrivals
+
+
+class WhisperGates(LMGates):
+    """LMGates' checks (each decoder block of a prefill and of a decode step
+    against the plain backend on the same input, decode fed the kernel
+    path's new self-ring entries; every K4 launch within its bound), and
+    each encoder layer of a prefill against the plain backend on the same
+    input, within BLOCK_TOL."""
+
+    def __init__(self):
+        super().__init__()
+        self._orig["encoder_block"] = self.serving.encoder_block
+        self.ratios: dict = {}
+
+    def __enter__(self):
+        super().__enter__()
+        self.serving.encoder_block = self._encoder_block
+        return self
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        self.serving.encoder_block = self._orig["encoder_block"]
+
+    def _ratio(self, y, y_ref, what):
+        super()._ratio(y, y_ref, what)
+        self.ratios.setdefault(what, []).append(self.block_ratios[-1])
+
+    def _encoder_block(self, p, cfg, h, positions, backend="cuda"):
+        y = self._orig["encoder_block"](p, cfg, h, positions, backend)
+        if self.on:
+            self._ratio(y, self._orig["encoder_block"](p, cfg, h, positions, "torch"),
+                        "encoder layer")
+        return y
+
+
+def whisper_serving(dev, card, ops, gen):
+    """Phases 3g, 4f and 5f: whisper-small at full width and depth, served
+    dense (gated) and paged, K4 at its decode shape, times.  Returns the
+    report, the path's launches (all, on the tensor cores) and the K4
+    rows."""
+    from repro_torch.api.scheduler import ServingEngine
+    from repro_torch.config import get_config
+    from repro_torch.kernels import quant_matmul as qmk
+    from repro_torch.models import serving
+
+    t_phase = time.perf_counter()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cfg = get_config("whisper-small")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dparams = serving.init_deployed_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(len(dparams["enc_blocks"]) == cfg.n_encoder_layers == 12
+          and len(dparams["dec_blocks"]) == cfg.n_layers == 12 and cfg.d_model == 768
+          and cfg.n_heads == 12 and cfg.head_dim == 64 and cfg.d_ff == 3072
+          and dparams["embed"].shape == (51865, 768) and cfg.encoder_seq == 1500,
+          "whisper-small at its published width and depth")
+    dec = dparams["dec_blocks"]
+    prefill_uses = [(qt, 1) for qt in _qtensors(dparams["enc_blocks"])]
+    prefill_uses += [(qt, 1) for qt in _qtensors(dec)] + [(dparams["lm_head"]["w"], 1)]
+    # decode: self-attention, the cross query and output (the cross keys and
+    # values are cached), the MLP, lm_head
+    decode_uses = [(b[part][name]["w"], 1) for b in dec for part, names in
+                   (("attn", ("wq", "wk", "wv", "wo")), ("xattn", ("wq", "wo")),
+                    ("mlp", ("w_in", "w_down"))) for name in names]
+    decode_uses.append((dparams["lm_head"]["w"], 1))
+    pre, pre_mma = linear_launches(prefill_uses, qmk)
+    step, step_mma = linear_launches(decode_uses, qmk)
+    zero_mma = {k: 0 for k in pre_mma}
+    want = {"prefill": (pre, pre_mma), "cached": (zero_launches(ops), zero_mma),
+            "decode": (dict(step, decode_attention=cfg.n_layers), step_mma)}
+    check(pre_mma == {k: pre[k] for k in pre_mma} and step_mma == {k: step[k] for k in step_mma},
+          f"whisper: every K1/K2 launch on the tensor cores: {pre_mma} of {pre}, "
+          f"{step_mma} of {step}")
+    check(pre["quant_matmul_fused"] > 0 and pre["quant_matmul"] > 0
+          and pre["quant_matmul_fused_batched"] == 0, f"whisper: K1 and K2, no K3: {pre}")
+    weight_bytes = sum(qt.memory_bits // 8 for qt, _ in prefill_uses)
+    rep = dict(init_s=init_s, packed_weight_bytes=weight_bytes, launches_per_prefill=pre,
+               launches_per_decode_step=want["decode"][0])
+    log(f"[whisper] whisper-small: {cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder "
+        f"layers x {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.encoder_seq} frames; deployed on the card in {init_s:.2f} s, "
+        f"{weight_bytes} packed weight bytes; launches per prefill {json.dumps(pre)}, per "
+        f"decode step {json.dumps(want['decode'][0])}")
+
+    # -- 4f. the main path, dense and gated, then paged ------------------------
+    reqs, arrivals = whisper_trace(cfg)
+    kw = dict(backend="cuda", max_slots=WHISPER_SLOTS, max_len=WHISPER_MAX_LEN,
+              prefill_len=WHISPER_PREFILL, kv_bits=WHISPER_KV)
+    gates = WhisperGates()
+    steps = {"prefill": 0, "decode": 0}
+    counts0, mma0 = ops.launch_counts(), ops.mma_launch_counts()
+    with gates:
+        eng = ServingEngine(cfg, dparams, page_size=None, **kw)
+        step_fn = eng.step
+
+        def gated_step(step_fn=step_fn):
+            gates.on = steps["decode"] < WHISPER_GATED_STEPS
+            out = step_fn()
+            gates.on = False
+            if out["kind"] in steps:
+                steps[out["kind"]] += 1
+            return out
+        eng.step = gated_step
+        t0 = time.perf_counter()
+        outs, kinds, _ = counted_run(eng, reqs, arrivals, ops, want)
+        gated_s = time.perf_counter() - t0
+    dense_tokens = [outs[i].tokens.tolist() for i in range(len(reqs))]
+    dense_stats = dict(eng.stats)
+    worst = {k: max(v) for k, v in gates.ratios.items()}
+    check(set(worst) == {"encoder layer", "prefill block", "decode block"}
+          and len(gates.ratios["encoder layer"]) >= cfg.n_encoder_layers
+          and len(gates.ratios["decode block"]) == WHISPER_GATED_STEPS * cfg.n_layers,
+          f"whisper: checked {json.dumps({k: len(v) for k, v in gates.ratios.items()})}")
+    check(gates.k4_cases >= WHISPER_GATED_STEPS * cfg.n_layers, "whisper: K4 launches checked")
+    rep["dense"] = dict(steps=kinds, gated_run_s=gated_s, stats=dense_stats,
+                        worst_err_over_tol=worst,
+                        checked={k: len(v) for k, v in gates.ratios.items()},
+                        fed_cache_entries=gates.entry_checks, k4_live_checks=gates.k4_cases,
+                        worst_k4_err_over_bound=max(gates.k4_ratios),
+                        kv_bytes_resident=eng.kv_bytes_resident())
+    log(f"[whisper] dense path: prompts {[len(r.tokens) for r in reqs]}, max_tokens "
+        f"{[r.max_tokens for r in reqs]}, arrivals {arrivals}, kv_bits {WHISPER_KV}; {kinds} "
+        f"steps in {gated_s:.2f} s; within {json.dumps(worst)} of the tolerance "
+        f"({json.dumps(rep['dense']['checked'])} checked), {gates.entry_checks} fed cache "
+        f"entries, K4 within {rep['dense']['worst_k4_err_over_bound']:.4g} of its bound on "
+        f"{gates.k4_cases} launches")
+    del eng
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, dparams, **kw)                # page_size "auto"
+    check(eng.page_size == 16 and not eng.prefix_sharing, "whisper: auto page 16, no sharing")
+    outs, pkinds, _ = counted_run(eng, reqs, arrivals, ops, want)
+    rep["paged"] = dict(check_paged_equals_dense("whisper-small", eng, outs, dense_tokens,
+                                                 dense_stats),
+                        steps=pkinds, run_s=time.perf_counter() - t0)
+    log(f"[whisper] paged path: tokens and schedule equal the dense engine's; "
+        + json.dumps(rep["paged"]))
+    del eng
+    launches = {k: v - counts0[k] for k, v in ops.launch_counts().items()}
+    mma = {k: v - mma0[k] for k, v in ops.mma_launch_counts().items()}
+    rep.update(path_launches=launches, path_mma_launches=mma)
+
+    # -- 3g. K4 at whisper's decode shape ---------------------------------------
+    rows = k4_at_decode_shape("whisper-small", dev, card, gen, WHISPER_SLOTS, cfg.n_kv_heads,
+                              cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, WHISPER_MAX_LEN,
+                              K4_WHISPER_POS, WHISPER_KV, sms)
+    rep["k4"] = {str(at): r for at, r in rows.items()}
+
+    # -- 5f. times: a clean dense run (the paged run above is clean already)
+    # and one profiled decode step -------------------------------------------
+    eng = ServingEngine(cfg, dparams, page_size=None, **kw)
+    t0 = time.perf_counter()
+    _, kinds, _ = counted_run(eng, reqs, arrivals, ops, want)
+    run_s = time.perf_counter() - t0
+    del eng
+    times = {}
+    for layout, run_s, kinds in (("dense", run_s, kinds),
+                                 ("paged", rep["paged"]["run_s"], rep["paged"]["steps"])):
+        times[layout] = dict(run_s=run_s, useful_tokens=dense_stats["useful_tokens"],
+                             tokens_per_s=dense_stats["useful_tokens"] / run_s,
+                             prefill_ms_median=kinds["prefill_ms_median"],
+                             prefills=kinds["prefill"],
+                             decode_step_ms_median=kinds["decode_ms_median"],
+                             decode_steps=kinds["decode"])
+    caches = serving.init_caches(cfg, WHISPER_SLOTS, WHISPER_MAX_LEN, WHISPER_KV, dev)
+    pos = torch.full((WHISPER_SLOTS,), 200, dtype=torch.int32, device=dev)
+    toks = torch.zeros((WHISPER_SLOTS, 1), dtype=torch.int64, device=dev)
+    events, profiled_ms = device_kernels(
+        lambda: serving.decode_step(dparams, cfg, toks, caches, pos, "cuda", kv_bits=WHISPER_KV))
+    busy = sum(t for _, t in events) / 1e3
+    by_name: dict = {}
+    for kname, t in events:
+        n, tot = by_name.get(kname, (0, 0.0))
+        by_name[kname] = (n + 1, tot + t / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    dec_ms = times["dense"]["decode_step_ms_median"]
+    times["profiled_step"] = dict(
+        pos=200, profiled_step_ms=profiled_ms, device_busy_ms=busy,
+        device_idle_share=1 - busy / dec_ms, profiled_idle_share=1 - busy / profiled_ms,
+        kernels=len(events), top=[dict(kernel=k[:80], launches=n, ms=t) for k, (n, t) in top])
+    del caches
+    times["paged_vs_dense_step"] = paged_vs_dense_steps(
+        "whisper-small", dev, card, cfg, dparams, WHISPER_KV, WHISPER_SLOTS, WHISPER_MAX_LEN, 16,
+        200)
+    rep["times"] = times
+    rep["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    rep["seconds"] = time.perf_counter() - t_phase
+    log(f"[whisper-times] kv {WHISPER_KV}: " + json.dumps(times) + f"; peak memory "
+        f"{rep['peak_memory_bytes']} B; {rep['seconds']:.1f} s | {card}")
+    return rep, launches, mma, rows
 
 
 # ---------------------------------------------------------------------------
@@ -3181,18 +3761,33 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 3c, 4c, 5b. the LM serving path: qwen1.5-4b at full width and depth ------
-    lm_report, k2_lm, k4_lm = lm_serving(dev, card, ops, gen)
+    lm_report, k2_lm, k4_lm, lm_paged_launches, lm_paged_mma = lm_serving(dev, card, ops, gen)
     report["lm"] = lm_report
     torch.cuda.empty_cache()
 
     # -- 3d, 4d, 5c. the MoE serving path: deepseek-v3-671b at full width, 2 layers
-    moe_report, k3_moe, k2_experts, k1_moe, moe_launches, moe_mma = moe_serving(dev, card, ops,
-                                                                                gen)
+    (moe_report, k3_moe, k2_experts, k1_moe, moe_launches, moe_mma, moe_paged_launches,
+     moe_paged_mma) = moe_serving(dev, card, ops, gen)
     report["moe"] = moe_report
+    paged_launches = {k: lm_paged_launches[k] + moe_paged_launches[k] for k in lm_paged_launches}
+    paged_mma = {k: lm_paged_mma[k] + moe_paged_mma[k] for k in lm_paged_mma}
 
     # -- 3f, 4e, 5e. the other LM families at full width ---------------------------
     fam_report, fam_launches, fam_mma, fam_k4 = families_serving(dev, card, ops, gen)
     report["families"] = fam_report
+
+    # -- 3g, 4f, 5f. whisper-small at full width and depth, dense and paged -------
+    torch.cuda.empty_cache()
+    wh_report, wh_launches, wh_mma, wh_k4 = whisper_serving(dev, card, ops, gen)
+    report["whisper"] = wh_report
+    extra = {"whisper": (wh_launches, wh_mma), "paged": (paged_launches, paged_mma)}
+
+    def more(name, mma=False):
+        """Launches of the whisper and [paged] paths of one wrapper."""
+        return sum(pair[1 if mma else 0][name] for pair in extra.values())
+
+    def by_path(name):
+        return {path: pair[0][name] for path, pair in extra.items()}
 
     # -- 6. summary --------------------------------------------------------------
     fb, fby = bound("fused")
@@ -3202,23 +3797,27 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/quant_matmul.cu",
              replaces="src/repro/kernels/quant_matmul.py:193",
              launches=(launches["quant_matmul_fused"] + moe_launches["quant_matmul_fused"]
-                       + fam_launches["quant_matmul_fused"]),
-             mma_launches=moe_mma["quant_matmul_fused"] + fam_mma["quant_matmul_fused"],
+                       + fam_launches["quant_matmul_fused"] + more("quant_matmul_fused")),
+             mma_launches=(moe_mma["quant_matmul_fused"] + fam_mma["quant_matmul_fused"]
+                           + more("quant_matmul_fused", mma=True)),
              max_abs_err=max(max(errs["fused"]), k1_moe["max_abs_err"]),
              ms=total("fused_ms"), plain_ms=total("fused_plain_ms"), bound_ms=fb,
              bound_by=fby, library_ms=total("library_ms"),
              launches_by_path=dict(tinyml=launches["quant_matmul_fused"],
                                    deepseek=moe_launches["quant_matmul_fused"],
-                                   families=fam_launches["quant_matmul_fused"]),
+                                   families=fam_launches["quant_matmul_fused"],
+                                   **by_path("quant_matmul_fused")),
              deepseek=k1_moe),
         dict(name="quant_matmul_pergroup", route="cuda",
              source="src/repro_torch/kernels/csrc/quant_matmul.cu",
              replaces="src/repro/kernels/quant_matmul.py:119",
-             launches=k2_lm["launches"] + moe_launches["quant_matmul"] + fam_launches["quant_matmul"],
+             launches=(k2_lm["launches"] + moe_launches["quant_matmul"]
+                       + fam_launches["quant_matmul"] + more("quant_matmul")),
              mma_launches=(k2_lm["mma_launches"] + moe_mma["quant_matmul"]
-                           + fam_mma["quant_matmul"]),
+                           + fam_mma["quant_matmul"] + more("quant_matmul", mma=True)),
              launches_by_path=dict(qwen=k2_lm["launches"], deepseek=moe_launches["quant_matmul"],
-                                   families=fam_launches["quant_matmul"]),
+                                   families=fam_launches["quant_matmul"],
+                                   **by_path("quant_matmul")),
              max_abs_err=max(max(errs["pergroup"]), k2_lm["max_abs_err"],
                              k2_experts["max_abs_err"]),
              ms=k2_lm["ms"], plain_ms=k2_lm["plain_ms"], bound_ms=k2_lm["bound_ms"],
@@ -3235,11 +3834,20 @@ def main() -> int:
              dae_ad=dict(ms=k5_dae_sum["k5_ms"], plain_ms=k5_dae_sum["plain_ms"],
                          bound_ms=k5_dae_sum["bound_ms"], bound_by=k5_dae_sum["bound_by"],
                          library_ms=k5_dae_sum["library_ms"], products=len(k5_dae))),
-        dict(k4_lm, launches=k4_lm["launches"] + fam_launches["decode_attention"],
+        dict(k4_lm, launches=(k4_lm["launches"] + fam_launches["decode_attention"]
+                              + more("decode_attention")),
              launches_by_path=dict(qwen=k4_lm["launches"],
-                                   families=fam_launches["decode_attention"]),
-             max_abs_err=max([k4_lm["max_abs_err"]] + [r["max_abs_err"] for rows in fam_k4.values()
-                                                      for r in rows.values()]),
+                                   families=fam_launches["decode_attention"],
+                                   **by_path("decode_attention")),
+             max_abs_err=max([k4_lm["max_abs_err"]]
+                             + [r["max_abs_err"] for rows in list(fam_k4.values()) + [wh_k4]
+                                for r in rows.values()]),
+             whisper=dict(KV=wh_k4[255]["KV"], rep=wh_k4[255]["rep"], hd=wh_k4[255]["hd"],
+                          S=wh_k4[255]["S"], plan=wh_k4[255]["plan"],
+                          ms=wh_k4[255]["k4_ms"], plain_ms=wh_k4[255]["plain_ms"],
+                          bound_ms=wh_k4[255]["bound_ms"], library_ms=wh_k4[255]["library_ms"],
+                          pos_447=dict(ms=wh_k4[447]["k4_ms"], bound_ms=wh_k4[447]["bound_ms"],
+                                       library_ms=wh_k4[447]["library_ms"])),
              families={arch: dict(KV=rows[255]["KV"], rep=rows[255]["rep"], hd=rows[255]["hd"],
                                   plan=rows[255]["plan"], ms=rows[255]["k4_ms"],
                                   plain_ms=rows[255]["plain_ms"], bound_ms=rows[255]["bound_ms"],
@@ -3248,7 +3856,11 @@ def main() -> int:
                                                 bound_ms=rows[1023]["bound_ms"],
                                                 library_ms=rows[1023]["library_ms"]))
                        for arch, rows in fam_k4.items()}),
-        k3_moe,
+        dict(k3_moe, launches=k3_moe["launches"] + more("quant_matmul_fused_batched"),
+             mma_launches=(k3_moe["mma_launches"]
+                           + more("quant_matmul_fused_batched", mma=True)),
+             launches_by_path=dict(deepseek=k3_moe["launches"],
+                                   **by_path("quant_matmul_fused_batched"))),
         k6,
     ]
     log(f"[summary] K1 times are sums over the {len(per_site)} resnet8 GEMM sites at "
@@ -3265,9 +3877,12 @@ def main() -> int:
         f"the MoE path's, K2's the qwen and MoE paths', K4's the qwen path's, K5's the "
         f"training path's (all on the int8 tensor cores; dae-ad's 30 products beside it), "
         f"K3's the MoE path's, K1's, K2's and K4's also the seven other families' paths (K4 "
-        f"at each family's decode shape, pos 255 and 1023, in its 'families' entry), K6's the "
-        f"kernel API's over the tinyml "
-        f"search-phase weights (no model path calls K6, in the reference or the port); {card}")
+        f"at each family's decode shape, pos 255 and 1023, in its 'families' entry), K1's, "
+        f"K2's and K4's also whisper-small's dense and paged paths (K4 at its decode shape, pos "
+        f"255 and 447, in its 'whisper' entry), K1's, K2's, K3's and K4's also the [paged] runs "
+        f"of qwen1.5-4b and deepseek-v3 ('launches_by_path'), K6's the kernel API's over the "
+        f"tinyml search-phase weights (no model path calls K6, in the reference or the port); "
+        f"{card}")
     report["kernels"] = kernels
     if opts.out:
         Path(opts.out).parent.mkdir(parents=True, exist_ok=True)

@@ -1,16 +1,37 @@
-"""Request-level serving: continuous batching over dense slot rings.
+"""Request-level serving: continuous batching over a paged KV cache.
 
-Counterpart of ``repro.api.scheduler`` in its dense-ring mode
-(``page_size=None``):
+Counterpart of ``repro.api.scheduler`` without speculative decoding, meshes
+and host failure:
 
 * ``submit`` queues a :class:`Request`; an admission pads the queued
   prompts into ONE fixed ``(max_slots, prefill_len)`` prefill (per-row true
   lengths via ``serving.prefill(..., lens=...)``) and merges only the
-  admitted slots' cache rows, so in-flight slots are untouched;
+  admitted slots' caches, so in-flight slots are untouched;
 * every decode tick is ONE fixed-width ``decode_step`` with a per-slot
   position vector and a live mask (freed slots drop their ring writes);
 * a finished slot (EOS or ``max_tokens``) is reclaimed and refilled from
   the queue.
+
+By default the ring leaves are physical pages (``repro_torch.cache``):
+each slot carries a ``(pages_per_slot,)`` page-table row, an admission
+maps ``ceil(prompt_len / page_size)`` pages and decode maps one more each
+time a slot's position crosses a page boundary, so the resident KV bytes
+track the tokens held.  Admission is gated by a page reservation
+(``available >= reserved``) that guarantees a lazy decode allocation never
+fails; when the head of the queue does not fit it waits (strict FIFO, the
+``deferred_admissions`` stat) while decode goes on.  A radix index over the
+prompt tokens shares identical prompt prefixes copy-free
+(``prefix_sharing``, on by default for the ``dense`` family): matched full
+pages are mapped read-only with a refcount bump, a fully cached prompt
+skips its prefill (the slot starts from its last prompt token in its first
+decode tick), and the pages of finished requests stay cached while space
+lasts (LRU leaf-first eviction under pressure).  ``page_size=None`` serves
+the dense per-slot rings.
+
+The paged decode gathers per-slot ring views that are element for element
+the dense rings, so without prefix hits its tokens are the dense engine's;
+a full-prefix hit samples its first token from a decode step instead of
+the prefill (the same math on another launch).
 
 PyTorch runs eagerly, so there is no compile cache to guard (the
 reference's ``compile_counts``); :meth:`ServingEngine.launch_counts`
@@ -19,6 +40,7 @@ exposes the kernels' launch counters instead.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -26,16 +48,14 @@ import torch
 
 from repro_torch.api import sampling as smp
 from repro_torch.api.engine import resolve_device
+from repro_torch.cache import NULL_PAGE, PagePool
 
 # options of the reference engine that the port does not serve yet, and the
 # ROADMAP.md item that ports each
 _NOT_PORTED = {
-    "page_size": "queue 1 item 6 (the paged KV cache)",
-    "num_pages": "queue 1 item 6 (the paged KV cache)",
-    "prefix_sharing": "queue 1 item 6 (radix prefix sharing)",
-    "speculate_k": "queue 1 item 6 (speculative decoding)",
-    "draft_dparams": "queue 1 item 6 (speculative decoding)",
-    "draft_kv_bits": "queue 1 item 6 (speculative decoding)",
+    "speculate_k": "queue 1 item 6.3 (speculative decoding)",
+    "draft_dparams": "queue 1 item 6.3 (speculative decoding)",
+    "draft_kv_bits": "queue 1 item 6.3 (speculative decoding)",
     "mesh": "queue 1 item 8 (multi-GPU serving)",
 }
 
@@ -48,8 +68,9 @@ class Request:
     INCLUDING the one sampled from the prefill logits; ``eos_id``: stop
     early when this id is sampled (still counted in the output);
     ``extras``: per-request prefill arrays keyed like the batch dict
-    (``prefix_embeds (n_prefix_tokens, d_model)`` for the VLM); the rows of
-    slots not being admitted are zeros.
+    (``prefix_embeds (n_prefix_tokens, d_model)`` for the VLM, ``frames
+    (encoder_seq, d_model)`` for the audio family); the rows of slots not
+    being admitted are zeros.
     """
     tokens: np.ndarray
     max_tokens: int = 16
@@ -65,13 +86,26 @@ class RequestOutput:
     finish_reason: str              # "length" | "eos"
 
 
-class _Slot:
-    __slots__ = ("rid", "prompt_len", "max_tokens", "eos_id", "generated")
+def auto_page_size(cfg, max_len: int, prefill_len: int) -> Optional[int]:
+    """The default page size: the largest divisor of gcd(max_len,
+    prefill_len) not above 16 (both widths must split into whole pages);
+    ``None`` (dense) for a family with no ring to page (ssm)."""
+    from repro_torch.models import serving
+    if not serving.supports_paging(cfg):
+        return None
+    g = math.gcd(max_len, prefill_len)
+    return max(t for t in range(1, min(16, g) + 1) if g % t == 0)
 
-    def __init__(self, rid, prompt_len, max_tokens, eos_id):
+
+class _Slot:
+    __slots__ = ("rid", "prompt_len", "max_tokens", "eos_id", "generated", "worst", "mapped")
+
+    def __init__(self, rid, prompt_len, max_tokens, eos_id, worst=0, mapped=0):
         self.rid, self.prompt_len = rid, prompt_len
         self.max_tokens, self.eos_id = max_tokens, eos_id
         self.generated: List[int] = []
+        self.worst = worst              # page budget ceil((L + max_tokens - 1) / T)
+        self.mapped = mapped            # pages in the slot's table row
 
 
 class ServingEngine:
@@ -94,24 +128,30 @@ class ServingEngine:
     ``None`` the int8-per-token cache, an int or bit tuple the channel-wise
     packed one.
 
-    The port serves dense per-slot rings only, so ``page_size`` defaults to
-    ``None`` here (the reference's default pages the cache); ``page_size``,
-    ``num_pages``, ``prefix_sharing``, ``speculate_k``, ``draft_dparams``,
-    ``draft_kv_bits`` and ``mesh`` raise ``NotImplementedError`` naming
-    the ``ROADMAP.md`` item that ports them.
+    ``page_size``: ``"auto"`` (default) pages the KV cache with
+    :func:`auto_page_size`, an int forces that size, ``None`` serves the
+    dense slot rings.  ``num_pages`` sizes the physical pool (default ``1 +
+    max_slots * max_len / page_size``, the dense capacity plus the NULL
+    page, so a default engine never defers).  ``prefix_sharing``:
+    ``"auto"`` enables the radix prompt index for the ``dense`` family when
+    paged; ``True`` also allows ``moe`` (approximate: expert capacity
+    couples a prefill's rows); families whose generation depends on inputs
+    the token-keyed index cannot see (the VLM's prefix embeddings, audio
+    frames, recurrent state) refuse it.  ``speculate_k``, ``draft_dparams``,
+    ``draft_kv_bits`` and ``mesh`` raise ``NotImplementedError`` naming the
+    ``ROADMAP.md`` item that ports them.
     """
 
     def __init__(self, cfg, dparams, backend: str = "cuda",
                  max_slots: int = 4, max_len: int = 64,
                  prefill_len: Optional[int] = None,
                  sampling: smp.SamplingParams = smp.GREEDY, seed: int = 0,
-                 page_size=None, num_pages=None, prefix_sharing=False,
+                 page_size="auto", num_pages: Optional[int] = None, prefix_sharing="auto",
                  kv_bits=None, speculate_k: int = 0, draft_dparams=None,
                  draft_kv_bits=None, mesh=None, device=None):
         from repro_torch.models import serving
-        given = dict(page_size=page_size, num_pages=num_pages,
-                     prefix_sharing=prefix_sharing, speculate_k=speculate_k,
-                     draft_dparams=draft_dparams, draft_kv_bits=draft_kv_bits, mesh=mesh)
+        given = dict(speculate_k=speculate_k, draft_dparams=draft_dparams,
+                     draft_kv_bits=draft_kv_bits, mesh=mesh)
         for name, value in given.items():
             if value:
                 raise NotImplementedError(
@@ -130,9 +170,52 @@ class ServingEngine:
         self.prefill_len = prefill_len or max_len // 2
         if self.prefill_len > max_len:
             raise ValueError("prefill_len exceeds the slot ring max_len")
+
+        if page_size == "auto":
+            page_size = auto_page_size(cfg, max_len, self.prefill_len)
+        if page_size is not None:
+            if not serving.supports_paging(cfg):
+                raise ValueError(f"family {cfg.family!r} has no ring axis "
+                                 "to page (pass page_size=None)")
+            if max_len % page_size or self.prefill_len % page_size:
+                raise ValueError(
+                    f"page_size {page_size} must divide both max_len "
+                    f"{max_len} and prefill_len {self.prefill_len}")
+        self.page_size = page_size
+        self.pages_per_slot = 0 if page_size is None else max_len // page_size
+        self.n_prompt_pages = 0 if page_size is None else self.prefill_len // page_size
+        if prefix_sharing == "auto":
+            prefix_sharing = page_size is not None and cfg.family == "dense"
+        elif prefix_sharing:
+            if page_size is None:
+                raise ValueError("prefix_sharing requires a paged cache")
+            if cfg.family not in ("dense", "moe"):
+                raise ValueError(
+                    f"prefix_sharing unavailable for family {cfg.family!r}: "
+                    "its generation depends on inputs the token-keyed radix "
+                    "index cannot see (prefix embeds / frames / recurrent "
+                    "state)")
+        self.prefix_sharing = bool(prefix_sharing)
         self.sampling = sampling
-        self.caches = serving.init_caches(cfg, max_slots, max_len, kv_bits=kv_bits,
-                                          device=self.device)
+        if page_size is None:
+            self.pool = self._pages = None
+            self.caches = serving.init_caches(cfg, max_slots, max_len, kv_bits=kv_bits,
+                                              device=self.device)
+        else:
+            if num_pages is None:
+                num_pages = 1 + max_slots * self.pages_per_slot
+            if num_pages < 2:
+                raise ValueError("num_pages must be >= 2 (NULL page + one "
+                                 "allocatable page)")
+            self.pool = PagePool(num_pages, page_size, prefix_sharing=self.prefix_sharing)
+            self._pages = np.full((max_slots, self.pages_per_slot), NULL_PAGE, np.int64)
+            self.caches = serving.init_paged_caches(cfg, max_slots, num_pages, page_size,
+                                                    kv_bits=kv_bits, device=self.device)
+            mask = serving.paged_leaf_mask(cfg)
+            self._page_bytes = sum(t.numel() * t.element_size() // t.shape[1]
+                                   for k, t in self.caches.items() if mask[k])
+        self._reserved = 0              # pages promised to live slots
+        self._suppress = np.zeros(max_slots, bool)
         self.tokens = torch.zeros((max_slots, 1), dtype=torch.int64, device=self.device)
         self._pos = np.zeros(max_slots, np.int64)
         self._live = np.zeros(max_slots, bool)
@@ -143,7 +226,9 @@ class ServingEngine:
         self._next_rid = 0
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.stats = dict(prefill_launches=0, decode_launches=0, useful_tokens=0,
-                          occupancy_sum=0.0, idle_ticks=0)
+                          occupancy_sum=0.0, idle_ticks=0, prefix_hits=0,
+                          zero_prefill_admits=0, cached_tokens=0, deferred_admissions=0,
+                          evictions=0, pages_peak=0)
 
     # -- request lifecycle ---------------------------------------------------
     def submit(self, request: Request) -> int:
@@ -162,10 +247,16 @@ class ServingEngine:
                              f"[1, prefill_len={self.prefill_len}]")
         if request.max_tokens < 1:
             raise ValueError(f"request {rid}: max_tokens must be >= 1")
-        if L + request.max_tokens - 1 > self.max_len:
+        worst = 0 if self.pool is None else -(-(L + request.max_tokens - 1) // self.page_size)
+        if (L + request.max_tokens - 1 > self.max_len
+                or (self.pool is not None and worst > self.pool.capacity)):
+            budget = (f"slot rings {self.max_slots} x {self.max_len}"
+                      if self.pool is None else
+                      f"needs {worst} pages of {self.page_size} tokens, "
+                      f"pages free {self.pool.available}/{self.pool.capacity}")
             raise ValueError(
                 f"request {rid}: prompt_len {L} + max_tokens {request.max_tokens} "
-                f"overflows the slot ring (max_len={self.max_len})")
+                f"overflows the slot ring (max_len={self.max_len}; {budget})")
         if self.cfg.family == "vlm" and self.cfg.n_prefix_tokens:
             # the first n_prefix_tokens positions ARE the image context
             # (prefill swaps them for prefix_embeds): a shorter prompt would
@@ -179,6 +270,11 @@ class ServingEngine:
                 raise ValueError(
                     "vlm requests need extras['prefix_embeds'] — the admission batch "
                     "would otherwise swap the prefix region for zeros")
+        if self.cfg.family == "audio" and "frames" not in request.extras:
+            raise ValueError(
+                "audio requests need extras['frames'] (encoder input) — "
+                "an empty slot row would cross-attend to an all-zero "
+                "encoder and decode garbage")
         self._next_rid += 1
         self._pending[rid] = request
         self.queue.append(rid)
@@ -207,85 +303,225 @@ class ServingEngine:
         """Bytes of the dense ``(max_slots, max_len)`` cache pool at this
         engine's ``kv_bits`` policy: every leaf of the family's cache (GQA's
         k/v and scales, MLA's latent, its scales and the rotary key, the SSM
-        state and conv ring)."""
-        return sum(t.numel() * t.element_size() for t in self.caches.values())
+        state and conv ring, the audio cross cache), the paged engine's
+        baseline."""
+        from repro_torch.models import serving
+        dense = serving.init_caches(self.cfg, self.max_slots, self.max_len,
+                                    kv_bits=self.kv_bits, device="meta")
+        return sum(t.numel() * t.element_size() for t in dense.values())
+
+    def _cache_bytes(self, pages: int) -> int:
+        """The per-slot leaves' bytes plus ``pages`` pages of the pools."""
+        total = sum(t.numel() * t.element_size() for t in self.caches.values())
+        return total - self._page_bytes * (self.pool.num_pages - pages)
 
     def kv_bytes_resident(self) -> int:
-        """KV bytes resident: the whole dense pool."""
-        return self.kv_bytes_dense()
+        """KV bytes holding live or reusable data: the pages in use
+        (referenced and radix-resident) and the per-slot leaves (the
+        hybrid's SSM state, the audio cross cache); the dense pool whole."""
+        return self.kv_bytes_dense() if self.pool is None else self._cache_bytes(
+            self.pool.in_use)
+
+    def kv_bytes_peak(self) -> int:
+        """The high-water resident KV bytes over the engine's life
+        (``pages_peak`` priced in bytes)."""
+        return self.kv_bytes_dense() if self.pool is None else self._cache_bytes(
+            self.stats["pages_peak"])
+
+    def _note_pool(self) -> None:
+        self.stats["evictions"] = self.pool.evictions
+        self.stats["pages_peak"] = max(self.stats["pages_peak"], self.pool.in_use)
 
     # -- scheduler ticks -----------------------------------------------------
     def step(self) -> dict:
-        """One scheduler tick: an admission prefill if a slot is free and a
-        request queued, else a decode tick over the live slots; ``kind`` in
-        {"prefill", "decode", "idle"}."""
+        """One scheduler tick: an admission if a slot is free, a request
+        queued and (paged) the head of the queue passes the page gate (at
+        most one prefill; a fully cached prompt admits with none), else a
+        decode tick over the live slots; ``kind`` in {"prefill", "cached",
+        "decode", "idle"}."""
         free = [i for i, s in enumerate(self._slots) if s is None]
         if self.queue and free:
-            return self._admit_tick(free)
+            out = self._admit_tick(free)
+            if out is not None:
+                return out
         if self._live.any():
             return self._decode_tick()
         self.stats["idle_ticks"] += 1
         return {"kind": "idle"}
 
-    def _admit_tick(self, free: List[int]) -> dict:
-        """Admit queued requests into free slots with ONE fixed-width
-        prefill; merge only the admitted slots' cache rows."""
+    def _plan_admission(self, toks: np.ndarray, max_tokens: int):
+        """Page plan ``(matched, full_hit, worst)`` of one request, or None
+        if it must wait.  The gate keeps ``pool.available >= reserved``:
+        ``available`` counts free and radix-resident (evictable) pages, and
+        residency is closed under prefix descendants, so an admission that
+        passes takes its prompt pages now and every later lazy decode page
+        of every live slot is sure to be there.  Reviving a matched resident
+        page takes it from ``available``, hence the ``+ r``."""
+        T = self.page_size
+        L = len(toks)
+        matched = self.pool.match_prefix(toks) if self.prefix_sharing else []
+        m = len(matched)
+        full_hit = self.prefix_sharing and m > 0 and m * T >= L - 1
+        worst = -(-(L + max_tokens - 1) // T)
+        r = sum(self.pool.is_resident(p) for p in matched)
+        if self.pool.available - self._reserved < (worst - m) + r:
+            return None
+        return matched, full_hit, worst
+
+    def _take_paged(self, free: List[int]) -> tuple:
+        """The queued requests the page gate admits, strictly FIFO (the
+        first that does not fit waits, and so do those behind it), each
+        with its pages taken: the shared ones first (so our own fresh
+        allocations cannot evict them), then fresh prompt pages; decode
+        pages stay reserved and are mapped lazily."""
+        T = self.page_size
+        take, plans = [], {}
+        for rid in self.queue[:len(free)]:
+            req = self._pending[rid]
+            toks = np.asarray(req.tokens, np.int64)
+            plan = self._plan_admission(toks, req.max_tokens)
+            if plan is None:
+                self.stats["deferred_admissions"] += 1
+                break
+            matched, full_hit, worst = plan
+            self.pool.acquire(matched)
+            row = list(matched)
+            if not full_hit:
+                row += self.pool.alloc(-(-len(toks) // T) - len(matched))
+                # published before the prefill: a same-tick duplicate prompt
+                # becomes a full hit whose shared reads happen only in later
+                # decode ticks, after this tick's prefill wrote the pages
+                self.pool.index_prompt(toks, row[:len(toks) // T])
+            self._reserved += worst - len(row)
+            plans[rid] = (matched, full_hit, worst, row)
+            take.append(rid)
+        return take, plans
+
+    def _admit_tick(self, free: List[int]) -> Optional[dict]:
+        """Admit queued requests into free slots with at most ONE fixed-width
+        prefill; merge only the admitted slots' caches.  Returns None when
+        the page gate admitted nothing, so ``step`` decodes instead."""
         from repro_torch.models import serving
-        B, P = self.max_slots, self.prefill_len
-        take = self.queue[:len(free)]
+        B, P, T = self.max_slots, self.prefill_len, self.page_size
+        if self.pool is None:
+            take, plans = self.queue[:len(free)], {}
+        else:
+            take, plans = self._take_paged(free)
+            if not take:
+                return None
         del self.queue[:len(take)]
         rows = np.zeros((B, P), np.int64)
         lens = np.ones(B, np.int64)
+        admit = np.zeros(B, bool)
+        wp_flat = (None if self.pool is None else
+                   np.full(B * self.n_prompt_pages, self.pool.num_pages, np.int64))
+        boot = []                       # (slot, last prompt token) of full hits
         extras: Dict[str, np.ndarray] = {}
+        if self.cfg.family == "audio":
+            extras["frames"] = np.zeros((B, self.cfg.encoder_seq, self.cfg.d_model), np.float32)
         if self.cfg.family == "vlm" and self.cfg.n_prefix_tokens:
             extras["prefix_embeds"] = np.zeros(
                 (B, self.cfg.n_prefix_tokens, self.cfg.d_model), np.float32)
-        admitted = []
         for slot, rid in zip(free, take):
             req = self._pending.pop(rid)
             toks = np.asarray(req.tokens, np.int64)
             L = toks.shape[0]
-            rows[slot, :L] = toks
             lens[slot] = L
             for k, v in req.extras.items():
                 extras[k][slot] = v
-            admitted.append(slot)
             self._live[slot] = True
-            self._slots[slot] = _Slot(rid, L, req.max_tokens, req.eos_id)
-            self._pos[slot] = L
+            if self.pool is None:
+                rows[slot, :L] = toks
+                admit[slot] = True
+                self._slots[slot] = _Slot(rid, L, req.max_tokens, req.eos_id)
+                self._pos[slot] = L
+                continue
+            matched, full_hit, worst, row = plans[rid]
+            self._pages[slot, :len(row)] = row
+            self._slots[slot] = _Slot(rid, L, req.max_tokens, req.eos_id, worst=worst,
+                                      mapped=len(row))
+            self.stats["prefix_hits"] += bool(matched)
+            self.stats["cached_tokens"] += len(matched) * T
+            if full_hit:
+                # no prefill: every prompt position but (at most) the last is
+                # cached; the slot starts from its last prompt token, whose
+                # first decode tick writes that token's entry (or, if even it
+                # is cached, suppresses the write for one tick) and samples
+                self.stats["zero_prefill_admits"] += 1
+                self._pos[slot] = L - 1
+                self._suppress[slot] = len(matched) * T == L
+                boot.append((slot, int(toks[-1])))
+            else:
+                rows[slot, :L] = toks
+                admit[slot] = True
+                self._pos[slot] = L
+                # prefill writes only the pages this slot owns: matched pages
+                # stay read-only, the tail past ceil(L / T) stays dropped
+                base = slot * self.n_prompt_pages
+                for j in range(len(matched), len(row)):
+                    wp_flat[base + j] = row[j]
+        if self.pool is not None:
+            self._note_pool()
         dev = self.device
-        batch = {"tokens": torch.from_numpy(rows).to(dev)}
-        batch.update({k: torch.from_numpy(v).to(dev) for k, v in extras.items()})
-        logits, pf = serving.prefill(self.dparams, self.cfg, batch, self.backend,
-                                     lens=torch.from_numpy(lens).to(dev), kv_bits=self.kv_bits)
-        idx = torch.tensor(admitted, dtype=torch.int64, device=dev)
-        emb = serving.embed_caches({k: v[:, idx] for k, v in pf.items()},
-                                   {k: v[:, idx] for k, v in self.caches.items()})
-        for k, v in emb.items():
-            self.caches[k][:, idx] = v
-        tok = smp.sample(logits, self.sampling, self._gen)        # (B, 1)
-        self.tokens[idx] = tok[idx]
-        self.stats["prefill_launches"] += 1
-        self.stats["useful_tokens"] += len(admitted)
+        launched = bool(admit.any())
+        if launched:
+            batch = {"tokens": torch.from_numpy(rows).to(dev)}
+            batch.update({k: torch.from_numpy(v).to(dev) for k, v in extras.items()})
+            logits, pf = serving.prefill(self.dparams, self.cfg, batch, self.backend,
+                                         lens=torch.from_numpy(lens).to(dev),
+                                         kv_bits=self.kv_bits)
+            if self.pool is None:
+                idx = torch.from_numpy(np.nonzero(admit)[0]).to(dev)
+                emb = serving.embed_caches({k: v[:, idx] for k, v in pf.items()},
+                                           {k: v[:, idx] for k, v in self.caches.items()})
+                for k, v in emb.items():
+                    self.caches[k][:, idx] = v
+            else:
+                serving.merge_paged_caches(self.cfg, pf, self.caches,
+                                           torch.from_numpy(admit).to(dev),
+                                           torch.from_numpy(wp_flat).to(dev))
+            tok = smp.sample(logits, self.sampling, self._gen)        # (B, 1)
+            sel = torch.from_numpy(admit).to(dev)[:, None]
+            self.tokens = torch.where(sel, tok, self.tokens)
+            self.stats["prefill_launches"] += 1
+            self.stats["useful_tokens"] += int(admit.sum())
+        for slot, last in boot:
+            self.tokens[slot, 0] = last
         tok_np = self.tokens[:, 0].cpu().numpy()
-        for slot in admitted:
-            self._record(slot, int(tok_np[slot]))
-        return {"kind": "prefill", "admitted": list(take)}
+        for slot in np.nonzero(admit)[0]:
+            self._record(int(slot), int(tok_np[slot]))
+        return {"kind": "prefill" if launched else "cached", "admitted": list(take)}
 
     def _decode_tick(self) -> dict:
         from repro_torch.models import serving
         live = self._live.copy()
         dev = self.device
+        pages = None
+        if self.pool is not None:
+            # map the page under each live slot's write position: the
+            # reservation gate guarantees this allocation succeeds
+            for slot in np.nonzero(live)[0]:
+                pidx = int(self._pos[slot]) // self.page_size
+                if self._pages[slot, pidx] == NULL_PAGE:
+                    (pg,) = self.pool.alloc(1)
+                    self._pages[slot, pidx] = pg
+                    self._slots[slot].mapped += 1
+                    self._reserved -= 1
+            self._note_pool()
+            pages = torch.from_numpy(self._pages).to(dev)
+        live_write = live & ~self._suppress
         logits, self.caches = serving.decode_step(
             self.dparams, self.cfg, self.tokens, self.caches,
             torch.from_numpy(self._pos).to(dev), self.backend,
-            live=torch.from_numpy(live).to(dev), kv_bits=self.kv_bits)
+            live=torch.from_numpy(live_write).to(dev), kv_bits=self.kv_bits,
+            pages=pages, page_size=self.page_size)
         self.tokens = smp.sample(logits, self.sampling, self._gen)
         self.stats["decode_launches"] += 1
         n_live = int(live.sum())
         self.stats["useful_tokens"] += n_live
         self.stats["occupancy_sum"] += n_live / self.max_slots
         self._pos[live] += 1
+        self._suppress[live] = False
         tok_np = self.tokens[:, 0].cpu().numpy()
         for slot in np.nonzero(live)[0]:
             self._record(int(slot), int(tok_np[slot]))
@@ -301,6 +537,11 @@ class ServingEngine:
                 rid=st.rid, tokens=np.asarray(st.generated, np.int32),
                 prompt_len=st.prompt_len,
                 finish_reason="eos" if done_eos else "length"))
+            if self.pool is not None:
+                self.pool.release(int(p) for p in self._pages[slot] if p != NULL_PAGE)
+                self._pages[slot, :] = NULL_PAGE
+                self._reserved -= st.worst - st.mapped
+                self._note_pool()
             self._slots[slot] = None
             self._live[slot] = False
 

@@ -123,10 +123,15 @@ def _first_array(tree):
     return tree if isinstance(tree, np.ndarray) else None
 
 
+_STACKS = ("blocks", "enc_blocks", "dec_blocks")
+
+
 def deployed_lm_from_numpy(tree: dict, device="cpu") -> dict:
     """The reference's deployed LM tree (``serving.init_deployed_model``)
     as the port's: ``{"embed", "blocks", "ln_f", "lm_head"}`` (and the
-    hybrid's unstacked ``"shared_attn"`` block) with the bf16 embedding,
+    hybrid's unstacked ``"shared_attn"`` block; the audio model's
+    ``"enc_blocks"``, ``"dec_blocks"`` and ``"enc_ln_f"`` in place of
+    ``"blocks"``) with the bf16 embedding,
     norms, biases and MoE router, every deployed linear a QTensor (its
     fused layout and ``fused_table`` too; MoE expert weights as expert
     stacks, arctic's ``dense_res`` beside them), and a Mamba2 layer's
@@ -135,10 +140,10 @@ def deployed_lm_from_numpy(tree: dict, device="cpu") -> dict:
     reference QTensor as its ``{field: value}`` dict (numpy leaves); the
     reference stacks the blocks along a leading layer axis, the port keeps
     a list of per-layer dicts."""
-    blocks = tree["blocks"]
-    n_layers = len(_first_array(blocks))
-    out = {k: _lm_tree(v, device) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [_lm_tree(_layer(blocks, i), device) for i in range(n_layers)]
+    out = {}
+    for k, v in tree.items():
+        out[k] = (_lm_tree(v, device) if k not in _STACKS else
+                  [_lm_tree(_layer(v, i), device) for i in range(len(_first_array(v)))])
     return out
 
 
@@ -146,12 +151,18 @@ def caches_from_numpy(tree: dict, device="cpu") -> dict:
     """The reference's dense-ring serving caches as the port's flat dict:
     GQA's ``{"k", "v", "k_scale", "v_scale"}`` and MLA's ``{"ckv",
     "ckv_scale", "krope"}`` keep their keys; the SSM family's ``{"h",
-    "conv"}`` become ``{"ssm_h", "ssm_conv"}``, and the hybrid's nested
-    ``{"ssm": {...}, "attn": {...}}`` the SSM keys beside the GQA ones.
-    Every leaf keeps its stacked layout."""
+    "conv"}`` become ``{"ssm_h", "ssm_conv"}``, the hybrid's nested
+    ``{"ssm": {...}, "attn": {...}}`` the SSM keys beside the GQA ones, and
+    the audio family's ``{"self": {...}, "cross": {...}}`` the GQA keys
+    beside the cross cache's, prefixed ``cross_``.  Every leaf keeps its
+    stacked layout; the reference's paged caches (the same trees over page
+    pools) cross the same way."""
     if "ssm" in tree:
         return {**caches_from_numpy(tree["ssm"], device),
                 **caches_from_numpy(tree["attn"], device)}
+    if "cross" in tree:
+        return {**caches_from_numpy(tree["self"], device),
+                **{"cross_" + k: v for k, v in caches_from_numpy(tree["cross"], device).items()}}
     if "h" in tree:
         return {"ssm_" + k: _tensor(v, device) for k, v in tree.items()}
     return {k: _tensor(v, device) for k, v in tree.items()}

@@ -6,8 +6,8 @@ deployment settings; ``reduced()`` gives the narrow CPU-test variant of the
 same family (2 layers, d_model 64, vocab 256).  The dtypes are
 ``torch.dtype``s.
 
-The registry names only the configurations whose serving path is ported;
-any other id of the reference's pool raises and names the ``ROADMAP.md``
+The registry names every configuration of the reference's pool; an id in
+``NOT_PORTED`` (none at present) would raise and name the ``ROADMAP.md``
 item that ports it.
 """
 from __future__ import annotations
@@ -159,12 +159,11 @@ class ArchConfig:
 # Registry -------------------------------------------------------------------
 
 ARCH_IDS = ("qwen1.5-4b", "deepseek-v3-671b", "stablelm-12b", "minicpm-2b", "chatglm3-6b",
-            "phi-3-vision-4.2b", "arctic-480b", "mamba2-780m", "zamba2-1.2b")
+            "phi-3-vision-4.2b", "arctic-480b", "mamba2-780m", "zamba2-1.2b", "whisper-small")
 
-# the rest of the reference's pool, with the ROADMAP.md item that ports each
-NOT_PORTED = {
-    "whisper-small": "queue 1 item 5 (audio encoder-decoder)",
-}
+# ids of the reference's pool the port does not serve yet, each with the
+# ROADMAP.md item that ports it
+NOT_PORTED: dict = {}
 
 
 def get_config(arch_id: str) -> ArchConfig:

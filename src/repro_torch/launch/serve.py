@@ -1,20 +1,22 @@
 """Serving launcher: a deployed mixed-precision LM under request-level
-continuous batching over dense slot rings
+continuous batching over a paged KV cache
 (:class:`repro_torch.api.scheduler.ServingEngine`).
 
-Counterpart of ``repro.launch.serve`` without the paged cache, speculative
-decoding, meshes and host failure (``ROADMAP.md``).  The launcher draws a
-random deployed model (``serving.init_deployed_model``), synthesizes a
-staggered-arrival trace (ragged prompts and outputs arriving over time) and
-serves it; ``--lockstep`` also runs the same trace wave at a time (submit a
-wave, drain it, repeat): the shortest-job barrier continuous batching
-removes.
+Counterpart of ``repro.launch.serve`` without speculative decoding, meshes
+and host failure (``ROADMAP.md``).  The launcher draws a random deployed
+model (``serving.init_deployed_model``), synthesizes a staggered-arrival
+trace (ragged prompts and outputs arriving over time) and serves it through
+the paged slot pool, sharing the KV pages of repeated prompt prefixes
+copy-free (``--no-prefix-sharing`` turns that off; ``--page-size 0`` serves
+dense per-slot rings, ``-1``, the default, picks the page size);
+``--lockstep`` also runs the same trace wave at a time (submit a wave,
+drain it, repeat): the shortest-job barrier continuous batching removes.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
         --reduced --device cpu --requests 5 --slots 2 --prompt-len 12 --gen 6
 
-``--arch`` takes every id of ``config.ARCH_IDS`` (dense, VLM, MoE, SSM and
-hybrid families).
+``--arch`` takes every id of ``config.ARCH_IDS`` (dense, VLM, MoE, SSM,
+hybrid and audio families).
 
 Runs on the card unless ``--device cpu`` is given.
 """
@@ -33,8 +35,9 @@ from repro_torch.models import serving
 
 def build_trace(cfg, args, rng):
     """Staggered-arrival synthetic trace: ragged prompts, outputs, times.
-    A VLM's prompts run past its image prefix, and each request carries
-    its ``prefix_embeds`` drawn from ``rng`` (the reference's draws, in its
+    A VLM's prompts run past its image prefix; each request of the audio
+    family carries its ``frames (encoder_seq, d_model)`` and each of a VLM
+    its ``prefix_embeds``, drawn from ``rng`` (the reference's draws, in its
     order)."""
     reqs, arrivals = [], []
     min_len = max(1, args.prompt_len // 2)
@@ -45,6 +48,9 @@ def build_trace(cfg, args, rng):
         L = int(rng.integers(min_len, args.prompt_len + 1))
         gen = int(rng.integers(max(1, args.gen // 4), args.gen + 1))
         extras = {}
+        if cfg.family == "audio":
+            extras["frames"] = rng.standard_normal(
+                (cfg.encoder_seq, cfg.d_model)).astype(np.float32)
         if vlm:
             extras["prefix_embeds"] = rng.standard_normal(
                 (cfg.n_prefix_tokens, cfg.d_model)).astype(np.float32)
@@ -55,9 +61,26 @@ def build_trace(cfg, args, rng):
 
 
 def _engine(cfg, dparams, args):
+    page_size = {0: None, -1: "auto"}.get(args.page_size, args.page_size)
     return ServingEngine(cfg, dparams, backend=args.backend, max_slots=args.slots,
                          max_len=args.prompt_len + args.gen, prefill_len=args.prompt_len,
+                         page_size=page_size, num_pages=args.num_pages or None,
+                         prefix_sharing=False if args.no_prefix_sharing else "auto",
                          kv_bits=args.kv_bits, device=args.device)
+
+
+def _paged_line(eng):
+    if eng.pool is None:
+        return "paged:      off (dense slot rings)"
+    st = eng.stats
+    return (f"paged:      page_size {eng.page_size}, peak "
+            f"{st['pages_peak']}/{eng.pool.capacity} pages, "
+            f"{st['prefix_hits']} prefix hits "
+            f"({st['zero_prefill_admits']} zero-prefill, "
+            f"{st['cached_tokens']} cached tokens), "
+            f"{st['evictions']} evictions, "
+            f"{st['deferred_admissions']} deferred — resident KV "
+            f"{eng.kv_bytes_resident()} B vs dense {eng.kv_bytes_dense()} B")
 
 
 def run_continuous(cfg, dparams, reqs, arrivals, args):
@@ -73,8 +96,8 @@ def run_continuous(cfg, dparams, reqs, arrivals, args):
           f"{st['prefill_launches']} prefills + {st['decode_launches']} decode steps "
           f"= {steps} steps, slot occupancy {occ:.2f}, kernel launches "
           f"{eng.launch_counts()}")
-    print(f"kv cache:   dense slot rings, kv_bits {eng.kv_bits}, resident "
-          f"{eng.kv_bytes_resident()} B")
+    print(f"kv cache:   kv_bits {eng.kv_bits}, resident {eng.kv_bytes_resident()} B")
+    print(_paged_line(eng))
     print("sample token ids:", outs[0].tokens[:16])
     return dt, st["useful_tokens"]
 
@@ -119,16 +142,17 @@ def main(argv=None) -> None:
     p.add_argument("--kv-bits", type=_kv_bits, default=None,
                    help="KV cache policy: 8, 4, 2 or a list such as 2,4,8 "
                         "(default: int8 per token)")
-    p.add_argument("--page-size", type=int, default=0,
-                   help="0: dense slot rings (the only layout ported so far)")
+    p.add_argument("--page-size", type=int, default=-1,
+                   help="KV page size in tokens: -1 auto (default), 0 dense slot rings")
+    p.add_argument("--num-pages", type=int, default=0,
+                   help="physical KV pages (0: the dense capacity plus the NULL page)")
+    p.add_argument("--no-prefix-sharing", action="store_true",
+                   help="disable the radix prompt-prefix sharing of the paged cache")
     p.add_argument("--lockstep", action="store_true",
                    help="also run the wave-at-a-time lockstep baseline")
     p.add_argument("--device", default=None, help="default: the card")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
-    if args.page_size != 0:
-        raise SystemExit("--page-size: only 0 (dense slot rings) is ported; the paged "
-                         "cache is ROADMAP.md queue 1 item 6")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()

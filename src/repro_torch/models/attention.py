@@ -23,6 +23,12 @@ whole ring through the packed ``wkv_b`` linear every step, as the
 reference does (it no longer absorbs ``wkv_b`` into the query from a dense
 view of the weight).
 
+Both decodes also take the paged layout (``pages``, ``page_size``): the
+cache leaves are then physical page pools, the new entry lands through the
+page table (``cache/paged.write_coords``) and attention reads the slot's
+pages gathered into the dense ring view, so the decode-attention kernel
+takes no page table.
+
 Unlike the reference, :func:`gqa_decode` and :func:`mla_decode` write the
 new cache entries in place (the caller's ring tensors are updated and
 returned).
@@ -34,6 +40,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.cache import paged
 from repro_torch.core import quantizers as qz
 from repro_torch.kernels import decode_attention as datt
 from repro_torch.models import kv_quant as kvq
@@ -166,11 +173,32 @@ def _ring_write(ring: torch.Tensor, wpos: torch.Tensor, new: torch.Tensor) -> No
     ring[bidx, :, at] = torch.where(keep[:, None, None], new.to(ring.dtype), old)
 
 
+def _write_and_read(cache: dict, keys: tuple, new: tuple, pos, live, pages, page_size,
+                    mid: bool) -> tuple:
+    """Write each leaf's new entry (``new[i]`` of ``(B, [KV,] F)`` into
+    ``cache[keys[i]]``) at the slots' positions, in place, and return the
+    leaves as per-slot rings: the dense rings themselves, or with
+    ``pages`` the pools written through the page table and gathered back.
+    ``mid``: the leaves carry the KV-head axis before the ring axis."""
+    if pages is None:
+        S = cache[keys[0]].shape[2 if mid else 1]
+        wpos = slot_write_pos(pos, live, S)
+        for key, t in zip(keys, new):
+            _ring_write(cache[key] if mid else cache[key].unsqueeze(1), wpos,
+                        t if mid else t[:, None])
+        return tuple(cache[k] for k in keys)
+    phys, off = paged.write_coords(pos, live, pages, page_size, cache[keys[0]].shape[0])
+    for key, t in zip(keys, new):
+        paged.write_pages(cache[key], phys, off, t)
+    return tuple(paged.gather_pages(cache[k], pages) for k in keys)
+
+
 def gqa_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: torch.Tensor,
                dq_linear, live: Optional[torch.Tensor] = None,
                kv_spec: Optional[kvq.KVQuantSpec] = None,
-               backend: str = "cuda") -> tuple:
-    """One-token decode over a dense ring cache, per-slot positions.
+               backend: str = "cuda", pages: Optional[torch.Tensor] = None,
+               page_size: Optional[int] = None) -> tuple:
+    """One-token decode over a ring cache, per-slot positions.
 
     ``x (B, 1, d)``; ``pos (B,)`` int: row ``b`` writes its new KV at ring
     index ``pos[b]`` and attends to ``<= pos[b]``; ``live (B,)`` bool: rows
@@ -178,13 +206,16 @@ def gqa_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     deployed linear.  ``kv_spec``: the channel-wise packed ring of
     ``init_gqa_cache(..., spec=kv_spec)``; with ``backend="cuda"`` it is
     attended through the decode-attention kernel (on CPU tensors, its
-    plain version), otherwise through the dequantized ring.  Writes
+    plain version), otherwise through the dequantized ring.  ``pages (B,
+    P)``: the leaves are page pools ``(num_pages, KV, page_size, F)``; row
+    ``b`` writes into page ``pages[b, pos[b] // page_size]`` and attention
+    reads the gathered ``(B, KV, P * page_size, F)`` ring.  Writes
     ``cache`` in place and returns ``(y (B, 1, d), cache)``.
     """
     if x.shape[1] != 1:
         raise NotImplementedError(
             "multi-token (speculative verify) decode is not ported yet: "
-            "ROADMAP.md queue 1 item 6")
+            "ROADMAP.md queue 1 item 6 (6.3, speculative decoding)")
     B = x.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cd = cfg.cdtype
@@ -204,23 +235,22 @@ def gqa_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     else:
         kq, ks = kvq.quant_channelwise(k.transpose(1, 2), kv_spec)
         vq, vs = kvq.quant_channelwise(v.transpose(1, 2), kv_spec)
-    S = cache["k"].shape[2]
-    wpos = slot_write_pos(pos, live, S)
-    for key, new in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
-        _ring_write(cache[key], wpos, new[:, :, 0])
+    ki, vi, ksc, vsc = _write_and_read(
+        cache, ("k", "v", "k_scale", "v_scale"), (kq[:, :, 0], vq[:, :, 0], ks[:, :, 0],
+                                                  vs[:, :, 0]),
+        pos, live, pages, page_size, mid=True)
     rep = H // KV
     qg = q.transpose(1, 2).reshape(B, KV, rep, hd)        # q keeps its dtype (f32 after RoPE)
     if kv_spec is not None and backend == "cuda":
-        o = datt.decode_attention(qg, cache["k"], cache["k_scale"], cache["v"],
-                                  cache["v_scale"], pos, kv_spec.bits, kv_spec.sizes,
+        o = datt.decode_attention(qg, ki, ksc, vi, vsc, pos, kv_spec.bits, kv_spec.sizes,
                                   out_dtype=cd)
     else:
         if kv_spec is None:
-            kf = (cache["k"].to(torch.float32) * cache["k_scale"]).to(cd)
-            vf = (cache["v"].to(torch.float32) * cache["v_scale"]).to(cd)
+            kf = (ki.to(torch.float32) * ksc).to(cd)
+            vf = (vi.to(torch.float32) * vsc).to(cd)
         else:
-            kf = kvq.dequant_channelwise(cache["k"], cache["k_scale"], kv_spec, cd)
-            vf = kvq.dequant_channelwise(cache["v"], cache["v_scale"], kv_spec, cd)
+            kf = kvq.dequant_channelwise(ki, ksc, kv_spec, cd)
+            vf = kvq.dequant_channelwise(vi, vsc, kv_spec, cd)
         o = datt.attend(qg, kf, vf, pos, cd)
     return dq_linear(o.reshape(B, 1, H * hd), p["wo"]), cache
 
@@ -252,8 +282,10 @@ def init_mla_cache(cfg, batch: int, max_len: int,
 
 def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: torch.Tensor,
                dq_linear, live: Optional[torch.Tensor] = None,
-               kv_spec: Optional[kvq.KVQuantSpec] = None) -> tuple:
-    """One-token MLA decode over a dense ring cache, per-slot positions.
+               kv_spec: Optional[kvq.KVQuantSpec] = None,
+               pages: Optional[torch.Tensor] = None,
+               page_size: Optional[int] = None) -> tuple:
+    """One-token MLA decode over a ring cache, per-slot positions.
 
     ``x (B, 1, d)``; ``pos (B,)``: row ``b`` writes its latent at ring
     index ``pos[b]`` and attends to ``<= pos[b]``; ``live=False`` rows drop
@@ -263,13 +295,15 @@ def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     S`` cached latents), then one query attends: the score dots summed in
     f32 (bf16 operands, no bf16 rounding, as XLA folds the reference's
     cast), divided by ``sqrt(nope + rope)``, an f32 softmax rounded to the
-    compute dtype, the value dot rounded once.  Writes ``cache`` in place
-    and returns ``(y (B, 1, d), cache)``.
+    compute dtype, the value dot rounded once.  ``pages (B, P)``: the
+    leaves are page pools ``(num_pages, page_size, F)`` written and read
+    through the page table, as in :func:`gqa_decode`.  Writes ``cache`` in
+    place and returns ``(y (B, 1, d), cache)``.
     """
     if x.shape[1] != 1:
         raise NotImplementedError(
             "multi-token (speculative verify) MLA decode, _mla_decode_multi, is not "
-            "ported yet: ROADMAP.md queue 1 item 6")
+            "ported yet: ROADMAP.md queue 1 item 6 (6.3, speculative decoding)")
     B = x.shape[0]
     H = cfg.n_heads
     nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -293,23 +327,22 @@ def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: torch.Tensor,
         qc, qs = quant_per_token(c_kv)                       # (B, 1, kvr), (B, 1, 1)
     else:
         qc, qs = kvq.quant_channelwise(c_kv, kv_spec)
-    S = cache["ckv"].shape[1]
-    wpos = slot_write_pos(pos, live, S)
-    # the (B, S, F) rings seen as (B, 1, S, F): one "kv-head" of the GQA writer
-    for key, new in (("ckv", qc), ("ckv_scale", qs),
-                     ("krope", k_rope_new.to(torch.bfloat16))):
-        _ring_write(cache[key].unsqueeze(1), wpos, new)
-
+    # dense: the (B, S, F) rings seen as (B, 1, S, F), one "kv-head" of the GQA writer
+    ckv_i, ckv_s, krope_i = _write_and_read(
+        cache, ("ckv", "ckv_scale", "krope"),
+        (qc[:, 0], qs[:, 0], k_rope_new[:, 0].to(torch.bfloat16)), pos, live, pages,
+        page_size, mid=False)
+    S = ckv_i.shape[1]
     if kv_spec is None:
-        ckv_f = (cache["ckv"].to(torch.float32) * cache["ckv_scale"]).to(cd)
+        ckv_f = (ckv_i.to(torch.float32) * ckv_s).to(cd)
     else:
-        ckv_f = kvq.dequant_channelwise(cache["ckv"], cache["ckv_scale"], kv_spec, cd)
+        ckv_f = kvq.dequant_channelwise(ckv_i, ckv_s, kv_spec, cd)
     kv = dq_linear(ckv_f, p["wkv_b"]).reshape(B, S, H, nope + vd)
     k_nope, v = kv[..., :nope], kv[..., nope:]
     f32 = torch.float32
     s = torch.einsum("bqhn,bkhn->bhqk", q_nope.to(cd).to(f32), k_nope.to(cd).to(f32))
     s = s + torch.einsum("bqhr,bkr->bhqk", q_rope.to(cd).to(f32),
-                         cache["krope"].to(cd).to(f32))
+                         krope_i.to(cd).to(f32))
     s = qz.over(s, math.sqrt(nope + rope))
     valid = torch.arange(S, device=x.device)[None, None, None, :] <= pos[:, None, None, None]
     s = torch.where(valid, s, torch.full((), -math.inf, device=x.device))

@@ -229,6 +229,25 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh GELU in ``x``'s dtype as XLA computes ``jax.nn.gelu`` (its
+    default ``approximate=True``): ``x * 0.5 (1 + tanh(c (x + 0.044715
+    x^3)))`` with the constants and every op rounded to the dtype
+    (``F.gelu(approximate="tanh")`` rounds otherwise at bf16)."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
+    a = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1 + torch.tanh(c * (x + a * (x * x * x)))))
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """Whisper's fixed sinusoidal position embeddings ``(seq, d)`` in f32:
+    ``[sin, cos]`` of ``pos / 10000^(2i/d)``."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.full((), 10000.0, device=device), qz.over(2 * dim, d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def rope_freqs(head_dim: int, theta: float, positions: torch.Tensor,
                partial: float = 1.0) -> tuple:
     """cos/sin tables (f32) for (possibly partial) RoPE over ``positions``

@@ -1,10 +1,12 @@
 """Deployed language-model serving: packed mixed-precision weights and
 quantized KV caches, for the dense GQA family (and the VLM, whose prompt
 starts with image patch embeddings), the MoE family (GQA or MLA attention,
-arctic's dense residual MLP), the SSM family (Mamba2) and the hybrid
-(Mamba2 layers with one shared attention block).
+arctic's dense residual MLP), the SSM family (Mamba2), the hybrid (Mamba2
+layers with one shared attention block) and the audio encoder-decoder
+(whisper: GELU MLPs, sinusoidal positions, cross-attention over the
+encoded frames).
 
-Counterpart of ``repro.models.serving`` but for the audio family.  Each
+Counterpart of ``repro.models.serving``.  Each
 linear of the model is a :class:`~repro_torch.api.qtensor.QTensor` with the
 config's static channel-group sizes (``DeploySpec``), packed sub-byte; a
 linear whose contraction fits ``K_SINGLE_STEP_MAX`` also carries the fused
@@ -18,13 +20,20 @@ bandwidth.
 
 A deployed linear is ``{"w": QTensor[, "bias": (c_out,) bf16]}``; the model
 is ``{"embed", "blocks": [per-layer dicts], "ln_f", "lm_head"}``, and the
-hybrid's one ``"shared_attn"`` block beside them.  Caches are stacked per
+hybrid's one ``"shared_attn"`` block beside them; the audio model has
+``"enc_blocks"``, ``"dec_blocks"`` and ``"enc_ln_f"`` in place of
+``"blocks"``.  Caches are stacked per
 layer in one flat dict with the family's keys (:func:`cache_keys`): GQA
 rings ``{"k", "v", "k_scale", "v_scale"}`` each ``(n_layers, B, KV, S, F)``,
 MLA rings ``{"ckv", "ckv_scale", "krope"}`` each ``(n_layers, B, S, F)``,
 the SSM state ``{"ssm_h" (n_layers, B, H, P, N), "ssm_conv" (n_layers, B,
 CONV_K - 1, C)}``; the hybrid's GQA rings are stacked per group of
-``attn_every`` layers (one a shared-block application).
+``attn_every`` layers (one a shared-block application); the audio
+decoder's self ring has GQA's keys and its cross cache over the encoded
+frames the same keys prefixed ``cross_`` (``(n_layers, B, KV,
+encoder_seq, F)``).  The paged layout (:func:`init_paged_caches`) swaps
+each ring's ``(B, .., max_len)`` axes for physical pages ``(num_pages, ..,
+page_size)`` read and written through a page table.
 PyTorch runs eagerly: the layer loops are Python loops, and
 :func:`decode_step` updates the caches in place.
 
@@ -41,6 +50,7 @@ import torch
 
 from repro_torch.api.engine import resolve_device
 from repro_torch.api.qtensor import QTensor, _auto_tile_n
+from repro_torch.cache import paged
 from repro_torch.core import quantizers as qz
 from repro_torch.kernels import quant_matmul as qmk
 from repro_torch.models import attention as attn
@@ -52,29 +62,29 @@ from repro_torch.models import ssm as ssm_mod
 GQA_CACHE_KEYS = ("k", "v", "k_scale", "v_scale")
 MLA_CACHE_KEYS = ("ckv", "ckv_scale", "krope")
 SSM_CACHE_KEYS = ("ssm_h", "ssm_conv")          # ssm_mod.init_ssm_cache's "h", "conv"
+CROSS_CACHE_KEYS = tuple("cross_" + k for k in GQA_CACHE_KEYS)   # the reference's "cross"
 ATTN_FAMILIES = ("dense", "vlm", "moe")
+FAMILIES = ATTN_FAMILIES + ("ssm", "hybrid", "audio")
 
 
 def _check_ported(cfg) -> None:
-    """Raise, naming what is missing, unless the port serves ``cfg``: the
-    dense, VLM, MoE, SSM and hybrid families with SwiGLU MLPs."""
-    missing = []
-    if cfg.family not in ATTN_FAMILIES + ("ssm", "hybrid"):
-        missing.append(f"the {cfg.family} family (audio encoder-decoder serving)")
-    if cfg.mlp_type != "swiglu":
-        missing.append(f"{cfg.mlp_type} MLPs")
-    if missing:
+    """Raise unless the port serves ``cfg``: every family and MLP of the
+    reference."""
+    if cfg.family not in FAMILIES or cfg.mlp_type not in ("swiglu", "gelu"):
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md queue 1 item 5)")
+            f"{cfg.name}: the {cfg.family} family with {cfg.mlp_type} MLPs is not served")
 
 
 def cache_keys(cfg) -> tuple:
     """The keys of the family's caches: MLA's latent ring, GQA's ring, the
-    SSM state, or the hybrid's SSM state and GQA rings."""
+    SSM state, the hybrid's SSM state and GQA rings, or the audio decoder's
+    self ring and cross cache."""
     if cfg.family == "ssm":
         return SSM_CACHE_KEYS
     if cfg.family == "hybrid":
         return SSM_CACHE_KEYS + GQA_CACHE_KEYS
+    if cfg.family == "audio":
+        return GQA_CACHE_KEYS + CROSS_CACHE_KEYS
     return MLA_CACHE_KEYS if cfg.use_mla else GQA_CACHE_KEYS
 
 
@@ -194,6 +204,8 @@ def _init_deployed_ffn(gen, cfg, device):
             rff = cfg.dense_residual_ff
             p["dense_res"] = {"w_gate": dl(d, rff), "w_up": dl(d, rff), "w_down": dl(rff, d)}
         return p
+    if cfg.mlp_type == "gelu":
+        return {"w_in": dl(d, cfg.d_ff), "w_down": dl(cfg.d_ff, d)}
     return {"w_gate": dl(d, cfg.d_ff), "w_up": dl(d, cfg.d_ff), "w_down": dl(cfg.d_ff, d)}
 
 
@@ -202,6 +214,24 @@ def _init_deployed_block(gen, cfg, device):
             "ffn": _init_deployed_ffn(gen, cfg, device),
             "ln1": L.norm_init(cfg.d_model, cfg.norm, torch.bfloat16, device),
             "ln2": L.norm_init(cfg.d_model, cfg.norm, torch.bfloat16, device)}
+
+
+def _init_encoder_block(gen, cfg, device):
+    return {"attn": _init_deployed_attn(gen, cfg, device),
+            "mlp": _init_deployed_ffn(gen, cfg, device),
+            "ln1": L.norm_init(cfg.d_model, cfg.norm, torch.bfloat16, device),
+            "ln2": L.norm_init(cfg.d_model, cfg.norm, torch.bfloat16, device)}
+
+
+def _init_decoder_block(gen, cfg, device):
+    """An audio decoder block: self-attention, cross-attention (``xattn``)
+    and the MLP, each behind its norm."""
+    return {"attn": _init_deployed_attn(gen, cfg, device),
+            "xattn": _init_deployed_attn(gen, cfg, device),
+            "mlp": _init_deployed_ffn(gen, cfg, device),
+            "ln1": L.norm_init(cfg.d_model, cfg.norm, torch.bfloat16, device),
+            "ln2": L.norm_init(cfg.d_model, cfg.norm, torch.bfloat16, device),
+            "ln3": L.norm_init(cfg.d_model, cfg.norm, torch.bfloat16, device)}
 
 
 def _init_deployed_mamba(gen, cfg, device):
@@ -232,9 +262,16 @@ def init_deployed_model(cfg, seed: int = 0, device=None) -> dict:
     embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen, device=device)
     params = {"embed": (embed * 0.02).to(torch.bfloat16)}
     del embed
-    init_block = (_init_deployed_mamba if cfg.family in ("ssm", "hybrid")
-                  else _init_deployed_block)
-    params["blocks"] = [init_block(gen, cfg, device) for _ in range(cfg.n_layers)]
+    if cfg.family == "audio":
+        params["enc_blocks"] = [_init_encoder_block(gen, cfg, device)
+                                for _ in range(cfg.n_encoder_layers)]
+        params["dec_blocks"] = [_init_decoder_block(gen, cfg, device)
+                                for _ in range(cfg.n_layers)]
+        params["enc_ln_f"] = L.norm_init(cfg.d_model, cfg.norm, torch.bfloat16, device)
+    else:
+        init_block = (_init_deployed_mamba if cfg.family in ("ssm", "hybrid")
+                      else _init_deployed_block)
+        params["blocks"] = [init_block(gen, cfg, device) for _ in range(cfg.n_layers)]
     if cfg.family == "hybrid":
         params["shared_attn"] = _init_deployed_block(gen, cfg, device)
     params["ln_f"] = L.norm_init(cfg.d_model, cfg.norm, torch.bfloat16, device)
@@ -254,7 +291,8 @@ def _dq(cd, backend):
 def kv_specs(cfg, kv_bits) -> Optional[kvq.KVQuantSpec]:
     """The channel-group spec of the family's rings for the ``kv_bits``
     cache policy (``None``: the int8-per-token cache): over ``head_dim`` for
-    GQA's K and V (the hybrid's shared block too), over ``kv_lora_rank`` for
+    GQA's K and V (the hybrid's shared block and the audio self and cross
+    caches too), over ``kv_lora_rank`` for
     MLA's latent; ``ssm`` has no per-token ring, so the policy is a no-op
     there.  Raises at resolution time (engine construction) when the
     feature axis cannot take the packing."""
@@ -265,21 +303,24 @@ def kv_specs(cfg, kv_bits) -> Optional[kvq.KVQuantSpec]:
 
 
 def _deployed_attn_full(p, cfg, x, positions, causal=True, backend="cuda",
-                        build_cache=False, kv_spec=None):
+                        build_cache=False, kv_spec=None, enc=None):
     """Full-sequence attention on deployed weights; optionally emits the
     sequence's quantized cache (int8 per token, or packed under
-    ``kv_spec``), ``(B, KV, S, F)`` per leaf."""
+    ``kv_spec``), ``(B, KV, S, F)`` per leaf.  ``enc (B, Se, d)``: cross
+    attention, keys and values from the encoded frames, no rope and no
+    causal mask (the cache is then the encoder's, ``Se`` deep)."""
     B, S, _ = x.shape
     dq = _dq(cfg.cdtype, backend)
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = x if enc is None else enc
     q = dq(x, p["wq"]).reshape(B, S, H, hd)
-    k = dq(x, p["wk"]).reshape(B, S, KV, hd)
-    v = dq(x, p["wv"]).reshape(B, S, KV, hd)
-    if cfg.rope_partial > 0:
+    k = dq(src, p["wk"]).reshape(B, src.shape[1], KV, hd)
+    v = dq(src, p["wv"]).reshape(B, src.shape[1], KV, hd)
+    if enc is None and cfg.rope_partial > 0:
         cos, sin, rot = L.rope_freqs(hd, cfg.rope_theta, positions, cfg.rope_partial)
         q = L.apply_rope(q, cos, sin, rot)
         k = L.apply_rope(k, cos, sin, rot)
-    o = attn.gqa_core(q, k, v, H, KV, causal=causal)
+    o = attn.gqa_core(q, k, v, H, KV, causal=causal and enc is None)
     y = dq(o.reshape(B, S, H * hd), p["wo"])
     cache = None
     if build_cache:
@@ -382,6 +423,8 @@ def _deployed_ffn_full(p, cfg, x, backend="cuda"):
     if cfg.n_experts:
         return _deployed_moe(p, cfg, x, backend)
     dq = _dq(cfg.cdtype, backend)
+    if cfg.mlp_type == "gelu":
+        return dq(L.gelu(dq(x, p["w_in"])), p["w_down"])
     return dq(L.swiglu(dq(x, p["w_gate"]), dq(x, p["w_up"])), p["w_down"])
 
 
@@ -443,8 +486,10 @@ def _last_token(x, lens):
     return x[torch.arange(x.shape[0], device=x.device), idx][:, None]
 
 
-def block_forward(p, cfg, h, positions, backend="cuda", kv_spec=None):
-    """One decoder block over a full sequence: ``(h', cache)``."""
+def block_forward(p, cfg, h, positions, backend="cuda", kv_spec=None, enc=None):
+    """One decoder block over a full sequence: ``(h', cache)``.  An audio
+    decoder block (``enc``, the encoded frames) also cross-attends, and its
+    cache holds the cross cache under the ``cross_`` keys."""
     hn = L.apply_norm(h, p["ln1"], cfg.norm)
     if cfg.use_mla:
         a, c = _deployed_mla_full(p["attn"], cfg, hn, positions, backend=backend,
@@ -453,8 +498,60 @@ def block_forward(p, cfg, h, positions, backend="cuda", kv_spec=None):
         a, c = _deployed_attn_full(p["attn"], cfg, hn, positions, backend=backend,
                                    build_cache=True, kv_spec=kv_spec)
     h = h + a.to(h.dtype)
-    f = _deployed_ffn_full(p["ffn"], cfg, L.apply_norm(h, p["ln2"], cfg.norm), backend)
+    if enc is not None:
+        xa, cc = _deployed_attn_full(p["xattn"], cfg, L.apply_norm(h, p["ln2"], cfg.norm),
+                                     positions, backend=backend, build_cache=True,
+                                     kv_spec=kv_spec, enc=enc)
+        h = h + xa.to(h.dtype)
+        c.update({"cross_" + k: v for k, v in cc.items()})
+        f = _deployed_ffn_full(p["mlp"], cfg, L.apply_norm(h, p["ln3"], cfg.norm), backend)
+    else:
+        f = _deployed_ffn_full(p["ffn"], cfg, L.apply_norm(h, p["ln2"], cfg.norm), backend)
     return h + f.to(h.dtype), c
+
+
+def encoder_block(p, cfg, h, positions, backend="cuda"):
+    """One audio encoder layer over the frames: non-causal self-attention
+    and the MLP, each behind its norm; no cache."""
+    a, _ = _deployed_attn_full(p["attn"], cfg, L.apply_norm(h, p["ln1"], cfg.norm), positions,
+                               causal=False, backend=backend)
+    h = h + a.to(h.dtype)
+    f = _deployed_ffn_full(p["mlp"], cfg, L.apply_norm(h, p["ln2"], cfg.norm), backend)
+    return h + f.to(h.dtype)
+
+
+def encode(dparams, cfg, frames, backend="cuda"):
+    """The audio encoder: ``frames (B, Se, d)`` plus the sinusoidal
+    positions, in the compute dtype, through every encoder layer and the
+    final norm."""
+    cd = cfg.cdtype
+    enc = frames.to(cd)
+    Se = enc.shape[1]
+    enc = enc + L.sinusoidal_positions(Se, cfg.d_model, enc.device).to(cd)
+    positions = torch.arange(Se, device=enc.device)
+    for p in dparams["enc_blocks"]:
+        enc = encoder_block(p, cfg, enc, positions, backend)
+    return L.apply_norm(enc, dparams["enc_ln_f"], cfg.norm)
+
+
+def _prefill_encdec(dparams, cfg, batch, backend, lens, kv_spec):
+    """The audio prefill: the encoder over ``batch["frames"]``, then the
+    decoder over the prompt plus its sinusoidal positions, each block
+    emitting its self ring and its cross cache."""
+    cd = cfg.cdtype
+    x = dparams["embed"][batch["tokens"]].to(cd)
+    enc = encode(dparams, cfg, batch["frames"].to(x.device), backend)
+    S = x.shape[1]
+    x = x + L.sinusoidal_positions(S, cfg.d_model, x.device).to(cd)
+    positions = torch.arange(S, device=x.device)
+    per_layer = []
+    for p in dparams["dec_blocks"]:
+        x, c = block_forward(p, cfg, x, positions, backend, kv_spec, enc=enc)
+        per_layer.append(c)
+    caches = {k: torch.stack([c[k] for c in per_layer]) for k in cache_keys(cfg)}
+    x = L.apply_norm(x, dparams["ln_f"], cfg.norm)
+    logits = dq_linear(_last_token(x, lens), dparams["lm_head"], cd, backend)
+    return logits.to(torch.float32), caches
 
 
 def prefill(dparams, cfg, batch, backend: str = "cuda", lens=None, kv_bits=None):
@@ -469,10 +566,13 @@ def prefill(dparams, cfg, batch, backend: str = "cuda", lens=None, kv_bits=None)
     ``batch["prefix_embeds"] (B, n, d)`` (a model with ``n_prefix_tokens``,
     the VLM) replaces the first ``n`` token embeddings, cast to the compute
     dtype.  ``kv_bits``: the cache policy (:func:`kv_specs`), the same one
-    ``init_caches``/``decode_step`` take.
+    ``init_caches``/``decode_step`` take.  The audio family encodes
+    ``batch["frames"] (B, encoder_seq, d)`` first (``_prefill_encdec``).
     """
     cd = cfg.cdtype
     spec = kv_specs(cfg, kv_bits)
+    if cfg.family == "audio":
+        return _prefill_encdec(dparams, cfg, batch, backend, lens, spec)
     tokens = batch["tokens"]
     x = dparams["embed"][tokens].to(cd)
     if cfg.n_prefix_tokens and "prefix_embeds" in batch:
@@ -508,22 +608,90 @@ def init_caches(cfg, batch: int, max_len: int, kv_bits=None, device=None) -> dic
     stacked per layer: ``(n_layers, batch, KV, max_len, F)`` per GQA leaf,
     ``(n_layers, batch, max_len, F)`` per MLA leaf, the SSM state and conv
     ring ``(n_layers, batch, ...)``; the hybrid's GQA rings are stacked per
-    group (:func:`n_attn_groups`).  ``kv_bits`` packs the rings
-    channel-wise."""
+    group (:func:`n_attn_groups`); the audio cross cache ``(n_layers,
+    batch, KV, encoder_seq, F)`` is all zeros, values and scales, as the
+    reference's decode-only stand-in: it dequantizes to exact zeros, so
+    cross-attention weighs every frame alike; serving replaces it with the
+    prefill's.  ``kv_bits`` packs the rings channel-wise."""
+    return _stacked_caches(cfg, batch, batch, max_len, kv_bits, device)
+
+
+def _stacked_caches(cfg, slots: int, ring_rows: int, ring_len: int, kv_bits, device):
+    """The family's caches with the per-slot leaves over ``slots`` rows and
+    the rings over ``ring_rows`` rows of ``ring_len`` positions: the dense
+    layout (``slots`` rings of ``max_len``) or the paged one
+    (``num_pages`` pages of ``page_size``)."""
     spec = kv_specs(cfg, kv_bits)
     device = resolve_device(device)
     stacks = []                              # (depth, one layer's leaves)
     if cfg.family in ("ssm", "hybrid"):
-        one = ssm_mod.init_ssm_cache(cfg, batch, device="meta")
+        one = ssm_mod.init_ssm_cache(cfg, slots, device="meta")
         stacks.append((cfg.n_layers, {"ssm_" + k: t for k, t in one.items()}))
     if cfg.family == "hybrid":
         stacks.append((n_attn_groups(cfg),
-                       attn.init_gqa_cache(cfg, batch, max_len, spec, device="meta")))
+                       attn.init_gqa_cache(cfg, ring_rows, ring_len, spec, device="meta")))
+    elif cfg.family == "audio":
+        stacks.append((cfg.n_layers,
+                       attn.init_gqa_cache(cfg, ring_rows, ring_len, spec, device="meta")))
+        one = attn.init_gqa_cache(cfg, slots, cfg.encoder_seq, spec, device="meta")
+        stacks.append((cfg.n_layers, {"cross_" + k: t for k, t in one.items()}))
     elif cfg.family in ATTN_FAMILIES:
         init = attn.init_mla_cache if cfg.use_mla else attn.init_gqa_cache
-        stacks.append((cfg.n_layers, init(cfg, batch, max_len, spec, device="meta")))
+        stacks.append((cfg.n_layers, init(cfg, ring_rows, ring_len, spec, device="meta")))
     return {k: torch.zeros((depth,) + tuple(t.shape), dtype=t.dtype, device=device)
             for depth, one in stacks for k, t in one.items()}
+
+
+def supports_paging(cfg) -> bool:
+    """Whether the family has a ring the paged KV cache can page: the SSM
+    family is recurrent state only (served dense), the hybrid pages its
+    attention rings and the audio family its decoder self ring (the cross
+    cache is per slot, written once at admission)."""
+    return cfg.family in ATTN_FAMILIES + ("hybrid", "audio")
+
+
+def init_paged_caches(cfg, max_slots: int, num_pages: int, page_size: int, kv_bits=None,
+                      device=None) -> dict:
+    """Paged serving caches on ``device``: each ring leaf's ``(max_slots,
+    .., max_len, F)`` becomes ``(num_pages, .., page_size, F)`` physical
+    pages, read and written through the scheduler's page table; the other
+    leaves (the hybrid's SSM state, the audio cross cache) keep their
+    per-slot layout.  Page 0 is the NULL page: never written, always zero.
+    The packing is over the feature axis only, so a page boundary never
+    splits a packed byte."""
+    if not supports_paging(cfg):
+        raise ValueError(f"family {cfg.family!r} has no paged cache layout "
+                         "(see supports_paging)")
+    return _stacked_caches(cfg, max_slots, num_pages, page_size, kv_bits, device)
+
+
+def paged_leaf_mask(cfg) -> dict:
+    """``{key: True}`` for the page-pool leaves (indexed through the page
+    table), ``False`` for the per-slot leaves (admit-merged and decoded as
+    in the dense engine)."""
+    if not supports_paging(cfg):
+        raise ValueError(f"family {cfg.family!r} has no paged cache layout "
+                         "(see supports_paging)")
+    return {k: k not in SSM_CACHE_KEYS + CROSS_CACHE_KEYS for k in cache_keys(cfg)}
+
+
+def merge_paged_caches(cfg, prefill_caches: dict, caches: dict, admit: torch.Tensor,
+                       wp_flat: torch.Tensor) -> dict:
+    """Admit a prefill into the paged caches, in place: the paged
+    counterpart of :func:`embed_caches` and the dense engine's row merge.
+    Page-pool leaves scatter whole prompt pages through ``wp_flat (B *
+    n_prompt_pages,)`` (``cache.paged.scatter_prefill``: non-admitted slots,
+    junk tails and prefix-shared pages carry the sentinel and are dropped);
+    per-slot leaves take the rows of the slots in ``admit (B,) bool``,
+    right-padded to their shape."""
+    mask = paged_leaf_mask(cfg)
+    for k, pc in prefill_caches.items():
+        if mask[k]:
+            paged.scatter_prefill(caches[k], pc, wp_flat)
+        else:
+            pc = embed_caches({k: pc}, {k: caches[k]})[k]
+            caches[k][:, admit] = pc[:, admit]
+    return caches
 
 
 def embed_caches(prefill_caches: dict, ring: dict) -> dict:
@@ -545,22 +713,61 @@ def embed_caches(prefill_caches: dict, ring: dict) -> dict:
     return out
 
 
-def decode_block(p, cfg, h, cache, pos, live=None, kv_spec=None, backend="cuda"):
+def _cross_decode(p, cfg, x, cache, backend, kv_spec=None):
+    """Cross-attention of one new token over the cached encoder keys and
+    values, in plain PyTorch as in the reference (no kernel: the query
+    heads fold to ``(B, KV, rep, hd)`` groups against the dequantized
+    encoder cache, the score dot summed in f32, an f32 softmax rounded to
+    the compute dtype, the value dot rounded once).  Zero codes dequantize
+    to exact zeros under any scale, so the zero stand-in of
+    :func:`init_caches` weighs every frame alike on either layout."""
+    B = x.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cd, f32 = cfg.cdtype, torch.float32
+    dq = _dq(cd, backend)
+    qg = dq(x, p["wq"]).reshape(B, KV, H // KV, hd)
+    if kv_spec is None:
+        kf = (cache["k"].to(f32) * cache["k_scale"]).to(cd)
+        vf = (cache["v"].to(f32) * cache["v_scale"]).to(cd)
+    else:
+        kf = kvq.dequant_channelwise(cache["k"], cache["k_scale"], kv_spec, cd)
+        vf = kvq.dequant_channelwise(cache["v"], cache["v_scale"], kv_spec, cd)
+    s = qz.over(torch.einsum("bgrd,bgkd->bgrk", qg.to(f32), kf.to(f32)), math.sqrt(hd))
+    e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+    w = (e / torch.sum(e, dim=-1, keepdim=True)).to(cd)
+    o = torch.einsum("bgrk,bgkd->bgrd", w.to(f32), vf.to(f32)).to(cd)
+    return dq(o.reshape(B, 1, H * hd), p["wo"])
+
+
+def decode_block(p, cfg, h, cache, pos, live=None, kv_spec=None, backend="cuda",
+                 pages=None, page_size=None):
     """One decoder block of a decode step over its layer's ring ``cache``
-    (written in place): ``h (B, 1, d) -> h'``."""
+    (written in place): ``h (B, 1, d) -> h'``.  ``pages (B, P)``: the ring
+    leaves are page pools read and written through this page table.  An
+    audio decoder block (``p["xattn"]``) also cross-attends over the
+    ``cross_`` leaves of ``cache``."""
     hn = L.apply_norm(h, p["ln1"], cfg.norm)
     dq = _dq(cfg.cdtype, backend)
     if cfg.use_mla:
-        a, _ = attn.mla_decode(p["attn"], cfg, hn, cache, pos, dq, live, kv_spec)
+        a, _ = attn.mla_decode(p["attn"], cfg, hn, cache, pos, dq, live, kv_spec,
+                               pages=pages, page_size=page_size)
     else:
-        a, _ = attn.gqa_decode(p["attn"], cfg, hn, cache, pos, dq, live, kv_spec, backend)
+        a, _ = attn.gqa_decode(p["attn"], cfg, hn, cache, pos, dq, live, kv_spec, backend,
+                               pages=pages, page_size=page_size)
     h = h + a.to(h.dtype)
-    f = _deployed_ffn_full(p["ffn"], cfg, L.apply_norm(h, p["ln2"], cfg.norm), backend)
+    if "xattn" in p:
+        cross = {k: cache["cross_" + k] for k in GQA_CACHE_KEYS}
+        xa = _cross_decode(p["xattn"], cfg, L.apply_norm(h, p["ln2"], cfg.norm), cross,
+                           backend, kv_spec)
+        h = h + xa.to(h.dtype)
+        f = _deployed_ffn_full(p["mlp"], cfg, L.apply_norm(h, p["ln3"], cfg.norm), backend)
+    else:
+        f = _deployed_ffn_full(p["ffn"], cfg, L.apply_norm(h, p["ln2"], cfg.norm), backend)
     return h + f.to(h.dtype)
 
 
 def decode_step(dparams, cfg, tokens, caches, pos, backend: str = "cuda",
-                live=None, kv_bits=None):
+                live=None, kv_bits=None, pages=None, page_size=None):
     """One decode step: ``tokens (B, 1) -> (logits (B, 1, V) f32, caches)``.
 
     ``pos (B,)``: row ``b`` writes its new cache entry at ring index
@@ -571,7 +778,13 @@ def decode_step(dparams, cfg, tokens, caches, pos, backend: str = "cuda",
     ``backend="cuda"`` attention runs the decode-attention kernel, once per
     layer (once per shared-block application in the hybrid; MLA has no
     fused attention dot: its latent ring is dequantized and expanded
-    through the packed ``wkv_b`` linear).  The caches are updated in place
+    through the packed ``wkv_b`` linear).  ``pages (B, P)`` int: the page
+    table of the paged layout (:func:`init_paged_caches`, ``P * page_size
+    == max_len``); every ring write lands through it and every ring read
+    gathers the slot's pages into the dense ring view, which the attention
+    (K4 included) reads as it reads a dense ring; per-slot leaves ignore
+    it.  The audio decode step embeds the tokens with no positional
+    embedding, as the reference's does.  The caches are updated in place
     and returned.
     """
     spec = kv_specs(cfg, kv_bits)
@@ -583,17 +796,20 @@ def decode_step(dparams, cfg, tokens, caches, pos, backend: str = "cuda",
         pos = pos.expand(B).contiguous()
     if live is not None:
         live = torch.as_tensor(live, device=x.device)
-    blocks = dparams["blocks"]
-    if cfg.family in ATTN_FAMILIES:
+    if pages is not None:
+        pages = torch.as_tensor(pages, device=x.device)
+    if cfg.family in ATTN_FAMILIES + ("audio",):
+        blocks = dparams["dec_blocks" if cfg.family == "audio" else "blocks"]
         for layer, p in enumerate(blocks):
             x = decode_block(p, cfg, x, {k: caches[k][layer] for k in cache_keys(cfg)},
-                             pos, live, spec, backend)
+                             pos, live, spec, backend, pages, page_size)
     else:                                   # Mamba2 layers; the hybrid's shared block first
+        blocks = dparams["blocks"]
         for g, start in enumerate(range(0, cfg.n_layers, _group(cfg))):
             if cfg.family == "hybrid":
                 x = decode_block(dparams["shared_attn"], cfg, x,
                                  {k: caches[k][g] for k in GQA_CACHE_KEYS}, pos, live, spec,
-                                 backend)
+                                 backend, pages, page_size)
             for layer in range(start, min(start + _group(cfg), cfg.n_layers)):
                 ssm_cache = {"h": caches["ssm_h"][layer], "conv": caches["ssm_conv"][layer]}
                 x = mamba_decode_block(blocks[layer], cfg, x, ssm_cache, live, backend)

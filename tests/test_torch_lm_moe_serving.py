@@ -206,7 +206,7 @@ def test_engine_serves_the_moe_model_on_the_cpu(models, backend):
     tokens = {}
     for kv_bits in (None, 8, (2, 4, 8)):
         eng = sch.ServingEngine(cfg, dp, backend=backend, max_slots=B, max_len=M,
-                                prefill_len=P, kv_bits=kv_bits, device="cpu")
+                                prefill_len=P, page_size=None, kv_bits=kv_bits, device="cpu")
         outs = eng.run(reqs, arrivals)
         assert sorted(outs) == list(range(len(reqs))) and eng.live_slots == 0
         assert all(len(outs[i].tokens) == r.max_tokens for i, r in enumerate(reqs))

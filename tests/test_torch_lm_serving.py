@@ -209,7 +209,7 @@ def test_packed_8bit_engine_tokens_equal_int8_engine(models, backend):
     tokens = {}
     for kv_bits in (None, 8):
         eng = sch.ServingEngine(cfg, dp, backend=backend, max_slots=B, max_len=M,
-                                prefill_len=P, kv_bits=kv_bits, device="cpu")
+                                prefill_len=P, page_size=None, kv_bits=kv_bits, device="cpu")
         outs = eng.run(reqs, arrivals)
         tokens[kv_bits] = [outs[i].tokens.tolist() for i in range(len(reqs))]
     assert tokens[8] == tokens[None]
@@ -266,15 +266,9 @@ def test_launcher_serves_on_the_cpu(capsys):
 
 def test_options_not_ported_raise(models):
     _, cfg, _, dp = models
-    for opt in (dict(page_size=16), dict(prefix_sharing=True), dict(speculate_k=2),
-                dict(mesh=object())):
+    for opt in (dict(speculate_k=2), dict(draft_kv_bits=4), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sch.ServingEngine(cfg, dp, device="cpu", **opt)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("whisper-small")
-    with pytest.raises(SystemExit):
-        launcher.main(["--arch", "qwen1.5-4b", "--reduced", "--device", "cpu",
-                       "--page-size", "16"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tserving.decode_step(dp, cfg, torch.zeros((1, 2), dtype=torch.int64),
                              tserving.init_caches(cfg, 1, 8, device="cpu"), 0, "torch")
