@@ -356,6 +356,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    clock, medians; tokens per second), one profiled dense decode step at
    position 200 (busy, idle share, launches, top kernels), the dense and
    paged decode steps timed interleaved, peak memory.
+4g. [spec] Speculative decoding, inside phases 4c and 4d.  qwen1.5-4b at
+   full width: ``ServingEngine(backend="cuda", max_slots=4, max_len=1024,
+   prefill_len=512, kv_bits=(2, 4, 8), prefix_sharing=False, speculate_k=4,
+   draft_kv_bits=(2, 4, 8))`` on the default paged cache (16 tokens a page)
+   and the 4c trace (every verify 4 x 5 = 20 rows), with the self-draft and
+   a draft re-quantized to 4 bits a channel (``serving.draft_model``); the
+   [paged] run is its plain engine.  The counts are read around every
+   ``decode_step`` call.  Gates: every request's tokens equal the 4c dense
+   run's at kv (2, 4, 8) (the plain engine), for both drafts; under
+   self-draft every draft of every live slot accepted; a draft step
+   launches K4 once per layer and K2 once per precision group of the
+   draft, a verify K4 5 x 40 times and K2 once per group of the verifier,
+   all K2 launches on the tensor cores; on one state (4 prompts prefilled,
+   a dense ring) the 5-wide verify equals 5 sequential ``decode_step``s
+   bitwise, logits and caches (the 4-bit draft's too).  Reported: tokens
+   per second of the plain ([paged]), self-draft and 4-bit runs (host
+   clock), drafts accepted per verify and per slot-round, draft-step and
+   verify ms timed interleaved in turns on page pools (host clock, medians
+   of 8 each) with one profiled call each, a round (a catch-up, 4 drafts,
+   the verify) priced from them (host ms, busy ms, idle share), and K2 over one
+   verify step (M 20) on the decode plan against the tile plan M 20 took
+   before (``[spec]``, ``[spec-times]`` lines).  deepseek-v3-671b at 2
+   layers, capacity factor 64 (no expert drops at T = 12): a plain paged
+   run, then self-draft at k 2 paged, token agreement and acceptance
+   reported, every kernel of the path on the tensor cores; the 3-wide
+   verify within 2^-5 x max(1, max|y|) of 3 sequential steps (its f32
+   router is a library ``matmul``, whose sums may follow M); K2's expert
+   axis over a verify (capacity 12) on both plans.
 6. The kernel summary line (K1 at the resnet8 shapes with deepseek's three
    K1 shapes beside them and the launches of both paths, K2 over one
    qwen1.5-4b decode step with its SIMT routine's time, its prefill forward
@@ -366,8 +394,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    beside it; K1, K2 and K4 launches also the seven families' paths', K4's
    rows at their decode shapes in its ``families`` entry; K1, K2 and K4
    launches also whisper-small's paths', K4's row at its decode shape in
-   its ``whisper`` entry; K1-K4 launches also the [paged] runs', each
-   wrapper's ``launches_by_path`` splitting them), the card's name
+   its ``whisper`` entry; K1-K4 launches also the [paged] and [spec] runs',
+   each wrapper's ``launches_by_path`` splitting them), the card's name
    and power limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a CUDA device, and when run outside the repository
@@ -881,6 +909,11 @@ def lm_serving(dev, card, ops, gen):
         dev, card, ops, cfg, dparams, reqs, arrivals, tokens[("cuda", PAGED_KV)],
         runs[str(PAGED_KV)]["stats"], groups_per_step)
 
+    # -- 4g [spec]: speculative decoding on this model ----------------------------
+    report["spec"], spec_launches, spec_mma = lm_spec(
+        dev, card, ops, cfg, dparams, reqs, arrivals, tokens[("cuda", SPEC_KV)],
+        report["paged"]["bit_identity"], groups_per_step, gen)
+
     # the reference's acceptance pin: on the plain backend the packed 8-bit
     # cache gives the int8-per-token cache's tokens
     for kv_bits in (None, 8):
@@ -1093,7 +1126,7 @@ def lm_serving(dev, card, ops, gen):
               max_abs_err=max(r["max_abs_err"] for r in k2_rows),
               prefill=dict((k, k2_prefill[k]) for k in ("k2_ms", "simt_ms", "library_ms",
                                                           "bound_ms", "bound_by")))
-    return report, k2, k4, paged_launches, paged_mma
+    return report, k2, k4, paged_launches, paged_mma, spec_launches, spec_mma
 
 
 # ---------------------------------------------------------------------------
@@ -1527,6 +1560,10 @@ def moe_serving(dev, card, ops, gen):
                                           DS_SLOTS, DS_MAX_LEN, 16, 200)
     report["paged"] = paged
 
+    # -- 4g [spec]: speculative decoding on the MLA and MoE path -------------------
+    report["spec"], spec_launches, spec_mma = moe_spec(dev, card, ops, cfg, dparams, reqs,
+                                                       arrivals, gen)
+
     # end-to-end distance of the kernel path's logits from the plain path's,
     # teacher-forced on the kernel path's greedy tokens, and the share of
     # (token, layer) routings that pick the same experts on both paths
@@ -1778,7 +1815,8 @@ def moe_serving(dev, card, ops, gen):
     del dparams
     torch.cuda.empty_cache()
     return (report, k3, k2_experts, k1_deepseek, path_launches, path_mma,
-            report["paged"]["launches"], report["paged"]["mma_launches"])
+            report["paged"]["launches"], report["paged"]["mma_launches"], spec_launches,
+            spec_mma)
 
 # ---------------------------------------------------------------------------
 # The other LM families at full width: stablelm-12b, minicpm-2b,
@@ -2320,7 +2358,7 @@ def families_serving(dev, card, ops, gen):
 # (phases 3g, 4f and 5f)
 # ---------------------------------------------------------------------------
 
-PAGED_KV = (2, 4, 8)
+PAGED_KV = (2, 4, 8)           # the [paged] runs' policy, and the [spec] runs'
 # the shared-prefix trace's cache policy: a full hit's first token comes from
 # a decode step over the cached (quantized) prompt, where the prefill attends
 # to the unquantized keys and values; at 2- and 4-bit channel groups that
@@ -2557,6 +2595,321 @@ def lm_paged(dev, card, ops, cfg, dparams, reqs, arrivals, dense_tokens, dense_s
     mma = {k: v - mma0[k] for k, v in ops.mma_launch_counts().items()}
     report["times"] = paged_vs_dense_steps("qwen1.5-4b", dev, card, cfg, dparams, PAGED_KV,
                                            LM_SLOTS, LM_MAX_LEN, 16, 400)
+    report.update(launches=launches, mma_launches=mma)
+    return report, launches, mma
+
+
+# -- speculative decoding ([spec], phase 4g) -----------------------------------
+
+SPEC_K = 4                   # qwen: drafts a round (a verify of 4 x 5 = 20 rows)
+SPEC_KV = PAGED_KV           # the verifier's cache policy, and the draft's
+SPEC_DRAFT_BITS = 4          # the re-quantized draft's uniform bit-width
+SPEC_DS_K = 2                # deepseek: drafts a round
+SPEC_DS_CAPACITY = 64.0      # deepseek's capacity factor: no expert drops at T = 4 x 3
+SPEC_TIME_PAIRS = 8          # interleaved draft-step / verify pairs timed
+
+
+def spec_run(label, eng, reqs, arrivals, ops, base_tokens, want=None):
+    """Serve the trace on a speculative engine with the launches of every
+    ``decode_step`` call counted by its width (W = 1: a draft step, a
+    catch-up or a fallback decode tick; W > 1: a verify) and, given
+    ``want[W]`` (a pair of dicts), held to it, and each round's accepted
+    drafts a live slot recorded.  Returns the report (tokens against
+    ``base_tokens``, the plain engine's; host clock around the run)."""
+    from repro_torch.models import serving
+    calls, accepted = {}, []
+    decode_step, step = serving.decode_step, eng.step
+
+    def counted_decode(*a, **kw):
+        before, mma = ops.launch_counts(), ops.mma_launch_counts()
+        out = decode_step(*a, **kw)
+        W = int(a[2].shape[1])
+        got = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        got_mma = {k: v - mma[k] for k, v in ops.mma_launch_counts().items()}
+        calls[W] = calls.get(W, 0) + 1
+        if want is not None:
+            check((got, got_mma) == want[W], f"{label}: a {W}-wide decode step launched "
+                  f"{got} (tensor cores {got_mma}), want {want[W]}")
+        return out
+
+    def counted_step():
+        out = step()
+        accepted.extend(out.get("accepted", []))
+        return out
+    serving.decode_step, eng.step = counted_decode, counted_step
+    t0 = time.perf_counter()
+    try:
+        outs = eng.run(reqs, arrivals)
+        torch.cuda.synchronize()
+    finally:
+        serving.decode_step = decode_step
+        del eng.step
+    run_s = time.perf_counter() - t0
+    check(sorted(outs) == list(range(len(reqs)))
+          and all(len(outs[i].tokens) == reqs[i].max_tokens for i in outs),
+          f"{label}: every request served in full")
+    toks = [outs[i].tokens.tolist() for i in range(len(reqs))]
+    pairs = [(a, b) for ra, rb in zip(toks, base_tokens) for a, b in zip(ra, rb)]
+    st = dict(eng.stats)
+    return dict(k=eng.speculate_k, tokens_equal=toks == base_tokens,
+                token_agreement=sum(a == b for a, b in pairs) / len(pairs), run_s=run_s,
+                tokens_per_s=st["useful_tokens"] / run_s, decode_step_calls=calls,
+                accepted_per_verify=st["accepted_tokens"] / max(1, st["verify_launches"]),
+                accepted_per_slot_round=sum(accepted) / max(1, len(accepted)),
+                slot_rounds=len(accepted), all_accepted=set(accepted) == {eng.speculate_k},
+                stats=st)
+
+
+def verify_vs_steps(cfg, dparams, dev, kv_bits, prompts, lens, max_len, W, gen, page_size=16):
+    """One W-wide verify step against W sequential decode steps from the same
+    state (the prompts' prefill in page pools behind an identity table, as
+    the draft's pool is): the largest logit difference over the largest
+    logit, whether logits and caches are bitwise equal, the verify's
+    launches; then the draft step (W = 1) and the verify timed interleaved
+    (host clock around a call and a synchronize, medians of SPEC_TIME_PAIRS
+    each) and one profiled each, and a round (a catch-up, W - 1 drafts and
+    the verify) priced from them: host ms, device busy ms, idle share."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import serving
+    B, P = prompts.shape
+    pps = max_len // page_size
+    _, pf = serving.prefill(dparams, cfg, {"tokens": prompts}, "cuda", lens=lens, kv_bits=kv_bits)
+    ring = serving.init_paged_caches(cfg, B, 1 + B * pps, page_size, kv_bits, dev)
+    pages = (1 + torch.arange(B * pps, device=dev)).reshape(B, pps)
+    serving.merge_paged_caches(cfg, pf, ring, torch.ones(B, dtype=torch.bool, device=dev),
+                               pages[:, :P // page_size].reshape(-1))
+    del pf
+    feed = torch.from_numpy(gen.integers(0, cfg.vocab_size, (B, W))).to(dev)
+    pos = lens.to(torch.int32)
+    kw = dict(kv_bits=kv_bits, pages=pages, page_size=page_size)
+    seq = {k: v.clone() for k, v in ring.items()}
+    steps = [serving.decode_step(dparams, cfg, feed[:, j:j + 1], seq, pos + j, "cuda", **kw)[0]
+             for j in range(W)]
+    ver = {k: v.clone() for k, v in ring.items()}
+    before, mma = ops.launch_counts(), ops.mma_launch_counts()
+    logits, ver = serving.decode_step(dparams, cfg, feed, ver, pos, "cuda", **kw)
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    mma_l = {k: v - mma[k] for k, v in ops.mma_launch_counts().items()}
+    seq_logits = torch.cat(steps, dim=1)
+    rep = dict(W=W, slots=B, pos=pos.tolist(), page_size=page_size,
+               logits_bitwise=torch.equal(logits, seq_logits),
+               caches_bitwise=all(torch.equal(ver[k], seq[k]) for k in ring),
+               max_logit_err_over_max=float((logits - seq_logits).abs().max()
+                                            / max(1.0, float(seq_logits.abs().max()))),
+               greedy_agreement=float((logits.argmax(-1) == seq_logits.argmax(-1))
+                                      .double().mean()),
+               launches=launches, mma_launches=mma_l)
+    del seq, steps, ver
+    fns = {"draft_step": lambda: serving.decode_step(dparams, cfg, feed[:, :1], ring, pos, "cuda",
+                                                     **kw),
+           "verify": lambda: serving.decode_step(dparams, cfg, feed, ring, pos, "cuda", **kw)}
+    times = {k: [] for k in fns}
+    for fn in fns.values():
+        fn()
+    for i in range(SPEC_TIME_PAIRS):
+        for name in (("draft_step", "verify") if i % 2 == 0 else ("verify", "draft_step")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    for name, fn in fns.items():
+        events, _ = device_kernels(fn)
+        rep[f"{name}_ms_median"] = statistics.median(times[name])
+        rep[f"{name}_device_busy_ms"] = sum(t for _, t in events) / 1e3
+        rep[f"{name}_device_launches"] = len(events)
+    round_ms = W * rep["draft_step_ms_median"] + rep["verify_ms_median"]
+    round_busy = W * rep["draft_step_device_busy_ms"] + rep["verify_device_busy_ms"]
+    rep["round"] = dict(host_ms=round_ms, device_busy_ms=round_busy,
+                        idle_share=1 - round_busy / round_ms)
+    del ring
+    return rep
+
+
+def verify_gemm_times(label, dev, card, linears, M, m_decode, gen):
+    """The per-group GEMMs of one verify step at M rows (each distinct group
+    shape timed once, counted as often as a step calls it), on the plan M
+    takes now (``mma_plan``: the decode plan up to MMA_ROWS_MAX) and on the
+    tile plan that M took before, and at the decode step's ``m_decode`` rows
+    (kernel device time, profiler or CUDA graph)."""
+    from repro_torch.kernels import quant_matmul as qmk
+    shapes = {}
+    for qt in linears:
+        for b, pk, sc in zip(qt.bits, qt.packed, qt.scales):
+            key = (b, pk.shape[-2], qt.c_in, pk.shape[0] if pk.ndim == 3 else 0)
+            shapes[key] = (pk, sc, shapes[key][2] + 1 if key in shapes else 1)
+    tot = {"ms": 0.0, "tile_plan_ms": 0.0, "decode_m_ms": 0.0}
+    plan = qmk.mma_plan
+    for (b, N, K, E), (pk, sc, calls) in shapes.items():
+        lead = (E,) if E else ()
+        x = torch.from_numpy(gen.standard_normal(lead + (M, K)).astype(np.float32)).to(dev)
+        xb, x4 = x.to(torch.bfloat16), x[..., :m_decode, :].contiguous().to(torch.bfloat16)
+        row = {}
+        for name, xx, pl in (("ms", xb, None), ("tile_plan_ms", xb, qmk.MMA_TILE_PLAN),
+                             ("decode_m_ms", x4, None)):
+            qmk.mma_plan = plan if pl is None else (lambda m, pl=pl: pl)
+            try:
+                fn = lambda: qmk.quant_matmul_2d(xx, pk, sc, b, torch.bfloat16)
+                row[name], _ = kernel_ms(fn, 10, cuda_ms(fn, iters=10))
+            finally:
+                qmk.mma_plan = plan
+            tot[name] += calls * row[name]
+    log(f"[spec-times] {label} per-group GEMMs of one verify step at M {M} ({len(shapes)} "
+        f"shapes): decode plan {tot['ms']:.6g} ms, tile plan {tot['tile_plan_ms']:.6g} ms; the "
+        f"decode step's (M {m_decode}) {tot['decode_m_ms']:.6g} ms | {card}")
+    return dict(M=M, m_decode=m_decode, **tot)
+
+
+def lm_spec(dev, card, ops, cfg, dparams, reqs, arrivals, base_tokens, plain, groups_per_step,
+            gen):
+    """Phase 4g on qwen1.5-4b at full width: the speculative engine
+    (``speculate_k=4``, the paged cache as the [paged] run has it, kv (2,
+    4, 8) for the verifier and the draft) on the 4c trace, self-draft and a
+    4-bit draft, each ``decode_step`` call's launches held by its width;
+    the verify against sequential decode steps; the times beside the plain
+    paged run's (``plain``: its report).  Returns the report and the
+    path's launches (all, on the tensor cores)."""
+    from repro_torch.api.scheduler import ServingEngine
+    from repro_torch.models import serving
+    k = SPEC_K
+    zero = zero_launches(ops)
+    zero_mma = {n: 0 for n in ops.mma_launch_counts()}
+    counts0, mma0 = ops.launch_counts(), ops.mma_launch_counts()
+
+    def want(groups, n_tok):
+        return (dict(zero, quant_matmul=groups, decode_attention=n_tok * cfg.n_layers),
+                dict(zero_mma, quant_matmul=groups))
+    report = {"plain": dict(run_s=plain["run_s"], tokens_per_s=plain["stats"]["useful_tokens"]
+                            / plain["run_s"], source="[paged] run")}
+    t0 = time.perf_counter()
+    draft = serving.draft_model(dparams, cfg, SPEC_DRAFT_BITS)
+    torch.cuda.synchronize()
+    draft_s = time.perf_counter() - t0
+    draft_linears = [dl["w"] for blk in draft["blocks"] for part in ("attn", "ffn")
+                     for dl in blk[part].values()] + [draft["lm_head"]["w"]]
+    check(all(qt.bits == (SPEC_DRAFT_BITS,) for qt in draft_linears),
+          "the draft is uniform at its bit-width")
+    drafted = f"draft_{SPEC_DRAFT_BITS}bit"
+    for name, dp, groups in (("self_draft", None, groups_per_step),
+                             (drafted, draft, len(draft_linears))):
+        eng = ServingEngine(cfg, dparams, backend="cuda", max_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                            prefill_len=LM_PREFILL, kv_bits=SPEC_KV, prefix_sharing=False,
+                            speculate_k=k, draft_dparams=dp, draft_kv_bits=SPEC_KV)
+        check(eng.page_size == 16, f"qwen auto page size {eng.page_size}")
+        rep = spec_run(f"qwen {name}", eng, reqs, arrivals, ops, base_tokens,
+                       want={1: want(groups, 1), k + 1: want(groups_per_step, k + 1)})
+        del eng
+        check(rep["tokens_equal"], f"qwen {name}: the speculative tokens != the plain engine's")
+        if dp is None:
+            check(rep["all_accepted"], f"qwen self-draft: a draft was rejected: "
+                  f"{rep['accepted_per_slot_round']} a slot-round")
+        report[name] = rep
+        log(f"[spec] qwen1.5-4b {name}, k {k}, kv {SPEC_KV}, paged: tokens equal the plain "
+            f"engine's for every request; " + json.dumps(rep) + f" | {card}")
+    report[drafted]["requantize_s"] = draft_s
+    launches = {n: v - counts0[n] for n, v in ops.launch_counts().items()}
+    mma = {n: v - mma0[n] for n, v in ops.mma_launch_counts().items()}
+
+    # the verify against k + 1 sequential decode steps, on one state: bitwise
+    prompts = torch.zeros((LM_SLOTS, LM_PREFILL), dtype=torch.int64, device=dev)
+    for i, r in enumerate(reqs[:LM_SLOTS]):
+        prompts[i, :len(r.tokens)] = torch.from_numpy(r.tokens.astype(np.int64))
+    lens = torch.tensor([len(r.tokens) for r in reqs[:LM_SLOTS]], device=dev)
+    ver = verify_vs_steps(cfg, dparams, dev, SPEC_KV, prompts, lens, LM_MAX_LEN, k + 1, gen)
+    check(ver["logits_bitwise"] and ver["caches_bitwise"],
+          f"qwen: the verify != {k + 1} sequential decode steps bitwise: {ver}")
+    check((ver["launches"], ver["mma_launches"]) == want(groups_per_step, k + 1),
+          f"qwen verify launches {ver['launches']} / {ver['mma_launches']}")
+    report["verify_vs_steps"] = ver
+    log(f"[spec] qwen1.5-4b verify (W {k + 1}) == {k + 1} sequential decode steps bitwise, "
+        f"logits and caches; " + json.dumps(ver) + f" | {card}")
+    # the 4-bit draft's own steps on the same state (its verify == its steps too)
+    dver = verify_vs_steps(cfg, draft, dev, SPEC_KV, prompts, lens, LM_MAX_LEN, k + 1, gen)
+    check(dver["logits_bitwise"] and dver["caches_bitwise"],
+          f"qwen {SPEC_DRAFT_BITS}-bit draft: its W-wide step != its sequential steps")
+    round_ms = (k + 1) * dver["draft_step_ms_median"] + ver["verify_ms_median"]
+    round_busy = (k + 1) * dver["draft_step_device_busy_ms"] + ver["verify_device_busy_ms"]
+    report[drafted].update(
+        draft_step_ms_median=dver["draft_step_ms_median"],
+        draft_step_device_busy_ms=dver["draft_step_device_busy_ms"],
+        draft_step_device_launches=dver["draft_step_device_launches"],
+        round=dict(host_ms=round_ms, device_busy_ms=round_busy,
+                   idle_share=1 - round_busy / round_ms))
+    del draft
+    linears = [dl["w"] for blk in dparams["blocks"] for part in ("attn", "ffn")
+               for dl in blk[part].values()] + [dparams["lm_head"]["w"]]
+    report["k2_verify"] = verify_gemm_times("qwen1.5-4b", dev, card, linears,
+                                            LM_SLOTS * (k + 1), LM_SLOTS, gen)
+    report.update(launches=launches, mma_launches=mma, draft_groups=len(draft_linears))
+    log(f"[spec-times] qwen1.5-4b: plain {report['plain']['tokens_per_s']:.6g} tok/s (the "
+        f"[paged] run), self-draft {report['self_draft']['tokens_per_s']:.6g}, "
+        f"{SPEC_DRAFT_BITS}-bit draft {report[drafted]['tokens_per_s']:.6g} (host clock, one "
+        f"trace each); draft step {ver['draft_step_ms_median']:.6g} ms, verify "
+        f"{ver['verify_ms_median']:.6g} ms, the {SPEC_DRAFT_BITS}-bit draft step "
+        f"{dver['draft_step_ms_median']:.6g} ms (interleaved medians); a round (catch-up, "
+        f"{k} drafts, verify): self-draft {json.dumps(ver['round'])}, {SPEC_DRAFT_BITS}-bit "
+        f"{json.dumps(report[drafted]['round'])} | {card}")
+    return report, launches, mma
+
+
+def moe_spec(dev, card, ops, cfg, dparams, reqs, arrivals, gen):
+    """Phase 4g on deepseek-v3-671b (2 layers, full width): at capacity
+    factor 64 a plain paged engine and the self-draft speculative engine
+    (k 2, kv (2, 4, 8)) on the 4d trace, tokens and acceptance reported;
+    the verify within 2^-5 x max(1, max|y|) of the sequential steps (the f32
+    router's ``torch.matmul`` may order its sums by M and flip a near-tied
+    expert).  Returns the report and the path's launches."""
+    import dataclasses
+
+    from repro_torch.api.scheduler import ServingEngine
+    from repro_torch.kernels import quant_matmul as qmk
+    cfg = dataclasses.replace(cfg, capacity_factor=SPEC_DS_CAPACITY)
+    k = SPEC_DS_K
+    counts0, mma0 = ops.launch_counts(), ops.mma_launch_counts()
+    kw = dict(backend="cuda", max_slots=DS_SLOTS, max_len=DS_MAX_LEN, prefill_len=DS_PREFILL,
+              kv_bits=SPEC_KV)
+    eng = ServingEngine(cfg, dparams, **kw)
+    t0 = time.perf_counter()
+    outs = eng.run(reqs, arrivals)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    base = [outs[i].tokens.tolist() for i in range(len(reqs))]
+    report = {"plain": dict(run_s=plain_s, tokens_per_s=eng.stats["useful_tokens"] / plain_s)}
+    del eng
+    eng = ServingEngine(cfg, dparams, speculate_k=k, draft_kv_bits=SPEC_KV, **kw)
+    check(eng.page_size == 16, "deepseek: auto page 16")
+    rep = spec_run("deepseek self-draft", eng, reqs, arrivals, ops, base)
+    check(rep["stats"]["verify_launches"] > 0, "deepseek: no verify step ran")
+    report["self_draft"] = rep
+    del eng
+    launches = {n: v - counts0[n] for n, v in ops.launch_counts().items()}
+    mma = {n: v - mma0[n] for n, v in ops.mma_launch_counts().items()}
+    check(all(mma[n] > 0 for n in ("quant_matmul", "quant_matmul_fused",
+                                   "quant_matmul_fused_batched")),
+          f"a kernel of deepseek's speculative path never launched on the tensor cores: {mma}")
+    log(f"[spec] deepseek-v3-671b self-draft, k {k}, kv {SPEC_KV}, capacity factor "
+        f"{SPEC_DS_CAPACITY}: token agreement with the plain engine "
+        f"{rep['token_agreement']:.4g} (reported); " + json.dumps(rep) + f" | {card}")
+    prompts = torch.zeros((DS_SLOTS, DS_PREFILL), dtype=torch.int64, device=dev)
+    for i, r in enumerate(reqs[:DS_SLOTS]):
+        prompts[i, :len(r.tokens)] = torch.from_numpy(r.tokens.astype(np.int64))
+    lens = torch.tensor([len(r.tokens) for r in reqs[:DS_SLOTS]], device=dev)
+    ver = verify_vs_steps(cfg, dparams, dev, SPEC_KV, prompts, lens, DS_MAX_LEN, k + 1, gen)
+    check(ver["max_logit_err_over_max"] <= BLOCK_TOL,
+          f"deepseek: the verify is {ver['max_logit_err_over_max']:.4g} of max(1, max|y|) off "
+          f"the sequential steps (tolerance {BLOCK_TOL})")
+    report["verify_vs_steps"] = ver
+    log(f"[spec] deepseek-v3-671b verify (W {k + 1}) vs {k + 1} sequential decode steps: "
+        + json.dumps(ver) + f" | {card}")
+    stacks = [blk["ffn"][n]["w"] for blk in dparams["blocks"] if "we_gate" in blk["ffn"]
+              for n in ("we_gate", "we_up")]
+    report["k2_experts_verify"] = verify_gemm_times(
+        "deepseek-v3-671b expert axis", dev, card, stacks,
+        max(8, min(int(SPEC_DS_CAPACITY * DS_SLOTS * (k + 1) * cfg.experts_per_token
+                       / cfg.n_experts), DS_SLOTS * (k + 1))), 8, gen)
+    check(report["k2_experts_verify"]["M"] <= qmk.MMA_ROWS_MAX,
+          "deepseek's verify capacity runs the decode plan")
     report.update(launches=launches, mma_launches=mma)
     return report, launches, mma
 
@@ -3761,16 +4114,19 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 3c, 4c, 5b. the LM serving path: qwen1.5-4b at full width and depth ------
-    lm_report, k2_lm, k4_lm, lm_paged_launches, lm_paged_mma = lm_serving(dev, card, ops, gen)
+    (lm_report, k2_lm, k4_lm, lm_paged_launches, lm_paged_mma, lm_spec_launches,
+     lm_spec_mma) = lm_serving(dev, card, ops, gen)
     report["lm"] = lm_report
     torch.cuda.empty_cache()
 
     # -- 3d, 4d, 5c. the MoE serving path: deepseek-v3-671b at full width, 2 layers
     (moe_report, k3_moe, k2_experts, k1_moe, moe_launches, moe_mma, moe_paged_launches,
-     moe_paged_mma) = moe_serving(dev, card, ops, gen)
+     moe_paged_mma, moe_spec_launches, moe_spec_mma) = moe_serving(dev, card, ops, gen)
     report["moe"] = moe_report
     paged_launches = {k: lm_paged_launches[k] + moe_paged_launches[k] for k in lm_paged_launches}
     paged_mma = {k: lm_paged_mma[k] + moe_paged_mma[k] for k in lm_paged_mma}
+    spec_launches = {k: lm_spec_launches[k] + moe_spec_launches[k] for k in lm_spec_launches}
+    spec_mma = {k: lm_spec_mma[k] + moe_spec_mma[k] for k in lm_spec_mma}
 
     # -- 3f, 4e, 5e. the other LM families at full width ---------------------------
     fam_report, fam_launches, fam_mma, fam_k4 = families_serving(dev, card, ops, gen)
@@ -3780,7 +4136,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     wh_report, wh_launches, wh_mma, wh_k4 = whisper_serving(dev, card, ops, gen)
     report["whisper"] = wh_report
-    extra = {"whisper": (wh_launches, wh_mma), "paged": (paged_launches, paged_mma)}
+    extra = {"whisper": (wh_launches, wh_mma), "paged": (paged_launches, paged_mma),
+             "spec": (spec_launches, spec_mma)}
 
     def more(name, mma=False):
         """Launches of the whisper and [paged] paths of one wrapper."""
@@ -3880,7 +4237,8 @@ def main() -> int:
         f"at each family's decode shape, pos 255 and 1023, in its 'families' entry), K1's, "
         f"K2's and K4's also whisper-small's dense and paged paths (K4 at its decode shape, pos "
         f"255 and 447, in its 'whisper' entry), K1's, K2's, K3's and K4's also the [paged] runs "
-        f"of qwen1.5-4b and deepseek-v3 ('launches_by_path'), K6's the kernel API's over the "
+        f"and the [spec] runs (speculative decoding, phase 4g) of qwen1.5-4b and deepseek-v3 "
+        f"('launches_by_path'), K6's the kernel API's over the "
         f"tinyml search-phase weights (no model path calls K6, in the reference or the port); "
         f"{card}")
     report["kernels"] = kernels

@@ -53,6 +53,7 @@ class Engine:
         self.driver = SearchDriver(apply_fn, loss_fn, specs, params, nas,
                                    settings, device=self.device)
         self.deployed_params: Optional[dict] = None
+        self.draft_params: Optional[dict] = None
 
     @classmethod
     def for_tinyml(cls, cfg, settings=None, params: Optional[dict] = None,
@@ -116,7 +117,7 @@ class Engine:
             site["delta"] = torch.from_numpy(d.astype(np.float32)).to(self.device)
         return self
 
-    def deploy(self, align: int = 1, tile_n="auto") -> dict:
+    def deploy(self, align: int = 1, tile_n="auto", draft_bits: Optional[int] = None) -> dict:
         """Sec. III-C offline transform: searched float weights -> QTensor.
 
         Channel order is restored after each matmul (``restore_order``), so
@@ -124,16 +125,26 @@ class Engine:
         ``tile_n`` (default ``"auto"``) builds the fused layout that serves
         every linear/conv GEMM as ONE kernel launch; depthwise sites
         (``dwconv*``) never read it and skip it.
+
+        ``draft_bits`` deploys two policies from the one checkpoint: beside
+        the searched tree (the verifier) every site's weight is also
+        re-quantized to a uniform ``draft_bits`` assignment
+        (``qtensor.requantize``), and the call returns ``{"verifier": tree,
+        "draft": tree}`` (kept as ``deployed_params`` and ``draft_params``);
+        the other leaves of a site (biases) are the verifier's own tensors.
+        The speculative ``ServingEngine`` pairs such a draft with its
+        verifier.
         """
+        from repro_torch.api.qtensor import requantize
         from repro_torch.core import deploy as dpl
         if not any(n in self.nas for n in self.params):
             raise ValueError("no NAS site keys at the top level of the params "
                              "tree — Engine.deploy expects a flat site-keyed "
                              "model (tinyml)")
-        deployed = {}
+        deployed, draft = {}, {}
         for name, p in self.params.items():
             if name not in self.nas:
-                deployed[name] = p
+                deployed[name] = draft[name] = p
                 continue
             nas = self.nas[name]
             qt = dpl.deploy_linear(
@@ -145,7 +156,12 @@ class Engine:
             site = {k: v for k, v in p.items() if k not in ("aw", "ax")}
             site["w"] = qt.to(self.device)
             deployed[name] = site
+            if draft_bits is not None:
+                draft[name] = dict(site, w=requantize(site["w"], draft_bits))
         self.deployed_params = deployed
+        self.draft_params = draft if draft_bits is not None else None
+        if draft_bits is not None:
+            return {"verifier": deployed, "draft": draft}
         return deployed
 
     def memory_bits(self) -> int:

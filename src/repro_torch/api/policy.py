@@ -97,3 +97,19 @@ class PrecisionPolicy:
 PrecisionPolicy.FLOAT = PrecisionPolicy(Phase.FLOAT)
 PrecisionPolicy.QAT8 = PrecisionPolicy(Phase.QAT8)
 PrecisionPolicy.FROZEN = PrecisionPolicy(Phase.FROZEN)
+
+
+def as_policy(mode, tau=None, backend: str = "cuda") -> PrecisionPolicy:
+    """A :class:`PrecisionPolicy` from a phase name (``"float"``, ``"qat8"``,
+    ``"search"`` with ``tau``, ``"frozen"``, ``"deployed"`` on ``backend``)
+    or a policy (returned as it is)."""
+    if isinstance(mode, PrecisionPolicy):
+        return mode
+    phase = Phase(mode)
+    if phase is Phase.SEARCH:
+        if tau is None:
+            raise ValueError("search policy requires tau")
+        return PrecisionPolicy.search(tau)
+    if phase is Phase.DEPLOYED:
+        return PrecisionPolicy.deployed(backend)
+    return PrecisionPolicy(phase)

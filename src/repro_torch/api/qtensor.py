@@ -479,3 +479,43 @@ class QTensor:
             outs.append(torch.einsum("...ck,ck->...c", seg, w))
             offset += rows
         return self._concat_restore(outs)
+
+
+def requantize(qt: QTensor, bits: int) -> QTensor:
+    """Re-quantize a deployed weight to a uniform ``bits`` assignment.
+
+    Counterpart of ``repro.api.qtensor.requantize``, the derivation behind
+    a speculative draft (``models/serving.draft_model``): the deploy is
+    dequantized back to its canonical float view and every channel packed
+    again at ``bits`` with a fresh per-channel amax clip (``max(max |w|,
+    1e-8)``), a new static assignment rather than a cast of the packed
+    bytes.  One group holds every channel in canonical order, so the result
+    has no permutation (the reference keeps an identity one).  An expert
+    stack is rebuilt a chunk of experts at a time under one tile schedule
+    and keeps ``experts``; the fused layout (at the weight's own
+    ``tile_n``), ``restore_order``, the activation quantization and a conv
+    kernel tail carry over.  Built with torch ops on the weight's device
+    (a full-width LM re-quantizes in seconds on the card).
+    """
+    if bits not in (2, 4, 8):
+        raise ValueError(f"requantize bits must be one of (2, 4, 8); got {bits}")
+    def codes(at):
+        w = torch.cat([qt._group_dense(b, p[at], s[at])
+                       for b, p, s in zip(qt.bits, qt.packed, qt.scales)], dim=-2)
+        if qt.inv_perm is not None:
+            w = w.index_select(-2, qt.inv_perm)          # canonical channel order
+        alpha = torch.clamp_min(torch.amax(torch.abs(w), dim=-1, keepdim=True), 1e-8)
+        q, step = qz.quantize_weight_int(w, alpha, bits)
+        return q, step[..., 0]
+
+    if qt.experts is None:
+        q, step = codes(Ellipsis)
+    else:                                                 # a chunk of experts at a time
+        dev = qt.packed[0].device
+        q = torch.empty((qt.experts, qt.c_out, qt.c_in), dtype=torch.int8, device=dev)
+        step = torch.empty((qt.experts, qt.c_out), dtype=torch.float32, device=dev)
+        for sl in qmk.expert_chunks(qt.experts, qt.c_out * qt.c_in):
+            q[sl], step[sl] = codes(sl)
+    return QTensor.from_codes(
+        [(bits, q, step)], qt.c_in, restore_order=qt.restore_order, tile_n=qt.tile_n, act_bits=qt.act_bits,
+        act_scale=qt.act_scale, kernel_shape=qt.kernel_shape)

@@ -1,7 +1,6 @@
 """Request-level serving: continuous batching over a paged KV cache.
 
-Counterpart of ``repro.api.scheduler`` without speculative decoding, meshes
-and host failure:
+Counterpart of ``repro.api.scheduler`` without meshes and host failure:
 
 * ``submit`` queues a :class:`Request`; an admission pads the queued
   prompts into ONE fixed ``(max_slots, prefill_len)`` prefill (per-row true
@@ -33,6 +32,21 @@ the dense rings, so without prefix hits its tokens are the dense engine's;
 a full-prefix hit samples its first token from a decode step instead of
 the prefill (the same math on another launch).
 
+Speculative decoding (``speculate_k > 0``): every decode tick becomes a
+round (:meth:`ServingEngine._speculative_tick`).  A draft model proposes k
+tokens in k one-token decode steps against a KV pool of its own, then ONE
+(k+1)-wide verify step of the verifier scores them all and
+``sampling.speculative_accept`` keeps the longest valid prefix and one
+verifier token.  Both pools rewind by masked overwrite: entries past what
+a round accepts are never read (``<= pos`` masks) and the next round
+writes over them in order.  Under greedy sampling the emitted tokens are
+the plain engine's on the same backend, for any draft.  On the card a
+verify row sums as the decode step's row (``kernels/quant_matmul.mma_plan``)
+while ``max_slots * (k + 1)`` and the verify's MoE expert capacity stay
+within ``MMA_ROWS_MAX``; a MoE's f32 router is a library ``matmul``, whose
+sums may follow the row count, so there a near tie can still pick another
+expert.
+
 PyTorch runs eagerly, so there is no compile cache to guard (the
 reference's ``compile_counts``); :meth:`ServingEngine.launch_counts`
 exposes the kernels' launch counters instead.
@@ -50,14 +64,9 @@ from repro_torch.api import sampling as smp
 from repro_torch.api.engine import resolve_device
 from repro_torch.cache import NULL_PAGE, PagePool
 
-# options of the reference engine that the port does not serve yet, and the
-# ROADMAP.md item that ports each
-_NOT_PORTED = {
-    "speculate_k": "queue 1 item 6.3 (speculative decoding)",
-    "draft_dparams": "queue 1 item 6.3 (speculative decoding)",
-    "draft_kv_bits": "queue 1 item 6.3 (speculative decoding)",
-    "mesh": "queue 1 item 8 (multi-GPU serving)",
-}
+# the option of the reference engine that the port does not serve yet, and
+# the ROADMAP.md item that ports it
+_NOT_PORTED = {"mesh": "queue 1 item 8 (multi-GPU serving)"}
 
 
 @dataclasses.dataclass
@@ -118,7 +127,8 @@ class ServingEngine:
         outs = eng.collect()
 
     or ``eng.run(requests, arrivals)`` for a whole trace.  One ``step()`` is
-    at most one admission prefill or one decode tick.
+    at most one admission prefill or one decode tick (a speculative round
+    when ``speculate_k > 0``).
 
     ``backend``: ``"cuda"`` (default: the kernels, and the decode-attention
     kernel over a packed cache), ``"cuda-pergroup"`` or ``"torch"``.
@@ -137,9 +147,18 @@ class ServingEngine:
     paged; ``True`` also allows ``moe`` (approximate: expert capacity
     couples a prefill's rows); families whose generation depends on inputs
     the token-keyed index cannot see (the VLM's prefix embeddings, audio
-    frames, recurrent state) refuse it.  ``speculate_k``, ``draft_dparams``,
-    ``draft_kv_bits`` and ``mesh`` raise ``NotImplementedError`` naming the
-    ``ROADMAP.md`` item that ports them.
+    frames, recurrent state) refuse it.
+
+    ``speculate_k > 0`` serves speculatively (dense, VLM and MoE families,
+    ``serving.supports_speculative``): the draft (``draft_dparams``, by
+    default the verifier itself; ``serving.draft_model`` or
+    ``Engine.deploy(draft_bits=)`` re-quantize one to a uniform low
+    bit-width) proposes ``speculate_k`` tokens a round over its own KV pool
+    at ``draft_kv_bits`` (default ``None``, the int8-per-token cache;
+    dense rings, or pages behind a static identity table with no allocator
+    and no sharing), and one verify step keeps the accepted ones.  ``mesh``
+    raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that
+    ports it.
     """
 
     def __init__(self, cfg, dparams, backend: str = "cuda",
@@ -150,17 +169,33 @@ class ServingEngine:
                  kv_bits=None, speculate_k: int = 0, draft_dparams=None,
                  draft_kv_bits=None, mesh=None, device=None):
         from repro_torch.models import serving
-        given = dict(speculate_k=speculate_k, draft_dparams=draft_dparams,
-                     draft_kv_bits=draft_kv_bits, mesh=mesh)
-        for name, value in given.items():
-            if value:
-                raise NotImplementedError(
-                    f"ServingEngine({name}=...) is not ported yet: ROADMAP.md "
-                    f"{_NOT_PORTED[name]}")
+        if mesh is not None:
+            raise NotImplementedError(
+                f"ServingEngine(mesh=...) is not ported yet: ROADMAP.md {_NOT_PORTED['mesh']}")
         device = resolve_device(device)
         self.device = dparams["embed"].device
         if self.device.type != device.type or device.index not in (None, self.device.index):
             raise ValueError(f"the deployed model is on {self.device}, the engine on {device}")
+        self.speculate_k = int(speculate_k)
+        if self.speculate_k < 0:
+            raise ValueError("speculate_k must be >= 0")
+        if self.speculate_k:
+            if not serving.supports_speculative(cfg):
+                raise ValueError(
+                    f"family {cfg.family!r} cannot serve speculatively "
+                    "(serving.supports_speculative): rewinding to the accepted "
+                    "length needs position-addressed cache writes")
+            if isinstance(draft_kv_bits, (list, tuple)):
+                draft_kv_bits = tuple(int(b) for b in draft_kv_bits)
+            serving.kv_specs(cfg, draft_kv_bits)
+            if draft_dparams is None:
+                draft_dparams = dparams          # self-draft
+            elif draft_dparams["embed"].device != self.device:
+                raise ValueError(f"the draft is on {draft_dparams['embed'].device}, "
+                                 f"the engine on {self.device}")
+        else:
+            draft_kv_bits = draft_dparams = None
+        self.draft_dparams, self.draft_kv_bits = draft_dparams, draft_kv_bits
         self.cfg, self.dparams, self.backend = cfg, dparams, backend
         self.max_slots, self.max_len = max_slots, max_len
         if isinstance(kv_bits, (list, tuple)):
@@ -216,6 +251,28 @@ class ServingEngine:
                                    for k, t in self.caches.items() if mask[k])
         self._reserved = 0              # pages promised to live slots
         self._suppress = np.zeros(max_slots, bool)
+        self._draft_pages = None
+        if self.speculate_k:
+            if page_size is None:
+                self.draft_caches = serving.init_caches(cfg, max_slots, max_len,
+                                                        kv_bits=draft_kv_bits, device=self.device)
+            else:
+                # a private pool behind a static identity table: slot i owns
+                # pages 1 + i * pages_per_slot .. forever (no allocator, no
+                # sharing, nothing to release)
+                self._draft_num_pages = 1 + max_slots * self.pages_per_slot
+                self.draft_caches = serving.init_paged_caches(
+                    cfg, max_slots, self._draft_num_pages, page_size, kv_bits=draft_kv_bits,
+                    device=self.device)
+                self._draft_pages = (1 + torch.arange(
+                    max_slots * self.pages_per_slot, device=self.device)).reshape(
+                        max_slots, self.pages_per_slot)
+        # one pending catch-up token a slot, fed to the draft at pos - 1 before
+        # the next round's proposals: set when a round accepted all k (the
+        # draft sampled d_k but never consumed it) or when a suppressed-slot
+        # fallback tick advanced the verifier without the draft
+        self._catchup = np.zeros(max_slots, bool)
+        self._catchup_tok = np.zeros(max_slots, np.int64)
         self.tokens = torch.zeros((max_slots, 1), dtype=torch.int64, device=self.device)
         self._pos = np.zeros(max_slots, np.int64)
         self._live = np.zeros(max_slots, bool)
@@ -228,7 +285,8 @@ class ServingEngine:
         self.stats = dict(prefill_launches=0, decode_launches=0, useful_tokens=0,
                           occupancy_sum=0.0, idle_ticks=0, prefix_hits=0,
                           zero_prefill_admits=0, cached_tokens=0, deferred_admissions=0,
-                          evictions=0, pages_peak=0)
+                          evictions=0, pages_peak=0, draft_launches=0, verify_launches=0,
+                          spec_rounds=0, accepted_tokens=0)
 
     # -- request lifecycle ---------------------------------------------------
     def submit(self, request: Request) -> int:
@@ -337,15 +395,16 @@ class ServingEngine:
         """One scheduler tick: an admission if a slot is free, a request
         queued and (paged) the head of the queue passes the page gate (at
         most one prefill; a fully cached prompt admits with none), else a
-        decode tick over the live slots; ``kind`` in {"prefill", "cached",
-        "decode", "idle"}."""
+        decode tick over the live slots, a speculative round when
+        ``speculate_k > 0``; ``kind`` in {"prefill", "cached", "decode",
+        "speculative", "idle"}."""
         free = [i for i, s in enumerate(self._slots) if s is None]
         if self.queue and free:
             out = self._admit_tick(free)
             if out is not None:
                 return out
         if self._live.any():
-            return self._decode_tick()
+            return self._speculative_tick() if self.speculate_k else self._decode_tick()
         self.stats["idle_ticks"] += 1
         return {"kind": "idle"}
 
@@ -400,7 +459,11 @@ class ServingEngine:
     def _admit_tick(self, free: List[int]) -> Optional[dict]:
         """Admit queued requests into free slots with at most ONE fixed-width
         prefill; merge only the admitted slots' caches.  Returns None when
-        the page gate admitted nothing, so ``step`` decodes instead."""
+        the page gate admitted nothing, so ``step`` decodes instead.  A
+        speculative engine prefills its draft pool too, for every admitted
+        slot (full prefix hits included: the draft pool shares nothing),
+        from the same prefill when the draft is the verifier at its cache
+        policy."""
         from repro_torch.models import serving
         B, P, T = self.max_slots, self.prefill_len, self.page_size
         if self.pool is None:
@@ -410,11 +473,16 @@ class ServingEngine:
             if not take:
                 return None
         del self.queue[:len(take)]
+        spec = bool(self.speculate_k)
         rows = np.zeros((B, P), np.int64)
         lens = np.ones(B, np.int64)
         admit = np.zeros(B, bool)
-        wp_flat = (None if self.pool is None else
-                   np.full(B * self.n_prompt_pages, self.pool.num_pages, np.int64))
+        dadmit = np.zeros(B, bool)
+        wp_flat = dwp_flat = None
+        if self.pool is not None:
+            wp_flat = np.full(B * self.n_prompt_pages, self.pool.num_pages, np.int64)
+            if spec:
+                dwp_flat = np.full(B * self.n_prompt_pages, self._draft_num_pages, np.int64)
         boot = []                       # (slot, last prompt token) of full hits
         extras: Dict[str, np.ndarray] = {}
         if self.cfg.family == "audio":
@@ -427,11 +495,18 @@ class ServingEngine:
             toks = np.asarray(req.tokens, np.int64)
             L = toks.shape[0]
             lens[slot] = L
+            if self.pool is None or not plans[rid][1] or spec:
+                rows[slot, :L] = toks           # a full hit's row is the draft's alone
             for k, v in req.extras.items():
                 extras[k][slot] = v
             self._live[slot] = True
+            if spec:
+                self._catchup[slot] = False
+                dadmit[slot] = True
+                if dwp_flat is not None:        # the slot's own draft pages, in order
+                    base, page0 = slot * self.n_prompt_pages, 1 + slot * self.pages_per_slot
+                    dwp_flat[base:base + -(-L // T)] = page0 + np.arange(-(-L // T))
             if self.pool is None:
-                rows[slot, :L] = toks
                 admit[slot] = True
                 self._slots[slot] = _Slot(rid, L, req.max_tokens, req.eos_id)
                 self._pos[slot] = L
@@ -452,7 +527,6 @@ class ServingEngine:
                 self._suppress[slot] = len(matched) * T == L
                 boot.append((slot, int(toks[-1])))
             else:
-                rows[slot, :L] = toks
                 admit[slot] = True
                 self._pos[slot] = L
                 # prefill writes only the pages this slot owns: matched pages
@@ -463,26 +537,26 @@ class ServingEngine:
         if self.pool is not None:
             self._note_pool()
         dev = self.device
-        launched = bool(admit.any())
+        launched = bool(dadmit.any() if spec else admit.any())
         if launched:
             batch = {"tokens": torch.from_numpy(rows).to(dev)}
             batch.update({k: torch.from_numpy(v).to(dev) for k, v in extras.items()})
-            logits, pf = serving.prefill(self.dparams, self.cfg, batch, self.backend,
-                                         lens=torch.from_numpy(lens).to(dev),
-                                         kv_bits=self.kv_bits)
-            if self.pool is None:
-                idx = torch.from_numpy(np.nonzero(admit)[0]).to(dev)
-                emb = serving.embed_caches({k: v[:, idx] for k, v in pf.items()},
-                                           {k: v[:, idx] for k, v in self.caches.items()})
-                for k, v in emb.items():
-                    self.caches[k][:, idx] = v
-            else:
-                serving.merge_paged_caches(self.cfg, pf, self.caches,
-                                           torch.from_numpy(admit).to(dev),
-                                           torch.from_numpy(wp_flat).to(dev))
-            tok = smp.sample(logits, self.sampling, self._gen)        # (B, 1)
-            sel = torch.from_numpy(admit).to(dev)[:, None]
-            self.tokens = torch.where(sel, tok, self.tokens)
+            lens_t = torch.from_numpy(lens).to(dev)
+            shared = self.draft_dparams is self.dparams and self.draft_kv_bits == self.kv_bits
+            pf = None
+            if admit.any() or (spec and shared):
+                logits, pf = serving.prefill(self.dparams, self.cfg, batch, self.backend,
+                                             lens=lens_t, kv_bits=self.kv_bits)
+            if admit.any():
+                self._merge(pf, self.caches, admit, wp_flat)
+                tok = smp.sample(logits, self.sampling, self._gen)        # (B, 1)
+                sel = torch.from_numpy(admit).to(dev)[:, None]
+                self.tokens = torch.where(sel, tok, self.tokens)
+            if spec:
+                if not shared:
+                    _, pf = serving.prefill(self.draft_dparams, self.cfg, batch, self.backend,
+                                            lens=lens_t, kv_bits=self.draft_kv_bits)
+                self._merge(pf, self.draft_caches, dadmit, dwp_flat)
             self.stats["prefill_launches"] += 1
             self.stats["useful_tokens"] += int(admit.sum())
         for slot, last in boot:
@@ -491,6 +565,22 @@ class ServingEngine:
         for slot in np.nonzero(admit)[0]:
             self._record(int(slot), int(tok_np[slot]))
         return {"kind": "prefill" if launched else "cached", "admitted": list(take)}
+
+    def _merge(self, pf: dict, caches: dict, admit: np.ndarray, wp_flat) -> None:
+        """Merge an admission's prefill caches ``pf`` into ``caches`` in
+        place: the rows of the slots in ``admit`` of the dense rings, or the
+        prompt pages ``wp_flat`` maps of a page pool."""
+        from repro_torch.models import serving
+        dev = self.device
+        if wp_flat is None:
+            idx = torch.from_numpy(np.nonzero(admit)[0]).to(dev)
+            emb = serving.embed_caches({k: v[:, idx] for k, v in pf.items()},
+                                       {k: v[:, idx] for k, v in caches.items()})
+            for k, v in emb.items():
+                caches[k][:, idx] = v
+        else:
+            serving.merge_paged_caches(self.cfg, pf, caches, torch.from_numpy(admit).to(dev),
+                                       torch.from_numpy(wp_flat).to(dev))
 
     def _decode_tick(self) -> dict:
         from repro_torch.models import serving
@@ -527,6 +617,121 @@ class ServingEngine:
             self._record(int(slot), int(tok_np[slot]))
         return {"kind": "decode", "live": n_live}
 
+    def _draft_step(self, tokens: torch.Tensor, pos: np.ndarray, live: np.ndarray):
+        """One one-token step of the draft over its own pool: logits ``(B,
+        1, V)``."""
+        from repro_torch.models import serving
+        dev = self.device
+        logits, _ = serving.decode_step(
+            self.draft_dparams, self.cfg, tokens, self.draft_caches,
+            torch.from_numpy(pos).to(dev), self.backend, live=torch.from_numpy(live).to(dev),
+            kv_bits=self.draft_kv_bits, pages=self._draft_pages, page_size=self.page_size)
+        self.stats["draft_launches"] += 1
+        return logits
+
+    def _drain_catchup(self, live: np.ndarray) -> None:
+        """Feed every pending catch-up token to the draft at ``pos - 1`` in
+        ONE draft step (its logits predict a position already emitted, and
+        are dropped): afterwards the draft pool holds every position below
+        each slot's frontier."""
+        mask = self._catchup & live
+        if not mask.any():
+            return
+        toks = self.tokens.clone()
+        sel = torch.from_numpy(mask).to(self.device)
+        toks[sel, 0] = torch.from_numpy(self._catchup_tok[mask]).to(self.device)
+        self._draft_step(toks, np.where(mask, self._pos - 1, self._pos), mask)
+        self._catchup[mask] = False
+
+    def _speculative_tick(self) -> dict:
+        """One speculative round: [a catch-up draft step] + k draft steps +
+        ONE (k+1)-wide verify step; every live slot emits 1 to k + 1 tokens.
+
+        The draft proposes d_1..d_k from the last emitted token t at
+        position p (each one-token step also writes the draft's pool); the
+        verify feeds ``[t, d_1..d_k]`` at positions ``p..p+k`` through the
+        multi-token decode and ``sampling.speculative_accept`` keeps the
+        accepted prefix and one verifier token (greedy: the longest argmax
+        match, so the stream is the plain engine's for any draft).  Both
+        pools rewind by masked overwrite.  A request that finishes inside
+        the window drops the rest of it.
+
+        A suppressed slot (a full-prefix hit whose write position lies in a
+        shared read-only page) sends the tick to a plain decode tick for
+        every slot, as the W-wide scatter cannot skip one position of a
+        slot; the draft catches up next round.
+        """
+        from repro_torch.models import serving
+        live = self._live.copy()
+        k = self.speculate_k
+        dev = self.device
+        if (live & self._suppress).any():
+            self._drain_catchup(live)
+            fed = self.tokens[:, 0].cpu().numpy()
+            out = self._decode_tick()
+            for s in np.nonzero(live)[0]:
+                if self._slots[s] is not None:          # the draft missed this token
+                    self._catchup[s] = True
+                    self._catchup_tok[s] = fed[s]
+            return out
+        pages = None
+        if self.pool is not None:
+            # map every verifier page the verify's scatter can land on, up to
+            # the slot's write budget (past it the entries stay NULL and the
+            # writes drop); all within the reserved pages, so these succeed
+            T = self.page_size
+            for slot in np.nonzero(live)[0]:
+                st = self._slots[slot]
+                p = int(self._pos[slot])
+                for pidx in range(p // T, min(p + k, st.prompt_len + st.max_tokens - 2) // T + 1):
+                    if self._pages[slot, pidx] == NULL_PAGE:
+                        (pg,) = self.pool.alloc(1)
+                        self._pages[slot, pidx] = pg
+                        st.mapped += 1
+                        self._reserved -= 1
+            self._note_pool()
+            pages = torch.from_numpy(self._pages).to(dev)
+        self._drain_catchup(live)
+        pos0 = self._pos.copy()
+        cur, dtoks, dlgs = self.tokens, [], []
+        for j in range(k):
+            lg = self._draft_step(cur, pos0 + j, live)
+            cur = smp.sample(lg, self.sampling, self._gen)            # (B, 1)
+            dtoks.append(cur)
+            dlgs.append(lg[:, 0])
+        draft_toks = torch.cat(dtoks, dim=1)                          # (B, k)
+        logits, self.caches = serving.decode_step(
+            self.dparams, self.cfg, torch.cat([self.tokens, draft_toks], dim=1), self.caches,
+            torch.from_numpy(pos0).to(dev), self.backend, live=torch.from_numpy(live).to(dev),
+            kv_bits=self.kv_bits, pages=pages, page_size=self.page_size)
+        accepted, out_tokens = smp.speculative_accept(
+            draft_toks, torch.stack(dlgs, dim=1), logits, self.sampling, self._gen)
+        self.stats["verify_launches"] += 1
+        self.stats["spec_rounds"] += 1
+        acc, out_np = accepted.cpu().numpy(), out_tokens.cpu().numpy()
+        n_live = int(live.sum())
+        self.stats["occupancy_sum"] += n_live / self.max_slots
+        tok_np = self.tokens[:, 0].cpu().numpy().copy()
+        for slot in np.nonzero(live)[0]:
+            m = int(acc[slot])
+            self.stats["accepted_tokens"] += m
+            for j in range(m + 1):
+                self._record(int(slot), int(out_np[slot, j]))
+                self.stats["useful_tokens"] += 1
+                if self._slots[slot] is None:   # finished mid-round: the rest drops
+                    break
+            self._pos[slot] += m + 1
+            if self._slots[slot] is not None:
+                tok_np[slot] = out_np[slot, m]
+                if m == k:
+                    # all accepted: the draft sampled d_k but never consumed
+                    # it; its entry at p + k is owed before the next round
+                    self._catchup[slot] = True
+                    self._catchup_tok[slot] = out_np[slot, k - 1]
+        self.tokens = torch.from_numpy(tok_np[:, None]).to(dev)
+        return {"kind": "speculative", "live": n_live,
+                "accepted": [int(a) for a in acc[live]]}
+
     def _record(self, slot: int, token: int) -> None:
         st = self._slots[slot]
         st.generated.append(token)
@@ -544,6 +749,7 @@ class ServingEngine:
                 self._note_pool()
             self._slots[slot] = None
             self._live[slot] = False
+            self._catchup[slot] = False
 
     # -- whole-trace driver --------------------------------------------------
     def run(self, requests: Sequence[Request],

@@ -43,30 +43,41 @@ def write_coords(pos: torch.Tensor, live: Optional[torch.Tensor], pages: torch.T
     write (``live=False``, a position past the table, or an entry mapped to
     the NULL page) get page ``num_pages``, out of bounds, so the writer
     drops them; the NULL page is never written.
+
+    ``pos`` may also be ``(B, W)``: the speculative verify writes ``W``
+    consecutive entries a slot in one scatter.  The coordinates are then
+    ``(B, W)`` under the same drop rules entry by entry, ``live`` masking
+    whole slots.  A write past the slot's mapped pages is dropped, never
+    undone: rejected draft positions stay masked (``<= pos``) until later
+    writes overwrite them.
     """
     pos = pos.to(torch.int64)
     P = pages.shape[1]
     S = P * page_size
-    wpos = pos if live is None else torch.where(live, pos, torch.full_like(pos, S))
+    vec = pos.ndim == 1
+    posw = pos[:, None] if vec else pos                               # (B, W)
+    wpos = posw if live is None else torch.where(live[:, None], posw, torch.full_like(posw, S))
     pidx = torch.clamp(torch.div(wpos, page_size, rounding_mode="floor"), 0, P - 1)
-    phys = torch.gather(pages.long(), 1, pidx[:, None])[:, 0]
+    phys = torch.gather(pages.long(), 1, pidx)
     drop = (wpos >= S) | (phys == 0)
     phys = torch.where(drop, torch.full_like(phys, num_pages), phys)
-    return phys, wpos % page_size
+    off = wpos % page_size
+    return (phys[:, 0], off[:, 0]) if vec else (phys, off)
 
 
 def write_pages(pool: torch.Tensor, phys: torch.Tensor, off: torch.Tensor,
                 new: torch.Tensor) -> None:
-    """``pool[phys[b], ..., off[b], :] = new[b]`` in place for every row
-    whose ``phys`` is a page of the pool; rows at the sentinel are dropped.
-    ``pool (NP, *mid, T, F)``, ``new (B, *mid, F)``.  No host sync: a
-    dropped row writes the NULL page's own zeros back to it (no live row
-    ever targets page 0)."""
+    """``pool[phys[i], ..., off[i], :] = new[i]`` in place for every entry
+    ``i`` (one a slot, ``(B,)``, or ``(B, W)``) whose ``phys`` is a page of
+    the pool; entries at the sentinel are dropped.  ``pool (NP, *mid, T,
+    F)``, ``new (*phys.shape, *mid, F)``.  No host sync: a dropped entry
+    writes the NULL page's own zeros back to it (no live entry ever targets
+    page 0, so their duplicate indices all write the same zeros)."""
     keep = phys < pool.shape[0]
     at = torch.where(keep, phys, torch.zeros_like(phys))
     view = pool.movedim(-2, 1)              # (NP, T, *mid, F): the indexed axes lead
-    old = view[at, off]                     # (B, *mid, F)
-    mask = keep.reshape((-1,) + (1,) * (old.ndim - 1))
+    old = view[at, off]                     # (*phys.shape, *mid, F)
+    mask = keep.reshape(keep.shape + (1,) * (old.ndim - keep.ndim))
     view[at, off] = torch.where(mask, new.to(pool.dtype), old)
 
 

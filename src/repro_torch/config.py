@@ -166,6 +166,11 @@ ARCH_IDS = ("qwen1.5-4b", "deepseek-v3-671b", "stablelm-12b", "minicpm-2b", "cha
 NOT_PORTED: dict = {}
 
 
+def list_archs() -> tuple:
+    """The ids :func:`get_config` takes."""
+    return ARCH_IDS
+
+
 def get_config(arch_id: str) -> ArchConfig:
     if arch_id in NOT_PORTED:
         raise NotImplementedError(

@@ -84,6 +84,13 @@ def propagate_perm(next_w: np.ndarray, perm: np.ndarray) -> np.ndarray:
     return np.asarray(next_w)[:, perm]
 
 
+def dequantize_deployed(qt: QTensor) -> np.ndarray:
+    """The deployed weight as float ``(c_out, c_in)`` numpy, canonical
+    channel order whatever ``restore_order`` says (what a test holds against
+    the frozen fake-quantized weight)."""
+    return qt.dequantize_canonical().cpu().numpy()
+
+
 def memory_bits(qt: QTensor) -> int:
     """Deployed model-size contribution in bits (the Pareto x-axis)."""
     return qt.memory_bits

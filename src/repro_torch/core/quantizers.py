@@ -90,6 +90,35 @@ def quantize_weight(w: torch.Tensor, alpha: torch.Tensor, bits: int) -> torch.Te
     return _round_ste(y / step) * step
 
 
+def quantize_act_int(x: torch.Tensor, alpha: torch.Tensor, bits: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Unsigned integer activation quantization (deployment): ``(q uint8,
+    step)`` with ``q`` in ``[0, 2^bits - 1]`` and ``x ≈ q * step``."""
+    alpha = torch.clamp_min(torch.as_tensor(alpha, dtype=torch.float32, device=x.device), 1e-6)
+    levels = (1 << bits) - 1
+    step = _over(alpha, levels)
+    return torch.clamp(torch.round(x / step), 0, levels).to(torch.uint8), step
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """``q * scale`` in f32, rounded to ``dtype``."""
+    return (q.to(torch.float32) * scale.to(torch.float32)).to(dtype)
+
+
+def act_bank(x: torch.Tensor, alpha: torch.Tensor,
+             bitwidths=DEFAULT_BITWIDTHS) -> torch.Tensor:
+    """The fake-quantized activations at every bit-width, ``(|P_X|,
+    *x.shape)`` (the Eq. 4 bank, from the one float tensor)."""
+    return torch.stack([quantize_act(x, alpha, b) for b in bitwidths])
+
+
+def weight_bank(w: torch.Tensor, alpha: torch.Tensor,
+                bitwidths=DEFAULT_BITWIDTHS) -> torch.Tensor:
+    """The fake-quantized weights at every bit-width, ``(|P_W|,
+    *w.shape)``."""
+    return torch.stack([quantize_weight(w, alpha, b) for b in bitwidths])
+
+
 def quantize_weight_int(w: torch.Tensor, alpha: torch.Tensor, bits: int
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """True integer quantization (deployment): ``(q int8, step)`` with

@@ -96,7 +96,10 @@
 //   sum, so a block's result depends on neither E nor the grid: an
 //   expert's slice of an expert-axis launch is its own launch, bit for bit,
 //   and a K1 block (WN cut to tile_n / 16) sums as the K2 block of its
-//   channels.  At decode a block streams its channels' K at a rate of its
+//   channels.  Up to MMA_ROWS_MAX (32) rows the plan is the decode one
+//   (1, 4, 4), whose 8-token fragments tile any M a block each, so a
+//   row's sums do not depend on M: a speculative verify's rows (M = slots
+//   x (k + 1)) are the decode step's (M = slots) bit for bit.  At decode a block streams its channels' K at a rate of its
 //   own, so a group of few 64-channel blocks (qwen's N 512-1408 at K 6912)
 //   leaves the card idle; splitting K across blocks would fix the sums'
 //   order by the split, which may not depend on E, and slowed the expert
@@ -989,7 +992,8 @@ extern "C" int qmm_fused_experts_f32(const void* x, long long M, int Kx, int Kp,
 #undef QMM_SIMT_TILES
 
 // The tensor-core path, x bf16.  (mf, wk, wn) is the plan of
-// `quant_matmul.mma_plan`: (1, 4, 4) at M <= 8 (decode), (8, 1, 8) above;
+// `quant_matmul.mma_plan`: (1, 4, 4) at M <= 32 (decode and verify), (8, 1,
+// 8) above;
 // for the fused kernels wn is cut to tile_n / 16 where that is smaller
 // (`fused_3d_mma_plan`).
 extern "C" int qmm_pergroup_mma(const void* x, long long M, int Kx, int K, const void* packed,

@@ -34,7 +34,10 @@ at every K and the fused and expert kernels at ``tile_n >= 16`` run the
 tensor-core routine: exact bf16 products, f32 sums in the tensor cores'
 order, K split over the warps of a block by :func:`mma_plan`, which depends
 on M alone, so an expert's slice of an expert-axis launch equals its own
-launch and a fused tile sums as the per-group launch of its channels.  So
+launch and a fused tile sums as the per-group launch of its channels; up
+to ``MMA_ROWS_MAX`` rows the plan tiles M by 8-token fragments, so a row's
+sums do not depend on M either (a speculative verify's rows are the decode
+step's, bitwise).  So
 the fused and per-group kernels equal each other bitwise on the card at
 f32, and at bf16 wherever ``tile_n >= 16``.  The plain versions use
 ``torch.matmul`` and agree with the kernels to f32 rounding; the plain
@@ -238,18 +241,25 @@ def fused_3d_path(tile_n: int, compute_dtype) -> str:
 # (token fragments of 8 a warp, warps splitting K, warps splitting N)
 MMA_DECODE_PLAN = (1, 4, 4)
 MMA_TILE_PLAN = (8, 1, 8)
+# widest M that runs the decode plan: a speculative verify of up to 32 rows
+# (4 slots at k <= 7, 8 slots at k <= 3) and a MoE verify's expert capacity
+MMA_ROWS_MAX = 32
 
 
 def mma_plan(M: int) -> tuple:
-    """The tensor-core block shape for ``M`` rows.  At ``M <= 8`` (decode)
-    one 8-token fragment a warp and K split over 4 warps of the same 64
-    channels; above it 64-token tiles, so the weights stream once for a MoE
-    expert's prefill capacity (M <= 64), 8 warps of 16 channels each
-    walking all of K (64-token tiles measured 3-19% faster than 32-token
-    ones at M 256-2048, with the same sums: neither splits K).  A function
-    of M alone, never of the expert count or the grid: the K split fixes
-    the order of the sums (the channel warps change none)."""
-    return MMA_DECODE_PLAN if M <= 8 else MMA_TILE_PLAN
+    """The tensor-core block shape for ``M`` rows.  Up to ``MMA_ROWS_MAX``
+    rows one 8-token fragment a warp and K split over 4 warps of the same
+    64 channels; 8-token fragments tile any M (a block a fragment), so
+    every row up to ``MMA_ROWS_MAX`` sums its K terms in one order whatever
+    M is: a speculative verify's row (M = slots x (k + 1)) is bitwise the
+    decode step's row (M = slots), which the greedy speculative engine's
+    token identity rests on.  Above it (prefill) 64-token tiles, so the
+    weights stream once a tile (64-token tiles measured 3-19% faster than
+    32-token ones at M 256-2048), 8 warps of 16 channels each walking all
+    of K: another order of the sums.  A function of M alone, never of the
+    expert count or the grid: the K split fixes the order of the sums (the
+    channel warps change none)."""
+    return MMA_DECODE_PLAN if M <= MMA_ROWS_MAX else MMA_TILE_PLAN
 
 
 def fused_3d_mma_plan(M: int, tile_n: int) -> tuple:

@@ -1,9 +1,9 @@
 """Serving launcher: a deployed mixed-precision LM under request-level
 continuous batching over a paged KV cache
-(:class:`repro_torch.api.scheduler.ServingEngine`).
+(:class:`repro_torch.api.scheduler.ServingEngine`), optionally speculative.
 
-Counterpart of ``repro.launch.serve`` without speculative decoding, meshes
-and host failure (``ROADMAP.md``).  The launcher draws a random deployed
+Counterpart of ``repro.launch.serve`` without meshes and host failure
+(``ROADMAP.md``).  The launcher draws a random deployed
 model (``serving.init_deployed_model``), synthesizes a staggered-arrival
 trace (ragged prompts and outputs arriving over time) and serves it through
 the paged slot pool, sharing the KV pages of repeated prompt prefixes
@@ -62,11 +62,15 @@ def build_trace(cfg, args, rng):
 
 def _engine(cfg, dparams, args):
     page_size = {0: None, -1: "auto"}.get(args.page_size, args.page_size)
+    draft = None
+    if args.speculate_k and args.draft_bits:
+        draft = serving.draft_model(dparams, cfg, args.draft_bits)
     return ServingEngine(cfg, dparams, backend=args.backend, max_slots=args.slots,
                          max_len=args.prompt_len + args.gen, prefill_len=args.prompt_len,
                          page_size=page_size, num_pages=args.num_pages or None,
                          prefix_sharing=False if args.no_prefix_sharing else "auto",
-                         kv_bits=args.kv_bits, device=args.device)
+                         kv_bits=args.kv_bits, speculate_k=args.speculate_k,
+                         draft_dparams=draft, device=args.device)
 
 
 def _paged_line(eng):
@@ -98,6 +102,12 @@ def run_continuous(cfg, dparams, reqs, arrivals, args):
           f"{eng.launch_counts()}")
     print(f"kv cache:   kv_bits {eng.kv_bits}, resident {eng.kv_bytes_resident()} B")
     print(_paged_line(eng))
+    if eng.speculate_k:
+        verifier = steps + st["verify_launches"]        # steps of the verifier model
+        acc = st["accepted_tokens"] / st["verify_launches"] if st["verify_launches"] else 0.0
+        print(f"speculative: k={eng.speculate_k}, {st['spec_rounds']} rounds, {acc:.2f} drafts "
+              f"accepted/verify, {st['useful_tokens'] / verifier:.2f} useful tokens per "
+              f"verifier step (+{st['draft_launches']} draft steps)")
     print("sample token ids:", outs[0].tokens[:16])
     return dt, st["useful_tokens"]
 
@@ -148,6 +158,11 @@ def main(argv=None) -> None:
                    help="physical KV pages (0: the dense capacity plus the NULL page)")
     p.add_argument("--no-prefix-sharing", action="store_true",
                    help="disable the radix prompt-prefix sharing of the paged cache")
+    p.add_argument("--speculate-k", type=int, default=0,
+                   help="speculative decoding: draft k tokens per verify step (0 = off)")
+    p.add_argument("--draft-bits", type=int, default=0,
+                   help="re-quantize the draft to this uniform channel bit-width "
+                        "(0 = self-draft)")
     p.add_argument("--lockstep", action="store_true",
                    help="also run the wave-at-a-time lockstep baseline")
     p.add_argument("--device", default=None, help="default: the card")

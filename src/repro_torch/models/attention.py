@@ -29,6 +29,12 @@ page table (``cache/paged.write_coords``) and attention reads the slot's
 pages gathered into the dense ring view, so the decode-attention kernel
 takes no page table.
 
+Both decodes also take ``W > 1`` query tokens a slot (the speculative
+verify, the reference's ``_gqa_decode_multi`` and ``_mla_decode_multi``): all ``W``
+entries land in one scatter, then ``W`` single-query steps run, each as the
+one-token decode would, so the verify's rows are those of ``W`` sequential
+decode steps.
+
 Unlike the reference, :func:`gqa_decode` and :func:`mla_decode` write the
 new cache entries in place (the caller's ring tensors are updated and
 returned).
@@ -152,40 +158,49 @@ def quant_per_token(t: torch.Tensor) -> tuple:
 
 def slot_write_pos(pos: torch.Tensor, live: Optional[torch.Tensor],
                    max_len: int) -> torch.Tensor:
-    """Per-slot ring-write index: dead slots write out of bounds (at
-    ``max_len``), which the writers drop."""
+    """Per-slot ring-write index (``pos (B,)``, or ``(B, W)`` for W entries
+    a slot): dead slots write out of bounds (at ``max_len``), which the
+    writers drop."""
     pos = pos.to(torch.int64)
     if live is None:
         return pos
+    live = live.reshape(live.shape + (1,) * (pos.ndim - 1))
     return torch.where(live, pos, torch.full_like(pos, max_len))
 
 
 def _ring_write(ring: torch.Tensor, wpos: torch.Tensor, new: torch.Tensor) -> None:
-    """``ring[b, :, wpos[b]] = new[b]`` in place for every row whose
-    ``wpos`` lies in the ring; other rows are left as they are (the
-    reference's ``mode="drop"``).  No host sync: dropped rows write back
-    what they read."""
+    """``ring[b, :, wpos[b, j]] = new[b, j]`` in place for every entry
+    whose ``wpos`` lies in the ring (``wpos (B, W)``, ``new (B, W, KV,
+    F)``); the others are dropped (the reference's ``mode="drop"``).  No
+    host sync: a dropped entry is sent to the ring's edge and carries the
+    value that position ends with (the write that lands there, else what
+    it holds), so the duplicate indices of one scatter all write the same
+    value (a scatter's duplicates land in no set order on the card)."""
     B, S = ring.shape[0], ring.shape[2]
     keep = (wpos >= 0) & (wpos < S)
     at = torch.clamp(wpos, 0, S - 1)
-    bidx = torch.arange(B, device=ring.device)
-    old = ring[bidx, :, at]                                   # (B, KV, F)
-    ring[bidx, :, at] = torch.where(keep[:, None, None], new.to(ring.dtype), old)
+    hit = keep[:, None, :] & (wpos[:, None, :] == at[:, :, None])   # (B, W, W): j' lands at j's
+    src = torch.argmax(hit.to(torch.int8), dim=-1)                  # (B, W)
+    bidx = torch.arange(B, device=ring.device)[:, None]
+    old = ring[bidx, :, at]                                         # (B, W, KV, F)
+    landing = new.to(ring.dtype)[bidx, src]
+    ring[bidx, :, at] = torch.where(hit.any(-1)[..., None, None], landing, old)
 
 
 def _write_and_read(cache: dict, keys: tuple, new: tuple, pos, live, pages, page_size,
                     mid: bool) -> tuple:
-    """Write each leaf's new entry (``new[i]`` of ``(B, [KV,] F)`` into
-    ``cache[keys[i]]``) at the slots' positions, in place, and return the
-    leaves as per-slot rings: the dense rings themselves, or with
-    ``pages`` the pools written through the page table and gathered back.
-    ``mid``: the leaves carry the KV-head axis before the ring axis."""
+    """Write each leaf's new entries (``new[i]`` of ``(B, W, [KV,] F)``
+    into ``cache[keys[i]]``) at the slots' positions ``pos (B, W)``, in
+    place, and return the leaves as per-slot rings: the dense rings
+    themselves, or with ``pages`` the pools written through the page table
+    and gathered back.  ``mid``: the leaves carry the KV-head axis before
+    the ring axis."""
     if pages is None:
         S = cache[keys[0]].shape[2 if mid else 1]
         wpos = slot_write_pos(pos, live, S)
         for key, t in zip(keys, new):
             _ring_write(cache[key] if mid else cache[key].unsqueeze(1), wpos,
-                        t if mid else t[:, None])
+                        t if mid else t[:, :, None])
         return tuple(cache[k] for k in keys)
     phys, off = paged.write_coords(pos, live, pages, page_size, cache[keys[0]].shape[0])
     for key, t in zip(keys, new):
@@ -198,61 +213,79 @@ def gqa_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: torch.Tensor,
                kv_spec: Optional[kvq.KVQuantSpec] = None,
                backend: str = "cuda", pages: Optional[torch.Tensor] = None,
                page_size: Optional[int] = None) -> tuple:
-    """One-token decode over a ring cache, per-slot positions.
+    """Cached decode over a ring cache, per-slot positions.
 
-    ``x (B, 1, d)``; ``pos (B,)`` int: row ``b`` writes its new KV at ring
-    index ``pos[b]`` and attends to ``<= pos[b]``; ``live (B,)`` bool: rows
-    with ``live=False`` drop their ring write.  ``dq_linear`` applies a
-    deployed linear.  ``kv_spec``: the channel-wise packed ring of
+    ``x (B, W, d)``: ``W`` is 1 in a decode step; ``W > 1`` is the
+    speculative verify (the reference's ``_gqa_decode_multi``), row ``b``'s
+    token ``j`` at position ``pos[b] + j``.  ``pos (B,)`` int: row ``b``
+    writes its new KV at ring index ``pos[b]`` (``pos[b] .. pos[b] + W - 1``)
+    and query ``j`` attends to ``<= pos[b] + j``; ``live (B,)`` bool: rows
+    with ``live=False`` drop their ring writes, and writes past the ring or
+    the mapped pages are dropped.  All ``W`` entries land in one scatter
+    first; entries past what a round accepts are never undone, the ``<=
+    pos`` mask hides them until later writes overwrite them.  Attention
+    then runs ``W`` single-query steps whose operands are those of ``W``
+    sequential one-token decodes (one decode-attention launch each), so
+    the verify's rows are theirs.  ``dq_linear`` applies a deployed
+    linear.  ``kv_spec``: the channel-wise packed ring of
     ``init_gqa_cache(..., spec=kv_spec)``; with ``backend="cuda"`` it is
     attended through the decode-attention kernel (on CPU tensors, its
     plain version), otherwise through the dequantized ring.  ``pages (B,
-    P)``: the leaves are page pools ``(num_pages, KV, page_size, F)``; row
-    ``b`` writes into page ``pages[b, pos[b] // page_size]`` and attention
-    reads the gathered ``(B, KV, P * page_size, F)`` ring.  Writes
-    ``cache`` in place and returns ``(y (B, 1, d), cache)``.
+    P)``: the leaves are page pools ``(num_pages, KV, page_size, F)``;
+    position ``t`` of row ``b`` lives in page ``pages[b, t // page_size]``
+    and attention reads the gathered ``(B, KV, P * page_size, F)`` ring.
+    Writes ``cache`` in place and returns ``(y (B, W, d), cache)``.
     """
-    if x.shape[1] != 1:
-        raise NotImplementedError(
-            "multi-token (speculative verify) decode is not ported yet: "
-            "ROADMAP.md queue 1 item 6 (6.3, speculative decoding)")
-    B = x.shape[0]
+    B, W = x.shape[:2]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cd = cfg.cdtype
-    pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
-    if pos.ndim == 0:
-        pos = pos.expand(B).contiguous()
-    q = dq_linear(x, p["wq"]).reshape(B, 1, H, hd)
-    k = dq_linear(x, p["wk"]).reshape(B, 1, KV, hd)
-    v = dq_linear(x, p["wv"]).reshape(B, 1, KV, hd)
+    posk = _positions(pos, B, W, x.device)                             # (B, W)
+    q = dq_linear(x, p["wq"]).reshape(B, W, H, hd)
+    k = dq_linear(x, p["wk"]).reshape(B, W, KV, hd)
+    v = dq_linear(x, p["wv"]).reshape(B, W, KV, hd)
     if cfg.rope_partial > 0:
-        cos, sin, rot = L.rope_freqs(hd, cfg.rope_theta, pos[:, None], cfg.rope_partial)
+        cos, sin, rot = L.rope_freqs(hd, cfg.rope_theta, posk, cfg.rope_partial)
         q = L.apply_rope(q, cos, sin, rot)
         k = L.apply_rope(k, cos, sin, rot)
     if kv_spec is None:
-        kq, ks = quant_per_token(k.transpose(1, 2))          # (B, KV, 1, hd)
+        kq, ks = quant_per_token(k.transpose(1, 2))          # (B, KV, W, hd)
         vq, vs = quant_per_token(v.transpose(1, 2))
     else:
         kq, ks = kvq.quant_channelwise(k.transpose(1, 2), kv_spec)
         vq, vs = kvq.quant_channelwise(v.transpose(1, 2), kv_spec)
     ki, vi, ksc, vsc = _write_and_read(
-        cache, ("k", "v", "k_scale", "v_scale"), (kq[:, :, 0], vq[:, :, 0], ks[:, :, 0],
-                                                  vs[:, :, 0]),
-        pos, live, pages, page_size, mid=True)
+        cache, ("k", "v", "k_scale", "v_scale"),
+        tuple(t.transpose(1, 2) for t in (kq, vq, ks, vs)), posk, live, pages, page_size,
+        mid=True)
     rep = H // KV
-    qg = q.transpose(1, 2).reshape(B, KV, rep, hd)        # q keeps its dtype (f32 after RoPE)
-    if kv_spec is not None and backend == "cuda":
-        o = datt.decode_attention(qg, ki, ksc, vi, vsc, pos, kv_spec.bits, kv_spec.sizes,
-                                  out_dtype=cd)
-    else:
+    kernel = kv_spec is not None and backend == "cuda"
+    if not kernel:
         if kv_spec is None:
             kf = (ki.to(torch.float32) * ksc).to(cd)
             vf = (vi.to(torch.float32) * vsc).to(cd)
         else:
             kf = kvq.dequant_channelwise(ki, ksc, kv_spec, cd)
             vf = kvq.dequant_channelwise(vi, vsc, kv_spec, cd)
-        o = datt.attend(qg, kf, vf, pos, cd)
-    return dq_linear(o.reshape(B, 1, H * hd), p["wo"]), cache
+    outs = []
+    for j in range(W):
+        qg = q[:, j:j + 1].transpose(1, 2).reshape(B, KV, rep, hd)   # its dtype (f32 after RoPE)
+        if kernel:
+            qg = qg.contiguous()                  # a strided view when W > 1
+            o = datt.decode_attention(qg, ki, ksc, vi, vsc, posk[:, j].contiguous(), kv_spec.bits,
+                                      kv_spec.sizes, out_dtype=cd)
+        else:
+            o = datt.attend(qg, kf, vf, posk[:, j], cd)
+        outs.append(o.reshape(B, 1, H * hd))
+    return dq_linear(torch.cat(outs, dim=1) if W > 1 else outs[0], p["wo"]), cache
+
+
+def _positions(pos, B: int, W: int, device) -> torch.Tensor:
+    """``(B, W)`` int32 positions ``pos[b] + j`` of a decode's tokens
+    (``pos`` a ``(B,)`` vector or a scalar for every slot)."""
+    pos = torch.as_tensor(pos, device=device).to(torch.int32)
+    if pos.ndim == 0:
+        pos = pos.expand(B)
+    return pos[:, None] + torch.arange(W, dtype=torch.int32, device=device)[None]
 
 
 # ---------------------------------------------------------------------------
@@ -285,53 +318,51 @@ def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: torch.Tensor,
                kv_spec: Optional[kvq.KVQuantSpec] = None,
                pages: Optional[torch.Tensor] = None,
                page_size: Optional[int] = None) -> tuple:
-    """One-token MLA decode over a ring cache, per-slot positions.
+    """Cached MLA decode over a ring cache, per-slot positions.
 
-    ``x (B, 1, d)``; ``pos (B,)``: row ``b`` writes its latent at ring
-    index ``pos[b]`` and attends to ``<= pos[b]``; ``live=False`` rows drop
-    their write.  The cached latents of every slot are dequantized and
-    expanded to per-head keys and values through the packed ``wkv_b``
-    linear (``dq_linear``; on the kernel path the fused GEMM over all ``B *
-    S`` cached latents), then one query attends: the score dots summed in
-    f32 (bf16 operands, no bf16 rounding, as XLA folds the reference's
-    cast), divided by ``sqrt(nope + rope)``, an f32 softmax rounded to the
-    compute dtype, the value dot rounded once.  ``pages (B, P)``: the
-    leaves are page pools ``(num_pages, page_size, F)`` written and read
-    through the page table, as in :func:`gqa_decode`.  Writes ``cache`` in
-    place and returns ``(y (B, 1, d), cache)``.
+    ``x (B, W, d)``: ``W`` is 1 in a decode step; ``W > 1`` is the
+    speculative verify (the reference's ``_mla_decode_multi``), row ``b``'s
+    token ``j`` at position ``pos[b] + j``.  ``pos (B,)``: row ``b`` writes
+    its latents at ring indices ``pos[b] .. pos[b] + W - 1`` and query ``j``
+    attends to ``<= pos[b] + j``; ``live=False`` rows drop their writes,
+    and so do writes past the ring or the mapped pages.  The ``W`` latents
+    land in one scatter.  Then the cached latents of every slot are
+    dequantized and expanded to per-head keys and values through the packed
+    ``wkv_b`` linear, once over the whole ring (``dq_linear``; on the kernel
+    path the fused GEMM over all ``B * S`` cached latents, as in a decode
+    step), and ``W`` single-query steps attend: the score dots summed in f32
+    (bf16 operands, no bf16 rounding, as XLA folds the reference's cast),
+    divided by ``sqrt(nope + rope)``, an f32 softmax rounded to the compute
+    dtype, the value dot rounded once.  ``pages (B, P)``: the leaves are
+    page pools ``(num_pages, page_size, F)`` written and read through the
+    page table, as in :func:`gqa_decode`.  Writes ``cache`` in place and
+    returns ``(y (B, W, d), cache)``.
     """
-    if x.shape[1] != 1:
-        raise NotImplementedError(
-            "multi-token (speculative verify) MLA decode, _mla_decode_multi, is not "
-            "ported yet: ROADMAP.md queue 1 item 6 (6.3, speculative decoding)")
-    B = x.shape[0]
+    B, W = x.shape[:2]
     H = cfg.n_heads
     nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     kvr = cfg.kv_lora_rank
     cd = cfg.cdtype
-    pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
-    if pos.ndim == 0:
-        pos = pos.expand(B).contiguous()
+    posk = _positions(pos, B, W, x.device)                             # (B, W)
 
     cq = L.rmsnorm(dq_linear(x, p["wq_a"]), p["q_norm"])
-    q = dq_linear(cq, p["wq_b"]).reshape(B, 1, H, nope + rope)
+    q = dq_linear(cq, p["wq_b"]).reshape(B, W, H, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     ckv_new = dq_linear(x, p["wkv_a"])
     c_kv, k_rope_new = ckv_new[..., :kvr], ckv_new[..., kvr:]
     c_kv = L.rmsnorm(c_kv, p["kv_norm"])
-    cos, sin, rot = L.rope_freqs(rope, cfg.rope_theta, pos[:, None], 1.0)
+    cos, sin, rot = L.rope_freqs(rope, cfg.rope_theta, posk, 1.0)
     q_rope = L.apply_rope(q_rope, cos, sin, rot)
     k_rope_new = L.apply_rope(k_rope_new[:, :, None, :], cos, sin, rot)[:, :, 0]
 
     if kv_spec is None:
-        qc, qs = quant_per_token(c_kv)                       # (B, 1, kvr), (B, 1, 1)
+        qc, qs = quant_per_token(c_kv)                       # (B, W, kvr), (B, W, 1)
     else:
         qc, qs = kvq.quant_channelwise(c_kv, kv_spec)
     # dense: the (B, S, F) rings seen as (B, 1, S, F), one "kv-head" of the GQA writer
     ckv_i, ckv_s, krope_i = _write_and_read(
-        cache, ("ckv", "ckv_scale", "krope"),
-        (qc[:, 0], qs[:, 0], k_rope_new[:, 0].to(torch.bfloat16)), pos, live, pages,
-        page_size, mid=False)
+        cache, ("ckv", "ckv_scale", "krope"), (qc, qs, k_rope_new.to(torch.bfloat16)), posk,
+        live, pages, page_size, mid=False)
     S = ckv_i.shape[1]
     if kv_spec is None:
         ckv_f = (ckv_i.to(torch.float32) * ckv_s).to(cd)
@@ -340,13 +371,17 @@ def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     kv = dq_linear(ckv_f, p["wkv_b"]).reshape(B, S, H, nope + vd)
     k_nope, v = kv[..., :nope], kv[..., nope:]
     f32 = torch.float32
-    s = torch.einsum("bqhn,bkhn->bhqk", q_nope.to(cd).to(f32), k_nope.to(cd).to(f32))
-    s = s + torch.einsum("bqhr,bkr->bhqk", q_rope.to(cd).to(f32),
-                         krope_i.to(cd).to(f32))
-    s = qz.over(s, math.sqrt(nope + rope))
-    valid = torch.arange(S, device=x.device)[None, None, None, :] <= pos[:, None, None, None]
-    s = torch.where(valid, s, torch.full((), -math.inf, device=x.device))
-    e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
-    w = (e / torch.sum(e, dim=-1, keepdim=True)).to(cd)
-    o = torch.einsum("bhqk,bkhv->bqhv", w.to(f32), v.to(cd).to(f32)).to(cd)
-    return dq_linear(o.reshape(B, 1, H * vd), p["wo"]), cache
+    k_nope32, krope32, v32 = k_nope.to(cd).to(f32), krope_i.to(cd).to(f32), v.to(cd).to(f32)
+    ring = torch.arange(S, device=x.device)[None, None, None, :]
+    outs = []
+    for j in range(W):
+        s = torch.einsum("bqhn,bkhn->bhqk", q_nope[:, j:j + 1].to(cd).to(f32), k_nope32)
+        s = s + torch.einsum("bqhr,bkr->bhqk", q_rope[:, j:j + 1].to(cd).to(f32), krope32)
+        s = qz.over(s, math.sqrt(nope + rope))
+        valid = ring <= posk[:, j, None, None, None]
+        s = torch.where(valid, s, torch.full((), -math.inf, device=x.device))
+        e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+        w = (e / torch.sum(e, dim=-1, keepdim=True)).to(cd)
+        o = torch.einsum("bhqk,bkhv->bqhv", w.to(f32), v32).to(cd)
+        outs.append(o.reshape(B, 1, H * vd))
+    return dq_linear(torch.cat(outs, dim=1) if W > 1 else outs[0], p["wo"]), cache

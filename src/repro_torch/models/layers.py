@@ -200,11 +200,37 @@ def norm_init(d: int, kind: str = "rmsnorm", dtype=torch.float32,
     return p
 
 
+def halving_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s sum over the last axis (kept, size 1) by pairwise halving:
+    elementwise adds of the two halves (a zero padded onto an odd width)
+    until one column is left, so each row's sum is the same whatever the
+    other rows are."""
+    while t.shape[-1] > 1:
+        if t.shape[-1] % 2:
+            t = F.pad(t, (0, 1))
+        h = t.shape[-1] // 2
+        t = t[..., :h] + t[..., h:]
+    return t
+
+
+def row_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t.sum(-1, keepdim=True)`` in an order that does not depend on the
+    number of rows.  On the card the library's reduction picks its split of
+    a row by the row count, so a speculative verify's row (B x W rows)
+    would not sum as the decode step's (B rows): :func:`halving_sum`.  On
+    the CPU ``torch.sum``, whose loop over a row is the same at any row
+    count (and gives the reference's bits at the tests' widths)."""
+    if t.device.type == "cpu":
+        return torch.sum(t, dim=-1, keepdim=True)
+    return halving_sum(t)
+
+
 def rmsnorm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
-    """In f32, cast back to ``x``'s dtype; the mean is a sum divided by the
-    width, as the reference's ``jnp.mean``."""
+    """In f32, cast back to ``x``'s dtype; the mean is a sum
+    (:func:`row_sum`) divided by the width, as the reference's
+    ``jnp.mean``."""
     x32 = x.to(torch.float32)
-    var = qz.over(torch.sum(x32 * x32, dim=-1, keepdim=True), x.shape[-1])
+    var = qz.over(row_sum(x32 * x32), x.shape[-1])
     out = x32 * torch.rsqrt(var + eps) * p["scale"].to(torch.float32)
     return out.to(x.dtype)
 
@@ -212,8 +238,8 @@ def rmsnorm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
 def layernorm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
     x32 = x.to(torch.float32)
     n = x.shape[-1]
-    mu = qz.over(torch.sum(x32, dim=-1, keepdim=True), n)
-    var = qz.over(torch.sum((x32 - mu) ** 2, dim=-1, keepdim=True), n)
+    mu = qz.over(row_sum(x32), n)
+    var = qz.over(row_sum((x32 - mu) ** 2), n)
     out = (x32 - mu) * torch.rsqrt(var + eps)
     out = out * p["scale"].to(torch.float32)
     if "bias" in p:
@@ -279,3 +305,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     o2 = x2 * c + x1 * s
     out = torch.stack([o1, o2], dim=-1).reshape(xr.shape)
     return torch.cat([out, xp.to(out.dtype)], dim=-1) if xp.shape[-1] else out
+
+
+def quantize_kv(kv: torch.Tensor, bits: int = 8) -> tuple:
+    """Symmetric int8 quantization of KV entries with one scale per
+    ``(batch, head)`` slice over the last two axes: ``(q int8, scale)`` with
+    ``kv ~ q * scale`` (``bits`` is accepted, as in the reference, and the
+    codes are int8 whatever it is)."""
+    amax = torch.amax(torch.abs(kv), dim=(-2, -1), keepdim=True)
+    scale = qz.over(torch.clamp_min(amax, 1e-6), 127.0)
+    return torch.clamp(torch.round(kv / scale), -127, 127).to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """``q * scale`` in f32, rounded to ``dtype``."""
+    return qz.dequantize(q, scale, dtype)

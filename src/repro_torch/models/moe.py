@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models import layers as L
+
 
 def _total_order(x: torch.Tensor) -> torch.Tensor:
     """An int32 key that sorts f32 values in IEEE total order (``-0.0``
@@ -37,7 +39,7 @@ def route_topk(logits: torch.Tensor, k: int, routing: str = "softmax") -> tuple:
                        stable=True).indices[..., :k]
     topv = torch.gather(scores, -1, order)
     if routing == "sigmoid":
-        gates = topv / torch.clamp_min(torch.sum(topv, dim=-1, keepdim=True), 1e-9)
+        gates = topv / torch.clamp_min(L.row_sum(topv), 1e-9)
     else:
         gates = torch.softmax(topv, dim=-1)
     return gates, order

@@ -650,6 +650,37 @@ def supports_paging(cfg) -> bool:
     return cfg.family in ATTN_FAMILIES + ("hybrid", "audio")
 
 
+def supports_speculative(cfg) -> bool:
+    """Whether the family can draft and verify speculatively: it needs a
+    multi-token verify whose cache rewinds by masked overwrite (attention
+    rings do; the SSM state of ``ssm`` and ``hybrid`` cannot un-apply a
+    token), and a width-generic decode (``audio``'s cross-attention decode
+    takes one query token)."""
+    return cfg.family in ATTN_FAMILIES
+
+
+def draft_model(dparams: dict, cfg, draft_bits: int) -> dict:
+    """A low-bit draft of a deployed verifier: every :class:`QTensor` leaf
+    re-quantized to a uniform ``draft_bits`` assignment
+    (``api.qtensor.requantize``), the aggressive end of the channel-wise
+    Pareto front drafting for the searched deploy from one checkpoint.
+    Every other leaf (the embedding, norms, biases, the router) is the
+    verifier's own tensor, shared by reference."""
+    from repro_torch.api.qtensor import requantize
+    if not supports_speculative(cfg):
+        raise ValueError(f"family {cfg.family!r} cannot draft (see supports_speculative)")
+
+    def walk(t):
+        if isinstance(t, QTensor):
+            return requantize(t, draft_bits)
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        return t
+    return walk(dparams)
+
+
 def init_paged_caches(cfg, max_slots: int, num_pages: int, page_size: int, kv_bits=None,
                       device=None) -> dict:
     """Paged serving caches on ``device``: each ring leaf's ``(max_slots,
@@ -742,7 +773,9 @@ def _cross_decode(p, cfg, x, cache, backend, kv_spec=None):
 def decode_block(p, cfg, h, cache, pos, live=None, kv_spec=None, backend="cuda",
                  pages=None, page_size=None):
     """One decoder block of a decode step over its layer's ring ``cache``
-    (written in place): ``h (B, 1, d) -> h'``.  ``pages (B, P)``: the ring
+    (written in place): ``h (B, W, d) -> h'``, ``W > 1`` the speculative
+    verify's tokens at ``pos .. pos + W - 1`` (attention families only).
+    ``pages (B, P)``: the ring
     leaves are page pools read and written through this page table.  An
     audio decoder block (``p["xattn"]``) also cross-attends over the
     ``cross_`` leaves of ``cache``."""
@@ -768,25 +801,35 @@ def decode_block(p, cfg, h, cache, pos, live=None, kv_spec=None, backend="cuda",
 
 def decode_step(dparams, cfg, tokens, caches, pos, backend: str = "cuda",
                 live=None, kv_bits=None, pages=None, page_size=None):
-    """One decode step: ``tokens (B, 1) -> (logits (B, 1, V) f32, caches)``.
+    """One decode step: ``tokens (B, W) -> (logits (B, W, V) f32, caches)``.
 
+    ``W`` is 1 in a decode tick.  ``W > 1`` is the speculative verify: row
+    ``b``'s token ``j`` is scored at position ``pos[b] + j``, all ``W``
+    cache entries written in one scatter and attention run one query at a
+    time (``attention.gqa_decode``/``mla_decode``), so its logits are those
+    of ``W`` sequential steps; only the families of
+    :func:`supports_speculative` take it (``ValueError`` otherwise).
     ``pos (B,)``: row ``b`` writes its new cache entry at ring index
     ``pos[b]`` and attends to ``<= pos[b]``; a scalar broadcasts.  ``live
     (B,)`` bool: rows with ``live=False`` leave the caches untouched (their
     logits are garbage; their SSM state does not move).  ``kv_bits`` must
     be the policy the caches were built with; with a packed GQA cache and
     ``backend="cuda"`` attention runs the decode-attention kernel, once per
-    layer (once per shared-block application in the hybrid; MLA has no
-    fused attention dot: its latent ring is dequantized and expanded
-    through the packed ``wkv_b`` linear).  ``pages (B, P)`` int: the page
-    table of the paged layout (:func:`init_paged_caches`, ``P * page_size
-    == max_len``); every ring write lands through it and every ring read
-    gathers the slot's pages into the dense ring view, which the attention
-    (K4 included) reads as it reads a dense ring; per-slot leaves ignore
-    it.  The audio decode step embeds the tokens with no positional
-    embedding, as the reference's does.  The caches are updated in place
-    and returned.
+    layer and query token (once per shared-block application in the
+    hybrid; MLA has no fused attention dot: its latent ring is dequantized
+    and expanded through the packed ``wkv_b`` linear).  ``pages (B, P)``
+    int: the page table of the paged layout (:func:`init_paged_caches`, ``P
+    * page_size == max_len``); every ring write lands through it (writes
+    past the mapped pages are dropped) and every ring read gathers the
+    slot's pages into the dense ring view, which the attention (K4
+    included) reads as it reads a dense ring; per-slot leaves ignore it.
+    The audio decode step embeds the tokens with no positional embedding,
+    as the reference's does.  The caches are updated in place and
+    returned.
     """
+    if tokens.shape[1] > 1 and not supports_speculative(cfg):
+        raise ValueError(f"family {cfg.family!r} has no multi-token verify path "
+                         "(see supports_speculative)")
     spec = kv_specs(cfg, kv_bits)
     cd = cfg.cdtype
     x = dparams["embed"][tokens].to(cd)

@@ -77,6 +77,11 @@ on a machine that has only PyTorch:
   nothing else; the kernel API's ``quant_conv2d`` (one per-group launch),
   ``qtensor_matmul`` and ``qtensor_conv2d`` (one fused launch each) match
   their CPU results.
+* Speculative decoding: at bf16 the rows of K1, K2 and K3 launches at M = 20
+  equal the same rows launched at M = 4 bitwise (qwen1.5-4b and deepseek-v3
+  shapes), K1 equal to K2; on reduced qwen and deepseek a W = 5 verify step
+  equals five decode steps bitwise and greedy speculative serving gives the
+  plain engine's tokens.
 * Reduced deepseek-v3-671b on the card: each MLA and MoE sub-layer of the
   kernel path within 2^-5 * max(1, max|y|) of the plain backend on the
   same input (prefill and one decode step, the plain decode fed the kernel
@@ -1079,3 +1084,130 @@ def test_mma_path_raises_instead_of_falling_back(monkeypatch):
     with pytest.raises(RuntimeError, match="quant_matmul_2d"):
         qmk.quant_matmul_2d(x, packed, scale, 4, torch.bfloat16)
     assert (qmk.quant_matmul_2d.launches, qmk.quant_matmul_2d.mma_launches) == before
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: a verify row is the decode step's row
+# ---------------------------------------------------------------------------
+
+ROW_CASES = [
+    # (name, kernel, E, c_out, c_in): qwen1.5-4b's per-group depths, deepseek-v3's
+    # fused wq_b / wkv_b / shared w_down (K1) and its we_down expert stack (K3)
+    ("K2-qwen-qkvo", "k2", 0, 2560, 2560), ("K2-qwen-up", "k2", 0, 6912, 2560),
+    ("K2-qwen-down", "k2", 0, 2560, 6912), ("K1-ds-wq_b", "k1", 0, 24576, 1536),
+    ("K1-ds-wkv_b", "k1", 0, 32768, 512), ("K1-ds-shared-down", "k1", 0, 7168, 2048),
+    ("K3-ds-we_down", "k3", 16, 7168, 2048),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,kernel,E,c_out,c_in", ROW_CASES, ids=[c[0] for c in ROW_CASES])
+def test_bf16_rows_do_not_depend_on_m(name, kernel, E, c_out, c_in):
+    """At bf16 the rows of a launch at M = 20 (a 4-slot verify at k = 4)
+    equal, bitwise, the same rows launched at M = 4 (the decode step), at
+    any place in the launch; K1 equals K2 bitwise at M = 20."""
+    from repro_torch.models import serving
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(len(name))
+    qt = serving.init_deployed_linear(gen, c_in, c_out, _moe_cfg(128), expert_axis=E,
+                                      tile_n=128 if kernel != "k2" else None, device=dev)["w"]
+    assert (qt.fused_packed is not None) == (kernel != "k2") and len(qt.bits) > 1
+    lead = (E,) if E else ()
+    x = torch.randn(lead + (20, c_in), generator=gen, device=dev).to(torch.bfloat16)
+    backend = "cuda-pergroup" if kernel == "k2" else "cuda"
+    before = ops.mma_launch_counts()
+    y20 = qt.matmul(x, backend, torch.bfloat16)
+    torch.cuda.synchronize()
+    after = ops.mma_launch_counts()
+    want = {"k1": "quant_matmul_fused", "k2": "quant_matmul", "k3": "quant_matmul_fused_batched"}
+    assert after[want[kernel]] > before[want[kernel]], "not on the tensor cores"
+    for r0 in (0, 4, 8, 16):
+        y4 = qt.matmul(x[..., r0:r0 + 4, :].contiguous(), backend, torch.bfloat16)
+        assert torch.equal(y20[..., r0:r0 + 4, :], y4), f"rows {r0}..{r0 + 3}"
+    if kernel == "k1":
+        assert torch.equal(y20, qt.matmul(x, "cuda-pergroup", torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "deepseek-v3-671b"])
+def test_reduced_speculative_engine_on_the_card(arch):
+    """Reduced models on the card: a W = 5 verify step's logits and caches
+    equal five sequential decode steps bitwise for qwen (every linear on the
+    tensor cores, K4 once per query token and layer), and greedy
+    speculative serving (self-draft, k = 4, paged) gives the plain engine's
+    tokens with every draft accepted.  Deepseek's f32 router is a library
+    ``matmul`` whose sums may follow M, so there the verify is held within
+    2^-5 x max(1, max|y|) of the steps and every request is served."""
+    import dataclasses
+
+    from repro_torch.api.scheduler import Request, ServingEngine
+    from repro_torch.config import get_config
+    from repro_torch.models import serving
+    dev = _cuda()
+    cfg = get_config(arch).reduced()
+    if arch == "deepseek-v3-671b":
+        cfg = dataclasses.replace(cfg, capacity_factor=64.0)
+    dp = serving.init_deployed_model(cfg, seed=0, device=dev)
+    kv = (2, 4, 8)
+    toks = torch.randint(0, cfg.vocab_size, (4, 8), device=dev)
+    _, pf = serving.prefill(dp, cfg, {"tokens": toks}, "cuda", kv_bits=kv)
+    ring = serving.embed_caches(pf, serving.init_caches(cfg, 4, 32, kv, dev))
+    feed = torch.randint(0, cfg.vocab_size, (4, 5), device=dev)
+    pos = torch.tensor([8, 8, 8, 8], device=dev)
+    seq = {k: v.clone() for k, v in ring.items()}
+    steps = [serving.decode_step(dp, cfg, feed[:, j:j + 1], seq, pos + j, "cuda", kv_bits=kv)[0]
+             for j in range(5)]
+    before = ops.launch_counts()
+    logits, ring = serving.decode_step(dp, cfg, feed, ring, pos, "cuda", kv_bits=kv)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    ref = torch.cat(steps, dim=1)
+    if arch == "qwen1.5-4b":
+        assert after["decode_attention"] - before["decode_attention"] == 5 * cfg.n_layers
+        assert torch.equal(logits, ref)
+        for k in ring:
+            assert torch.equal(ring[k], seq[k]), k
+    else:
+        assert float((logits - ref).abs().max()) <= 2.0 ** -5 * max(1.0, float(ref.abs().max()))
+    rng = np.random.default_rng(0)
+    reqs = [Request(rng.integers(0, cfg.vocab_size, (int(rng.integers(3, 9)),)),
+                    max_tokens=int(rng.integers(4, 12))) for _ in range(6)]
+    arrivals = [0, 0, 1, 3, 5, 6]
+    out, accepted = {}, []
+    for k in (0, 4):
+        eng = ServingEngine(cfg, dp, backend="cuda", max_slots=4, max_len=32, prefill_len=8,
+                            kv_bits=kv, speculate_k=k, draft_kv_bits=kv)
+        step = eng.step
+
+        def counted(step=step):
+            res = step()
+            accepted.extend(res.get("accepted", []))
+            return res
+        eng.step = counted
+        res = eng.run(reqs, arrivals)
+        out[k] = [res[i].tokens.tolist() for i in range(len(reqs))]
+    assert [len(t) for t in out[4]] == [r.max_tokens for r in reqs] and accepted
+    if arch == "qwen1.5-4b":
+        assert out[4] == out[0] and set(accepted) == {4}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 2560, 5120, 7168])
+def test_norm_rows_do_not_depend_on_m(d):
+    """RMSNorm and LayerNorm on the card sum each row by ``layers.row_sum``:
+    rows at M = 20 equal the same rows at M = 4 bitwise (the library's
+    reduction splits a row by the row count), and the sums stay within f32
+    rounding of ``torch.sum``'s."""
+    from repro_torch.models import layers as L
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(d)
+    x = (torch.randn((20, d), generator=gen, device=dev) * 3).to(torch.bfloat16)
+    p = {"scale": torch.rand((d,), generator=gen, device=dev).to(torch.bfloat16),
+         "bias": torch.rand((d,), generator=gen, device=dev).to(torch.bfloat16)}
+    for norm in (L.rmsnorm, L.layernorm):
+        y20 = norm(x, p)
+        for r0 in (0, 8, 16):
+            assert torch.equal(y20[r0:r0 + 4], norm(x[r0:r0 + 4].contiguous(), p)), (norm, r0)
+    x32 = x.float() ** 2
+    got, ref = L.row_sum(x32), torch.sum(x32, dim=-1, keepdim=True)
+    assert ((got - ref).abs() <= d * 2.0 ** -24 * ref.abs()).all()

@@ -31,8 +31,10 @@
 * Sampling: ``argmax`` takes the first of tied maxima, as ``jnp.argmax``;
   ``top_k=1`` is greedy for every generator; temperature sampling draws
   from the softmax.
-* The launcher runs on the CPU; options not ported raise, naming
-  ``ROADMAP.md``.
+* The launcher runs on the CPU; the option not ported (``mesh``) raises,
+  naming ``ROADMAP.md``; the speculative options build an engine, and a
+  two-token (verify) decode step raises ``ValueError`` for a family that
+  cannot verify.
 """
 import numpy as np
 import pytest
@@ -266,9 +268,15 @@ def test_launcher_serves_on_the_cpu(capsys):
 
 def test_options_not_ported_raise(models):
     _, cfg, _, dp = models
-    for opt in (dict(speculate_k=2), dict(draft_kv_bits=4), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sch.ServingEngine(cfg, dp, device="cpu", **opt)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserving.decode_step(dp, cfg, torch.zeros((1, 2), dtype=torch.int64),
-                             tserving.init_caches(cfg, 1, 8, device="cpu"), 0, "torch")
+        sch.ServingEngine(cfg, dp, device="cpu", mesh=object())
+    for opt in (dict(speculate_k=2), dict(draft_kv_bits=4)):   # speculative decoding is served
+        sch.ServingEngine(cfg, dp, device="cpu", **opt)
+    logits, _ = tserving.decode_step(dp, cfg, torch.zeros((1, 2), dtype=torch.int64),
+                                     tserving.init_caches(cfg, 1, 8, device="cpu"), 0, "torch")
+    assert logits.shape == (1, 2, cfg.vocab_size)             # a two-token verify step
+    mcfg = get_config("mamba2-780m").reduced()
+    mdp = tserving.init_deployed_model(mcfg, seed=0, device="cpu")
+    with pytest.raises(ValueError, match="multi-token verify"):
+        tserving.decode_step(mdp, mcfg, torch.zeros((1, 2), dtype=torch.int64),
+                             tserving.init_caches(mcfg, 1, 8, device="cpu"), 0, "torch")

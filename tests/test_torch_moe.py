@@ -296,10 +296,22 @@ def test_mla_decode_matches_reference(mla_setup, mla_reference, kv_bits, backend
 
 
 def test_mla_decode_takes_one_token():
+    """One token a call, or W at once (the speculative verify): a two-token
+    call gives the rows and the cache of two one-token calls, bitwise."""
     cfg = get_config("deepseek-v3-671b").reduced()
     dp = tserving.init_deployed_model(cfg, device="cpu")
-    cache = tserving.init_caches(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.mla_decode(dp["blocks"][0]["attn"], cfg, torch.zeros((1, 2, cfg.d_model)),
-                         {k: v[0] for k, v in cache.items()}, torch.zeros(1),
-                         lambda h, d: tserving.dq_linear(h, d, cfg.cdtype, "torch"))
+    cache = tserving.init_caches(cfg, 2, 8, device="cpu")
+    p = dp["blocks"][0]["attn"]
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 2, cfg.d_model))
+                         .astype(np.float32)).to(torch.bfloat16)
+
+    def dq(h, d):
+        return tserving.dq_linear(h, d, cfg.cdtype, "torch")
+    one = {k: v[0].clone() for k, v in cache.items()}
+    ys = [tattn.mla_decode(p, cfg, x[:, j:j + 1], one, torch.tensor([3, 5]) + j, dq)[0]
+          for j in range(2)]
+    two = {k: v[0].clone() for k, v in cache.items()}
+    y, _ = tattn.mla_decode(p, cfg, x, two, torch.tensor([3, 5]), dq)
+    assert y.shape == (2, 2, cfg.d_model) and torch.equal(y, torch.cat(ys, dim=1))
+    for k in one:
+        assert torch.equal(one[k], two[k]), k

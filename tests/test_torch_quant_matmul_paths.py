@@ -13,7 +13,8 @@ pin:
   tensor cores at bf16 for K2 at every K and for K1 and K3 at ``tile_n >=
   16``;
 * the plans: no expert count among the tensor-core plans' arguments, the K
-  split fixed by M;
+  split fixed by M, the decode plan up to ``MMA_ROWS_MAX`` rows (a
+  speculative verify's rows sum as the decode step's);
 * that ``ops.quant_matmul``/``quant_matmul_fused`` and ``QTensor.matmul``
   (fused and per-group weights, expert stacks) hand ``compute_dtype`` down
   to the kernel wrapper, with x in the dtype its routine reads, through a
@@ -88,8 +89,10 @@ def test_split_plans_take_no_expert_count():
 
 
 @pytest.mark.parametrize("M,plan", [(1, (1, 4, 4)), (4, (1, 4, 4)), (8, (1, 4, 4)),
-                                    (9, (8, 1, 8)), (40, (8, 1, 8)), (64, (8, 1, 8)),
-                                    (65, (8, 1, 8)), (2048, (8, 1, 8))])
+                                    (9, (1, 4, 4)), (40, (8, 1, 8)), (64, (8, 1, 8)),
+                                    (65, (8, 1, 8)), (2048, (8, 1, 8)),
+                                    (12, (1, 4, 4)), (20, (1, 4, 4)), (32, (1, 4, 4)),
+                                    (33, (8, 1, 8))])
 def test_mma_plan_by_rows(M, plan):
     mf, wk, wn = qmk.mma_plan(M)
     assert (mf, wk, wn) == plan and wk * wn <= 32
