@@ -296,13 +296,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the mixture, so there is no library yardstick.
 3f, 4e, 5e. The other LM families, one after another, each freed before the
    next: ``serving.init_deployed_model`` from seed 0 on the card at every
-   published width of stablelm-12b, minicpm-2b, chatglm3-6b (full depth),
-   phi-3-vision-4.2b (the VLM), arctic-480b (depth cut from 35 to 2
-   layers, its packed bytes computed and printed), mamba2-780m (SSM) and
-   zamba2-1.2b (hybrid), then ``ServingEngine(backend="cuda", max_slots=4,
-   max_len=1024)`` on a staggered trace (6 requests, 8-16 new tokens,
-   prompts of 64-256 tokens at a prefill width of 256; the VLM's 600-800 at
-   1024, each with its 576 ``prefix_embeds`` from the trace's generator)
+   published width of stablelm-12b, minicpm-2b, chatglm3-6b,
+   phi-3-vision-4.2b (the VLM), arctic-480b, mamba2-780m (SSM) and
+   zamba2-1.2b (hybrid), each cut to 8 layers (zamba2 to 12, two groups of
+   its shared block; arctic to 2, its packed bytes at full depth computed
+   and printed) to keep the run inside its time limit, then
+   ``ServingEngine(backend="cuda", max_slots=4, max_len=1024)`` on a
+   staggered trace (6 requests, 8-16 new tokens, prompts of 64-256 tokens
+   at a prefill width of 256; the VLM's 600-800 at 1024, each with its 576
+   ``prefix_embeds`` from the trace's generator)
    under kv_bits (2, 4, 8) (mamba2 has no ring).  The launch counts are
    zeroed just before each family's run and read just after.  Gates: every
    engine step launches each fused linear's K1 once (the hybrid's shared
@@ -384,6 +386,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    verify within 2^-5 x max(1, max|y|) of 3 sequential steps (its f32
    router is a library ``matmul``, whose sums may follow M); K2's expert
    axis over a verify (capacity 12) on both plans.
+[train] The LM training path (after 3g): minicpm-2b
+   (arXiv 2404.06395) at full width and all 40 layers (2304 wide, 36 heads
+   of 64, d_ff 5760, vocab 122753 padded to 122880; 3.0 B params) from
+   ``train.steps.init_train_state`` seed 0 on the card, ``train_compute=
+   "int8"``, AdamW with bf16 moments on minicpm's WSD schedule,
+   ``SyntheticLM`` seq 128 x batch 8 (the launcher's defaults): 2 warmup
+   (QAT8), 1 theta and 3 W steps, then ``anneal_epoch``.  The counts are
+   zeroed just before the six steps and read just after.  Gates: every
+   loss finite; K5 launches ``steps.int8_products_per_step`` (1123) a step,
+   every one on the int8 tensor cores, no other kernel of the port; one
+   more W step with every K5 call held bitwise to ``scaled_int8_mm_plain``
+   on the same int8 operands.  Reported: each step's loss, ms (CUDA
+   events; host ms beside) and peak memory; K5 at the step's 9 product
+   shapes (device time, plain version, ``torch._int_mm`` plus the
+   epilogue, bound), summed over a step's 1123 calls; a W step at f32 and
+   at bf16 compute (``torch.matmul``, TF32 off); the W step's split
+   (forward and backward against the optimizer by CUDA events, device
+   busy time by kernel family from one profiled forward and backward,
+   idle share); AdamW's extra peak memory, the functional ``update``
+   against the in-place ``apply_``.
 6. The kernel summary line (K1 at the resnet8 shapes with deepseek's three
    K1 shapes beside them and the launches of both paths, K2 over one
    qwen1.5-4b decode step with its SIMT routine's time, its prefill forward
@@ -404,6 +426,7 @@ Exits non-zero without a CUDA device, and when run outside the repository
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -464,6 +487,22 @@ def device_kernels(fn, iters=1):
         wall = (time.perf_counter() - t0) * 1e3
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA], wall
+
+
+def device_only_kernels(fn):
+    """As :func:`device_kernels` for one call, the profiler recording the
+    device's events only, read raw (a call of ~10^5 kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # the raw events: building the profiler's event tree takes ~30 s here
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda], wall
 
 
 def device_ms(fn, iters=20, warmup=3):
@@ -529,6 +568,82 @@ def host_ms(fn, iters=20, warmup=3) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def k5_plan_row(M, N, K, sms) -> dict:
+    """The K5 plan of an ``M x N x K`` product on a card of ``sms`` SMs, as
+    a row's fields."""
+    from repro_torch.kernels import int8_matmul as imk
+    p = imk.k5_plan(M, N, K, sms)
+    return {"class": p.cls, "kernel": p.kernel, "BM": p.bm, "BN": p.bn, "nf": p.nf,
+            "wm": p.wm, "wn": p.wn, "grid_m": p.grid_m, "tiles_m": p.tiles_m,
+            "tiles_n": p.tiles_n, "splits": p.splits, "kper": p.kper}
+
+
+def int_mm_library(a, b, sa, sb):
+    """``torch._int_mm`` on operands padded to its rules (M > 16, K and N
+    multiples of 8; padded outside the timed call), then the epilogue."""
+    M, K = a.shape
+    N = b.shape[0]
+    mp, kp, np_ = max(M, 17), -(-K // 8) * 8, -(-N // 8) * 8
+    ap = torch.nn.functional.pad(a, (0, kp - K, 0, mp - M))
+    bt = torch.nn.functional.pad(b, (0, kp - K, 0, np_ - N)).t()
+    return lambda: torch._int_mm(ap, bt)[:M, :N].float() * sa[:, None] * sb[None, :]
+
+
+def k5_timed(cases, card, sms, tag="K5"):
+    """One row per ``(label, a, b, sa, sb)`` case: K5's device time (the
+    profiler's, or a CUDA graph of back-to-back calls where it loses
+    events), its plain version's and the library's (``torch._int_mm`` plus
+    the epilogue), the device kernels one call puts on the card and the
+    bound max(bytes / 3.35 TB/s, 2 M N K / 1979 TOP/s int8)."""
+    from repro_torch.kernels import int8_matmul as imk
+    rows = []
+    for label, a, b, sa, sb in cases:
+        M, K = a.shape
+        N = b.shape[0]
+        lib = int_mm_library(a, b, sa, sb)
+        check(torch.equal(lib(), imk.scaled_int8_mm_plain(a, b, sa, sb)),
+              f"the library yardstick computes another function: {label}")
+        row = dict(case=label, M=M, N=N, K=K, **k5_plan_row(M, N, K, sms))
+        fns = {"k5": lambda: imk.scaled_int8_mm(a, b, sa, sb),
+               "plain": lambda: imk.scaled_int8_mm_plain(a, b, sa, sb), "library": lib}
+        for key, fn in fns.items():
+            # where the profiler loses events, a CUDA graph of back-to-back
+            # calls: the event loop of a few-microsecond call is host time
+            row[f"{key}_loop_ms"] = cuda_ms(fn, iters=20)
+            row[f"{key}_ms"], row[f"{key}_timer"] = kernel_ms(fn, 10, row[f"{key}_loop_ms"])
+        row["k5_device_ops"] = len(device_kernels(fns["k5"])[0])
+        for _ in range(2):          # the profiler now and then loses a call's events
+            if row["k5_device_ops"]:
+                break
+            row["k5_device_ops"] = len(device_kernels(fns["k5"])[0])
+        row["bytes_ms"] = (M * K + N * K + 4 * (M + N) + 4 * M * N) / PEAK_BYTES_PER_S * 1e3
+        row["ops_ms"] = 2.0 * M * N * K / PEAK_INT8_OP_PER_S * 1e3
+        row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+        row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
+        rows.append(row)
+        log(f"[times] {tag} " + json.dumps(row) + f" | {card}")
+    return rows
+
+
+def k5_summed(rows, what, card, weights=None):
+    """The rows' times summed (each ``weights[i]`` times, the calls of a
+    step), per class too."""
+    w = weights or [1] * len(rows)
+    keys = ("k5_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms", "bound_ms")
+    total = {key: sum(n * r[key] for n, r in zip(w, rows)) for key in keys}
+    total["k5_device_ops"] = sum(n * r["k5_device_ops"] for n, r in zip(w, rows))
+    total["bound_by"] = "bytes" if total["bytes_ms"] >= total["ops_ms"] else "operations"
+    total["products"] = sum(w)
+    total["by_class"] = {
+        cls: {key: sum(n * r[key] for n, r in zip(w, rows) if r["class"] == cls)
+              for key in ("k5_ms", "bound_ms", "library_ms")}
+        | {"products": sum(n for n, r in zip(w, rows) if r["class"] == cls)}
+        for cls in sorted({r["class"] for r in rows})}
+    log(f"[times] K5 over one {what} training step ({total['products']} products): "
+        f"{json.dumps(total)} | {card}")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1829,6 +1944,10 @@ FAMILY_IDS = ("stablelm-12b", "minicpm-2b", "chatglm3-6b", "phi-3-vision-4.2b", 
 FAM_SLOTS, FAM_MAX_LEN = 4, 1024
 FAM_PREFILL, VLM_PREFILL = 256, 1024
 ARCTIC_LAYERS = 2
+# every family's depth in this phase (widths as published): cut to keep the
+# whole run inside its time limit as the script grows, zamba2 to two groups
+# of its shared attention block
+FAM_LAYERS, FAM_DEPTH = {"arctic-480b": ARCTIC_LAYERS, "zamba2-1.2b": 12}, 8
 FAM_KV = (2, 4, 8)           # every family with a GQA ring; mamba2 has none
 FAM_GATED_STEPS = 2          # decode steps per family with the block and K4 checks
 K4_FAMILY_POS = (0, 255, 1023)
@@ -2081,8 +2200,8 @@ def serve_family(arch, dev, card, ops, gen):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     t_fam = time.perf_counter()
     full = get_config(arch)
-    cfg = (dataclasses.replace(full, n_layers=ARCTIC_LAYERS) if arch == "arctic-480b"
-           else full)
+    cfg = dataclasses.replace(full, n_layers=min(full.n_layers,
+                                                 FAM_LAYERS.get(arch, FAM_DEPTH)))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     dparams = serving.init_deployed_model(cfg, seed=0)
@@ -3328,6 +3447,244 @@ def k6_phase(dev, card, ops, engines):
     return report, k6
 
 
+# ---------------------------------------------------------------------------
+# The LM training path (minicpm-2b at full width and depth, int8 compute)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "minicpm-2b"
+TRAIN_SEQ, TRAIN_BATCH = 128, 8        # the training launcher's defaults: 1024 tokens a step
+TRAIN_SCHEDULE = ("warmup", "warmup", "theta", "w", "w", "w")
+
+
+def _k5_roles(cfg, tokens) -> dict:
+    """{(M, N, K): role} of the K5 products of a step: each searched
+    linear's forward, grad-input and grad-weight."""
+    d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    sites = {"wq": (cfg.n_heads * hd, d), "wk/wv": (cfg.n_kv_heads * hd, d),
+             "wo": (d, cfg.n_heads * hd), "w_gate/w_up": (ff, d), "w_down": (d, ff),
+             "lm_head": (cfg.padded_vocab, d)}
+    roles = {}
+    for site, (n, k) in sites.items():
+        for shape, leg in (((tokens, n, k), "forward"), ((tokens, k, n), "grad-input"),
+                           ((n, k, tokens), "grad-weight")):
+            role = f"{site} {leg}"
+            if role not in roles.get(shape, ""):
+                roles[shape] = f"{roles[shape]}, {role}" if shape in roles else role
+    return roles
+
+
+def lm_train(dev, card, ops, sms):
+    """Phase [train]: Alg. 1's steps on minicpm-2b at full width and depth
+    with int8 compute (K5 for every searched linear's three products).
+    Returns the report and K5's entry for the summary line."""
+    from repro_torch.config import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import int8_matmul as imk
+    from repro_torch.optim import optimizers as opt_mod
+    from repro_torch.qtrain import linear as tqt
+    from repro_torch.train import steps as steps_mod
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    check((cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.d_ff, cfg.padded_vocab)
+          == (2304, 40, 36, 5760, 122880), "minicpm-2b at its published widths, all 40 layers")
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    hp = steps_mod.TrainHParams.for_arch(cfg, train_compute="int8", warmup_steps=2,
+                                         total_steps=100)
+    check(hp.schedule == "wsd" and hp.optimizer == "adamw", "minicpm trains on WSD and AdamW")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = steps_mod.init_train_state(cfg, hp, 0, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in opt_mod.tree_leaves(state["params"]))
+    report = dict(arch=cfg.name, d_model=cfg.d_model, n_layers=cfg.n_layers,
+                  padded_vocab=cfg.padded_vocab, vocab=cfg.vocab_size, seq=TRAIN_SEQ,
+                  batch=TRAIN_BATCH, train_compute=hp.train_compute, schedule=hp.schedule,
+                  opt_state_dtype=hp.opt_state_dtype, params=n_params,
+                  init_s=time.perf_counter() - t0,
+                  resident_gb=torch.cuda.memory_allocated() / 1e9)
+    log(f"[train] {cfg.name}: d_model {cfg.d_model}, {cfg.n_layers} layers, {cfg.n_heads} "
+        f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} padded to "
+        f"{cfg.padded_vocab}; {n_params} params; seq {TRAIN_SEQ} x batch {TRAIN_BATCH}; "
+        f"train_compute int8, AdamW ({hp.opt_state_dtype} moments), WSD; init "
+        f"{report['init_s']:.2f} s, resident {report['resident_gb']:.2f} GB | {card}")
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    it = iter(data)
+    fns = {"warmup": steps_mod.make_qat_warmup_step(cfg, hp),
+           "theta": steps_mod.make_theta_step(cfg, hp, tokens),
+           "w": steps_mod.make_train_step(cfg, hp)}
+    want = steps_mod.int8_products_per_step(cfg, hp.remat)
+
+    def timed_step(fn, batch, st):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        before = imk.scaled_int8_mm.launches
+        t = time.perf_counter()
+        start.record()
+        st, m = fn(st, batch)
+        end.record()
+        torch.cuda.synchronize()
+        row = {k: float(v) for k, v in m.items()}
+        row.update(ms=start.elapsed_time(end), host_ms=(time.perf_counter() - t) * 1e3,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   k5_launches=imk.scaled_int8_mm.launches - before)
+        return st, row
+
+    # the main path: the counts zeroed just before, read just after
+    ops.reset_launch_counts()
+    steps = []
+    for i, kind in enumerate(TRAIN_SCHEDULE):
+        state, row = timed_step(fns[kind], next(it), state)
+        row = dict(step=i, kind=kind, **row)
+        steps.append(row)
+        log(f"[train] step {i} {kind}: " + json.dumps(row) + f" | {card}")
+        check(np.isfinite(row["loss"]), f"step {i} ({kind}): loss not finite")
+        check(row["k5_launches"] == want,
+              f"step {i} ({kind}): {row['k5_launches']} K5 launches, derived {want}")
+    state = steps_mod.anneal_epoch(state, cfg)
+    launches = ops.launch_counts()
+    mma = ops.mma_launch_counts()
+    check(launches["scaled_int8_mm"] == want * len(TRAIN_SCHEDULE)
+          and mma["scaled_int8_mm"] == launches["scaled_int8_mm"],
+          "every K5 launch of the path on the int8 tensor cores, want a step")
+    check(sum(v for k, v in launches.items() if k != "scaled_int8_mm") == 0,
+          "the training path launches no other kernel of the port")
+    report.update(steps=steps, k5_launches_per_step=want, tau_after_anneal=float(state["tau"]))
+    log(f"[train] {len(TRAIN_SCHEDULE)} steps: K5 launches {launches['scaled_int8_mm']} "
+        f"({want} a step = 3 x {(want - 7 * cfg.n_layers) // 3} sites (forward, grad-input, "
+        f"grad-weight) + {7 * cfg.n_layers} recomputed forwards under remat), all on the "
+        f"tensor cores; tau annealed to {report['tau_after_anneal']:.6f}")
+
+    # one more W step with every K5 call held to its plain version, bitwise
+    log(f"[clock] [train] at {time.perf_counter() - t_phase:.1f} s")
+    roles = _k5_roles(cfg, tokens)
+    kept, counts, worst, calls = {}, {}, [0.0], [0]
+    orig = tqt._int8_mm
+
+    def spy(a, b, seed_a, seed_b, backend):
+        y = orig(a, b, seed_a, seed_b, backend)
+        qa, sa = imk.rowwise_quantize(a.contiguous(), seed_a)
+        qb, sb = imk.rowwise_quantize(b.contiguous(), seed_b)
+        ref = imk.scaled_int8_mm_plain(qa, qb, sa, sb)
+        check(torch.equal(y, ref), f"K5 != its plain version bitwise at {tuple(y.shape)} "
+              f"x K {qa.shape[1]}")
+        worst[0] = max(worst[0], float((y - ref).abs().max()))
+        calls[0] += 1
+        shape = (qa.shape[0], qb.shape[0], qa.shape[1])
+        counts[shape] = counts.get(shape, 0) + 1
+        kept.setdefault(shape, (qa, qb, sa, sb))
+        return y
+
+    tqt._int8_mm = spy
+    try:
+        state, row = timed_step(fns["w"], next(it), state)
+    finally:
+        tqt._int8_mm = orig
+    check(calls[0] == want and np.isfinite(row["loss"]), "the checked W step")
+    report["checked_w_step"] = dict(row, k5_calls_bitwise=calls[0], max_abs_err=worst[0])
+    log(f"[train] checked W step: all {calls[0]} K5 calls bitwise equal to the plain version "
+        f"on the same int8 operands ({len(counts)} shapes); loss {row['loss']:.6f}")
+
+    # K5 at the step's shapes: device times, the plain version, the library, the bound
+    log(f"[clock] [train] at {time.perf_counter() - t_phase:.1f} s")
+    shapes = sorted(kept)
+    rows = k5_timed([(roles.get(sh, "?"), *kept[sh]) for sh in shapes], card, sms,
+                    tag="K5 minicpm-2b train")
+    for r, sh in zip(rows, shapes):
+        r["calls_per_step"] = counts[sh]
+    k5_step = k5_summed(rows, "minicpm-2b int8 W", card, [counts[sh] for sh in shapes])
+    del kept
+    report["k5_shapes"], report["k5_per_step"] = rows, k5_step
+
+    # the f32 and bf16 W steps beside int8 (torch.matmul, TF32 off)
+    log(f"[clock] [train] at {time.perf_counter() - t_phase:.1f} s")
+    for tc in ("f32", "bf16"):
+        hp_tc = dataclasses.replace(hp, train_compute=tc)
+        state, row = timed_step(steps_mod.make_train_step(cfg, hp_tc), next(it), state)
+        check(np.isfinite(row["loss"]) and row["k5_launches"] == 0, f"the {tc} W step")
+        report[f"w_step_{tc}"] = row
+        log(f"[train] W step at {tc} compute: " + json.dumps(row) + f" | {card}")
+
+    # where a W step's time goes: forward and backward against the optimizer
+    # (CUDA events), and one profiled forward and backward by kernel family
+    log(f"[clock] [train] at {time.perf_counter() - t_phase:.1f} s")
+    batch = steps_mod.device_batch(next(it), dev)
+    opt_w, _ = steps_mod.make_optimizers(hp)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    _, grads = steps_mod.loss_and_grads(cfg, hp, state, batch, "w")
+    ev[1].record()
+    with torch.no_grad():
+        opt_w.apply_(grads, state["opt_w"], state["params"], state["step"])
+    ev[2].record()
+    torch.cuda.synchronize()
+    fwd_bwd_ms, opt_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    del grads
+    holder = {}
+
+    def fwd_bwd():
+        holder["g"] = steps_mod.loss_and_grads(cfg, hp, state, batch, "w")[1]
+
+    events, prof_ms = device_only_kernels(fwd_bwd)
+    fams: dict = {}
+    for name, us in events:
+        low = name.lower()
+        fam = ("K5" if "panel_kernel" in name or "split_kernel" in name else
+               "library GEMM (attention)" if any(t in low for t in ("gemm", "sgemm", "xmma",
+                                                                    "cutlass")) else
+               "other (mixture, quantizers, norms, softmax)")
+        n, t = fams.get(fam, (0, 0.0))
+        fams[fam] = (n + 1, t + us / 1e3)
+    busy = sum(t for _, t in fams.values())
+    split = dict(fwd_bwd_ms=fwd_bwd_ms, optimizer_ms=opt_ms, profiled_fwd_bwd_ms=prof_ms,
+                 device_busy_ms=busy, idle_share=1 - busy / fwd_bwd_ms,
+                 profiled_idle_share=1 - busy / prof_ms,
+                 families={k: dict(kernels=n, ms=t) for k, (n, t) in fams.items()})
+    report["w_step_split"] = split
+    log(f"[train] W step split: " + json.dumps(split) + f" | {card}")
+
+    # the optimizer's peak: the functional update (every new moment and
+    # update at once) against the in-place update a leaf at a time
+    log(f"[clock] [train] at {time.perf_counter() - t_phase:.1f} s")
+    grads = holder.pop("g")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with torch.no_grad():
+            upd, new_state = opt_w.update(grads, state["opt_w"], state["params"], state["step"])
+        torch.cuda.synchronize()
+        functional = (torch.cuda.max_memory_allocated() - base) / 1e9
+        del upd, new_state
+    except torch.cuda.OutOfMemoryError:
+        functional = None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        opt_w.apply_(grads, state["opt_w"], state["params"], state["step"])
+    torch.cuda.synchronize()
+    leafwise = (torch.cuda.max_memory_allocated() - base) / 1e9
+    report["optimizer_peak_gb"] = dict(resident_with_grads=base / 1e9, functional_extra=functional,
+                                       leafwise_extra=leafwise)
+    log(f"[train] AdamW update over the {n_params} params: resident with the gradients "
+        f"{base / 1e9:.2f} GB; the functional update's peak adds "
+        f"{'out of memory' if functional is None else f'{functional:.2f} GB'}, the in-place "
+        f"update a leaf at a time adds {leafwise:.2f} GB | {card}")
+    del grads, state
+    torch.cuda.empty_cache()
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train] phase took {report['phase_s']:.1f} s")
+    k5 = dict(launches=launches["scaled_int8_mm"], mma_launches=mma["scaled_int8_mm"],
+              launches_per_step=want, ms=k5_step["k5_ms"], plain_ms=k5_step["plain_ms"],
+              bound_ms=k5_step["bound_ms"], bound_by=k5_step["bound_by"],
+              library_ms=k5_step["library_ms"], max_abs_err=worst[0],
+              products=k5_step["products"], by_class=k5_step["by_class"])
+    return report, k5
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement as JSON here")
@@ -3349,6 +3706,7 @@ def main() -> int:
     from repro_torch.qtrain import linear as tqt
 
     report: dict = {}
+    t_run = time.perf_counter()
 
     # -- 1. device -----------------------------------------------------------
     dev = torch.device("cuda")
@@ -3364,6 +3722,7 @@ def main() -> int:
     report["device"] = {"name": name, "nvidia_smi": smi}
 
     # -- 2. build ------------------------------------------------------------
+    log(f"[clock] phase 2 starts at {time.perf_counter() - t_run:.1f} s")
     t0 = time.perf_counter()
     logs = _build.build_all()
     build_s = time.perf_counter() - t0
@@ -3375,6 +3734,7 @@ def main() -> int:
     report["build_s"] = build_s
 
     # -- deployed engines (set-up for phases 3-5) ----------------------------
+    log(f"[clock] phase deployed starts at {time.perf_counter() - t_run:.1f} s")
     def make_engine(cfg, live: bool):
         eng = Engine.for_tinyml(cfg, seed=0).randomize_nas(0)
         if live:
@@ -3406,6 +3766,7 @@ def main() -> int:
         return out
 
     # -- 3. kernels against their plain versions ------------------------------
+    log(f"[clock] phase 3 starts at {time.perf_counter() - t_run:.1f} s")
     gen = np.random.default_rng(0)
     cases = []
 
@@ -3486,6 +3847,7 @@ def main() -> int:
     report["kernel_checks"] = rows
 
     # -- 3b. K5, the int8 training GEMM, against its plain version, bitwise -------
+    log(f"[clock] phase 3b starts at {time.perf_counter() - t_run:.1f} s")
     def train_engine(mname, tc, **kw):
         cfg = tinyml.TINY_CONFIGS[mname]
         return Engine.for_tinyml(cfg, SearchSettings(cfg=cfg.quant, train_compute=tc, **kw),
@@ -3573,12 +3935,6 @@ def main() -> int:
         "K = K_INT32_EXACT_MAX + 1 must raise")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def k5_plan_row(M, N, K):
-        p = imk.k5_plan(M, N, K, sms)
-        return {"class": p.cls, "kernel": p.kernel, "BM": p.bm, "BN": p.bn, "nf": p.nf,
-                "wm": p.wm, "wn": p.wn, "grid_m": p.grid_m, "tiles_m": p.tiles_m,
-                "tiles_n": p.tiles_n, "splits": p.splits, "kper": p.kper}
-
     k5_rows = []
     for label, a, b, sa, sb in [c for cs in k5_cases.values() for c in cs] + k5_edges:
         before = (imk.scaled_int8_mm.launches, imk.scaled_int8_mm.mma_launches)
@@ -3589,7 +3945,7 @@ def main() -> int:
         check((imk.scaled_int8_mm.launches - before[0], imk.scaled_int8_mm.mma_launches
                - before[1]) == (1, 1), f"K5 must launch the tensor-core routine once: {label}")
         k5_rows.append(dict(case=label, M=a.shape[0], N=b.shape[0], K=a.shape[1],
-                            **k5_plan_row(a.shape[0], b.shape[0], a.shape[1]), bitwise=same,
+                            **k5_plan_row(a.shape[0], b.shape[0], a.shape[1], sms), bitwise=same,
                             max_abs_err=float((y - ref).abs().max())))
         check(same, f"K5 != its plain version bitwise: {label}")
     xq = torch.from_numpy(gen.standard_normal((257, 333)).astype(np.float32) * 3)
@@ -3610,6 +3966,7 @@ def main() -> int:
     report["k5_checks"] = k5_rows
 
     # -- 4. the main path ------------------------------------------------------
+    log(f"[clock] phase 4 starts at {time.perf_counter() - t_run:.1f} s")
     def serve_checked(eng, batch, backend):
         """``eng.serve`` with every quantized site checked against the FROZEN
         layer on the same input: the served run's own inputs go through the
@@ -3696,6 +4053,7 @@ def main() -> int:
     report["main_path_launches"] = launches
 
     # -- 4b. the training path: search -> finetune -> deploy -> serve ------------
+    log(f"[clock] phase 4b starts at {time.perf_counter() - t_run:.1f} s")
     def loss_and_grads(eng, batch, device, policy, on_round=None, dtype=torch.float32):
         """The loss of a training step on ``device`` from ``eng``'s state,
         and its gradients with respect to the params and the NAS logits
@@ -3943,6 +4301,7 @@ def main() -> int:
     report["train_path_launches"] = train_launches
 
     # -- 5. times at the resnet8 batch-64 shapes --------------------------------
+    log(f"[clock] phase 5 starts at {time.perf_counter() - t_run:.1f} s")
     eng = engines[("resnet8-cifar10", False)]
     per_site = []
     for site, qt, m, c in gemm_sites(eng):
@@ -4026,63 +4385,13 @@ def main() -> int:
     report["serve_breakdown"] = breakdown
 
     # K5 at the GEMM shapes of one resnet8 int8 training step
-    def int_mm_library(a, b, sa, sb):
-        """``torch._int_mm`` on operands padded to its rules (M > 16, K and N
-        multiples of 8; padded outside the timed call), then the epilogue."""
-        M, K = a.shape
-        N = b.shape[0]
-        mp, kp, np_ = max(M, 17), -(-K // 8) * 8, -(-N // 8) * 8
-        ap = torch.nn.functional.pad(a, (0, kp - K, 0, mp - M))
-        bt = torch.nn.functional.pad(b, (0, kp - K, 0, np_ - N)).t()
-        return lambda: torch._int_mm(ap, bt)[:M, :N].float() * sa[:, None] * sb[None, :]
-
-    def k5_timed(cases):
-        rows = []
-        for label, a, b, sa, sb in cases:
-            M, K = a.shape
-            N = b.shape[0]
-            lib = int_mm_library(a, b, sa, sb)
-            check(torch.equal(lib(), imk.scaled_int8_mm_plain(a, b, sa, sb)),
-                  f"the library yardstick computes another function: {label}")
-            row = dict(case=label, M=M, N=N, K=K, **k5_plan_row(M, N, K))
-            fns = {"k5": lambda: imk.scaled_int8_mm(a, b, sa, sb),
-                   "plain": lambda: imk.scaled_int8_mm_plain(a, b, sa, sb), "library": lib}
-            for key, fn in fns.items():
-                # where the profiler loses events, a CUDA graph of back-to-back
-                # calls: the event loop of a few-microsecond call is host time
-                row[f"{key}_loop_ms"] = cuda_ms(fn, iters=20)
-                row[f"{key}_ms"], row[f"{key}_timer"] = kernel_ms(fn, 10, row[f"{key}_loop_ms"])
-            row["k5_device_ops"] = len(device_kernels(fns["k5"])[0])
-            row["bytes_ms"] = (M * K + N * K + 4 * (M + N) + 4 * M * N) / PEAK_BYTES_PER_S * 1e3
-            row["ops_ms"] = 2.0 * M * N * K / PEAK_INT8_OP_PER_S * 1e3
-            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
-            row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
-            rows.append(row)
-            log("[times] K5 " + json.dumps(row) + f" | {card}")
-        return rows
-
-    def k5_summed(rows, what):
-        total = {key: sum(r[key] for r in rows)
-                 for key in ("k5_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms", "bound_ms",
-                             "k5_device_ops")}
-        total["bound_by"] = "bytes" if total["bytes_ms"] >= total["ops_ms"] else "operations"
-        total["products"] = len(rows)
-        total["by_class"] = {
-            cls: {key: sum(r[key] for r in rows if r["class"] == cls)
-                  for key in ("k5_ms", "bound_ms", "library_ms")}
-            | {"products": sum(r["class"] == cls for r in rows)}
-            for cls in sorted({r["class"] for r in rows})}
-        log(f"[times] K5 over one {what} training step ({len(rows)} products): "
-            f"{json.dumps(total)} | {card}")
-        return total
-
-    k5_times = k5_timed(k5_cases["resnet8-cifar10"])
-    k5_sum = k5_summed(k5_times, "resnet8")
+    k5_times = k5_timed(k5_cases["resnet8-cifar10"], card, sms)
+    k5_sum = k5_summed(k5_times, "resnet8", card)
     k5_bound, k5_bound_by = k5_sum["bound_ms"], k5_sum["bound_by"]
     check(all(r["k5_device_ops"] == 1 for r in k5_times if r["k5_timer"] == "profiler"),
           "a K5 call (a split one included) must put one kernel on the device")
-    k5_dae = k5_timed(k5_cases["dae-ad"])
-    k5_dae_sum = k5_summed(k5_dae, "dae-ad")
+    k5_dae = k5_timed(k5_cases["dae-ad"], card, sms)
+    k5_dae_sum = k5_summed(k5_dae, "dae-ad", card)
 
     # training step time (a search-phase W step) and where one step's time goes
     step_times = {}
@@ -4109,17 +4418,20 @@ def main() -> int:
     report["train_step"] = step_times
 
     # -- 3e, 5d. the fused Eq. 5 mixture (K6) through the kernel API --------------
+    log(f"[clock] phase 3e/5d starts at {time.perf_counter() - t_run:.1f} s")
     k6_report, k6 = k6_phase(dev, card, ops, engines)
     report["k6"] = k6_report
     torch.cuda.empty_cache()
 
     # -- 3c, 4c, 5b. the LM serving path: qwen1.5-4b at full width and depth ------
+    log(f"[clock] phase 3c/4c/5b starts at {time.perf_counter() - t_run:.1f} s")
     (lm_report, k2_lm, k4_lm, lm_paged_launches, lm_paged_mma, lm_spec_launches,
      lm_spec_mma) = lm_serving(dev, card, ops, gen)
     report["lm"] = lm_report
     torch.cuda.empty_cache()
 
     # -- 3d, 4d, 5c. the MoE serving path: deepseek-v3-671b at full width, 2 layers
+    log(f"[clock] phase 3d/4d/5c starts at {time.perf_counter() - t_run:.1f} s")
     (moe_report, k3_moe, k2_experts, k1_moe, moe_launches, moe_mma, moe_paged_launches,
      moe_paged_mma, moe_spec_launches, moe_spec_mma) = moe_serving(dev, card, ops, gen)
     report["moe"] = moe_report
@@ -4129,15 +4441,23 @@ def main() -> int:
     spec_mma = {k: lm_spec_mma[k] + moe_spec_mma[k] for k in lm_spec_mma}
 
     # -- 3f, 4e, 5e. the other LM families at full width ---------------------------
+    log(f"[clock] phase 3f/4e/5e starts at {time.perf_counter() - t_run:.1f} s")
     fam_report, fam_launches, fam_mma, fam_k4 = families_serving(dev, card, ops, gen)
     report["families"] = fam_report
 
     # -- 3g, 4f, 5f. whisper-small at full width and depth, dense and paged -------
+    log(f"[clock] phase 3g/4f/5f starts at {time.perf_counter() - t_run:.1f} s")
     torch.cuda.empty_cache()
     wh_report, wh_launches, wh_mma, wh_k4 = whisper_serving(dev, card, ops, gen)
     report["whisper"] = wh_report
     extra = {"whisper": (wh_launches, wh_mma), "paged": (paged_launches, paged_mma),
              "spec": (spec_launches, spec_mma)}
+
+    # -- [train]. the LM training path: minicpm-2b at full width and depth, int8 --
+    log(f"[clock] phase [train] starts at {time.perf_counter() - t_run:.1f} s")
+    torch.cuda.empty_cache()
+    train_report, k5_lm = lm_train(dev, card, ops, sms)
+    report["lm_train"] = train_report
 
     def more(name, mma=False):
         """Launches of the whisper and [paged] paths of one wrapper."""
@@ -4147,6 +4467,7 @@ def main() -> int:
         return {path: pair[0][name] for path, pair in extra.items()}
 
     # -- 6. summary --------------------------------------------------------------
+    log(f"[clock] phase 6 starts at {time.perf_counter() - t_run:.1f} s")
     fb, fby = bound("fused")
     gb, gby = bound("pergroup")
     kernels = [
@@ -4183,14 +4504,17 @@ def main() -> int:
         dict(name="scaled_int8_mm", route="cuda",
              source="src/repro_torch/kernels/csrc/int8_matmul.cu",
              replaces="src/repro/kernels/int8_matmul.py:82",
-             launches=train_launches["scaled_int8_mm"],
-             mma_launches=train_mma["scaled_int8_mm"],
-             max_abs_err=max(r["max_abs_err"] for r in k5_rows),
+             launches=train_launches["scaled_int8_mm"] + k5_lm["launches"],
+             mma_launches=train_mma["scaled_int8_mm"] + k5_lm["mma_launches"],
+             launches_by_path=dict(tinyml_training=train_launches["scaled_int8_mm"],
+                                   lm_training=k5_lm["launches"]),
+             max_abs_err=max([r["max_abs_err"] for r in k5_rows] + [k5_lm["max_abs_err"]]),
              ms=k5_sum["k5_ms"], plain_ms=k5_sum["plain_ms"], bound_ms=k5_bound,
              bound_by=k5_bound_by, library_ms=k5_sum["library_ms"],
              dae_ad=dict(ms=k5_dae_sum["k5_ms"], plain_ms=k5_dae_sum["plain_ms"],
                          bound_ms=k5_dae_sum["bound_ms"], bound_by=k5_dae_sum["bound_by"],
-                         library_ms=k5_dae_sum["library_ms"], products=len(k5_dae))),
+                         library_ms=k5_dae_sum["library_ms"], products=len(k5_dae)),
+             minicpm_train=k5_lm),
         dict(k4_lm, launches=(k4_lm["launches"] + fam_launches["decode_attention"]
                               + more("decode_attention")),
              launches_by_path=dict(qwen=k4_lm["launches"],
@@ -4238,13 +4562,15 @@ def main() -> int:
         f"K2's and K4's also whisper-small's dense and paged paths (K4 at its decode shape, pos "
         f"255 and 447, in its 'whisper' entry), K1's, K2's, K3's and K4's also the [paged] runs "
         f"and the [spec] runs (speculative decoding, phase 4g) of qwen1.5-4b and deepseek-v3 "
-        f"('launches_by_path'), K6's the kernel API's over the "
+        f"('launches_by_path'), K5's also the [train] path's (minicpm-2b at full width, int8: "
+        f"its step's products timed in its 'minicpm_train' entry), K6's the kernel API's over the "
         f"tinyml search-phase weights (no model path calls K6, in the reference or the port); "
         f"{card}")
     report["kernels"] = kernels
     if opts.out:
         Path(opts.out).parent.mkdir(parents=True, exist_ok=True)
         Path(opts.out).write_text(json.dumps(report, indent=1))
+    log(f"[clock] the run took {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

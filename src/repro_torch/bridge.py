@@ -37,6 +37,17 @@ def params_from_numpy(params: dict, nas: dict, device="cpu") -> tuple:
     return _tree(params, device), _tree(nas, device)
 
 
+def train_state_from_numpy(state: dict, device="cpu") -> dict:
+    """The reference's LM training state (``train.steps.init_train_state``:
+    ``params``, ``nas``, ``opt_w``, ``opt_t``, ``tau``, ``step``; numpy
+    leaves, its bf16 optimizer moments as numpy's bfloat16) as the port's:
+    the same stacked trees, every leaf a tensor on ``device`` (bf16 by its
+    bits), ``step`` a Python int."""
+    out = {k: _tree(v, device) for k, v in state.items() if k != "step"}
+    out["step"] = int(np.asarray(state["step"]))
+    return out
+
+
 def search_settings_from_fields(fields: dict):
     """The port's ``SearchSettings`` from the reference's field values
     (``dataclasses.asdict`` of its ``SearchSettings``: ``cfg`` as a dict of

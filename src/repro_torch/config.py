@@ -4,7 +4,8 @@ Counterpart of ``repro.config``: ``ArchConfig`` describes one architecture
 (hyper-parameters from its public release, ``configs/*.py``) plus the
 deployment settings; ``reduced()`` gives the narrow CPU-test variant of the
 same family (2 layers, d_model 64, vocab 256).  The dtypes are
-``torch.dtype``s.
+``torch.dtype``s.  The training fields (``param_dtype``, ``optimizer``,
+``lr_schedule``, ``vocab_pad``) are the reference's.
 
 The registry names every configuration of the reference's pool; an id in
 ``NOT_PORTED`` (none at present) would raise and name the ``ROADMAP.md``
@@ -102,7 +103,20 @@ class ArchConfig:
     n_prefix_tokens: int = 0
 
     # numerics
+    param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
+    # result dtype of a training product's sum, by name ("": f32); the
+    # reference's knob for the partial sums of tensor-parallel products
+    partial_dtype: str = ""
+
+    # training defaults (``train.steps.TrainHParams.for_arch``)
+    optimizer: str = "adamw"         # adamw | adafactor
+    lr_schedule: str = "cosine"      # cosine | wsd (minicpm) | constant
+
+    # the embedding's and lm_head's rows are the vocab rounded up to a
+    # multiple of ``vocab_pad`` (0: no padding); the padded logits are
+    # masked before the loss (``models/transformer._mask_pad``)
+    vocab_pad: int = 256
 
     # mixed-precision search and deployment
     quant: mp.MixedPrecConfig = dataclasses.field(default_factory=mp.MixedPrecConfig)
@@ -115,6 +129,16 @@ class ArchConfig:
     def __post_init__(self):
         if self.head_dim is None:
             object.__setattr__(self, "head_dim", self.d_model // max(self.n_heads, 1))
+
+    @property
+    def padded_vocab(self) -> int:
+        if not self.vocab_pad:
+            return self.vocab_size
+        return -(-self.vocab_size // self.vocab_pad) * self.vocab_pad
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return self.param_dtype
 
     @property
     def cdtype(self) -> torch.dtype:

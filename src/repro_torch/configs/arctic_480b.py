@@ -3,10 +3,11 @@ top-2 with expert d_ff=4864, PLUS a dense residual MLP in parallel,
 vocab=32000 [hf:Snowflake/snowflake-arctic-base].
 
 Arctic's dense-MoE hybrid: every block computes dense_MLP(x) + MoE(x).
-With no shared expert the router is a softmax.  Served deployed (packed
-weights), so the reference's training hints (bf16 params, Adafactor) play
-no part.
+With no shared expert the router is a softmax.  Its training
+hints are the reference's: bf16 params and Adafactor.
 """
+import torch
+
 from repro_torch.config import ArchConfig
 
 CONFIG = ArchConfig(
@@ -26,6 +27,8 @@ CONFIG = ArchConfig(
     experts_per_token=2,
     moe_d_ff=4864,
     dense_residual_ff=4864,
+    param_dtype=torch.bfloat16,
+    optimizer="adafactor",
     supports_long=False,
     long_skip_reason="full O(S^2) attention",
 )

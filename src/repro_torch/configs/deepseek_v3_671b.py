@@ -3,10 +3,11 @@ experts top-8 + 1 shared, expert d_ff=2048, vocab=129280 [arXiv:2412.19437].
 
 MLA dims from the paper: q_lora_rank=1536, kv_lora_rank=512, qk_nope=128,
 qk_rope=64, v_head=128.  The released model keeps its first 3 layers dense;
-as in the reference, every layer here is the uniform MoE block.  Served
-deployed (packed weights), so the reference's training hints (bf16 params,
-Adafactor) and the multi-token-prediction head play no part.
+as in the reference, every layer here is the uniform MoE block.  Its
+training hints are the reference's: bf16 params and Adafactor.
 """
+import torch
+
 from repro_torch.config import ArchConfig
 
 CONFIG = ArchConfig(
@@ -35,6 +36,8 @@ CONFIG = ArchConfig(
     qk_nope_dim=128,
     v_head_dim=128,
     head_dim=192,                    # qk_nope + qk_rope
+    param_dtype=torch.bfloat16,
+    optimizer="adafactor",
     supports_long=False,
     long_skip_reason="full O(S^2) attention (MLA)",
 )

@@ -4,8 +4,9 @@ vocab=122753 [arXiv:2404.06395].
 Llama-like architecture.  The odd vocab (122753) leaves the lm_head's
 highest-precision channel group at an odd width.  ``tie_embeddings`` is
 recorded as published; the deployed model still carries its own packed
-lm_head, as in the reference.  The paper's WSD learning-rate schedule is a
-training setting and plays no part in serving.
+lm_head, as in the reference (whose training ignores the flag too).  Trains
+on the paper's WSD (warmup-stable-decay) learning-rate schedule, and its
+vocab pads to 122880.
 """
 from repro_torch.config import ArchConfig
 
@@ -23,6 +24,7 @@ CONFIG = ArchConfig(
     norm="rmsnorm",
     rope_theta=10000.0,
     tie_embeddings=True,
+    lr_schedule="wsd",
     supports_long=False,
     long_skip_reason="full O(S^2) attention",
 )

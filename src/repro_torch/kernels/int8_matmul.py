@@ -153,22 +153,36 @@ def _cover_n(nfr: int, wns, nf_max: int = K5_NF[-1]) -> tuple:
 
 def k5_plan(M: int, N: int, K: int, sms: int) -> K5Plan:
     """The launch of one ``M x N x K`` product on a card of ``sms`` SMs, by
-    product class:
+    product class (a class follows the shape, not the product's role):
 
-    * ``tall-k`` (K >= ``SPLIT_MIN_K`` and at least M and N: the
-      grad-weight products): the split kernel, the block covering up to 64
-      rows in 16-row steps and at most ``SPLIT_ROWS_MAX`` rows of a and b,
-      K split (in ``K5_CHUNK`` multiples) to about ``SPLIT_BLOCKS_PER_SM``
-      blocks an SM when the output's tiles are fewer than the SMs, and
-      finer where a split would take more than the ring's ``K5_STAGES``
-      chunks (each block's K then is in flight at once);
+    * ``tall-k`` (K >= ``SPLIT_MIN_K`` and at least M and N): the split
+      kernel, the block covering up to 64 rows in 16-row steps and at most
+      ``SPLIT_ROWS_MAX`` rows of a and b, K split (in ``K5_CHUNK``
+      multiples) to about ``SPLIT_BLOCKS_PER_SM`` blocks an SM when the
+      output's tiles are fewer than the SMs, and finer where a split would
+      take more than the ring's ``K5_STAGES`` chunks (each block's K then is
+      in flight at once);
     * ``tiny`` (M N K <= ``TINY_MNK``): the split kernel, one or a few
       blocks, no split;
-    * ``tall-m`` (the rest: the forward and grad-input products): the panel
-      kernel, ``PANEL_WARPS`` warps a block, its ``wm`` the largest of 4, 2,
-      1 that still gives a tile to every other SM (the other warps split
-      N), ``PANEL_BLOCKS_PER_SM`` walkers an SM; the split kernel without a
-      split where no panel fits in shared memory.
+    * ``tall-m`` (the rest): the panel kernel, ``PANEL_WARPS`` warps a
+      block, its ``wm`` the largest of 4, 2, 1 that still gives a tile to
+      every other SM (the other warps split N), ``PANEL_BLOCKS_PER_SM``
+      walkers an SM; the split kernel without a split where no panel fits
+      in shared memory.
+
+    Which products take which class: on the MLPerf-Tiny models (batch 64)
+    the grad-weight products are tall-k and the forward and grad-input
+    products tall-m.  On a language model (T = 1024 tokens a step, widths
+    of 2304 and more; minicpm-2b and qwen1.5-4b alike) it is the other way
+    round for the most part: a forward or grad-input product whose K is at
+    least its N (the attention projections' forwards, ``w_down``'s forward,
+    every grad-input but ``w_down``'s, the lm_head's over the padded vocab)
+    is tall-k, with tiles enough to fill the card and so unsplit; the
+    gate/up and lm_head forwards and ``w_down``'s grad-input are tall-m,
+    but their K of 2304 leaves no panel room in shared memory, so they run
+    the split kernel unsplit too; every grad-weight product (K = T) is
+    tall-m on the panel kernel, each walker taking several M tiles (the
+    lm_head's 1920).
     """
     nfr, mfr = -(-N // 8), -(-M // 16)
     kpad = -(-K // K5_CHUNK) * K5_CHUNK

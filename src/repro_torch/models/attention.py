@@ -1,6 +1,8 @@
 """Attention of the language models: grouped-query attention (GQA) and
 DeepSeek's multi-head latent attention (MLA), full-sequence (prefill) and
-one-token cached decode.
+one-token cached decode, and GQA's training forward (:func:`init_gqa`,
+:func:`gqa_forward`: every projection a quantization-aware ``qlinear``
+under the step's policy, differentiable end to end).
 
 Counterpart of the GQA and MLA parts of ``repro.models.attention``.  Full-sequence
 attention is the reference's blockwise online softmax over KV chunks,
@@ -104,7 +106,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * corr[..., None] + torch.matmul(
             p.to(vb.dtype).to(torch.float32), vb.to(torch.float32))
         m = m_new
-    out = acc / torch.clamp_min(d_sum, 1e-30)[..., None]
+    out = acc / torch.maximum(d_sum, torch.full((), 1e-30, device=dev))[..., None]
     return out.to(q.dtype)
 
 
@@ -123,6 +125,51 @@ def gqa_core(q, k, v, n_heads: int, n_kv: int, causal: bool,
         vh = torch.repeat_interleave(vh, rep, dim=1)
     out = blockwise_attention(qh, kh, vh, causal, k_chunk, q_offset)
     return out.reshape(B, H, Sq, Dv).transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# GQA for training: init and the full-sequence forward
+# ---------------------------------------------------------------------------
+
+def init_gqa(gen: torch.Generator, cfg, dtype=torch.float32, lead: tuple = ()) -> tuple:
+    """``(params, nas)`` of one GQA attention block (``lead`` axes
+    prepended: a stack of layers), drawn on ``gen``'s device."""
+    d, hd = cfg.d_model, cfg.head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    params = {
+        "wq": L.linear_init(gen, d, H * hd, cfg.qkv_bias, dtype, lead),
+        "wk": L.linear_init(gen, d, KV * hd, cfg.qkv_bias, dtype, lead),
+        "wv": L.linear_init(gen, d, KV * hd, cfg.qkv_bias, dtype, lead),
+        "wo": L.linear_init(gen, H * hd, d, False, dtype, lead),
+    }
+    nas = {name: L.nas_init(p["w"].shape[-2], cfg.quant, gen.device, lead)
+           for name, p in params.items()}
+    return params, nas
+
+
+def gqa_forward(p: dict, nas: Optional[dict], policy, cfg, x: torch.Tensor,
+                positions: torch.Tensor, causal: bool = True,
+                k_chunk: int = 1024) -> torch.Tensor:
+    """Full-sequence GQA with RoPE under a training ``policy``: ``x (B, S,
+    d)`` -> ``(B, S, d)`` in ``cfg.cdtype``; differentiable."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cd, pd = cfg.cdtype, L.partial_dtype_of(cfg)
+    getn = (lambda n: nas[n]) if nas is not None else (lambda n: None)
+
+    def lin(name, t):
+        return L.qlinear(t, p[name], getn(name), policy, cfg.quant, compute_dtype=cd,
+                         partial_dtype=pd)
+
+    q = lin("wq", x).reshape(B, S, H, hd)
+    k = lin("wk", x).reshape(B, S, KV, hd)
+    v = lin("wv", x).reshape(B, S, KV, hd)
+    if cfg.rope_partial > 0:
+        cos, sin, rot = L.rope_freqs(hd, cfg.rope_theta, positions, cfg.rope_partial)
+        q = L.apply_rope(q, cos, sin, rot)
+        k = L.apply_rope(k, cos, sin, rot)
+    o = gqa_core(q, k, v, H, KV, causal, k_chunk=k_chunk)
+    return lin("wo", o.reshape(B, S, H * hd))
 
 
 # ---------------------------------------------------------------------------

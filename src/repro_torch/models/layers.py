@@ -46,12 +46,21 @@ from repro_torch.qtrain import linear as qt_linear
 # ---------------------------------------------------------------------------
 
 def linear_init(gen: torch.Generator, c_in: int, c_out: int,
-                bias: bool = False) -> dict:
-    w = torch.randn((c_out, c_in), generator=gen, dtype=torch.float32)
+                bias: bool = False, dtype=torch.float32, lead: tuple = ()) -> dict:
+    """``{"w" (c_out, c_in), "aw" (c_out,), "ax" (), ["b" (c_out,)]}`` drawn
+    on ``gen``'s device; ``lead`` prepends axes to every leaf (a stack of
+    layers, the reference's vmapped init) and each ``(c_out, c_in)`` slice
+    gets its own clips.  ``w`` is stored in ``dtype``, its clips from the
+    f32 draw."""
+    dev = gen.device
+    w = torch.randn(tuple(lead) + (c_out, c_in), generator=gen, dtype=torch.float32,
+                    device=dev)
     w = w * (1.0 / math.sqrt(c_in))
-    p = {"w": w, "aw": qz.init_weight_alpha(w), "ax": qz.init_act_alpha()}
+    aw = qz.init_weight_alpha(w.reshape(-1, c_in)).reshape(tuple(lead) + (c_out,))
+    p = {"w": w.to(dtype), "aw": aw,
+         "ax": qz.init_act_alpha().to(dev).expand(tuple(lead)).clone()}
     if bias:
-        p["b"] = torch.zeros((c_out,), dtype=torch.float32)
+        p["b"] = torch.zeros(tuple(lead) + (c_out,), dtype=dtype, device=dev)
     return p
 
 
@@ -66,8 +75,16 @@ def conv2d_init(gen: torch.Generator, c_in: int, c_out: int, kh: int, kw: int,
     return p
 
 
-def nas_init(c_out: int, qcfg: mp.MixedPrecConfig) -> dict:
-    return mp.init_nas_params(c_out, qcfg)
+def nas_init(c_out: int, qcfg: mp.MixedPrecConfig, device="cpu", lead: tuple = ()) -> dict:
+    """Uniform NAS logits of one linear map, with ``lead`` axes prepended."""
+    n = mp.init_nas_params(c_out, qcfg, device)
+    return {k: v.expand(tuple(lead) + v.shape).clone() for k, v in n.items()}
+
+
+def embedding_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32) -> torch.Tensor:
+    """``(vocab, d)`` normal(0, 0.02) on ``gen``'s device."""
+    e = torch.randn((vocab, d), generator=gen, dtype=torch.float32, device=gen.device)
+    return (e * 0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -79,6 +96,9 @@ def _quant_pair(x, w, p, nas, policy: PrecisionPolicy,
     """(x', w') after the policy's fake quantization."""
     if policy.phase is Phase.FLOAT:
         return x, w
+    # the reference's clips promote a bf16 x against its f32 clip to f32;
+    # torch would round the 0-dim clip to x's dtype instead
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
     if policy.phase is Phase.QAT8:
         aw = p["aw"].reshape((w.shape[0],) + (1,) * (w.ndim - 1))
         return (qz.quantize_act_any(x, p["ax"], 8, signed_act),
@@ -115,13 +135,31 @@ def deployed_act(x: torch.Tensor, qt: QTensor, signed: bool) -> torch.Tensor:
     return qz.quantize_act_any(x, qt.act_alpha, qt.act_bits, signed)
 
 
+def partial_dtype_of(cfg) -> Optional[torch.dtype]:
+    """The result dtype of a training product's sum, from ``cfg`` (``None``:
+    the f32 sum)."""
+    pd = getattr(cfg, "partial_dtype", "")
+    return getattr(torch, pd) if pd else None
+
+
 def qlinear(x: torch.Tensor, p: dict, nas: Optional[dict],
             policy: PrecisionPolicy, qcfg: mp.MixedPrecConfig,
-            signed_act: bool = True) -> torch.Tensor:
-    """Quantization-aware linear: ``x (..., c_in) @ w (c_out, c_in)^T``."""
+            signed_act: bool = True, compute_dtype=None,
+            partial_dtype=None) -> torch.Tensor:
+    """Quantization-aware linear: ``x (..., c_in) @ w (c_out, c_in)^T``.
+
+    ``compute_dtype`` (the language models' ``cfg.cdtype``; ``None`` for
+    the MLPerf-Tiny models) sets the reference's rounding points after the
+    fake quantization: under ``train_compute="f32"`` x and w are rounded
+    to it and the product comes out in it (XLA sums a bf16 dot in f32 and
+    rounds once); under ``"bf16"`` the bf16-operand product (f32 sums, or
+    ``partial_dtype``) and under ``"int8"`` the f32 product are cast to
+    it.  The bias is added in the product's dtype.
+    """
     w = p["w"]
     if isinstance(w, QTensor):
-        y = w.matmul(deployed_act(x, w, signed_act), policy.backend)
+        y = w.matmul(deployed_act(x, w, signed_act), policy.backend,
+                     compute_dtype or torch.float32)
     elif policy.phase is Phase.DEPLOYED:
         raise TypeError("DEPLOYED policy requires a QTensor weight leaf "
                         "(run Engine.deploy / core.deploy.deploy_linear)")
@@ -129,20 +167,29 @@ def qlinear(x: torch.Tensor, p: dict, nas: Optional[dict],
         x, w = _quant_pair(x, w, p, nas, policy, qcfg, signed_act)
         if policy.train_compute == "int8":
             y = qt_linear.int8_linear(x, w, _site_key(policy, w), qt_linear.DEFAULT)
+            if compute_dtype is not None:
+                y = y.to(compute_dtype)
         elif policy.train_compute == "bf16":
-            y = _bf16(x) @ _bf16(w).T
+            y = _rounded(x, torch.bfloat16) @ _rounded(w, torch.bfloat16).T
+            if partial_dtype is not None:
+                y = y.to(partial_dtype)
+            if compute_dtype is not None:
+                y = y.to(compute_dtype)
+        elif compute_dtype is not None:
+            y = (_rounded(x, compute_dtype) @ _rounded(w, compute_dtype).T).to(
+                partial_dtype or compute_dtype)
         else:
             y = x @ w.T
     if "b" in p:
-        y = y + p["b"]
+        y = y + p["b"].to(y.dtype)
     return y
 
 
-def _bf16(t: torch.Tensor) -> torch.Tensor:
-    """``t`` rounded to bf16 and held in f32: a product of two such values
-    is exact in f32, so an f32 matmul of them is the bf16-operand,
-    f32-accumulation product (``preferred_element_type=f32``)."""
-    return t.to(torch.bfloat16).to(torch.float32)
+def _rounded(t: torch.Tensor, dtype) -> torch.Tensor:
+    """``t`` rounded to ``dtype`` and held in f32 (an f32 ``dtype`` leaves
+    it as it is): a product of two bf16 values is exact in f32, so an f32
+    matmul of them is the reference's bf16-operand dot with f32 sums."""
+    return t.to(dtype).to(torch.float32)
 
 
 def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
@@ -251,7 +298,17 @@ def apply_norm(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
     return rmsnorm(x, p) if kind == "rmsnorm" else layernorm(x, p)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)`` in ``x``'s dtype as XLA computes ``jax.nn.silu``:
+    the sigmoid as ``1 / (1 + exp(-x))`` with every op rounded to it
+    (``F.silu`` rounds once at bf16, one bf16 ulp off on a third of
+    values)."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """The serving path's gated MLP activation (``F.silu``, rounded once);
+    the training forward takes :func:`silu`, the reference's roundings."""
     return F.silu(gate) * up
 
 

@@ -46,6 +46,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.api.engine import resolve_device
@@ -166,6 +167,28 @@ def dq_linear(x: torch.Tensor, dp: dict, compute_dtype=torch.bfloat16,
             b = b.reshape((b.shape[0],) + (1,) * (y.ndim - 2) + (b.shape[-1],))
         y = y + b
     return y
+
+
+def debug_dense_view(dp: dict, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The dense float view of a deployed linear, for analysis only (no
+    serving path dequantizes a whole weight): ``(c_out, c_in)`` in the
+    channel order ``matmul`` produces, ``(E, c_out, c_in)`` for an expert
+    stack, in ``compute_dtype``."""
+    return dp["w"].dequantize().to(compute_dtype)
+
+
+def deployed_from_search(w, gamma, alpha_w, delta, alpha_x, cfg,
+                         restore_order: bool = False) -> dict:
+    """One searched linear of a training state (its float weight, NAS
+    logits and clips) in the deployed format: the Sec. III-C transform,
+    ``core.deploy.deploy_linear`` at the config's alignment."""
+    from repro_torch.core import deploy as dpl
+    host = lambda t: None if t is None else np.asarray(
+        t.detach().cpu() if isinstance(t, torch.Tensor) else t)
+    qt = dpl.deploy_linear(host(w), host(gamma), host(alpha_w), host(delta),
+                           float(host(alpha_x)), cfg.quant, align=cfg.deploy.align,
+                           restore_order=restore_order)
+    return {"w": qt}
 
 
 def _init_deployed_attn(gen, cfg, device):

@@ -42,10 +42,7 @@ def dims(cfg) -> tuple:
     return d_inner, n_heads, cfg.ssm_state, cfg.ssm_head_dim
 
 
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """``x * sigmoid(x)`` in ``x``'s dtype as XLA computes ``jax.nn.silu``:
-    the sigmoid as ``1 / (1 + exp(-x))`` with every op rounded to it."""
-    return x * torch.reciprocal(1 + torch.exp(-x))
+silu = L.silu
 
 
 def causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

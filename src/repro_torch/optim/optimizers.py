@@ -1,11 +1,22 @@
 """Optimizers over nested dicts of tensors, without ``torch.optim``.
 
-PyTorch counterpart of ``repro.optim.optimizers`` for what Alg. 1 needs:
-global-norm clipping, the learning-rate schedules and AdamW with an
-optional compressed moment dtype.  The interface is the reference's:
-``init(params) -> state`` and ``update(grads, state, params, step) ->
-(updates, state)``, with ``updates`` added to the params by
-:func:`apply_updates`.  Run under ``torch.no_grad()``.
+PyTorch counterpart of ``repro.optim.optimizers``: global-norm clipping, the
+learning-rate schedules (constant, cosine, and MiniCPM's warmup-stable-decay),
+AdamW, Adafactor (factored second moment, no first moment) and SGD with
+momentum, each with the reference's interface: ``init(params) -> state``
+and ``update(grads, state, params, step) -> (updates, state)``, with
+``updates`` added to the params by :func:`apply_updates`.  AdamW and
+Adafactor store their moments in ``state_dtype`` (bf16: the reference's
+compressed optimizer state) and compute in f32.  Run under
+``torch.no_grad()``.
+
+``update`` holds every new moment and every update of the tree at once
+(+24 GB over a 3-billion-parameter model's AdamW state); ``apply_`` makes
+the same update one leaf at a time, in place: each leaf's update is added
+to its param, its moments are overwritten and its gradient is dropped from
+the ``grads`` tree before the next leaf (AdamW and SGD a block of rows at
+a time), so the step's peak is the state plus one block's temporaries.
+Both give the same bits.
 
 Every division divides by a tensor on the operands' device: CUDA computes a
 tensor divided by a Python number, or by a CPU scalar, as a product with
@@ -29,16 +40,17 @@ def tree_leaves(tree) -> list:
 
 def tree_unflatten(like, leaves):
     """A tree shaped as ``like`` (same dict order) holding ``leaves``, given
-    in :func:`tree_leaves` order."""
-    it = iter(leaves)
+    in :func:`tree_leaves` order.  (No closure: a recursive one is a
+    reference cycle that would keep ``leaves`` alive until Python's cyclic
+    collector runs, 12 GB of gradients at minicpm-2b's size.)"""
+    return _build(like, iter(leaves))
 
-    def build(t):
-        if not isinstance(t, dict):
-            return next(it)
-        vals = {k: build(t[k]) for k in sorted(t)}
-        return {k: vals[k] for k in t}
 
-    return build(like)
+def _build(t, it):
+    if not isinstance(t, dict):
+        return next(it)
+    vals = {k: _build(t[k], it) for k in sorted(t)}
+    return {k: vals[k] for k in t}
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -47,8 +59,27 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def _leaf_slots(tree, *rest):
+    """``(container, key, leaf, *rest leaves)`` for every leaf of ``tree``
+    in sorted-key order: the slot a leaf sits in, so a caller can replace
+    or drop it."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _leaf_slots(v, *(r[k] for r in rest))
+        else:
+            yield (tree, k, v, *(r[k] for r in rest))
+
+
 def _full(like: torch.Tensor, value: float) -> torch.Tensor:
     return torch.full((), value, dtype=torch.float32, device=like.device)
+
+
+def _mean(t: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
+    """``jnp.mean``: the sum divided (by a device tensor) by the count."""
+    if dim is None:
+        return torch.sum(t) / _full(t, t.numel())
+    return torch.sum(t, dim=dim, keepdim=keepdim) / _full(t, t.shape[dim])
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -56,9 +87,13 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves))) if leaves else torch.zeros(())
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def _clip_scale(grads, max_norm: float) -> tuple:
     norm = global_norm(grads)
-    scale = torch.clamp_max(_full(norm, max_norm) / (norm + 1e-9), 1.0)
+    return torch.clamp_max(_full(norm, max_norm) / (norm + 1e-9), 1.0), norm
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    scale, norm = _clip_scale(grads, max_norm)
     return tree_map(lambda g: g * scale, grads), norm
 
 
@@ -95,12 +130,75 @@ def wsd_schedule(lr: float, warmup: int, stable: int, decay: int,
     return fn
 
 
+class _Optimizer:
+    """``update`` (functional) and ``apply_`` (in place, a leaf at a time)
+    over the subclass's per-leaf rule ``_leaf(g, s, p, c) -> (delta,
+    new_s)``, where ``s`` is the leaf's state, ``c`` the step's constants
+    (``_consts``) and ``new_s`` the state's new tensors.  A rule that is
+    elementwise (``ELEMENTWISE``) is applied in place to row blocks of at
+    most ``CHUNK`` elements of a leaf, which gives the same bits with a
+    block's temporaries in place of a leaf's."""
+
+    ELEMENTWISE = True
+    CHUNK = 1 << 24
+
+    def _clip(self, grads):
+        """The global-norm clip's scale, or ``None``."""
+        clip = getattr(self, "clip_norm", None)
+        return None if clip is None else _clip_scale(grads, clip)[0]
+
+    def update(self, grads, state: dict, params, step: int):
+        scale, c = self._clip(grads), self._consts(step, params)
+        new_s, deltas = [], []
+        for _, _, g, s, p in self._slots(grads, state, params):
+            d, ns = self._leaf(g if scale is None else g * scale, s, p, c)
+            deltas.append(d)
+            new_s.append(ns)
+        return tree_unflatten(grads, deltas), self._state_like(grads, state, new_s)
+
+    def apply_(self, grads, state: dict, params, step: int) -> None:
+        """The update of :meth:`update`, applied in place leaf by leaf:
+        ``params`` and ``state`` hold the new values after the call and
+        ``grads``' leaves are dropped (set to ``None``) as they are used."""
+        scale, c = self._clip(grads), self._consts(step, params)
+        for holder, key, g, s, p in self._slots(grads, state, params):
+            holder[key] = None
+            for rows in self._blocks(p):
+                gb = g[rows]
+                d, ns = self._leaf(gb if scale is None else gb * scale,
+                                   self._rows(s, rows), p[rows], c)
+                p[rows].add_(d)
+                self._write(self._rows(s, rows), ns)
+                del gb, d, ns
+            del g
+
+    def _blocks(self, p: torch.Tensor) -> list:
+        """Row ranges of ``p`` (index objects) to update one after another."""
+        if not self.ELEMENTWISE or p.ndim == 0 or p.numel() <= self.CHUNK:
+            return [...]
+        step = max(1, self.CHUNK // (p.numel() // p.shape[0]))
+        return [slice(i, i + step) for i in range(0, p.shape[0], step)]
+
+    @staticmethod
+    def _rows(s, rows):
+        if isinstance(s, dict):
+            return {k: v[rows] for k, v in s.items()}
+        return tuple(t[rows] for t in s)
+
+    def _slots(self, grads, state, params):
+        return _leaf_slots(grads, self._per_leaf(state), params)
+
+    def _write(self, s, ns) -> None:
+        for t, n in zip(s, ns):
+            t.copy_(n)
+
+
 # ---------------------------------------------------------------------------
 # AdamW
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
-class AdamW:
+class AdamW(_Optimizer):
     schedule: Callable
     b1: float = 0.9
     b2: float = 0.95
@@ -113,9 +211,7 @@ class AdamW:
         zeros = lambda p: torch.zeros(p.shape, dtype=self.state_dtype, device=p.device)
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
-    def update(self, grads, state: dict, params, step: int):
-        if self.clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, self.clip_norm)
+    def _consts(self, step: int, params) -> tuple:
         lr = self.schedule(step)
         # bias corrections: f32 powers on the CPU (the reference's f32
         # ``b ** t``), then one device scalar each to divide by
@@ -123,21 +219,134 @@ class AdamW:
         like = next(iter(tree_leaves(params)), torch.zeros(()))
         bc1 = _full(like, float(1.0 - torch.tensor(self.b1, dtype=torch.float32) ** t))
         bc2 = _full(like, float(1.0 - torch.tensor(self.b2, dtype=torch.float32) ** t))
-        lr_wd = _full(like, lr) * self.weight_decay
+        return lr, bc1, bc2, _full(like, lr) * self.weight_decay
 
-        def upd(g, m, v, p):
-            g32 = g.to(torch.float32)
-            m32 = self.b1 * m.to(torch.float32) + (1 - self.b1) * g32
-            v32 = self.b2 * v.to(torch.float32) + (1 - self.b2) * g32 * g32
-            delta = -lr * (m32 / bc1) / (torch.sqrt(v32 / bc2) + self.eps)
-            if self.weight_decay:
-                delta = delta - lr_wd * p.to(torch.float32)
-            return (delta.to(p.dtype), m32.to(self.state_dtype),
-                    v32.to(self.state_dtype))
+    def _per_leaf(self, state):
+        return tree_map(lambda m, v: (m, v), state["m"], state["v"])
 
-        out = tree_map(upd, grads, state["m"], state["v"], params)
-        pick = lambda i: tree_map(lambda o: o[i], out)
-        return pick(0), {"m": pick(1), "v": pick(2)}
+    def _state_like(self, grads, state, new_s):
+        return {"m": tree_unflatten(grads, [s[0] for s in new_s]),
+                "v": tree_unflatten(grads, [s[1] for s in new_s])}
+
+    def _leaf(self, g, s, p, c):
+        lr, bc1, bc2, lr_wd = c
+        m, v = s
+        g32 = g.to(torch.float32)
+        m32 = self.b1 * m.to(torch.float32) + (1 - self.b1) * g32
+        v32 = self.b2 * v.to(torch.float32) + (1 - self.b2) * g32 * g32
+        delta = -lr * (m32 / bc1) / (torch.sqrt(v32 / bc2) + self.eps)
+        if self.weight_decay:
+            delta = delta - lr_wd * p.to(torch.float32)
+        return delta.to(p.dtype), (m32.to(self.state_dtype), v32.to(self.state_dtype))
+
+
+# ---------------------------------------------------------------------------
+# Adafactor
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Adafactor(_Optimizer):
+    """Adafactor (Shazeer & Stern 2018): a factored second moment and no
+    first moment.  A leaf whose two trailing dims are both at least
+    ``min_factor_dim`` stores the row and column means of the squared
+    gradient (``vr``, ``vc``: N + K values for an N x K matrix); every other
+    leaf its full ``v``.  Update-RMS clipping in place of the global-norm
+    clip, and a step relative to the param's RMS."""
+    schedule: Callable
+    decay_pow: float = 0.8           # beta2_t = 1 - t^-decay_pow
+    eps1: float = 1e-30              # inside sqrt
+    eps2: float = 1e-3               # RMS(p) floor of the relative step
+    clip_threshold: float = 1.0
+    weight_decay: float = 0.0
+    min_factor_dim: int = 128
+    state_dtype: torch.dtype = torch.float32   # bf16 for compressed statistics
+
+    ELEMENTWISE = False      # its means and clipping span the whole leaf
+
+    def _factored(self, shape) -> bool:
+        return (len(shape) >= 2 and shape[-1] >= self.min_factor_dim
+                and shape[-2] >= self.min_factor_dim)
+
+    def init(self, params) -> dict:
+        def one(p):
+            z = lambda shape: torch.zeros(shape, dtype=self.state_dtype, device=p.device)
+            if self._factored(p.shape):
+                return {"vr": z(p.shape[:-1]), "vc": z(p.shape[:-2] + p.shape[-1:])}
+            return {"v": z(p.shape)}
+        return {"f": tree_map(one, params)}
+
+    def _consts(self, step: int, params) -> tuple:
+        lr = self.schedule(step)
+        # beta2 and 1 - beta2 in f32 on the CPU, as the reference's f32 scalars
+        t = torch.tensor(float(step) + 1.0, dtype=torch.float32)
+        beta2 = 1.0 - t ** torch.tensor(-self.decay_pow, dtype=torch.float32)
+        like = next(iter(tree_leaves(params)), torch.zeros(()))
+        return (lr, _full(like, float(beta2)), _full(like, float(1.0 - beta2)),
+                _full(like, lr) * self.weight_decay)
+
+    def _per_leaf(self, state):
+        return state["f"]
+
+    def _state_like(self, grads, state, new_s):
+        return {"f": tree_unflatten(grads, new_s)}
+
+    def _write(self, s, ns) -> None:
+        for k in s:
+            s[k].copy_(ns[k])
+
+    def _leaf(self, g, s, p, c):
+        lr, beta2, one_minus, lr_wd = c
+        g32 = g.to(torch.float32)
+        g2 = g32 * g32 + self.eps1
+        if "vr" in s:
+            vr = beta2 * s["vr"].to(torch.float32) + one_minus * _mean(g2, -1)
+            vc = beta2 * s["vc"].to(torch.float32) + one_minus * _mean(g2, -2)
+            denom = _mean(vr, -1, keepdim=True)                 # rank-1 reconstruction
+            u = g32 * torch.rsqrt(vr[..., None] / denom[..., None]) \
+                * torch.rsqrt(vc[..., None, :])
+            new_s = {"vr": vr.to(self.state_dtype), "vc": vc.to(self.state_dtype)}
+        else:
+            v = beta2 * s["v"].to(torch.float32) + one_minus * g2
+            u = g32 * torch.rsqrt(v)
+            new_s = {"v": v.to(self.state_dtype)}
+        rms_u = torch.sqrt(_mean(torch.square(u)) + 1e-30)       # update-RMS clipping
+        u = u / torch.maximum(_full(u, 1.0), rms_u / _full(u, self.clip_threshold))
+        rms_p = torch.maximum(torch.sqrt(_mean(torch.square(p.to(torch.float32)))),
+                              _full(u, self.eps2))
+        delta = -lr * rms_p * u
+        if self.weight_decay:
+            delta = delta - lr_wd * p.to(torch.float32)
+        return delta.to(p.dtype), new_s
+
+
+# ---------------------------------------------------------------------------
+# SGD with momentum
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SGD(_Optimizer):
+    schedule: Callable
+    momentum: float = 0.9
+    nesterov: bool = False
+    clip_norm: Optional[float] = None
+
+    def init(self, params) -> dict:
+        return {"mu": tree_map(torch.zeros_like, params)}
+
+    def _consts(self, step: int, params) -> tuple:
+        return (self.schedule(step),)
+
+    def _per_leaf(self, state):
+        return tree_map(lambda mu: (mu,), state["mu"])
+
+    def _state_like(self, grads, state, new_s):
+        return {"mu": tree_unflatten(grads, [s[0] for s in new_s])}
+
+    def _leaf(self, g, s, p, c):
+        (lr,), (mu,) = c, s
+        mu2 = self.momentum * mu + g
+        step_dir = g + self.momentum * mu2 if self.nesterov else mu2
+        return (-lr * step_dir).to(g.dtype), (mu2,)
 
 
 def apply_updates(params, updates):

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 from repro import cache as jcache
 from repro_torch import cache as tcache
 from repro_torch.cache import paged
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _both(fn_j, fn_t):

@@ -18,6 +18,7 @@ from repro_torch import bridge
 from repro_torch.kernels import quant_conv as tqc
 from repro_torch.models import layers as tL
 from torch_port_helpers import jax_qtensor_fields
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 GEOMS = [
     # (H, W, C, kh, kw, stride, padding)

@@ -36,6 +36,7 @@ from repro_torch.kernels import fake_quant as tfq
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.models import tinyml as ttiny
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 SHAPES = [(16, 32), (256, 512), (200, 300), (8, 128)]
 TOL = 1e-5

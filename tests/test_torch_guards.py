@@ -32,6 +32,7 @@ from repro_torch.core.search import SearchDriver, SearchSettings, run_search
 from repro_torch.data.pipeline import SyntheticTiny
 from repro_torch.kernels import ops
 from repro_torch.models import serving, tinyml
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))

@@ -29,6 +29,7 @@ import torch
 from repro_torch.core import quantizers as qz
 from repro_torch.kernels import decode_attention as datt
 from repro_torch.models import kv_quant as kvq
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 T = datt.K4_TILE
 

@@ -27,6 +27,7 @@ from repro_torch import bridge
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from torch_port_helpers import jax_qtensor_fields
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 BITS = (2, 4, 8)
 RTOL = 1e-5

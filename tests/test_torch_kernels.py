@@ -26,6 +26,7 @@ from repro_torch.core import quantizers as tqz
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_matmul as qmk
 from torch_port_helpers import jax_qtensor_fields
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-5
 

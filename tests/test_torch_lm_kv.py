@@ -25,6 +25,7 @@ from repro.models import kv_quant as jkvq
 from repro_torch.kernels import decode_attention as tdatt
 from repro_torch.models import attention as tattn
 from repro_torch.models import kv_quant as tkvq
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 BITS_CASES = [8, 4, 2, (2, 4, 8), (4, 8), (2, 8)]
 

@@ -46,6 +46,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tL
 from repro_torch.models import serving as tserving
 from torch_port_helpers import assert_qtensor_equal
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 ATTN_RTOL = 1e-5
 

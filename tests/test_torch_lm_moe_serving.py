@@ -57,6 +57,7 @@ from repro_torch.launch import serve as launcher
 from repro_torch.models import serving as tserving
 from torch_port_helpers import (assert_qtensor_equal, capture_routing, feed_cache_quantizers,
                                 feed_routing, lm_tree_to_numpy)
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 LOGIT_TOL = 2.0 ** -5            # of max |logit|: 8 bf16 ulps at the largest
 KERNEL_LOGIT_TOL = 2.0 ** -4     # the "cuda" backend: unrounded weights (see above)

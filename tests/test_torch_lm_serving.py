@@ -55,6 +55,7 @@ from repro_torch.models import kv_quant as tkvq
 from repro_torch.models import serving as tserving
 from torch_port_helpers import (assert_engine_matches_each_alone, assert_qtensor_equal,
                                 lm_tree_to_numpy)
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 LOGIT_TOL = 2.0 ** -5            # of max |logit|: 8 bf16 ulps at the largest
 DRIFT = 2.0 ** -4                # of a cache row's max |value|: 16 bf16 ulps there

@@ -59,6 +59,7 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models import serving as tserving
 from torch_port_helpers import (assert_qtensor_equal, feed_cache_quantizers,
                                 jax_qtensor_fields, lm_tree_to_numpy)
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 F32_TOL = 1e-5
 BF16_ULP = 2.0 ** -7 * 1.01

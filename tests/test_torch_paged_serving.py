@@ -33,6 +33,7 @@ from repro_torch.api import scheduler as sch
 from repro_torch.config import get_config
 from repro_torch.launch import serve as launcher
 from repro_torch.models import serving as tserving
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 PAGED_ARCHS = ("qwen1.5-4b", "deepseek-v3-671b", "zamba2-1.2b", "whisper-small")
 B, P, M = 3, 8, 32               # slots, prefill width, ring: auto page 8, 4 pages a slot

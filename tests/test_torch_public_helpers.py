@@ -27,6 +27,7 @@ from repro_torch.core import deploy as tdeploy
 from repro_torch.core import quantizers as tqz
 from repro_torch.models import layers as tlayers
 from torch_port_helpers import jax_qtensor_fields
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 BITS = (2, 4, 8)
 

@@ -23,6 +23,7 @@ from repro_torch.core import deploy as tdeploy
 from repro_torch.core import mixedprec as tmp
 from repro_torch.kernels import quant_matmul as tqmk
 from torch_port_helpers import assert_qtensor_equal
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _mixed(rng, n):

@@ -40,6 +40,7 @@ from repro_torch.models import tinyml
 from repro_torch.qtrain import linear as tqt
 
 from torch_port_helpers import assert_array_bytes_equal
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _normal(seed, shape, scale=1.0):
@@ -200,10 +201,29 @@ def _k5_emulation(a, b, sa, sb, plan):
     return acc.to(torch.float32) * sa[:, None] * sb[None, :]
 
 
-@pytest.mark.parametrize("m,n,k,role", [c for c in K5_CASES if np.prod(c.values[:3]) < 4e8])
+# The language models' training products (minicpm-2b at T = 1024 tokens:
+# (M, N, K) of (1024, 2304, 2304) and the like) scaled down to a class and
+# kernel they take at full size: a forward or grad-input with K >= max(M,
+# N) is tall-k on the split kernel, unsplit (its output tiles fill the
+# SMs); the gate/up and lm_head forwards are tall-m on the split kernel
+# (no panel fits their K in shared memory); a grad-weight is tall-m on the
+# panel kernel, each walker taking several tiles (the lm_head's 1920 N
+# tiles).  The role names the class and kernel the plan must give.
+LM_K5_CASES = [
+    pytest.param(512, 1088, 1088, "lm tall-k split", id="lm-forward-tall-k-unsplit"),
+    pytest.param(32, 2560, 2304, "lm tall-m split", id="lm-forward-no-panel-fits"),
+    pytest.param(4096, 640, 64, "lm tall-m panel", id="lm-grad-weight-panel-walkers"),
+]
+
+
+@pytest.mark.parametrize("m,n,k,role", [c for c in K5_CASES if np.prod(c.values[:3]) < 4e8]
+                         + LM_K5_CASES)
 def test_k5_plan_emulation_equals_plain_bitwise(m, n, k, role):
     a, b, sa, sb = (torch.from_numpy(v) for v in _int8_operands(m + 7 * n + k, m, n, k))
     plan = tim.k5_plan(m, n, k, 132)
+    if role.startswith("lm "):
+        assert [plan.cls, plan.kernel] == role.split()[1:] and plan.splits == 1
+        assert plan.kernel == "split" or plan.grid_m < plan.tiles_m
     assert torch.equal(_k5_emulation(a, b, sa, sb, plan), tim.scaled_int8_mm_plain(a, b, sa, sb))
 
 

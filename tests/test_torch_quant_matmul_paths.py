@@ -49,6 +49,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quant_matmul as qmk
 from repro_torch.models import serving
 from torch_port_helpers import jax_qtensor_fields
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-5
 

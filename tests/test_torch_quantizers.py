@@ -13,6 +13,7 @@ import torch
 
 from repro.core import quantizers as jqz
 from repro_torch.core import quantizers as tqz
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 BITS = (2, 4, 8)
 

@@ -50,6 +50,7 @@ from repro_torch.models import tinyml as ttiny
 from repro_torch.optim import optimizers as topt
 
 from torch_port_helpers import tree_to_numpy
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 CFG_J, CFG_T = jmp.MixedPrecConfig(), tmp.MixedPrecConfig()
 

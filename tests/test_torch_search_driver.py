@@ -43,6 +43,7 @@ from repro_torch.optim import optimizers as topt
 from repro_torch.qtrain import linear as tqt
 
 from torch_port_helpers import tree_to_numpy
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _driver_pair(train_compute="f32", n=64, bs=16, model="dae-ad"):

@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from test_torch_search_driver import _check_gradients, _driver_pair, _sync
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 
 def test_driver_gradients_match_the_reference_resnet8():

@@ -51,6 +51,7 @@ from repro_torch.launch import serve as launcher
 from repro_torch.models import serving as tserving
 from torch_port_helpers import (assert_array_bytes_equal, feed_cache_quantizers,
                                 jax_qtensor_fields, lm_tree_to_numpy)
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 LOGIT_TOL = 2.0 ** -5            # of max |logit|, as tests/test_torch_lm_serving.py
 DRIFT = 2.0 ** -4

@@ -47,6 +47,7 @@ from repro_torch.models import serving as tserving
 from repro_torch.models import ssm as tssm
 from torch_port_helpers import (assert_engine_matches_each_alone, assert_qtensor_equal,
                                 feed_cache_quantizers, lm_tree_to_numpy)
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 STATE_TOL = 2.0 ** -16           # f32 sums in other orders, of the state's largest value
 LOGIT_TOL = 2.0 ** -5

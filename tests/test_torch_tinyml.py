@@ -11,6 +11,7 @@ import pytest
 
 from torch_port_helpers import (check_frozen, check_nas_and_artefacts,
                                 check_serve, tinyml_pair)
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 MODELS = {"resnet8-cifar10": (8, 8, 3), "dae-ad": None}
 

@@ -12,6 +12,7 @@ import pytest
 
 from torch_port_helpers import (check_frozen, check_nas_and_artefacts,
                                 check_serve, tinyml_pair)
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 MODELS = {"dscnn-kws": (16, 8, 1), "mobilenetv1-vww": (16, 16, 3)}
 

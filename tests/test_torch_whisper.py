@@ -46,6 +46,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import serving as tserving
 from torch_port_helpers import (assert_engine_matches_each_alone, assert_qtensor_equal,
                                 feed_cache_quantizers, lm_tree_to_numpy)
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 ARCH = "whisper-small"
 LOGIT_TOL = 2.0 ** -5            # of max |logit| on "torch": 8 bf16 ulps at the largest

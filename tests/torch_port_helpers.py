@@ -7,7 +7,24 @@ port's, byte for byte.
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """A module's torch ops on one intra-op thread, its module-scoped
+    fixtures' too, restored after (autouse in every module that imports
+    it).  The suite runs several workers on a few cores, and torch would
+    give each worker a thread per core whose parallel regions wait on one
+    another: a small-tensor test took 8x as long under load with 8 threads
+    as with 1."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def to_numpy(v):
