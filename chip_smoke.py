@@ -406,6 +406,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    busy time by kernel family from one profiled forward and backward,
    idle share); AdamW's extra peak memory, the functional ``update``
    against the in-place ``apply_``.
+[train-moe] The MoE + MLA + MTP training path (after [train]):
+   deepseek-v3-671b (arXiv 2412.19437) at its published widths (7168
+   wide, 128 heads, MLA q_lora 1536, kv_lora 512, nope 128, rope 64, v
+   128; top-8 sigmoid routing, 1 shared expert, experts of d_ff 2048;
+   vocab 129280), cut to 2 layers plus the MTP block and from 256 to 32
+   routed experts (``MOE_TRAIN_EXPERTS``: 256 experts' stacks alone, 3 x
+   11.3 B params a block, do not fit one card; at 32 the state is 6.8 B
+   params and a W step peaks at 63 GB), from
+   seed 0, ``train_compute="int8"``, bf16 params and Adafactor on the
+   cosine schedule (its config's hints), ``SyntheticLM`` seq 128 x batch
+   8: 1 warmup, 1 theta and 2 W steps.  The counts are zeroed just before
+   the four steps and read just after.  Gates: every loss finite; K5
+   launches ``steps.int8_products_per_step`` (94) a step, every one on the
+   int8 tensor cores, no other kernel of the port; one more W step with
+   every K5 call held bitwise to ``scaled_int8_mm_plain``.  Reported: each
+   step's loss, ms (CUDA events; host ms beside) and peak memory; K5 at
+   the step's product shapes (the MLA, shared-expert and lm_head sites)
+   against its plain version, the library and the bound, summed over a
+   step; one block's expert products (CUDA events) and their share of a W
+   step; the W step's split (forward and backward against Adafactor,
+   device busy by kernel family, idle share); Adafactor's state and its
+   extra peak memory.  Then arctic-480b at its published widths, 2 layers
+   and 8 of 128 experts (softmax routing, the dense residual MLP): one
+   int8 W step, the same gates but the bitwise check, its counts zeroed
+   and read around it.
 6. The kernel summary line (K1 at the resnet8 shapes with deepseek's three
    K1 shapes beside them and the launches of both paths, K2 over one
    qwen1.5-4b decode step with its SIMT routine's time, its prefill forward
@@ -614,7 +639,7 @@ def k5_timed(cases, card, sms, tag="K5"):
             row[f"{key}_loop_ms"] = cuda_ms(fn, iters=20)
             row[f"{key}_ms"], row[f"{key}_timer"] = kernel_ms(fn, 10, row[f"{key}_loop_ms"])
         row["k5_device_ops"] = len(device_kernels(fns["k5"])[0])
-        for _ in range(2):          # the profiler now and then loses a call's events
+        for _ in range(5):          # the profiler now and then loses a call's events
             if row["k5_device_ops"]:
                 break
             row["k5_device_ops"] = len(device_kernels(fns["k5"])[0])
@@ -3458,11 +3483,26 @@ TRAIN_SCHEDULE = ("warmup", "warmup", "theta", "w", "w", "w")
 
 def _k5_roles(cfg, tokens) -> dict:
     """{(M, N, K): role} of the K5 products of a step: each searched
-    linear's forward, grad-input and grad-weight."""
-    d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
-    sites = {"wq": (cfg.n_heads * hd, d), "wk/wv": (cfg.n_kv_heads * hd, d),
-             "wo": (d, cfg.n_heads * hd), "w_gate/w_up": (ff, d), "w_down": (d, ff),
-             "lm_head": (cfg.padded_vocab, d)}
+    linear's forward, grad-input and grad-weight (GQA or MLA projections;
+    the MLP, or a MoE block's shared expert and dense residual MLP; the
+    lm_head)."""
+    d, H = cfg.d_model, cfg.n_heads
+    if cfg.use_mla:
+        nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        sites = {"wq_a": (cfg.q_lora_rank, d), "wq_b": (H * (nope + rope), cfg.q_lora_rank),
+                 "wkv_a": (cfg.kv_lora_rank + rope, d),
+                 "wkv_b": (H * (nope + vd), cfg.kv_lora_rank), "wo": (d, H * vd)}
+    else:
+        hd = cfg.head_dim
+        sites = {"wq": (H * hd, d), "wk/wv": (cfg.n_kv_heads * hd, d), "wo": (d, H * hd)}
+    if cfg.n_experts:
+        for name, ff in (("shared", cfg.moe_d_ff * cfg.n_shared_experts),
+                         ("dense_res", cfg.dense_residual_ff)):
+            if ff:
+                sites.update({f"{name} w_gate/w_up": (ff, d), f"{name} w_down": (d, ff)})
+    else:
+        sites.update({"w_gate/w_up": (cfg.d_ff, d), "w_down": (d, cfg.d_ff)})
+    sites["lm_head"] = (cfg.padded_vocab, d)
     roles = {}
     for site, (n, k) in sites.items():
         for shape, leg in (((tokens, n, k), "forward"), ((tokens, k, n), "grad-input"),
@@ -3473,15 +3513,155 @@ def _k5_roles(cfg, tokens) -> dict:
     return roles
 
 
+def timed_step(fn, batch, st):
+    """One training step ``fn(st, batch)``: its metrics, ms (CUDA events),
+    host ms, peak memory and K5 launches."""
+    from repro_torch.kernels import int8_matmul as imk
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    before = imk.scaled_int8_mm.launches
+    t = time.perf_counter()
+    start.record()
+    st, m = fn(st, batch)
+    end.record()
+    torch.cuda.synchronize()
+    row = {k: float(v) for k, v in m.items()}
+    row.update(ms=start.elapsed_time(end), host_ms=(time.perf_counter() - t) * 1e3,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               k5_launches=imk.scaled_int8_mm.launches - before)
+    return st, row
+
+
+def run_steps(tag, fns, schedule, it, state, want, card):
+    """``schedule``'s steps, each gated: loss finite, ``want`` K5 launches."""
+    steps = []
+    for i, kind in enumerate(schedule):
+        state, row = timed_step(fns[kind], next(it), state)
+        row = dict(step=i, kind=kind, **row)
+        steps.append(row)
+        log(f"[{tag}] step {i} {kind}: " + json.dumps(row) + f" | {card}")
+        check(np.isfinite(row["loss"]), f"[{tag}] step {i} ({kind}): loss not finite")
+        check(row["k5_launches"] == want,
+              f"[{tag}] step {i} ({kind}): {row['k5_launches']} K5 launches, derived {want}")
+    return state, steps
+
+
+def checked_k5_step(fn, batch, state, want):
+    """One step with every K5 call held bitwise to its plain version on the
+    same int8 operands: ``(state, row, operands by shape, calls by shape,
+    worst error)``."""
+    from repro_torch.kernels import int8_matmul as imk
+    from repro_torch.qtrain import linear as tqt
+    kept, counts, worst, calls = {}, {}, [0.0], [0]
+    orig = tqt._int8_mm
+
+    def spy(a, b, seed_a, seed_b, backend):
+        y = orig(a, b, seed_a, seed_b, backend)
+        qa, sa = imk.rowwise_quantize(a.contiguous(), seed_a)
+        qb, sb = imk.rowwise_quantize(b.contiguous(), seed_b)
+        ref = imk.scaled_int8_mm_plain(qa, qb, sa, sb)
+        check(torch.equal(y, ref), f"K5 != its plain version bitwise at {tuple(y.shape)} "
+              f"x K {qa.shape[1]}")
+        worst[0] = max(worst[0], float((y - ref).abs().max()))
+        calls[0] += 1
+        shape = (qa.shape[0], qb.shape[0], qa.shape[1])
+        counts[shape] = counts.get(shape, 0) + 1
+        kept.setdefault(shape, (qa, qb, sa, sb))
+        return y
+
+    tqt._int8_mm = spy
+    try:
+        state, row = timed_step(fn, batch, state)
+    finally:
+        tqt._int8_mm = orig
+    check(calls[0] == want and np.isfinite(row["loss"]), "the checked W step")
+    return state, row, kept, counts, worst[0]
+
+
+def k5_at_step_shapes(cfg, tokens, kept, counts, label, card, sms):
+    """K5 at a step's product shapes (``k5_timed``), summed over its calls."""
+    roles = _k5_roles(cfg, tokens)
+    shapes = sorted(kept)
+    rows = k5_timed([(roles.get(sh, "?"), *kept[sh]) for sh in shapes], card, sms,
+                    tag=f"K5 {label} train")
+    for r, sh in zip(rows, shapes):
+        r["calls_per_step"] = counts[sh]
+    return rows, k5_summed(rows, f"{label} int8 W", card, [counts[sh] for sh in shapes])
+
+
+def step_split(tag, cfg, hp, state, batch, opt_w, gemm_label, card):
+    """Where a W step's time goes: forward and backward against the
+    optimizer (CUDA events), and one profiled forward and backward by
+    kernel family (device events only).  Returns the split and that
+    forward and backward's gradients."""
+    from repro_torch.train import steps as steps_mod
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    _, grads = steps_mod.loss_and_grads(cfg, hp, state, batch, "w")
+    ev[1].record()
+    with torch.no_grad():
+        opt_w.apply_(grads, state["opt_w"], state["params"], state["step"])
+    ev[2].record()
+    torch.cuda.synchronize()
+    fwd_bwd_ms, opt_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    del grads
+    holder = {}
+
+    def fwd_bwd():
+        holder["g"] = steps_mod.loss_and_grads(cfg, hp, state, batch, "w")[1]
+
+    events, prof_ms = device_only_kernels(fwd_bwd)
+    fams: dict = {}
+    for name, us in events:
+        low = name.lower()
+        fam = ("K5" if "panel_kernel" in name or "split_kernel" in name else
+               gemm_label if any(t in low for t in ("gemm", "sgemm", "xmma", "cutlass")) else
+               "other (mixture, quantizers, norms, softmax)")
+        n, t = fams.get(fam, (0, 0.0))
+        fams[fam] = (n + 1, t + us / 1e3)
+    busy = sum(t for _, t in fams.values())
+    split = dict(fwd_bwd_ms=fwd_bwd_ms, optimizer_ms=opt_ms, profiled_fwd_bwd_ms=prof_ms,
+                 device_busy_ms=busy, idle_share=1 - busy / fwd_bwd_ms,
+                 profiled_idle_share=1 - busy / prof_ms, launches=len(events),
+                 families={k: dict(kernels=n, ms=t) for k, (n, t) in fams.items()})
+    log(f"[{tag}] W step split: " + json.dumps(split) + f" | {card}")
+    return split, holder.pop("g")
+
+
+def optimizer_peak(opt_w, grads, state) -> dict:
+    """The optimizer's extra peak memory over the state with its gradients:
+    the functional ``update`` (every new moment and update at once; None
+    where it does not fit) against the in-place ``apply_`` a leaf at a
+    time (which this call takes)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with torch.no_grad():
+            upd, new_state = opt_w.update(grads, state["opt_w"], state["params"], state["step"])
+        torch.cuda.synchronize()
+        functional = (torch.cuda.max_memory_allocated() - base) / 1e9
+        del upd, new_state
+    except torch.cuda.OutOfMemoryError:
+        functional = None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        opt_w.apply_(grads, state["opt_w"], state["params"], state["step"])
+    torch.cuda.synchronize()
+    return dict(resident_with_grads=base / 1e9, functional_extra=functional,
+                leafwise_extra=(torch.cuda.max_memory_allocated() - base) / 1e9)
+
+
 def lm_train(dev, card, ops, sms):
     """Phase [train]: Alg. 1's steps on minicpm-2b at full width and depth
     with int8 compute (K5 for every searched linear's three products).
     Returns the report and K5's entry for the summary line."""
     from repro_torch.config import get_config
     from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.kernels import int8_matmul as imk
     from repro_torch.optim import optimizers as opt_mod
-    from repro_torch.qtrain import linear as tqt
     from repro_torch.train import steps as steps_mod
 
     t_phase = time.perf_counter()
@@ -3516,33 +3696,9 @@ def lm_train(dev, card, ops, sms):
            "w": steps_mod.make_train_step(cfg, hp)}
     want = steps_mod.int8_products_per_step(cfg, hp.remat)
 
-    def timed_step(fn, batch, st):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        before = imk.scaled_int8_mm.launches
-        t = time.perf_counter()
-        start.record()
-        st, m = fn(st, batch)
-        end.record()
-        torch.cuda.synchronize()
-        row = {k: float(v) for k, v in m.items()}
-        row.update(ms=start.elapsed_time(end), host_ms=(time.perf_counter() - t) * 1e3,
-                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                   k5_launches=imk.scaled_int8_mm.launches - before)
-        return st, row
-
     # the main path: the counts zeroed just before, read just after
     ops.reset_launch_counts()
-    steps = []
-    for i, kind in enumerate(TRAIN_SCHEDULE):
-        state, row = timed_step(fns[kind], next(it), state)
-        row = dict(step=i, kind=kind, **row)
-        steps.append(row)
-        log(f"[train] step {i} {kind}: " + json.dumps(row) + f" | {card}")
-        check(np.isfinite(row["loss"]), f"step {i} ({kind}): loss not finite")
-        check(row["k5_launches"] == want,
-              f"step {i} ({kind}): {row['k5_launches']} K5 launches, derived {want}")
+    state, steps = run_steps("train", fns, TRAIN_SCHEDULE, it, state, want, card)
     state = steps_mod.anneal_epoch(state, cfg)
     launches = ops.launch_counts()
     mma = ops.mma_launch_counts()
@@ -3559,42 +3715,14 @@ def lm_train(dev, card, ops, sms):
 
     # one more W step with every K5 call held to its plain version, bitwise
     log(f"[clock] [train] at {time.perf_counter() - t_phase:.1f} s")
-    roles = _k5_roles(cfg, tokens)
-    kept, counts, worst, calls = {}, {}, [0.0], [0]
-    orig = tqt._int8_mm
-
-    def spy(a, b, seed_a, seed_b, backend):
-        y = orig(a, b, seed_a, seed_b, backend)
-        qa, sa = imk.rowwise_quantize(a.contiguous(), seed_a)
-        qb, sb = imk.rowwise_quantize(b.contiguous(), seed_b)
-        ref = imk.scaled_int8_mm_plain(qa, qb, sa, sb)
-        check(torch.equal(y, ref), f"K5 != its plain version bitwise at {tuple(y.shape)} "
-              f"x K {qa.shape[1]}")
-        worst[0] = max(worst[0], float((y - ref).abs().max()))
-        calls[0] += 1
-        shape = (qa.shape[0], qb.shape[0], qa.shape[1])
-        counts[shape] = counts.get(shape, 0) + 1
-        kept.setdefault(shape, (qa, qb, sa, sb))
-        return y
-
-    tqt._int8_mm = spy
-    try:
-        state, row = timed_step(fns["w"], next(it), state)
-    finally:
-        tqt._int8_mm = orig
-    check(calls[0] == want and np.isfinite(row["loss"]), "the checked W step")
-    report["checked_w_step"] = dict(row, k5_calls_bitwise=calls[0], max_abs_err=worst[0])
-    log(f"[train] checked W step: all {calls[0]} K5 calls bitwise equal to the plain version "
+    state, row, kept, counts, worst = checked_k5_step(fns["w"], next(it), state, want)
+    report["checked_w_step"] = dict(row, k5_calls_bitwise=want, max_abs_err=worst)
+    log(f"[train] checked W step: all {want} K5 calls bitwise equal to the plain version "
         f"on the same int8 operands ({len(counts)} shapes); loss {row['loss']:.6f}")
 
     # K5 at the step's shapes: device times, the plain version, the library, the bound
     log(f"[clock] [train] at {time.perf_counter() - t_phase:.1f} s")
-    shapes = sorted(kept)
-    rows = k5_timed([(roles.get(sh, "?"), *kept[sh]) for sh in shapes], card, sms,
-                    tag="K5 minicpm-2b train")
-    for r, sh in zip(rows, shapes):
-        r["calls_per_step"] = counts[sh]
-    k5_step = k5_summed(rows, "minicpm-2b int8 W", card, [counts[sh] for sh in shapes])
+    rows, k5_step = k5_at_step_shapes(cfg, tokens, kept, counts, "minicpm-2b", card, sms)
     del kept
     report["k5_shapes"], report["k5_per_step"] = rows, k5_step
 
@@ -3612,67 +3740,19 @@ def lm_train(dev, card, ops, sms):
     log(f"[clock] [train] at {time.perf_counter() - t_phase:.1f} s")
     batch = steps_mod.device_batch(next(it), dev)
     opt_w, _ = steps_mod.make_optimizers(hp)
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    ev[0].record()
-    _, grads = steps_mod.loss_and_grads(cfg, hp, state, batch, "w")
-    ev[1].record()
-    with torch.no_grad():
-        opt_w.apply_(grads, state["opt_w"], state["params"], state["step"])
-    ev[2].record()
-    torch.cuda.synchronize()
-    fwd_bwd_ms, opt_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
-    del grads
-    holder = {}
-
-    def fwd_bwd():
-        holder["g"] = steps_mod.loss_and_grads(cfg, hp, state, batch, "w")[1]
-
-    events, prof_ms = device_only_kernels(fwd_bwd)
-    fams: dict = {}
-    for name, us in events:
-        low = name.lower()
-        fam = ("K5" if "panel_kernel" in name or "split_kernel" in name else
-               "library GEMM (attention)" if any(t in low for t in ("gemm", "sgemm", "xmma",
-                                                                    "cutlass")) else
-               "other (mixture, quantizers, norms, softmax)")
-        n, t = fams.get(fam, (0, 0.0))
-        fams[fam] = (n + 1, t + us / 1e3)
-    busy = sum(t for _, t in fams.values())
-    split = dict(fwd_bwd_ms=fwd_bwd_ms, optimizer_ms=opt_ms, profiled_fwd_bwd_ms=prof_ms,
-                 device_busy_ms=busy, idle_share=1 - busy / fwd_bwd_ms,
-                 profiled_idle_share=1 - busy / prof_ms,
-                 families={k: dict(kernels=n, ms=t) for k, (n, t) in fams.items()})
-    report["w_step_split"] = split
-    log(f"[train] W step split: " + json.dumps(split) + f" | {card}")
+    report["w_step_split"], grads = step_split("train", cfg, hp, state, batch, opt_w,
+                                               "library GEMM (attention)", card)
 
     # the optimizer's peak: the functional update (every new moment and
     # update at once) against the in-place update a leaf at a time
     log(f"[clock] [train] at {time.perf_counter() - t_phase:.1f} s")
-    grads = holder.pop("g")
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    try:
-        with torch.no_grad():
-            upd, new_state = opt_w.update(grads, state["opt_w"], state["params"], state["step"])
-        torch.cuda.synchronize()
-        functional = (torch.cuda.max_memory_allocated() - base) / 1e9
-        del upd, new_state
-    except torch.cuda.OutOfMemoryError:
-        functional = None
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    with torch.no_grad():
-        opt_w.apply_(grads, state["opt_w"], state["params"], state["step"])
-    torch.cuda.synchronize()
-    leafwise = (torch.cuda.max_memory_allocated() - base) / 1e9
-    report["optimizer_peak_gb"] = dict(resident_with_grads=base / 1e9, functional_extra=functional,
-                                       leafwise_extra=leafwise)
+    peak = optimizer_peak(opt_w, grads, state)
+    report["optimizer_peak_gb"] = peak
+    functional = peak["functional_extra"]
     log(f"[train] AdamW update over the {n_params} params: resident with the gradients "
-        f"{base / 1e9:.2f} GB; the functional update's peak adds "
+        f"{peak['resident_with_grads']:.2f} GB; the functional update's peak adds "
         f"{'out of memory' if functional is None else f'{functional:.2f} GB'}, the in-place "
-        f"update a leaf at a time adds {leafwise:.2f} GB | {card}")
+        f"update a leaf at a time adds {peak['leafwise_extra']:.2f} GB | {card}")
     del grads, state
     torch.cuda.empty_cache()
     report["phase_s"] = time.perf_counter() - t_phase
@@ -3680,7 +3760,216 @@ def lm_train(dev, card, ops, sms):
     k5 = dict(launches=launches["scaled_int8_mm"], mma_launches=mma["scaled_int8_mm"],
               launches_per_step=want, ms=k5_step["k5_ms"], plain_ms=k5_step["plain_ms"],
               bound_ms=k5_step["bound_ms"], bound_by=k5_step["bound_by"],
-              library_ms=k5_step["library_ms"], max_abs_err=worst[0],
+              library_ms=k5_step["library_ms"], max_abs_err=worst,
+              products=k5_step["products"], by_class=k5_step["by_class"])
+    return report, k5
+
+
+# ---------------------------------------------------------------------------
+# The MoE training path (deepseek-v3-671b and arctic-480b at full width,
+# int8 compute)
+# ---------------------------------------------------------------------------
+
+MOE_TRAIN_LAYERS = 2
+# routed experts on the card: deepseek's 256 (11.3 B params a block) and
+# arctic's 128 (13.4 B) do not fit one 80 GB card; at 32 a deepseek W step
+# peaks at 63 GB (PERF.md section 4)
+MOE_TRAIN_EXPERTS = 32
+ARCTIC_TRAIN_EXPERTS = 8
+MOE_TRAIN_SCHEDULE = ("warmup", "theta", "w", "w")
+
+
+def _moe_train_config(arch, n_experts):
+    """``arch`` at its published widths, cut to ``MOE_TRAIN_LAYERS`` layers
+    and ``n_experts`` routed experts."""
+    from repro_torch.config import get_config
+    return dataclasses.replace(get_config(arch), n_layers=MOE_TRAIN_LAYERS, n_experts=n_experts)
+
+
+def expert_products_ms(cfg, tokens, dev, card) -> dict:
+    """One MoE block's three expert products at a step's buffer shape
+    ``(E, capacity, d)`` in bf16: the forward and the forward with its
+    backward, by CUDA events, and a W step's share (each stacked block's
+    forward twice under remat, the MTP block's once; every block's
+    backward once)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as moe_mod
+    E, C, d, ff = cfg.n_experts, moe_mod.capacity_of(cfg, tokens), cfg.d_model, cfg.moe_d_ff
+    cd = cfg.cdtype
+    g = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *s: (torch.randn(s, generator=g, device=dev) * 0.02).to(cd).requires_grad_(True)
+    buf, wg, wu, wd = rnd(E, C, d), rnd(E, ff, d), rnd(E, ff, d), rnd(E, d, ff)
+
+    def fwd():
+        h = (L.silu(moe_mod._experts_mm("ecd,efd->ecf", buf, wg, cd))
+             * moe_mod._experts_mm("ecd,efd->ecf", buf, wu, cd))
+        return moe_mod._experts_mm("ecf,edf->ecd", h, wd, cd)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd().float().sum(), (buf, wg, wu, wd))
+
+    with torch.no_grad():
+        f_ms = cuda_ms(fwd, iters=5, warmup=2)
+    fb_ms = cuda_ms(fwd_bwd, iters=5, warmup=2)
+    n_fwd = 2 * cfg.n_layers + int(cfg.mtp)
+    n_blocks = cfg.n_layers + int(cfg.mtp)
+    row = dict(E=E, capacity=C, d=d, ff=ff, forward_ms=f_ms, forward_backward_ms=fb_ms,
+               per_w_step_ms=n_fwd * f_ms + n_blocks * (fb_ms - f_ms),
+               flop_per_forward=3 * 2 * E * C * d * ff)
+    log(f"[train-moe] expert products of one {cfg.name} block (f32 sums of bf16 operands): "
+        + json.dumps(row) + f" | {card}")
+    return row
+
+
+def moe_train(dev, card, ops, sms):
+    """Phase [train-moe]: Alg. 1's steps on deepseek-v3-671b (MLA, sigmoid
+    routing, a shared expert, the MTP head) at its published widths, 2
+    layers and 32 routed experts, with int8 compute (K5 for the MLA, shared
+    expert and lm_head products), then one W step of arctic-480b (GQA,
+    softmax routing, the dense residual MLP) at 2 layers and 8 experts.
+    Returns the report and K5's entry for the summary line."""
+    from repro_torch.config import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim import optimizers as opt_mod
+    from repro_torch.train import steps as steps_mod
+
+    t_phase = time.perf_counter()
+    full = get_config("deepseek-v3-671b")
+    check((full.d_model, full.n_heads, full.q_lora_rank, full.kv_lora_rank, full.qk_nope_dim,
+           full.qk_rope_dim, full.v_head_dim, full.moe_d_ff, full.experts_per_token,
+           full.n_shared_experts, full.n_experts, full.vocab_size, full.padded_vocab, full.mtp)
+          == (7168, 128, 1536, 512, 128, 64, 128, 2048, 8, 1, 256, 129280, 129280, True),
+          "deepseek-v3-671b at its published widths")
+    cfg = _moe_train_config("deepseek-v3-671b", MOE_TRAIN_EXPERTS)
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    hp = steps_mod.TrainHParams.for_arch(cfg, train_compute="int8", warmup_steps=1,
+                                         total_steps=100)
+    check(hp.optimizer == "adafactor" and hp.schedule == "cosine"
+          and cfg.param_dtype == torch.bfloat16,
+          "deepseek trains as its config hints: bf16 params, Adafactor, cosine")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = steps_mod.init_train_state(cfg, hp, 0, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in opt_mod.tree_leaves(state["params"]))
+    opt_gb = sum(t.numel() * t.element_size() for t in opt_mod.tree_leaves(state["opt_w"])) / 1e9
+    capacity = moe_mod.capacity_of(cfg, tokens)
+    report = dict(arch=cfg.name, d_model=cfg.d_model, n_layers=cfg.n_layers,
+                  n_experts=cfg.n_experts, published_experts=full.n_experts,
+                  capacity=capacity, padded_vocab=cfg.padded_vocab, seq=TRAIN_SEQ,
+                  batch=TRAIN_BATCH, train_compute=hp.train_compute, schedule=hp.schedule,
+                  optimizer=hp.optimizer, opt_state_dtype=hp.opt_state_dtype, params=n_params,
+                  adafactor_state_gb=opt_gb, init_s=time.perf_counter() - t0,
+                  resident_gb=torch.cuda.memory_allocated() / 1e9)
+    log(f"[train-moe] {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} heads, MLA q_lora "
+        f"{cfg.q_lora_rank} kv_lora {cfg.kv_lora_rank} nope {cfg.qk_nope_dim} rope "
+        f"{cfg.qk_rope_dim} v {cfg.v_head_dim}; top-{cfg.experts_per_token} sigmoid of "
+        f"{cfg.n_experts} routed experts (cut from {full.n_experts}) of d_ff {cfg.moe_d_ff}, "
+        f"{cfg.n_shared_experts} shared; vocab {cfg.vocab_size} padded to {cfg.padded_vocab}; "
+        f"cut to {cfg.n_layers} layers + the MTP block; {n_params} params (bf16); seq "
+        f"{TRAIN_SEQ} x batch {TRAIN_BATCH}, capacity {capacity} rows an expert; "
+        f"train_compute int8, Adafactor ({hp.opt_state_dtype} statistics, {opt_gb:.3f} GB), "
+        f"cosine; init {report['init_s']:.2f} s, resident {report['resident_gb']:.2f} GB "
+        f"| {card}")
+    it = iter(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    fns = {"warmup": steps_mod.make_qat_warmup_step(cfg, hp),
+           "theta": steps_mod.make_theta_step(cfg, hp, tokens),
+           "w": steps_mod.make_train_step(cfg, hp)}
+    want = steps_mod.int8_products_per_step(cfg, hp.remat)
+
+    # the main path: the counts zeroed just before, read just after
+    ops.reset_launch_counts()
+    state, steps = run_steps("train-moe", fns, MOE_TRAIN_SCHEDULE, it, state, want, card)
+    launches, mma = ops.launch_counts(), ops.mma_launch_counts()
+    check(launches["scaled_int8_mm"] == want * len(MOE_TRAIN_SCHEDULE)
+          and mma["scaled_int8_mm"] == launches["scaled_int8_mm"],
+          "[train-moe] every K5 launch of the path on the int8 tensor cores, want a step")
+    check(sum(v for k, v in launches.items() if k != "scaled_int8_mm") == 0,
+          "[train-moe] the MoE training path launches no other kernel of the port")
+    report.update(steps=steps, k5_launches_per_step=want)
+    recomputed = cfg.n_layers * 8               # 5 MLA projections, 3 shared-expert linears
+    log(f"[train-moe] {len(MOE_TRAIN_SCHEDULE)} steps: K5 launches "
+        f"{launches['scaled_int8_mm']} ({want} a step = 3 x {(want - recomputed) // 3} sites "
+        f"(forward, grad-input, grad-weight; {cfg.n_layers} blocks and the MTP block, the "
+        f"lm_head twice) + {recomputed} recomputed forwards under remat), all on the tensor "
+        f"cores")
+
+    # one more W step with every K5 call held to its plain version, bitwise
+    log(f"[clock] [train-moe] at {time.perf_counter() - t_phase:.1f} s")
+    state, row, kept, counts, worst = checked_k5_step(fns["w"], next(it), state, want)
+    report["checked_w_step"] = dict(row, k5_calls_bitwise=want, max_abs_err=worst)
+    log(f"[train-moe] checked W step: all {want} K5 calls bitwise equal to the plain "
+        f"version on the same int8 operands ({len(counts)} shapes); loss {row['loss']:.6f}")
+
+    # K5 at the step's shapes: device times, the plain version, the library, the bound
+    log(f"[clock] [train-moe] at {time.perf_counter() - t_phase:.1f} s")
+    rows, k5_step = k5_at_step_shapes(cfg, tokens, kept, counts, "deepseek-v3", card, sms)
+    del kept
+    report["k5_shapes"], report["k5_per_step"] = rows, k5_step
+    report["expert_products"] = expert_products_ms(cfg, tokens, dev, card)
+
+    # where a W step's time goes, and the optimizer's share of it and of memory
+    log(f"[clock] [train-moe] at {time.perf_counter() - t_phase:.1f} s")
+    batch = steps_mod.device_batch(next(it), dev)
+    opt_w, _ = steps_mod.make_optimizers(hp)
+    split, grads = step_split("train-moe", cfg, hp, state, batch, opt_w,
+                              "library GEMM (expert products, attention, router)", card)
+    report["w_step_split"] = split
+    log(f"[clock] [train-moe] at {time.perf_counter() - t_phase:.1f} s")
+    peak = optimizer_peak(opt_w, grads, state)
+    report["optimizer_peak_gb"] = peak
+    functional = peak["functional_extra"]
+    log(f"[train-moe] Adafactor update over the {n_params} params: state {opt_gb:.3f} GB; "
+        f"resident with the gradients {peak['resident_with_grads']:.2f} GB; the functional "
+        f"update's peak adds {'out of memory' if functional is None else f'{functional:.2f} GB'}"
+        f", the in-place update a leaf at a time adds {peak['leafwise_extra']:.2f} GB; the "
+        f"optimizer {split['optimizer_ms']:.1f} ms of a {split['fwd_bwd_ms'] + split['optimizer_ms']:.1f}"
+        f" ms W step | {card}")
+    del grads, state
+    torch.cuda.empty_cache()
+
+    # arctic-480b: one int8 W step (softmax routing, the dense residual MLP)
+    log(f"[clock] [train-moe] at {time.perf_counter() - t_phase:.1f} s")
+    afull = get_config("arctic-480b")
+    check((afull.d_model, afull.n_heads, afull.n_kv_heads, afull.head_dim, afull.moe_d_ff,
+           afull.dense_residual_ff, afull.experts_per_token, afull.n_shared_experts,
+           afull.n_experts, afull.vocab_size) == (7168, 56, 8, 128, 4864, 4864, 2, 0, 128, 32000),
+          "arctic-480b at its published widths")
+    acfg = _moe_train_config("arctic-480b", ARCTIC_TRAIN_EXPERTS)
+    ahp = steps_mod.TrainHParams.for_arch(acfg, train_compute="int8", warmup_steps=1,
+                                          total_steps=100)
+    astate = steps_mod.init_train_state(acfg, ahp, 0, dev)
+    a_want = steps_mod.int8_products_per_step(acfg, ahp.remat)
+    a_it = iter(SyntheticLM(acfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    a_step = steps_mod.make_train_step(acfg, ahp)
+    ops.reset_launch_counts()
+    astate, a_steps = run_steps("train-moe", {"w": a_step}, ("w",), a_it, astate, a_want, card)
+    a_launches, a_mma = ops.launch_counts(), ops.mma_launch_counts()
+    check(a_launches["scaled_int8_mm"] == a_want
+          and a_mma["scaled_int8_mm"] == a_launches["scaled_int8_mm"]
+          and sum(v for k, v in a_launches.items() if k != "scaled_int8_mm") == 0,
+          "[train-moe] arctic: K5 only, want launches, all on the int8 tensor cores")
+    report["arctic"] = dict(arch=acfg.name, n_layers=acfg.n_layers, n_experts=acfg.n_experts,
+                            published_experts=afull.n_experts,
+                            params=sum(t.numel() for t in opt_mod.tree_leaves(astate["params"])),
+                            k5_launches_per_step=a_want, steps=a_steps)
+    log(f"[train-moe] {acfg.name} at {acfg.n_layers} layers, {acfg.n_experts} of "
+        f"{afull.n_experts} experts (top-{acfg.experts_per_token} softmax, dense residual "
+        f"{acfg.dense_residual_ff}): {report['arctic']['params']} params; W step "
+        f"{a_steps[0]['ms']:.1f} ms, peak {a_steps[0]['peak_gb']:.2f} GB, {a_want} K5 launches, "
+        f"all on the tensor cores | {card}")
+    del astate
+    torch.cuda.empty_cache()
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train-moe] phase took {report['phase_s']:.1f} s")
+    total = launches["scaled_int8_mm"] + a_launches["scaled_int8_mm"]
+    k5 = dict(launches=total, mma_launches=mma["scaled_int8_mm"] + a_mma["scaled_int8_mm"],
+              launches_per_step=want, arctic_launches_per_step=a_want,
+              ms=k5_step["k5_ms"], plain_ms=k5_step["plain_ms"],
+              bound_ms=k5_step["bound_ms"], bound_by=k5_step["bound_by"],
+              library_ms=k5_step["library_ms"], max_abs_err=worst,
               products=k5_step["products"], by_class=k5_step["by_class"])
     return report, k5
 
@@ -4459,6 +4748,12 @@ def main() -> int:
     train_report, k5_lm = lm_train(dev, card, ops, sms)
     report["lm_train"] = train_report
 
+    # -- [train-moe]. MoE + MLA + MTP training: deepseek-v3 and arctic, int8 --------
+    log(f"[clock] phase [train-moe] starts at {time.perf_counter() - t_run:.1f} s")
+    torch.cuda.empty_cache()
+    moe_train_report, k5_moe = moe_train(dev, card, ops, sms)
+    report["moe_train"] = moe_train_report
+
     def more(name, mma=False):
         """Launches of the whisper and [paged] paths of one wrapper."""
         return sum(pair[1 if mma else 0][name] for pair in extra.values())
@@ -4504,17 +4799,20 @@ def main() -> int:
         dict(name="scaled_int8_mm", route="cuda",
              source="src/repro_torch/kernels/csrc/int8_matmul.cu",
              replaces="src/repro/kernels/int8_matmul.py:82",
-             launches=train_launches["scaled_int8_mm"] + k5_lm["launches"],
-             mma_launches=train_mma["scaled_int8_mm"] + k5_lm["mma_launches"],
+             launches=train_launches["scaled_int8_mm"] + k5_lm["launches"] + k5_moe["launches"],
+             mma_launches=(train_mma["scaled_int8_mm"] + k5_lm["mma_launches"]
+                           + k5_moe["mma_launches"]),
              launches_by_path=dict(tinyml_training=train_launches["scaled_int8_mm"],
-                                   lm_training=k5_lm["launches"]),
-             max_abs_err=max([r["max_abs_err"] for r in k5_rows] + [k5_lm["max_abs_err"]]),
+                                   lm_training=k5_lm["launches"],
+                                   moe_training=k5_moe["launches"]),
+             max_abs_err=max([r["max_abs_err"] for r in k5_rows]
+                             + [k5_lm["max_abs_err"], k5_moe["max_abs_err"]]),
              ms=k5_sum["k5_ms"], plain_ms=k5_sum["plain_ms"], bound_ms=k5_bound,
              bound_by=k5_bound_by, library_ms=k5_sum["library_ms"],
              dae_ad=dict(ms=k5_dae_sum["k5_ms"], plain_ms=k5_dae_sum["plain_ms"],
                          bound_ms=k5_dae_sum["bound_ms"], bound_by=k5_dae_sum["bound_by"],
                          library_ms=k5_dae_sum["library_ms"], products=len(k5_dae)),
-             minicpm_train=k5_lm),
+             minicpm_train=k5_lm, deepseek_train=k5_moe),
         dict(k4_lm, launches=(k4_lm["launches"] + fam_launches["decode_attention"]
                               + more("decode_attention")),
              launches_by_path=dict(qwen=k4_lm["launches"],
@@ -4563,7 +4861,9 @@ def main() -> int:
         f"255 and 447, in its 'whisper' entry), K1's, K2's, K3's and K4's also the [paged] runs "
         f"and the [spec] runs (speculative decoding, phase 4g) of qwen1.5-4b and deepseek-v3 "
         f"('launches_by_path'), K5's also the [train] path's (minicpm-2b at full width, int8: "
-        f"its step's products timed in its 'minicpm_train' entry), K6's the kernel API's over the "
+        f"its step's products timed in its 'minicpm_train' entry) and the [train-moe] path's "
+        f"(deepseek-v3 and arctic at full width, 2 layers, int8: deepseek's step in its "
+        f"'deepseek_train' entry), K6's the kernel API's over the "
         f"tinyml search-phase weights (no model path calls K6, in the reference or the port); "
         f"{card}")
     report["kernels"] = kernels

@@ -18,8 +18,17 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import quantizers as qz
+
+# A weight of this many elements or more has its fake-quantized copies
+# recomputed in the backward, one bit-width at a time, instead of saved:
+# autograd keeps ~13 bytes an element of each copy (the clip, the quotient
+# and the rounded copy in f32), ~39 for the three of a mixture, which for
+# deepseek-v3's lm_head (927 M elements, called twice a step) alone passes
+# the card's 80 GB.  The recomputed forward gives the same values.
+RECOMPUTE_MIN = 1 << 24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,11 +66,30 @@ def softmax_tau(logits: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
     return torch.softmax(logits / tau.to(logits.device), dim=-1)
 
 
+def _recomputed(fn, w: torch.Tensor, *args) -> torch.Tensor:
+    """``fn(w, *args)``; under autograd, for a weight of ``RECOMPUTE_MIN``
+    elements or more, its saved tensors are recomputed in the backward."""
+    if w.numel() >= RECOMPUTE_MIN and torch.is_grad_enabled():
+        return checkpoint(fn, w, *args, use_reentrant=False)
+    return fn(w, *args)
+
+
+def _mixture_term(w, a, coef, bits: int) -> torch.Tensor:
+    return coef * qz.quantize_weight(w, a, bits)
+
+
+def fake_quant_weight(w: torch.Tensor, alpha: torch.Tensor, bits: int) -> torch.Tensor:
+    """``quantizers.quantize_weight`` (QAT's fixed precision), its saved
+    tensors recomputed in the backward for a large weight."""
+    return _recomputed(qz.quantize_weight, w, alpha, bits)
+
+
 def effective_weight(w: torch.Tensor, gamma: torch.Tensor, alpha_w: torch.Tensor,
                      tau: torch.Tensor, cfg: MixedPrecConfig) -> torch.Tensor:
     """Eq. (5): mixture of fake-quantized copies of ``w (c_out, ...)``,
     weighted per channel by ``gamma (c_out, |P_W|)`` or for the whole layer
-    by ``gamma (1, |P_W|)``; ``alpha_w (c_out,)``."""
+    by ``gamma (1, |P_W|)``; ``alpha_w (c_out,)``.  A large weight's copies
+    are recomputed in the backward, one at a time (``RECOMPUTE_MIN``)."""
     g = softmax_tau(gamma, tau)
     bshape = (w.shape[0],) + (1,) * (w.ndim - 1)
     a = alpha_w.reshape(bshape)
@@ -69,7 +97,7 @@ def effective_weight(w: torch.Tensor, gamma: torch.Tensor, alpha_w: torch.Tensor
     out = torch.zeros_like(w)
     for i, bits in enumerate(cfg.weight_bits):
         coef = g[:, i].reshape(bshape) if per_channel else g[0, i]
-        out = out + coef * qz.quantize_weight(w, a, bits)
+        out = out + _recomputed(_mixture_term, w, a, coef, bits)
     return out
 
 

@@ -1,8 +1,9 @@
 """Attention of the language models: grouped-query attention (GQA) and
 DeepSeek's multi-head latent attention (MLA), full-sequence (prefill) and
-one-token cached decode, and GQA's training forward (:func:`init_gqa`,
-:func:`gqa_forward`: every projection a quantization-aware ``qlinear``
-under the step's policy, differentiable end to end).
+one-token cached decode, and their training forwards (:func:`init_gqa`,
+:func:`gqa_forward`, :func:`init_mla`, :func:`mla_forward`: every
+projection a quantization-aware ``qlinear`` under the step's policy,
+differentiable end to end).
 
 Counterpart of the GQA and MLA parts of ``repro.models.attention``.  Full-sequence
 attention is the reference's blockwise online softmax over KV chunks,
@@ -170,6 +171,61 @@ def gqa_forward(p: dict, nas: Optional[dict], policy, cfg, x: torch.Tensor,
         k = L.apply_rope(k, cos, sin, rot)
     o = gqa_core(q, k, v, H, KV, causal, k_chunk=k_chunk)
     return lin("wo", o.reshape(B, S, H * hd))
+
+
+def init_mla(gen: torch.Generator, cfg, dtype=torch.float32, lead: tuple = ()) -> tuple:
+    """``(params, nas)`` of one MLA block (``lead`` axes prepended): the
+    query's and the KV latent's down and up projections, ``wo``, and the
+    latents' RMS norms."""
+    d, H = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    params = {
+        "wq_a": L.linear_init(gen, d, qr, False, dtype, lead),
+        "wq_b": L.linear_init(gen, qr, H * (nope + rope), False, dtype, lead),
+        "wkv_a": L.linear_init(gen, d, kvr + rope, False, dtype, lead),
+        "wkv_b": L.linear_init(gen, kvr, H * (nope + vd), False, dtype, lead),
+        "wo": L.linear_init(gen, H * vd, d, False, dtype, lead),
+    }
+    nas = {name: L.nas_init(p["w"].shape[-2], cfg.quant, gen.device, lead)
+           for name, p in params.items()}
+    params["q_norm"] = L.norm_init(qr, "rmsnorm", dtype, gen.device, lead)
+    params["kv_norm"] = L.norm_init(kvr, "rmsnorm", dtype, gen.device, lead)
+    return params, nas
+
+
+def mla_forward(p: dict, nas: Optional[dict], policy, cfg, x: torch.Tensor,
+                positions: torch.Tensor, k_chunk: int = 1024) -> torch.Tensor:
+    """Full-sequence MLA under a training ``policy``: the latents expanded
+    to per-head keys and values, ``x (B, S, d)`` -> ``(B, S, d)`` in
+    ``cfg.cdtype``; differentiable.  The rotary halves are f32 (the tables
+    promote a bf16 input), so the concatenated query and key are f32, as in
+    the reference; the one rotary key head is broadcast to every head (an
+    ``expand``: its gradient sums over the heads)."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    cd, pd = cfg.cdtype, L.partial_dtype_of(cfg)
+    getn = (lambda n: nas[n]) if nas is not None else (lambda n: None)
+
+    def lin(name, t):
+        return L.qlinear(t, p[name], getn(name), policy, cfg.quant, compute_dtype=cd,
+                         partial_dtype=pd)
+
+    cq = L.rmsnorm(lin("wq_a", x), p["q_norm"])
+    q = lin("wq_b", cq).reshape(B, S, H, nope + rope)
+    ckv = lin("wkv_a", x)
+    c_kv = L.rmsnorm(ckv[..., :kvr], p["kv_norm"])
+    kv = lin("wkv_b", c_kv).reshape(B, S, H, nope + vd)
+    cos, sin, rot = L.rope_freqs(rope, cfg.rope_theta, positions, 1.0)
+    q_rope = L.apply_rope(q[..., nope:], cos, sin, rot)
+    k_rope = L.apply_rope(ckv[..., kvr:][:, :, None, :], cos, sin, rot)
+    q_full = torch.cat([q[..., :nope].to(q_rope.dtype), q_rope], dim=-1)
+    k_full = torch.cat([kv[..., :nope].to(k_rope.dtype), k_rope.expand(B, S, H, rope)],
+                       dim=-1)
+    o = gqa_core(q_full, k_full, kv[..., nope:], H, H, causal=True, k_chunk=k_chunk)
+    return lin("wo", o.reshape(B, S, H * vd))
 
 
 # ---------------------------------------------------------------------------

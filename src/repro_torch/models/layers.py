@@ -102,7 +102,7 @@ def _quant_pair(x, w, p, nas, policy: PrecisionPolicy,
     if policy.phase is Phase.QAT8:
         aw = p["aw"].reshape((w.shape[0],) + (1,) * (w.ndim - 1))
         return (qz.quantize_act_any(x, p["ax"], 8, signed_act),
-                qz.quantize_weight(w, aw, 8))
+                mp.fake_quant_weight(w, aw, 8))
     if policy.phase is Phase.SEARCH:
         return (mp.effective_act(x, nas["delta"], p["ax"], policy.tau, qcfg,
                                  signed_act),
@@ -240,10 +240,13 @@ def qconv2d(x: torch.Tensor, p: dict, nas: Optional[dict],
 # ---------------------------------------------------------------------------
 
 def norm_init(d: int, kind: str = "rmsnorm", dtype=torch.float32,
-              device=None) -> dict:
-    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+              device=None, lead: tuple = ()) -> dict:
+    """A norm's ``scale`` (and a layernorm's ``bias``), ``lead`` axes
+    prepended (a stack of layers)."""
+    shape = tuple(lead) + (d,)
+    p = {"scale": torch.ones(shape, dtype=dtype, device=device)}
     if kind == "layernorm":
-        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+        p["bias"] = torch.zeros(shape, dtype=dtype, device=device)
     return p
 
 

@@ -404,9 +404,8 @@ def _deployed_moe(p, cfg, x, backend="cuda"):
     other (they take capacity, so they decide drops), and the combine sums
     each token's k gated expert outputs in slot order in the compute dtype,
     each add rounded (no atomics: a bf16 sum's order would change its
-    result from run to run).  Kept assignments have unique buffer rows, so
-    the dispatch is a copy; dropped ones are written to a spare row past
-    the buffer (no host sync) and read back as zeros.  Arctic's dense
+    result from run to run: ``moe.dispatch``/``moe.combine``, which the
+    training forward shares).  Arctic's dense
     residual MLP (``dense_res``) adds after the shared expert, as in the
     reference (arctic has none, so its router is a softmax).
     """
@@ -419,21 +418,11 @@ def _deployed_moe(p, cfg, x, backend="cuda"):
     logits = xt.to(torch.float32) @ p["router"].to(torch.float32).T
     routing = "sigmoid" if cfg.n_shared_experts else "softmax"
     gates, topi = moe_mod.route_topk(logits, k, routing)
-    capacity = max(8, min(int(cfg.capacity_factor * T * k / E), T))
+    capacity = moe_mod.capacity_of(cfg, T)
     dest, keep, _ = moe_mod.dispatch_indices(topi.reshape(-1), E, capacity)
-    src = torch.arange(T, device=x.device).repeat_interleave(k)
-    rows = torch.where(keep, dest, torch.full_like(dest, E * capacity))
-    buf = torch.zeros((E * capacity + 1, d), dtype=cd, device=x.device)
-    buf[rows] = xt[src].to(cd)
-    buf = buf[:E * capacity].reshape(E, capacity, d)
+    buf = moe_mod.dispatch(xt.to(cd), dest, keep, E, capacity)
     h = L.swiglu(dq(buf, p["we_gate"]), dq(buf, p["we_up"]))
-    out_buf = dq(h, p["we_down"]).reshape(E * capacity, d)
-    gathered = torch.where(keep[:, None], out_buf[dest], torch.zeros((), dtype=cd,
-                                                                     device=x.device))
-    contrib = (gathered * gates.reshape(-1, 1).to(cd)).reshape(T, k, d)
-    out = torch.zeros((T, d), dtype=cd, device=x.device)
-    for j in range(k):
-        out = out + contrib[:, j]
+    out = moe_mod.combine(dq(h, p["we_down"]), dest, keep, gates)
     for name in ("shared", "dense_res"):      # the shared expert, arctic's dense MLP
         if name in p:
             sp = p[name]

@@ -1,10 +1,11 @@
 """The language models' training path: init, full-sequence forward, loss and
-the cost specs of the search, for the dense and VLM families.
+the cost specs of the search, for the dense, VLM and MoE families.
 
 PyTorch counterpart of ``repro.models.transformer``:
 
   init_model(cfg, gen)                      -> (params, nas)
   forward(params, nas, cfg, batch, policy)  -> logits (B, S, padded vocab), f32
+  forward_with_mtp(...)                     -> (logits, MTP logits or None)
   lm_loss(logits, batch)                    -> scalar cross-entropy
   cost_specs(cfg, tokens)                   -> {site: LayerCostSpec} (Eq. 7/8)
 
@@ -25,9 +26,14 @@ layer folds with its index as the reference splits its key per layer.
 ``batch`` holds ``tokens`` and ``labels`` (``(B, S)`` integers) and, for
 the VLM, ``prefix_embeds`` ``(B, n_prefix_tokens, d)``.
 
-The MoE (with MLA and multi-token prediction), SSM, hybrid and audio
-families raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that
-ports their training path; :func:`cost_specs` covers every family.
+A block's attention is GQA or, with ``use_mla``, DeepSeek's MLA; its FFN
+the MLP or, with ``n_experts``, the MoE FFN (``models/moe.py``).
+DeepSeek's multi-token prediction (``mtp``) adds one unstacked block and
+its input norm (``mtp_block``, ``mtp_ln``), run outside the checkpointed
+stack on the embeddings under the step's own policy, and the lm_head a
+second time.  The SSM, hybrid and audio families raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports their
+training path; :func:`cost_specs` covers every family.
 """
 from __future__ import annotations
 
@@ -39,18 +45,19 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.regularizers import LayerCostSpec
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.qtrain.linear import fold_in
 
 # families whose training path is still to port, with the ROADMAP.md item
-NOT_PORTED = {"moe": "queue 1 item 7.2", "ssm": "queue 1 item 7.3",
-              "hybrid": "queue 1 item 7.3", "audio": "queue 1 item 7.4"}
+NOT_PORTED = {"ssm": "queue 1 item 7.3", "hybrid": "queue 1 item 7.3",
+              "audio": "queue 1 item 7.4"}
 
 
 def check_trainable(cfg) -> None:
-    """Raise ``NotImplementedError`` for a family (or MTP head) whose
-    training path the port does not have yet."""
-    item = NOT_PORTED.get(cfg.family) or ("queue 1 item 7.2" if cfg.mtp else None)
+    """Raise ``NotImplementedError`` for a family whose training path the
+    port does not have yet."""
+    item = NOT_PORTED.get(cfg.family)
     if item is not None:
         raise NotImplementedError(
             f"training {cfg.name!r} ({cfg.family} family) is not ported yet: "
@@ -60,11 +67,6 @@ def check_trainable(cfg) -> None:
 # ---------------------------------------------------------------------------
 # Blocks (one layer's params, or a stack of them with ``lead`` axes)
 # ---------------------------------------------------------------------------
-
-def _norm_init(cfg, d: int, dtype, device, lead: tuple) -> dict:
-    return {k: v.expand(tuple(lead) + v.shape).clone()
-            for k, v in L.norm_init(d, cfg.norm, dtype, device).items()}
-
 
 def init_mlp(gen: torch.Generator, cfg, d_in: int, d_ff: int, dtype=torch.float32,
              lead: tuple = ()) -> tuple:
@@ -95,13 +97,17 @@ def mlp_forward(p: dict, nas: Optional[dict], policy, cfg, x: torch.Tensor) -> t
 
 
 def init_block(gen: torch.Generator, cfg, dtype=torch.float32, lead: tuple = ()) -> tuple:
-    """One decoder block of the dense/VLM families (a stack with ``lead``)."""
+    """One decoder block of the dense/VLM/MoE families (a stack with
+    ``lead``)."""
     check_trainable(cfg)
-    p_attn, n_attn = attn.init_gqa(gen, cfg, dtype, lead)
-    p_ffn, n_ffn = init_mlp(gen, cfg, cfg.d_model, cfg.d_ff, dtype, lead)
+    p_attn, n_attn = (attn.init_mla if cfg.use_mla else attn.init_gqa)(gen, cfg, dtype, lead)
+    if cfg.n_experts:
+        p_ffn, n_ffn = moe_mod.init_moe(gen, cfg, dtype, lead)
+    else:
+        p_ffn, n_ffn = init_mlp(gen, cfg, cfg.d_model, cfg.d_ff, dtype, lead)
     p = {"attn": p_attn, "ffn": p_ffn,
-         "ln1": _norm_init(cfg, cfg.d_model, dtype, gen.device, lead),
-         "ln2": _norm_init(cfg, cfg.d_model, dtype, gen.device, lead)}
+         "ln1": L.norm_init(cfg.d_model, cfg.norm, dtype, gen.device, lead),
+         "ln2": L.norm_init(cfg.d_model, cfg.norm, dtype, gen.device, lead)}
     n = {**{f"attn.{k}": v for k, v in n_attn.items()},
          **{f"ffn.{k}": v for k, v in n_ffn.items()}}
     return p, n
@@ -116,10 +122,12 @@ def _sub(nas: Optional[dict], pre: str) -> Optional[dict]:
 def block_forward(p: dict, nas: Optional[dict], policy, cfg, x: torch.Tensor,
                   positions: torch.Tensor) -> torch.Tensor:
     h = L.apply_norm(x, p["ln1"], cfg.norm)
-    a = attn.gqa_forward(p["attn"], _sub(nas, "attn."), policy, cfg, h, positions)
+    attend = attn.mla_forward if cfg.use_mla else attn.gqa_forward
+    a = attend(p["attn"], _sub(nas, "attn."), policy, cfg, h, positions)
     x = x + a.to(x.dtype)
     h = L.apply_norm(x, p["ln2"], cfg.norm)
-    f = mlp_forward(p["ffn"], _sub(nas, "ffn."), policy, cfg, h)
+    ffn = moe_mod.moe_forward if cfg.n_experts else mlp_forward
+    f = ffn(p["ffn"], _sub(nas, "ffn."), policy, cfg, h)
     return x + f.to(x.dtype)
 
 
@@ -130,16 +138,20 @@ def block_forward(p: dict, nas: Optional[dict], policy, cfg, x: torch.Tensor,
 def init_model(cfg, gen: torch.Generator) -> tuple:
     """``(params, nas)`` of the whole model, drawn on ``gen``'s device in
     ``cfg.pdtype``: the embedding and lm_head at the padded vocab, the
-    blocks stacked on a leading layer axis.  ``tie_embeddings`` is not
-    read: the lm_head is its own weight, as in the reference."""
+    blocks stacked on a leading layer axis (and with ``mtp`` one more
+    block and its norm).  ``tie_embeddings`` is not read: the lm_head is
+    its own weight, as in the reference."""
     check_trainable(cfg)
     dtype, dev = cfg.pdtype, gen.device
     params = {"embed": L.embedding_init(gen, cfg.padded_vocab, cfg.d_model, dtype)}
     nas = {}
     params["blocks"], nas["blocks"] = init_block(gen, cfg, dtype, (cfg.n_layers,))
-    params["ln_f"] = _norm_init(cfg, cfg.d_model, dtype, dev, ())
+    params["ln_f"] = L.norm_init(cfg.d_model, cfg.norm, dtype, dev)
     params["lm_head"] = L.linear_init(gen, cfg.d_model, cfg.padded_vocab, False, dtype)
     nas["lm_head"] = L.nas_init(cfg.padded_vocab, cfg.quant, dev)
+    if cfg.mtp:
+        params["mtp_block"], nas["mtp_block"] = init_block(gen, cfg, dtype)
+        params["mtp_ln"] = L.norm_init(cfg.d_model, cfg.norm, dtype, dev)
     return params, nas
 
 
@@ -220,6 +232,27 @@ def forward(params: dict, nas: Optional[dict], cfg, batch: dict, policy,
     logits = L.qlinear(x, params["lm_head"], head_nas, policy, cfg.quant,
                        compute_dtype=cfg.cdtype)
     return _mask_pad(logits.to(torch.float32), cfg)
+
+
+def forward_with_mtp(params: dict, nas: Optional[dict], cfg, batch: dict, policy,
+                     remat: bool = True) -> tuple:
+    """``(logits, mtp_logits)``: the forward's logits, and with ``mtp`` the
+    multi-token-prediction head's f32 logits (its block on the normed
+    embeddings, outside the checkpoint, then ``ln_f`` and the lm_head
+    under the step's own policy, unmasked as in the reference), else
+    ``None``."""
+    logits = forward(params, nas, cfg, batch, policy, remat)
+    if not cfg.mtp:
+        return logits, None
+    x = _embed_inputs(params, cfg, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    n_mtp = nas["mtp_block"] if nas is not None else None
+    h = block_forward(params["mtp_block"], n_mtp, policy, cfg,
+                      L.apply_norm(x, params["mtp_ln"], cfg.norm), positions)
+    head_nas = nas["lm_head"] if nas is not None else None
+    mtp_logits = L.qlinear(L.apply_norm(h, params["ln_f"], cfg.norm), params["lm_head"],
+                           head_nas, policy, cfg.quant, compute_dtype=cfg.cdtype)
+    return logits, mtp_logits.to(torch.float32)
 
 
 def _mask_pad(logits: torch.Tensor, cfg) -> torch.Tensor:

@@ -113,8 +113,18 @@ def _train_policy(hp: TrainHParams, base: PrecisionPolicy, step: int) -> Precisi
 
 
 def _task_loss(cfg, hp: TrainHParams, params, nas, policy, batch: dict) -> torch.Tensor:
-    logits = tfm.forward(params, nas, cfg, batch, policy, hp.remat)
-    return tfm.lm_loss(logits, batch)
+    """The LM loss; with ``mtp`` plus ``mtp_weight`` times the MTP head's
+    cross-entropy on the labels one more step ahead (the last column
+    masked)."""
+    logits, mtp_logits = tfm.forward_with_mtp(params, nas, cfg, batch, policy, hp.remat)
+    loss = tfm.lm_loss(logits, batch)
+    if mtp_logits is not None:
+        labels = batch["labels"]
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+        mask[:, -1] = 0
+        mtp_batch = {"labels": torch.roll(labels, -1, dims=1), "mask": mask}
+        loss = loss + hp.mtp_weight * tfm.lm_loss(mtp_logits, mtp_batch)
+    return loss
 
 
 def device_batch(batch: dict, device) -> dict:
@@ -209,11 +219,18 @@ def int8_products_per_step(cfg, remat: bool = True) -> int:
     """The int8 GEMMs one step launches with ``train_compute="int8"`` (any
     kind: each searched linear's input and weight need their gradients).
     Every site runs its forward, grad-input and grad-weight product; under
-    ``remat`` every block's recomputed forward runs its sites' products
-    again (the checkpoint stops recomputing once the backward's tensors are
-    back, but an autograd function saves its operands when its forward
-    returns, after the block's last product)."""
+    ``remat`` every stacked block's recomputed forward runs its sites'
+    products again (the checkpoint stops recomputing once the backward's
+    tensors are back, but an autograd function saves its operands when its
+    forward returns, after the block's last product).  A block's sites:
+    GQA's 4 or MLA's 5 projections, and the MLP's 3 (2 for GELU) or, in
+    a MoE block, the shared expert's and the dense residual MLP's 3 each
+    (the router and the routed experts are no int8 products).  The MTP
+    block runs outside the checkpoint and calls the lm_head once more."""
     tfm.check_trainable(cfg)
-    per_block = 4 + (3 if cfg.mlp_type == "swiglu" else 2)
-    sites = cfg.n_layers * per_block + 1
+    per_block = 5 if cfg.use_mla else 4
+    if not cfg.n_experts:
+        per_block += 3 if cfg.mlp_type == "swiglu" else 2
+    per_block += 3 * (bool(cfg.n_shared_experts) + bool(cfg.dense_residual_ff))
+    sites = cfg.n_layers * per_block + 1 + ((per_block + 1) if cfg.mtp else 0)
     return 3 * sites + (cfg.n_layers * per_block if remat else 0)

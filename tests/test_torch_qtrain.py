@@ -216,14 +216,31 @@ LM_K5_CASES = [
 ]
 
 
+# deepseek-v3-671b's new training shapes (T = 1024), scaled down to the
+# class, kernel and splits they take at full size: ``wkv_a``'s forward (N
+# 576, no multiple of 128: 9 tiles of 64 columns) tall-k and unsplit;
+# ``wkv_b``'s forward (K 512) tall-m on the panel kernel; ``wo``'s forward
+# (K 16384) tall-k on the split kernel, here split; ``wkv_b``'s grad-input
+# (1024 x 512 x 32768), the one split product of the step, 64 splits.
+MOE_K5_CASES = [
+    pytest.param(1024, 576, 1024, "moe tall-k split 1", id="moe-wkv_a-forward-n576"),
+    pytest.param(256, 4096, 512, "moe tall-m panel 1", id="moe-wkv_b-forward-k512"),
+    pytest.param(64, 256, 16384, "moe tall-k split 32", id="moe-wo-forward-k16384"),
+    pytest.param(32, 128, 32768, "moe tall-k split 64", id="moe-wkv_b-grad-input-split"),
+]
+
+
 @pytest.mark.parametrize("m,n,k,role", [c for c in K5_CASES if np.prod(c.values[:3]) < 4e8]
-                         + LM_K5_CASES)
+                         + LM_K5_CASES + MOE_K5_CASES)
 def test_k5_plan_emulation_equals_plain_bitwise(m, n, k, role):
     a, b, sa, sb = (torch.from_numpy(v) for v in _int8_operands(m + 7 * n + k, m, n, k))
     plan = tim.k5_plan(m, n, k, 132)
     if role.startswith("lm "):
         assert [plan.cls, plan.kernel] == role.split()[1:] and plan.splits == 1
         assert plan.kernel == "split" or plan.grid_m < plan.tiles_m
+    if role.startswith("moe "):
+        cls, kernel, splits = role.split()[1:]
+        assert (plan.cls, plan.kernel, plan.splits) == (cls, kernel, int(splits))
     assert torch.equal(_k5_emulation(a, b, sa, sb, plan), tim.scaled_int8_mm_plain(a, b, sa, sb))
 
 
