@@ -141,8 +141,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the blocks' edges, hd 96/160/256, 4 channel groups, pos past S, and pos
    < 0, which must give NaN as the plain version does.
 4c. The LM serving path: ``serving.init_deployed_model(get_config(
-   "qwen1.5-4b"), seed=0)`` on the card (40 layers, d_model 2560, vocab
-   151936; at this width every linear is per-group), then
+   "qwen1.5-4b") cut to LM_LAYERS, seed=0)`` on the card (20 of its 40
+   layers since the run grew past 1100 s, d_model 2560, vocab 151936; at
+   this width every linear is per-group), then
    ``ServingEngine(backend="cuda", max_slots=4, max_len=1024,
    prefill_len=512)`` on the launcher's staggered trace (8 requests,
    prompts of 256-512 tokens, 8-32 new tokens each) for kv_bits None, 8 and
@@ -369,7 +370,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    run's at kv (2, 4, 8) (the plain engine), for both drafts; under
    self-draft every draft of every live slot accepted; a draft step
    launches K4 once per layer and K2 once per precision group of the
-   draft, a verify K4 5 x 40 times and K2 once per group of the verifier,
+   draft, a verify K4 5 x 20 times and K2 once per group of the verifier,
    all K2 launches on the tensor cores; on one state (4 prompts prefilled,
    a dense ring) the 5-wide verify equals 5 sequential ``decode_step``s
    bitwise, logits and caches (the 4-bit draft's too).  Reported: tokens
@@ -431,6 +432,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and 8 of 128 experts (softmax routing, the dense residual MLP): one
    int8 W step, the same gates but the bitwise check, its counts zeroed
    and read around it.
+[train-ssm] The SSM and hybrid training path (after [train-moe]), each
+   model at its published widths and full depth from seed 0 on its
+   config's hints (f32 params, AdamW, cosine), ``train_compute="int8"``,
+   ``SyntheticLM`` seq 128 x batch 8: mamba2-780m (arXiv 2405.21060; 48
+   Mamba2 blocks of 1536, d_inner 3072, 48 SSD heads of 64, state 128,
+   chunk 256; vocab 50280 padded to 50432): 1 warmup, 1 theta and 2 W
+   steps; then zamba2-1.2b (arXiv 2411.15242; 38 Mamba2 blocks of 2048,
+   state 64, and one shared attention+MLP block (32 heads, d_ff 8192) run
+   before every 6 layers, 7 times): 1 warmup and 1 W step.  Each model's
+   counts are zeroed just before its steps and read just after.  Gates:
+   every loss finite; K5 launches ``steps.int8_products_per_step`` (387,
+   454) a step, every one on the int8 tensor cores, no other kernel of the
+   port; one more W step (``checked_w_step``) with every leaf of its
+   gradient finite (the reference's SSD scan gives NaN there) and every
+   K5 call bitwise ``scaled_int8_mm_plain``; ``ssd_chunked``'s gradients
+   at mamba2's layer shape (B 8, S 128, H 48, P 64, N 128, one padded
+   chunk of 256) in f32 within ``SSD_GRAD_TOL`` of the same in f64, both
+   on the card.  Reported: each step's loss, ms (CUDA events; host ms
+   beside) and peak memory; K5 at the step's product shapes against its
+   plain version, the library and the bound, summed over a step; the W
+   step's split (forward and backward against AdamW, device busy by kernel
+   family, idle share).
+[train-audio] The encoder-decoder training path (after [train-ssm]):
+   whisper-small (arXiv 2212.04356; 12 encoder and 12 decoder layers of
+   768, 12 heads, GELU MLPs of 3072, layer norms; 1500 stub frames a
+   request; vocab 51865 padded to 51968), as [train-ssm]: 1 warmup, 1
+   theta and 2 W steps (771 K5 launches a step: the encoder's 12000 frame
+   rows and the cross-attention's keys and values over them), the checked
+   W step, K5 at the step's shapes, the split.
 6. The kernel summary line (K1 at the resnet8 shapes with deepseek's three
    K1 shapes beside them and the launches of both paths, K2 over one
    qwen1.5-4b decode step with its SIMT routine's time, its prefill forward
@@ -441,9 +471,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    beside it; K1, K2 and K4 launches also the seven families' paths', K4's
    rows at their decode shapes in its ``families`` entry; K1, K2 and K4
    launches also whisper-small's paths', K4's row at its decode shape in
-   its ``whisper`` entry; K1-K4 launches also the [paged] and [spec] runs',
-   each wrapper's ``launches_by_path`` splitting them), the card's name
-   and power limit, and the last line ``{"ok": true, "device": {...}}``.
+   its ``whisper`` entry; K1-K4 launches also the [paged] and [spec] runs';
+   K5's also the four LM training phases', with each model's step in its
+   own entry; each wrapper's ``launches_by_path`` splitting them), the
+   card's name and power limit, and the last line ``{"ok": true,
+   "device": {...}}``.
 
 Exits non-zero without a CUDA device, and when run outside the repository
 (it needs ``src/repro_torch``).
@@ -672,10 +704,14 @@ def k5_summed(rows, what, card, weights=None):
 
 
 # ---------------------------------------------------------------------------
-# The LM serving path (qwen1.5-4b at full width and depth)
+# The LM serving path (qwen1.5-4b at full width)
 # ---------------------------------------------------------------------------
 
 LM_SLOTS, LM_MAX_LEN, LM_PREFILL = 4, 1024, 512
+# qwen's depth in phases 3c/4c/5b, [paged] and [spec]: its host-bound decode
+# steps took ~470-600 s of the run at all 40 layers, and with the training
+# phases the run passed its 1200 s
+LM_LAYERS = 20
 LM_KV = (None, 8, (2, 4, 8))
 # a decoder block's output on the kernel path against the plain path's on the
 # same input (and the same new cache entries): bf16 rounds every activation
@@ -850,20 +886,24 @@ def lm_serving(dev, card, ops, gen):
     from repro_torch.models import serving
 
     report = {}
-    cfg = get_config("qwen1.5-4b")
+    full = get_config("qwen1.5-4b")
+    cfg = dataclasses.replace(full, n_layers=LM_LAYERS)
     t0 = time.perf_counter()
     dparams = serving.init_deployed_model(cfg, seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    check(len(dparams["blocks"]) == cfg.n_layers == 40 and cfg.d_model == 2560
-          and dparams["embed"].shape == (151936, 2560), "qwen1.5-4b at full width and depth")
+    check(len(dparams["blocks"]) == cfg.n_layers == LM_LAYERS and full.n_layers == 40
+          and cfg.d_model == 2560 and dparams["embed"].shape == (151936, 2560),
+          f"qwen1.5-4b at full width, {LM_LAYERS} of its 40 layers")
+    report["cut"] = dict(n_layers=[full.n_layers, cfg.n_layers])
     linears = [dl["w"] for blk in dparams["blocks"] for part in ("attn", "ffn")
                for dl in blk[part].values()] + [dparams["lm_head"]["w"]]
     check(all(qt.fused_packed is None for qt in linears),
           "at full width every qwen linear is per-group (K > K_SINGLE_STEP_MAX)")
     groups_per_step = sum(len(qt.bits) for qt in linears)
     weight_bytes = sum(int(p.numel()) for qt in linears for p in qt.packed)
-    log(f"[lm] qwen1.5-4b deployed on the card in {init_s:.2f} s: {cfg.n_layers} layers, "
+    log(f"[lm] qwen1.5-4b deployed on the card in {init_s:.2f} s: {cfg.n_layers} layers "
+        f"(cut from {full.n_layers}), "
         f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {len(linears)} linears, "
         f"{groups_per_step} precision groups, {weight_bytes} packed weight bytes")
     report["init_s"], report["packed_weight_bytes"] = init_s, weight_bytes
@@ -3484,29 +3524,41 @@ TRAIN_SCHEDULE = ("warmup", "warmup", "theta", "w", "w", "w")
 def _k5_roles(cfg, tokens) -> dict:
     """{(M, N, K): role} of the K5 products of a step: each searched
     linear's forward, grad-input and grad-weight (GQA or MLA projections;
-    the MLP, or a MoE block's shared expert and dense residual MLP; the
-    lm_head)."""
+    the MLP, or a MoE block's shared expert and dense residual MLP; a
+    Mamba2 block's in_proj and out_proj; whisper's encoder sites and the
+    cross attention's keys and values over its frames; the lm_head)."""
     d, H = cfg.d_model, cfg.n_heads
+    sites = {}                                   # name: (N, K[, M])
+    if cfg.family in ("ssm", "hybrid"):
+        d_inner = cfg.ssm_expand * d
+        n_in = 2 * d_inner + 2 * cfg.ssm_state + d_inner // cfg.ssm_head_dim
+        sites.update(in_proj=(n_in, d), out_proj=(d, d_inner))
     if cfg.use_mla:
         nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-        sites = {"wq_a": (cfg.q_lora_rank, d), "wq_b": (H * (nope + rope), cfg.q_lora_rank),
-                 "wkv_a": (cfg.kv_lora_rank + rope, d),
-                 "wkv_b": (H * (nope + vd), cfg.kv_lora_rank), "wo": (d, H * vd)}
-    else:
+        sites.update({"wq_a": (cfg.q_lora_rank, d), "wq_b": (H * (nope + rope), cfg.q_lora_rank),
+                      "wkv_a": (cfg.kv_lora_rank + rope, d),
+                      "wkv_b": (H * (nope + vd), cfg.kv_lora_rank), "wo": (d, H * vd)})
+    elif H:
         hd = cfg.head_dim
-        sites = {"wq": (H * hd, d), "wk/wv": (cfg.n_kv_heads * hd, d), "wo": (d, H * hd)}
+        sites.update({"wq": (H * hd, d), "wk/wv": (cfg.n_kv_heads * hd, d), "wo": (d, H * hd)})
     if cfg.n_experts:
         for name, ff in (("shared", cfg.moe_d_ff * cfg.n_shared_experts),
                          ("dense_res", cfg.dense_residual_ff)):
             if ff:
                 sites.update({f"{name} w_gate/w_up": (ff, d), f"{name} w_down": (d, ff)})
-    else:
-        sites.update({"w_gate/w_up": (cfg.d_ff, d), "w_down": (d, cfg.d_ff)})
-    sites["lm_head"] = (cfg.padded_vocab, d)
+    elif cfg.d_ff:
+        up = "w_gate/w_up" if cfg.mlp_type == "swiglu" else "w_in"
+        sites.update({up: (cfg.d_ff, d), "w_down": (d, cfg.d_ff)})
+    sites = {k: (n, kk, tokens) for k, (n, kk) in sites.items()}
+    if cfg.family == "audio":                    # the encoder's rows: its frames
+        frames = tokens // TRAIN_SEQ * cfg.encoder_seq
+        sites.update({f"encoder {k}": (n, kk, frames) for k, (n, kk, _) in list(sites.items())})
+        sites["xattn wk/wv"] = (cfg.n_kv_heads * cfg.head_dim, d, frames)
+    sites["lm_head"] = (cfg.padded_vocab, d, tokens)
     roles = {}
-    for site, (n, k) in sites.items():
-        for shape, leg in (((tokens, n, k), "forward"), ((tokens, k, n), "grad-input"),
-                           ((n, k, tokens), "grad-weight")):
+    for site, (n, k, m) in sites.items():
+        for shape, leg in (((m, n, k), "forward"), ((m, k, n), "grad-input"),
+                           ((n, k, m), "grad-weight")):
             role = f"{site} {leg}"
             if role not in roles.get(shape, ""):
                 roles[shape] = f"{roles[shape]}, {role}" if shape in roles else role
@@ -3971,6 +4023,216 @@ def moe_train(dev, card, ops, sms):
               bound_ms=k5_step["bound_ms"], bound_by=k5_step["bound_by"],
               library_ms=k5_step["library_ms"], max_abs_err=worst,
               products=k5_step["products"], by_class=k5_step["by_class"])
+    return report, k5
+
+
+# ---------------------------------------------------------------------------
+# The SSM, hybrid and encoder-decoder training paths (mamba2-780m,
+# zamba2-1.2b, whisper-small at full width and depth, int8 compute)
+# ---------------------------------------------------------------------------
+
+SSM_TRAIN_SCHEDULE = ("warmup", "theta", "w", "w")
+ZAMBA_TRAIN_SCHEDULE = ("warmup", "w")
+AUDIO_TRAIN_SCHEDULE = ("warmup", "theta", "w", "w")
+# ssd_chunked's f32 gradients against f64 on the card, each input's error in
+# norm: on the CPU at this shape 2.6e-5 at worst (A's gradient sums every
+# token's), so about 4.7 times that, as whole-model gradients are held
+SSD_GRAD_TOL = 2.0 ** -13
+
+
+def checked_w_step(cfg, hp):
+    """A W step as ``steps.make_train_step``'s, every leaf of its gradient
+    tree held finite before the update (one device sync for all of them)."""
+    from repro_torch.optim import optimizers as opt_mod
+    from repro_torch.train import steps as steps_mod
+    opt_w, _ = steps_mod.make_optimizers(hp)
+
+    def fn(state, batch):
+        batch = steps_mod.device_batch(batch, state["tau"].device)
+        metrics, grads = steps_mod.loss_and_grads(cfg, hp, state, batch, "w")
+        leaves = opt_mod.tree_leaves(grads)
+        finite = torch.stack([torch.isfinite(g).all() for g in leaves])
+        check(bool(finite.all()), f"{cfg.name}: {int((~finite).sum())} of {len(leaves)} gradient "
+              f"leaves of the checked W step not finite")
+        with torch.no_grad():
+            opt_w.apply_(grads, state["opt_w"], state["params"], state["step"])
+        state["step"] += 1
+        return state, {**metrics, "finite_grad_leaves": torch.tensor(float(len(leaves)))}
+
+    return fn
+
+
+def train_model(tag, cfg, schedule, label, gemm_label, dev, card, ops, sms):
+    """Alg. 1's ``schedule`` on ``cfg`` from seed 0 with its config's hints
+    and int8 compute, the path's counts zeroed just before and read just
+    after (K5 ``int8_products_per_step`` a step, all on the tensor cores,
+    nothing else of the port); then the checked W step (finite gradient,
+    every K5 call bitwise), K5 at the step's shapes and the W step's split.
+    Returns the model's report and its K5 entry."""
+    from repro_torch.data.pipeline import SyntheticLM, lm_extra
+    from repro_torch.optim import optimizers as opt_mod
+    from repro_torch.train import steps as steps_mod
+
+    t_model = time.perf_counter()
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    hp = steps_mod.TrainHParams.for_arch(cfg, train_compute="int8", warmup_steps=1,
+                                         total_steps=100)
+    check(hp.optimizer == "adamw" and hp.schedule == "cosine"
+          and cfg.param_dtype == torch.float32,
+          f"{cfg.name} trains as its config hints: f32 params, AdamW, cosine")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = steps_mod.init_train_state(cfg, hp, 0, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in opt_mod.tree_leaves(state["params"]))
+    report = dict(arch=cfg.name, d_model=cfg.d_model, n_layers=cfg.n_layers,
+                  padded_vocab=cfg.padded_vocab, vocab=cfg.vocab_size, seq=TRAIN_SEQ,
+                  batch=TRAIN_BATCH, train_compute=hp.train_compute, schedule=hp.schedule,
+                  optimizer=hp.optimizer, opt_state_dtype=hp.opt_state_dtype, params=n_params,
+                  init_s=time.perf_counter() - t0,
+                  resident_gb=torch.cuda.memory_allocated() / 1e9)
+    log(f"[{tag}] {cfg.name}: {n_params} params (f32), vocab {cfg.vocab_size} padded to "
+        f"{cfg.padded_vocab}; seq {TRAIN_SEQ} x batch {TRAIN_BATCH}; train_compute int8, "
+        f"AdamW ({hp.opt_state_dtype} moments), cosine; init {report['init_s']:.2f} s, "
+        f"resident {report['resident_gb']:.2f} GB | {card}")
+    it = iter(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0, extra=lm_extra(cfg)))
+    fns = {"warmup": steps_mod.make_qat_warmup_step(cfg, hp),
+           "theta": steps_mod.make_theta_step(cfg, hp, tokens),
+           "w": steps_mod.make_train_step(cfg, hp)}
+    want = steps_mod.int8_products_per_step(cfg, hp.remat)
+
+    # the main path: the counts zeroed just before, read just after
+    ops.reset_launch_counts()
+    state, steps = run_steps(tag, fns, schedule, it, state, want, card)
+    launches, mma = ops.launch_counts(), ops.mma_launch_counts()
+    check(launches["scaled_int8_mm"] == want * len(schedule)
+          and mma["scaled_int8_mm"] == launches["scaled_int8_mm"],
+          f"[{tag}] {cfg.name}: every K5 launch of the path on the int8 tensor cores, "
+          f"{want} a step")
+    check(sum(v for k, v in launches.items() if k != "scaled_int8_mm") == 0,
+          f"[{tag}] {cfg.name}: the training path launches no other kernel of the port")
+    report.update(steps=steps, k5_launches_per_step=want)
+    log(f"[{tag}] {cfg.name}, {len(schedule)} steps {list(schedule)}: K5 launches "
+        f"{launches['scaled_int8_mm']} ({want} a step), all on the tensor cores")
+
+    # one more W step: every gradient leaf finite, every K5 call bitwise
+    log(f"[clock] [{tag}] at {time.perf_counter() - t_model:.1f} s")
+    state, row, kept, counts, worst = checked_k5_step(checked_w_step(cfg, hp), next(it), state,
+                                                      want)
+    report["checked_w_step"] = dict(row, k5_calls_bitwise=want, max_abs_err=worst)
+    log(f"[{tag}] {cfg.name} checked W step: all {int(row['finite_grad_leaves'])} gradient "
+        f"leaves finite; all {want} K5 calls bitwise equal to the plain version on the same "
+        f"int8 operands ({len(counts)} shapes); loss {row['loss']:.6f}")
+
+    log(f"[clock] [{tag}] at {time.perf_counter() - t_model:.1f} s")
+    rows, k5_step = k5_at_step_shapes(cfg, tokens, kept, counts, label, card, sms)
+    del kept
+    report["k5_shapes"], report["k5_per_step"] = rows, k5_step
+
+    log(f"[clock] [{tag}] at {time.perf_counter() - t_model:.1f} s")
+    batch = steps_mod.device_batch(next(it), dev)
+    opt_w, _ = steps_mod.make_optimizers(hp)
+    report["w_step_split"], grads = step_split(tag, cfg, hp, state, batch, opt_w, gemm_label,
+                                               card)
+    del grads, state, batch
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_model
+    k5 = dict(launches=launches["scaled_int8_mm"], mma_launches=mma["scaled_int8_mm"],
+              launches_per_step=want, ms=k5_step["k5_ms"], plain_ms=k5_step["plain_ms"],
+              bound_ms=k5_step["bound_ms"], bound_by=k5_step["bound_by"],
+              library_ms=k5_step["library_ms"], max_abs_err=worst,
+              products=k5_step["products"], by_class=k5_step["by_class"])
+    return report, k5
+
+
+def ssd_grad_check(dev, card) -> dict:
+    """``ssd_chunked`` at one mamba2-780m layer's shape on the card (B 8, S
+    128, H 48, P 64, N 128, chunk 256: one chunk, padded), the steps
+    ``softplus`` of normals and the decay rates 1..16 (the init's): the
+    gradients of every input in f32 against the same in f64, each within
+    ``SSD_GRAD_TOL`` in norm, and all finite.  The upper triangle's
+    largest exponent says how far the reference's form would overflow."""
+    from repro_torch.config import get_config
+    from repro_torch.models import ssm as ssm_mod
+    cfg = get_config("mamba2-780m")
+    _, H, N, P = ssm_mod.dims(cfg)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    g = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev, dtype=torch.float64)
+    ins = dict(xh=rnd(B, S, H, P), dt=torch.nn.functional.softplus(rnd(B, S, H)),
+               A=torch.linspace(1.0, 16.0, H, device=dev, dtype=torch.float64),
+               Bm=rnd(B, S, N), Cm=rnd(B, S, N))
+    gy, gh = rnd(B, S, H, P), rnd(B, H, P, N)
+
+    def grads(dtype):
+        xs = [t.to(dtype, copy=True).requires_grad_(True) for t in ins.values()]
+        y, h = ssm_mod.ssd_chunked(*xs, cfg.ssm_chunk)
+        loss = (y * gy.to(dtype)).sum() + (h * gh.to(dtype)).sum()
+        return [y, h], torch.autograd.grad(loss, xs)
+
+    (y32, h32), g32 = grads(torch.float32)
+    (y64, h64), g64 = grads(torch.float64)
+    rel = lambda a, b: float((a.detach().double() - b.detach()).norm() / b.detach().norm())
+    row = dict(B=B, S=S, H=H, P=P, N=N, chunk=cfg.ssm_chunk,
+               max_exponent=float((ins["A"] * ins["dt"]).sum(1).max()),
+               y_err=rel(y32, y64), h_err=rel(h32, h64),
+               grad_err={k: rel(a, b) for k, a, b in zip(ins, g32, g64)},
+               finite=all(bool(torch.isfinite(t).all()) for t in g32), tol=SSD_GRAD_TOL)
+    log(f"[train-ssm] ssd_chunked gradients at mamba2's layer shape, f32 vs f64 on the card: "
+        + json.dumps(row) + f" | {card}")
+    check(row["finite"], "ssd_chunked: a non-finite f32 gradient")
+    check(max(row["grad_err"].values()) <= SSD_GRAD_TOL,
+          f"ssd_chunked: f32 gradient {max(row['grad_err'].values()):.3g} from f64, tolerance "
+          f"{SSD_GRAD_TOL}")
+    return row
+
+
+def ssm_train(dev, card, ops, sms):
+    """Phase [train-ssm]: mamba2-780m, then zamba2-1.2b, at their published
+    widths and full depth with int8 compute (K5 for in_proj, out_proj, the
+    shared block's linears and the lm_head), and ``ssd_chunked``'s
+    gradient in f32 against f64.  Returns the report and K5's entry for
+    each model."""
+    from repro_torch.config import get_config
+    t_phase = time.perf_counter()
+    m = get_config("mamba2-780m")
+    check((m.d_model, m.n_layers, m.ssm_expand * m.d_model, m.ssm_state, m.ssm_head_dim,
+           m.ssm_chunk, m.vocab_size, m.padded_vocab)
+          == (1536, 48, 3072, 128, 64, 256, 50280, 50432),
+          "mamba2-780m at its published widths, all 48 layers")
+    z = get_config("zamba2-1.2b")
+    check((z.d_model, z.n_layers, z.n_heads, z.head_dim, z.d_ff, z.ssm_state, z.attn_every,
+           z.padded_vocab) == (2048, 38, 32, 64, 8192, 64, 6, 32000),
+          "zamba2-1.2b at its published widths, all 38 layers")
+    report = {"ssd_grad": ssd_grad_check(dev, card)}
+    k5 = {}
+    for cfg, schedule, label in ((m, SSM_TRAIN_SCHEDULE, "mamba2-780m"),
+                                 (z, ZAMBA_TRAIN_SCHEDULE, "zamba2-1.2b")):
+        log(f"[clock] [train-ssm] at {time.perf_counter() - t_phase:.1f} s")
+        report[label], k5[label] = train_model(
+            "train-ssm", cfg, schedule, label, "library GEMM (SSD einsums, attention)", dev, card,
+            ops, sms)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train-ssm] phase took {report['phase_s']:.1f} s")
+    return report, k5
+
+
+def audio_train(dev, card, ops, sms):
+    """Phase [train-audio]: whisper-small at its published widths and full
+    depth (12 + 12 layers, 1500 frames) with int8 compute.  Returns the
+    report and K5's entry."""
+    from repro_torch.config import get_config
+    t_phase = time.perf_counter()
+    cfg = get_config("whisper-small")
+    check((cfg.d_model, cfg.n_encoder_layers, cfg.n_layers, cfg.n_heads, cfg.d_ff,
+           cfg.encoder_seq, cfg.vocab_size, cfg.padded_vocab)
+          == (768, 12, 12, 12, 3072, 1500, 51865, 51968),
+          "whisper-small at its published widths, 12 + 12 layers")
+    report, k5 = train_model("train-audio", cfg, AUDIO_TRAIN_SCHEDULE, "whisper-small",
+                             "library GEMM (attention)", dev, card, ops, sms)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train-audio] phase took {report['phase_s']:.1f} s")
     return report, k5
 
 
@@ -4712,7 +4974,7 @@ def main() -> int:
     report["k6"] = k6_report
     torch.cuda.empty_cache()
 
-    # -- 3c, 4c, 5b. the LM serving path: qwen1.5-4b at full width and depth ------
+    # -- 3c, 4c, 5b. the LM serving path: qwen1.5-4b at full width, 20 layers ------
     log(f"[clock] phase 3c/4c/5b starts at {time.perf_counter() - t_run:.1f} s")
     (lm_report, k2_lm, k4_lm, lm_paged_launches, lm_paged_mma, lm_spec_launches,
      lm_spec_mma) = lm_serving(dev, card, ops, gen)
@@ -4753,6 +5015,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_train_report, k5_moe = moe_train(dev, card, ops, sms)
     report["moe_train"] = moe_train_report
+
+    # -- [train-ssm], [train-audio]. mamba2, zamba2 and whisper training, int8 ----
+    log(f"[clock] phase [train-ssm] starts at {time.perf_counter() - t_run:.1f} s")
+    torch.cuda.empty_cache()
+    report["ssm_train"], k5_ssm = ssm_train(dev, card, ops, sms)
+    log(f"[clock] phase [train-audio] starts at {time.perf_counter() - t_run:.1f} s")
+    torch.cuda.empty_cache()
+    report["audio_train"], k5_audio = audio_train(dev, card, ops, sms)
+    k5_new = {**k5_ssm, "whisper-small": k5_audio}
 
     def more(name, mma=False):
         """Launches of the whisper and [paged] paths of one wrapper."""
@@ -4799,20 +5070,26 @@ def main() -> int:
         dict(name="scaled_int8_mm", route="cuda",
              source="src/repro_torch/kernels/csrc/int8_matmul.cu",
              replaces="src/repro/kernels/int8_matmul.py:82",
-             launches=train_launches["scaled_int8_mm"] + k5_lm["launches"] + k5_moe["launches"],
+             launches=(train_launches["scaled_int8_mm"] + k5_lm["launches"] + k5_moe["launches"]
+                       + sum(v["launches"] for v in k5_new.values())),
              mma_launches=(train_mma["scaled_int8_mm"] + k5_lm["mma_launches"]
-                           + k5_moe["mma_launches"]),
+                           + k5_moe["mma_launches"]
+                           + sum(v["mma_launches"] for v in k5_new.values())),
              launches_by_path=dict(tinyml_training=train_launches["scaled_int8_mm"],
                                    lm_training=k5_lm["launches"],
-                                   moe_training=k5_moe["launches"]),
+                                   moe_training=k5_moe["launches"],
+                                   **{f"{arch}_training": v["launches"]
+                                      for arch, v in k5_new.items()}),
              max_abs_err=max([r["max_abs_err"] for r in k5_rows]
-                             + [k5_lm["max_abs_err"], k5_moe["max_abs_err"]]),
+                             + [k5_lm["max_abs_err"], k5_moe["max_abs_err"]]
+                             + [v["max_abs_err"] for v in k5_new.values()]),
              ms=k5_sum["k5_ms"], plain_ms=k5_sum["plain_ms"], bound_ms=k5_bound,
              bound_by=k5_bound_by, library_ms=k5_sum["library_ms"],
              dae_ad=dict(ms=k5_dae_sum["k5_ms"], plain_ms=k5_dae_sum["plain_ms"],
                          bound_ms=k5_dae_sum["bound_ms"], bound_by=k5_dae_sum["bound_by"],
                          library_ms=k5_dae_sum["library_ms"], products=len(k5_dae)),
-             minicpm_train=k5_lm, deepseek_train=k5_moe),
+             minicpm_train=k5_lm, deepseek_train=k5_moe, mamba2_train=k5_new["mamba2-780m"],
+             zamba2_train=k5_new["zamba2-1.2b"], whisper_train=k5_new["whisper-small"]),
         dict(k4_lm, launches=(k4_lm["launches"] + fam_launches["decode_attention"]
                               + more("decode_attention")),
              launches_by_path=dict(qwen=k4_lm["launches"],
@@ -4845,7 +5122,8 @@ def main() -> int:
     log(f"[summary] K1 times are sums over the {len(per_site)} resnet8 GEMM sites at "
         f"batch {BATCH} (one serve; K2 there: {total('pergroup_ms'):.6g} ms, bound {gb:.6g}, "
         f"plain {total('pergroup_plain_ms'):.6g}), K2's over the per-group GEMMs of one "
-        f"qwen1.5-4b decode step (4 slots; bound and library in bf16; its expert axis over "
+        f"qwen1.5-4b decode step ({LM_LAYERS} of its 40 layers, 4 slots; bound and library in "
+        f"bf16; its expert axis over "
         f"one deepseek-v3 decode step beside them), K4's one decode-attention call at qwen's "
         f"decode shape (4 slots x 20 kv-heads, positions 256-540 of a 1024 ring, kv_bits "
         f"(2, 4, 8)), K5's over the {len(k5_times)} products of one resnet8 int8 training "
@@ -4863,7 +5141,9 @@ def main() -> int:
         f"('launches_by_path'), K5's also the [train] path's (minicpm-2b at full width, int8: "
         f"its step's products timed in its 'minicpm_train' entry) and the [train-moe] path's "
         f"(deepseek-v3 and arctic at full width, 2 layers, int8: deepseek's step in its "
-        f"'deepseek_train' entry), K6's the kernel API's over the "
+        f"'deepseek_train' entry), the [train-ssm] and [train-audio] paths' (mamba2-780m, "
+        f"zamba2-1.2b and whisper-small at full width and depth, int8: their steps in the "
+        f"'mamba2_train', 'zamba2_train' and 'whisper_train' entries), K6's the kernel API's over the "
         f"tinyml search-phase weights (no model path calls K6, in the reference or the port); "
         f"{card}")
     report["kernels"] = kernels

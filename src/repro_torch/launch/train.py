@@ -12,11 +12,11 @@ continues bit for bit.
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \\
         --reduced --device cpu --steps 12 --ckpt-dir /tmp/ck [--resume]
 
-``--arch`` takes the dense, VLM and MoE ids of ``config.ARCH_IDS``
-(deepseek-v3-671b with MLA and its MTP head, arctic-480b); the SSM,
-hybrid and audio families raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports their training.  Runs on the card unless
-``--device cpu`` is given.
+``--arch`` takes every id of ``config.ARCH_IDS``: the dense and VLM
+families, the MoE ones (deepseek-v3-671b with MLA and its MTP head,
+arctic-480b), mamba2-780m (SSM), zamba2-1.2b (hybrid: Mamba2 with a shared
+attention block) and whisper-small (encoder-decoder; the batches carry the
+audio stub's frames).  Runs on the card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 

@@ -1,14 +1,14 @@
 """Attention of the language models: grouped-query attention (GQA) and
 DeepSeek's multi-head latent attention (MLA), full-sequence (prefill) and
 one-token cached decode, and their training forwards (:func:`init_gqa`,
-:func:`gqa_forward`, :func:`init_mla`, :func:`mla_forward`: every
-projection a quantization-aware ``qlinear`` under the step's policy,
-differentiable end to end).
+:func:`gqa_forward`, whisper's :func:`cross_forward`, :func:`init_mla`,
+:func:`mla_forward`: every projection a quantization-aware ``qlinear``
+under the step's policy, differentiable end to end).
 
-Counterpart of the GQA and MLA parts of ``repro.models.attention``.  Full-sequence
-attention is the reference's blockwise online softmax over KV chunks,
-mirrored chunk by chunk in plain PyTorch, so the S x S score matrix never
-materializes.
+Counterpart of the GQA, MLA and cross-attention parts of
+``repro.models.attention``.  Full-sequence attention is the reference's
+blockwise online softmax over KV chunks, mirrored chunk by chunk in plain
+PyTorch, so the S x S score matrix never materializes.
 
 KV caches default to int8 with one scale per token
 (:func:`quant_per_token`); a ``kv_spec`` (``models/kv_quant.KVQuantSpec``)
@@ -170,6 +170,29 @@ def gqa_forward(p: dict, nas: Optional[dict], policy, cfg, x: torch.Tensor,
         q = L.apply_rope(q, cos, sin, rot)
         k = L.apply_rope(k, cos, sin, rot)
     o = gqa_core(q, k, v, H, KV, causal, k_chunk=k_chunk)
+    return lin("wo", o.reshape(B, S, H * hd))
+
+
+def cross_forward(p: dict, nas: Optional[dict], policy, cfg, x: torch.Tensor,
+                  enc: torch.Tensor, k_chunk: int = 1024) -> torch.Tensor:
+    """Whisper's decoder cross-attention under a training ``policy``: the
+    queries from ``x (B, S, d)``, the keys and values from the encoded
+    frames ``enc (B, Se, d)``, no rope, no causal mask -> ``(B, S, d)`` in
+    ``cfg.cdtype``; differentiable."""
+    B, S, _ = x.shape
+    Se = enc.shape[1]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cd, pd = cfg.cdtype, L.partial_dtype_of(cfg)
+    getn = (lambda n: nas[n]) if nas is not None else (lambda n: None)
+
+    def lin(name, t):
+        return L.qlinear(t, p[name], getn(name), policy, cfg.quant, compute_dtype=cd,
+                         partial_dtype=pd)
+
+    q = lin("wq", x).reshape(B, S, H, hd)
+    k = lin("wk", enc).reshape(B, Se, KV, hd)
+    v = lin("wv", enc).reshape(B, Se, KV, hd)
+    o = gqa_core(q, k, v, H, KV, causal=False, k_chunk=k_chunk)
     return lin("wo", o.reshape(B, S, H * hd))
 
 

@@ -451,25 +451,14 @@ def _deployed_mamba_full(p, cfg, x, backend="cuda", lens=None):
     conv ring is gathered at ``lens`` (zeros before the sequence start).
     """
     B, S, _ = x.shape
-    cd, f32 = cfg.cdtype, torch.float32
-    dq = _dq(cd, backend)
+    dq = _dq(cfg.cdtype, backend)
     d_inner, H, N, P = ssm_mod.dims(cfg)
     zxbcdt = dq(L.apply_norm(x, p["ln"], cfg.norm), p["in_proj"])
-    z = zxbcdt[..., :d_inner]
     xbc_in = zxbcdt[..., d_inner:2 * d_inner + 2 * N]
-    xbc = ssm_mod.causal_conv(xbc_in, p["conv_w"].to(cd), p["conv_b"].to(cd))
-    xs = xbc[..., :d_inner].reshape(B, S, H, P)
-    Bm = xbc[..., d_inner:d_inner + N]
-    Cm = xbc[..., d_inner + N:]
-    dt = torch.nn.functional.softplus(zxbcdt[..., -H:].to(f32) + p["dt_bias"])
+    real = None
     if lens is not None:
         real = torch.arange(S, device=x.device)[None, :] < lens.to(x.device)[:, None]
-        dt = torch.where(real[..., None], dt, torch.zeros((), device=x.device))
-    y, hT = ssm_mod.ssd_chunked(xs.to(f32), dt, torch.exp(p["A_log"]), Bm.to(f32), Cm.to(f32),
-                                cfg.ssm_chunk)
-    y = y + xs.to(f32) * p["D"][None, None, :, None]
-    y = y.reshape(B, S, d_inner).to(cd)
-    y = L.rmsnorm(y * ssm_mod.silu(z), p["norm"])
+    y, hT = ssm_mod.mamba2_mix(zxbcdt, p, cfg, real)
     K1 = ssm_mod.CONV_K - 1
     if lens is None:
         conv_tail = xbc_in[:, -K1:]

@@ -1,20 +1,27 @@
-"""Mamba2 (state-space duality, arXiv:2405.21060): the chunked SSD scan of
-a full sequence and the one-token recurrent step of decode.
+"""Mamba2 (state-space duality, arXiv:2405.21060): the block's training
+init and forward, the chunked SSD scan of a full sequence and the
+one-token recurrent step of decode.
 
-Counterpart of the serving parts of ``repro.models.ssm``.  The block: x ->
-in_proj -> [z | xBC | dt]; a depthwise causal conv over xBC; split into x,
-B and C; the SSD recurrence over heads with one decay rate a head; the
-output gated by silu(z); out_proj.  The linears are deployed ones
-(``serving.dq_linear``: the kernels on the card); the conv and the
-recurrence are plain PyTorch, as they are plain jnp in the reference (it
-has no Pallas kernel for them).
+Counterpart of ``repro.models.ssm``.  The block: x -> in_proj -> [z | xBC
+| dt]; a depthwise causal conv over xBC; split into x, B and C; the SSD
+recurrence over heads with one decay rate a head; the output gated by
+silu(z); out_proj.  The linears are searched ones in training
+(:func:`mamba2_forward`: ``layers.qlinear``, K5 under int8 compute) and
+deployed ones in serving (``serving.dq_linear``: the kernels on the card);
+both run the part between them through :func:`mamba2_mix`.  The conv and
+the recurrence are plain PyTorch, as they are plain jnp in the reference
+(it has no Pallas kernel for them).
 
 :func:`ssd_chunked` is the reference's chunked algorithm: within a chunk of
 ``Q`` tokens the recurrence is a masked, decay-weighted quadratic form;
 across chunks a Python loop carries the ``(B, H, P, N)`` state, with the
 reference's per-chunk algebra and chunk length, so the two sum in the same
-order.  :func:`mamba2_decode` is the O(1) step: the conv ring of the last
-``CONV_K - 1`` inputs and the f32 state, written in place.
+order.  It differs in one place: the reference exponentiates the decay
+differences above the diagonal too and masks the result, where they
+overflow to ``inf`` and its gradient is NaN; the port masks the exponent
+(the forward is the same).  :func:`mamba2_decode` is the O(1) step: the
+conv ring of the last ``CONV_K - 1`` inputs and the f32 state, written in
+place.
 
 The conv rounds as the reference's does: over a sequence each product and
 sum of its ``CONV_K`` taps is rounded to the compute dtype (an elementwise
@@ -26,6 +33,8 @@ chunked scan's final state up to f32 rounding.
 from __future__ import annotations
 
 from typing import Optional
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +52,70 @@ def dims(cfg) -> tuple:
 
 
 silu = L.silu
+
+
+def init_mamba2(gen: torch.Generator, cfg, dtype=torch.float32, lead: tuple = ()) -> tuple:
+    """``(params, nas)`` of one Mamba2 block (a stack with ``lead`` axes):
+    the two searched linears, the conv taps (normal / sqrt(CONV_K)) and
+    bias, the decay rates ``A_log`` (log 1..16), ``D`` and ``dt_bias``
+    (always f32), and the gate's RMS norm."""
+    dev = gen.device
+    d_inner, H, N, P = dims(cfg)
+    C = d_inner + 2 * N                                 # x + B + C (one group)
+    lead = tuple(lead)
+    conv_w = torch.randn(lead + (CONV_K, C), generator=gen, device=dev) / math.sqrt(CONV_K)
+    a_log = torch.log(torch.linspace(1.0, 16.0, H, device=dev))
+    params = {
+        "in_proj": L.linear_init(gen, cfg.d_model, 2 * d_inner + 2 * N + H, False, dtype, lead),
+        "out_proj": L.linear_init(gen, d_inner, cfg.d_model, False, dtype, lead),
+        "conv_w": conv_w.to(dtype),
+        "conv_b": torch.zeros(lead + (C,), dtype=dtype, device=dev),
+        "A_log": a_log.expand(lead + (H,)).clone(),
+        "D": torch.ones(lead + (H,), dtype=torch.float32, device=dev),
+        "dt_bias": torch.zeros(lead + (H,), dtype=torch.float32, device=dev),
+        "norm": L.norm_init(d_inner, "rmsnorm", dtype, dev, lead),
+    }
+    nas = {k: L.nas_init(params[k]["w"].shape[-2], cfg.quant, dev, lead)
+           for k in ("in_proj", "out_proj")}
+    return params, nas
+
+
+def mamba2_mix(zxbcdt: torch.Tensor, p: dict, cfg, real: Optional[torch.Tensor] = None) -> tuple:
+    """The block between its two linears: ``in_proj``'s output ``zxbcdt
+    (B, S, 2 d_inner + 2 N + H)`` in the compute dtype -> ``(the gated,
+    normed ``(B, S, d_inner)`` input of out_proj, the final SSD state (B,
+    H, P, N) f32)``.  ``real (B, S)`` bool zeroes ``dt`` at padded steps
+    (decay 1, no input), so the state is each row's at its last real
+    token."""
+    B, S, _ = zxbcdt.shape
+    d_inner, H, N, P = dims(cfg)
+    cd, f32 = cfg.cdtype, torch.float32
+    z = zxbcdt[..., :d_inner]
+    xbc = causal_conv(zxbcdt[..., d_inner:2 * d_inner + 2 * N], p["conv_w"].to(cd),
+                      p["conv_b"].to(cd))
+    xs = xbc[..., :d_inner].reshape(B, S, H, P)
+    Bm = xbc[..., d_inner:d_inner + N]
+    Cm = xbc[..., d_inner + N:]
+    dt = F.softplus(zxbcdt[..., -H:].to(f32) + p["dt_bias"])
+    if real is not None:
+        dt = torch.where(real[..., None], dt, torch.zeros((), device=dt.device))
+    y, hT = ssd_chunked(xs.to(f32), dt, torch.exp(p["A_log"]), Bm.to(f32), Cm.to(f32),
+                        cfg.ssm_chunk)
+    y = y + xs.to(f32) * p["D"][None, None, :, None]
+    y = y.reshape(B, S, d_inner).to(cd)
+    return L.rmsnorm(y * silu(z.to(cd)), p["norm"]), hT
+
+
+def mamba2_forward(p: dict, nas: Optional[dict], policy, cfg, x: torch.Tensor) -> torch.Tensor:
+    """The full-sequence Mamba2 block under a training ``policy``: ``x (B,
+    S, d)`` -> ``(B, S, d)`` in ``cfg.cdtype``; differentiable.  in_proj and
+    out_proj are searched linears at the compute dtype (K5 under int8)."""
+    getn = (lambda n: nas[n]) if nas is not None else (lambda n: None)
+    zxbcdt = L.qlinear(x, p["in_proj"], getn("in_proj"), policy, cfg.quant,
+                       compute_dtype=cfg.cdtype)
+    y, _ = mamba2_mix(zxbcdt, p, cfg)
+    return L.qlinear(y, p["out_proj"], getn("out_proj"), policy, cfg.quant,
+                     compute_dtype=cfg.cdtype)
 
 
 def causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -116,8 +189,10 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.T
         dA = dtq * negA                                         # (B, Q, H), <= 0
         cum = torch.cumsum(dA, dim=1)
         # intra-chunk: L[t, s] = exp(cum[t] - cum[s]) for s <= t
+        # above the diagonal diff is a positive sum that overflows exp: the
+        # exponent is masked, not its result, so no inf meets the backward
         diff = cum[:, :, None, :] - cum[:, None, :, :]          # (B, Qt, Qs, H)
-        Lmat = torch.where(mask, torch.exp(diff), torch.zeros((), device=dev))
+        Lmat = torch.exp(torch.where(mask, diff, torch.full((), -torch.inf, device=dev)))
         CB = torch.einsum("btn,bsn->bts", Cq, Bq)
         W = CB[:, :, :, None] * Lmat
         xdt = xq * dtq[..., None]                               # (B, Q, H, P)

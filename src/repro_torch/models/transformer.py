@@ -1,5 +1,6 @@
 """The language models' training path: init, full-sequence forward, loss and
-the cost specs of the search, for the dense, VLM and MoE families.
+the cost specs of the search, for every family (dense, VLM, MoE, SSM,
+hybrid and encoder-decoder).
 
 PyTorch counterpart of ``repro.models.transformer``:
 
@@ -9,31 +10,37 @@ PyTorch counterpart of ``repro.models.transformer``:
   lm_loss(logits, batch)                    -> scalar cross-entropy
   cost_specs(cfg, tokens)                   -> {site: LayerCostSpec} (Eq. 7/8)
 
-The block stack keeps the reference's stacked layout: every leaf of
-``params["blocks"]`` and ``nas["blocks"]`` carries a leading layer axis, so
-the optimizer states, the checkpoint and the NAS sites' cost specs are the
-reference's.  The forward takes each layer's views with one
-``torch.unbind`` per leaf (whose backward stacks the layers' gradients
-once; a per-layer ``t[i]`` would write a full-size zero tensor per layer in
-the backward) and runs the blocks in a Python loop, each under
-``torch.utils.checkpoint`` when ``remat`` is set (the reference's
-``jax.checkpoint`` inside ``lax.scan``).
+The block stacks keep the reference's stacked layout: every leaf of
+``params["blocks"]`` (``enc_blocks`` and ``dec_blocks`` for the audio
+family) and of its NAS tree carries a leading layer axis, so the optimizer
+states, the checkpoint and the NAS sites' cost specs are the reference's.
+The forward takes each layer's views with one ``torch.unbind`` per leaf
+(whose backward stacks the layers' gradients once; a per-layer ``t[i]``
+would write a full-size zero tensor per layer in the backward) and runs
+the blocks in a Python loop, each under ``torch.utils.checkpoint`` when
+``remat`` is set (the reference's ``jax.checkpoint`` inside ``lax.scan``).
 
 ``policy`` is a :class:`repro_torch.api.PrecisionPolicy` (FLOAT, QAT8,
 search(tau), FROZEN), with the step's training arithmetic
 (``train_compute``) and, for int8, the stochastic-rounding seed, which each
-layer folds with its index as the reference splits its key per layer.
-``batch`` holds ``tokens`` and ``labels`` (``(B, S)`` integers) and, for
-the VLM, ``prefix_embeds`` ``(B, n_prefix_tokens, d)``.
+layer folds with its stack's tag and its index as the reference splits its
+key per layer.  ``batch`` holds ``tokens`` and ``labels`` (``(B, S)``
+integers) and, for the VLM, ``prefix_embeds`` ``(B, n_prefix_tokens, d)``,
+for the audio family ``frames`` ``(B, encoder_seq, d)``.
 
-A block's attention is GQA or, with ``use_mla``, DeepSeek's MLA; its FFN
-the MLP or, with ``n_experts``, the MoE FFN (``models/moe.py``).
-DeepSeek's multi-token prediction (``mtp``) adds one unstacked block and
-its input norm (``mtp_block``, ``mtp_ln``), run outside the checkpointed
-stack on the embeddings under the step's own policy, and the lm_head a
-second time.  The SSM, hybrid and audio families raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports their
-training path; :func:`cost_specs` covers every family.
+A dense/VLM/MoE block's attention is GQA or, with ``use_mla``, DeepSeek's
+MLA; its FFN the MLP or, with ``n_experts``, the MoE FFN
+(``models/moe.py``).  DeepSeek's multi-token prediction (``mtp``) adds one
+unstacked block and its input norm (``mtp_block``, ``mtp_ln``), run
+outside the checkpointed stack on the embeddings under the step's own
+policy, and the lm_head a second time.  The SSM family stacks Mamba2
+blocks (``models/ssm.py``); the hybrid (zamba2) adds one unstacked
+attention+MLP block (``shared_attn``), run before every group of
+``attn_every`` Mamba2 layers, outside the checkpoint and under the step's
+own policy, so its gradient sums over its calls.  The audio family
+(whisper) runs a non-causal encoder stack over the stub's frames plus
+sinusoidal positions, ``enc_ln_f``, and a causal decoder stack whose
+blocks also cross-attend to the encoded frames (``attention.cross_forward``).
 """
 from __future__ import annotations
 
@@ -48,21 +55,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.qtrain.linear import fold_in
-
-# families whose training path is still to port, with the ROADMAP.md item
-NOT_PORTED = {"ssm": "queue 1 item 7.3", "hybrid": "queue 1 item 7.3",
-              "audio": "queue 1 item 7.4"}
-
-
-def check_trainable(cfg) -> None:
-    """Raise ``NotImplementedError`` for a family whose training path the
-    port does not have yet."""
-    item = NOT_PORTED.get(cfg.family)
-    if item is not None:
-        raise NotImplementedError(
-            f"training {cfg.name!r} ({cfg.family} family) is not ported yet: "
-            f"ROADMAP.md {item}")
-
 
 # ---------------------------------------------------------------------------
 # Blocks (one layer's params, or a stack of them with ``lead`` axes)
@@ -99,7 +91,6 @@ def mlp_forward(p: dict, nas: Optional[dict], policy, cfg, x: torch.Tensor) -> t
 def init_block(gen: torch.Generator, cfg, dtype=torch.float32, lead: tuple = ()) -> tuple:
     """One decoder block of the dense/VLM/MoE families (a stack with
     ``lead``)."""
-    check_trainable(cfg)
     p_attn, n_attn = (attn.init_mla if cfg.use_mla else attn.init_gqa)(gen, cfg, dtype, lead)
     if cfg.n_experts:
         p_ffn, n_ffn = moe_mod.init_moe(gen, cfg, dtype, lead)
@@ -131,6 +122,44 @@ def block_forward(p: dict, nas: Optional[dict], policy, cfg, x: torch.Tensor,
     return x + f.to(x.dtype)
 
 
+def init_mamba_block(gen: torch.Generator, cfg, dtype=torch.float32, lead: tuple = ()) -> tuple:
+    """One Mamba2 block and its pre-norm ``ln`` (a stack with ``lead``)."""
+    p, n = ssm_mod.init_mamba2(gen, cfg, dtype, lead)
+    p["ln"] = L.norm_init(cfg.d_model, cfg.norm, dtype, gen.device, lead)
+    return p, n
+
+
+def mamba_block_forward(p: dict, nas: Optional[dict], policy, cfg, x: torch.Tensor) -> torch.Tensor:
+    h = L.apply_norm(x, p["ln"], cfg.norm)
+    return x + ssm_mod.mamba2_forward(p, nas, policy, cfg, h).to(x.dtype)
+
+
+def _init_enc_block(gen: torch.Generator, cfg, dtype=torch.float32, lead: tuple = ()) -> tuple:
+    """One audio encoder block: self-attention and the MLP, each behind its
+    norm (a stack with ``lead``)."""
+    p_attn, n_attn = attn.init_gqa(gen, cfg, dtype, lead)
+    p_mlp, n_mlp = init_mlp(gen, cfg, cfg.d_model, cfg.d_ff, dtype, lead)
+    p = {"attn": p_attn, "mlp": p_mlp,
+         **{f"ln{i}": L.norm_init(cfg.d_model, cfg.norm, dtype, gen.device, lead)
+            for i in (1, 2)}}
+    return p, {**{f"attn.{k}": v for k, v in n_attn.items()},
+               **{f"mlp.{k}": v for k, v in n_mlp.items()}}
+
+
+def _init_dec_block(gen: torch.Generator, cfg, dtype=torch.float32, lead: tuple = ()) -> tuple:
+    """One audio decoder block: self-attention, cross-attention (``xattn``)
+    and the MLP, each behind its norm (a stack with ``lead``)."""
+    p_attn, n_attn = attn.init_gqa(gen, cfg, dtype, lead)
+    p_x, n_x = attn.init_gqa(gen, cfg, dtype, lead)
+    p_mlp, n_mlp = init_mlp(gen, cfg, cfg.d_model, cfg.d_ff, dtype, lead)
+    p = {"attn": p_attn, "xattn": p_x, "mlp": p_mlp,
+         **{f"ln{i}": L.norm_init(cfg.d_model, cfg.norm, dtype, gen.device, lead)
+            for i in (1, 2, 3)}}
+    return p, {**{f"attn.{k}": v for k, v in n_attn.items()},
+               **{f"xattn.{k}": v for k, v in n_x.items()},
+               **{f"mlp.{k}": v for k, v in n_mlp.items()}}
+
+
 # ---------------------------------------------------------------------------
 # Whole-model init
 # ---------------------------------------------------------------------------
@@ -138,14 +167,27 @@ def block_forward(p: dict, nas: Optional[dict], policy, cfg, x: torch.Tensor,
 def init_model(cfg, gen: torch.Generator) -> tuple:
     """``(params, nas)`` of the whole model, drawn on ``gen``'s device in
     ``cfg.pdtype``: the embedding and lm_head at the padded vocab, the
-    blocks stacked on a leading layer axis (and with ``mtp`` one more
-    block and its norm).  ``tie_embeddings`` is not read: the lm_head is
-    its own weight, as in the reference."""
-    check_trainable(cfg)
+    block stacks on a leading layer axis (the hybrid's shared block and
+    the MTP block and its norm unstacked), the audio encoder's final norm
+    ``enc_ln_f``.  ``tie_embeddings`` is not read: the lm_head is its own
+    weight, as in the reference."""
     dtype, dev = cfg.pdtype, gen.device
     params = {"embed": L.embedding_init(gen, cfg.padded_vocab, cfg.d_model, dtype)}
     nas = {}
-    params["blocks"], nas["blocks"] = init_block(gen, cfg, dtype, (cfg.n_layers,))
+    if cfg.family in ("dense", "vlm", "moe"):
+        params["blocks"], nas["blocks"] = init_block(gen, cfg, dtype, (cfg.n_layers,))
+    elif cfg.family in ("ssm", "hybrid"):
+        params["blocks"], nas["blocks"] = init_mamba_block(gen, cfg, dtype, (cfg.n_layers,))
+        if cfg.family == "hybrid":
+            params["shared_attn"], nas["shared_attn"] = init_block(gen, cfg, dtype)
+    elif cfg.family == "audio":
+        params["enc_blocks"], nas["enc_blocks"] = _init_enc_block(gen, cfg, dtype,
+                                                                  (cfg.n_encoder_layers,))
+        params["dec_blocks"], nas["dec_blocks"] = _init_dec_block(gen, cfg, dtype,
+                                                                  (cfg.n_layers,))
+        params["enc_ln_f"] = L.norm_init(cfg.d_model, cfg.norm, dtype, dev)
+    else:
+        raise ValueError(f"unknown family {cfg.family}")
     params["ln_f"] = L.norm_init(cfg.d_model, cfg.norm, dtype, dev)
     params["lm_head"] = L.linear_init(gen, cfg.d_model, cfg.padded_vocab, False, dtype)
     nas["lm_head"] = L.nas_init(cfg.padded_vocab, cfg.quant, dev)
@@ -167,12 +209,12 @@ def _embed_inputs(params: dict, cfg, batch: dict) -> torch.Tensor:
     return x
 
 
-def _layer_keys(policy, n_layers: int, tag: int) -> Optional[list]:
-    """Per-layer stochastic-rounding seeds of a block stack (``None`` when
+def _layer_keys(policy, n_layers: int, tag: int) -> list:
+    """Per-layer stochastic-rounding seeds of a block stack (``None``s when
     the policy carries none): the policy's seed folded with ``tag`` (one
     stack of a forward from another), then with the layer index."""
     if policy.sr_key is None:
-        return None
+        return [None] * n_layers
     base = fold_in(policy.sr_key, tag)
     return [fold_in(base, i) for i in range(n_layers)]
 
@@ -188,14 +230,11 @@ def unstack(tree, n: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
-def _scan_blocks(block_fn, params_blocks: dict, nas_blocks: Optional[dict], x: torch.Tensor,
-                 remat: bool = True, keys: Optional[list] = None) -> torch.Tensor:
-    """``x`` through every layer of a stacked stack in order:
+def _run_layers(block_fn, ps: list, ns: list, ks: list, x: torch.Tensor,
+                remat: bool) -> torch.Tensor:
+    """``x`` through the per-layer views ``ps``/``ns`` in order:
     ``block_fn(h, p, n, key)`` per layer, under ``torch.utils.checkpoint``
     when ``remat`` (the recomputed forward draws the same seeds)."""
-    n = next(iter(_leaves(params_blocks))).shape[0]
-    ps, ns = unstack(params_blocks, n), unstack(nas_blocks, n)
-    ks = keys if keys is not None else [None] * n
     for p, nn, k in zip(ps, ns, ks):
         if remat:
             x = checkpoint(block_fn, x, p, nn, k, use_reentrant=False)
@@ -204,33 +243,111 @@ def _scan_blocks(block_fn, params_blocks: dict, nas_blocks: Optional[dict], x: t
     return x
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
+def _scan_blocks(block_fn, params_blocks: dict, nas_blocks: Optional[dict], x: torch.Tensor,
+                 remat: bool, keys: list) -> torch.Tensor:
+    """``x`` through every layer of a stacked stack, one seed of ``keys``
+    a layer (:func:`_run_layers`)."""
+    n = len(keys)
+    return _run_layers(block_fn, unstack(params_blocks, n), unstack(nas_blocks, n), keys, x,
+                       remat)
+
+
+def _with_key(policy, k):
+    return policy if k is None else policy.with_sr_key(k)
 
 
 def forward(params: dict, nas: Optional[dict], cfg, batch: dict, policy,
             remat: bool = True) -> torch.Tensor:
     """Full-sequence forward -> logits ``(B, S, padded_vocab)`` in f32, the
     padding's logits masked."""
-    check_trainable(cfg)
+    if cfg.family == "audio":
+        return _forward_encdec(params, nas, cfg, batch, policy, remat)
     x = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    keys = _layer_keys(policy, cfg.n_layers, 0)
-
-    def bf(h, p, n, k=None):
-        pol = policy if k is None else policy.with_sr_key(k)
-        return block_forward(p, n, pol, cfg, h, positions)
-
-    x = _scan_blocks(bf, params["blocks"], None if nas is None else nas["blocks"], x,
-                     remat, keys=keys)
+    if cfg.family == "hybrid":
+        x = _forward_hybrid(params, nas, cfg, x, positions, policy, remat)
+    else:
+        if cfg.family == "ssm":
+            def bf(h, p, n, k):
+                return mamba_block_forward(p, n, _with_key(policy, k), cfg, h)
+        else:
+            def bf(h, p, n, k):
+                return block_forward(p, n, _with_key(policy, k), cfg, h, positions)
+        x = _scan_blocks(bf, params["blocks"], None if nas is None else nas["blocks"], x,
+                         remat, _layer_keys(policy, cfg.n_layers, 0))
     x = L.apply_norm(x, params["ln_f"], cfg.norm)
     head_nas = nas["lm_head"] if nas is not None else None
     logits = L.qlinear(x, params["lm_head"], head_nas, policy, cfg.quant,
                        compute_dtype=cfg.cdtype)
+    return _mask_pad(logits.to(torch.float32), cfg)
+
+
+def _forward_hybrid(params: dict, nas: Optional[dict], cfg, x: torch.Tensor,
+                    positions: torch.Tensor, policy, remat: bool) -> torch.Tensor:
+    """zamba2: the Mamba2 stack with the one shared attention+MLP block
+    before every group of ``attn_every`` layers (layers 0, k, 2k, ...),
+    outside the checkpoint and under the step's own policy."""
+    n, k = cfg.n_layers, cfg.attn_every
+    n_sa = nas["shared_attn"] if nas is not None else None
+    ps, ns = unstack(params["blocks"], n), unstack(None if nas is None else nas["blocks"], n)
+    keys = _layer_keys(policy, n, 0)
+
+    def bf(h, p, nn, kk):
+        return mamba_block_forward(p, nn, _with_key(policy, kk), cfg, h)
+
+    for start in range(0, n, k):
+        x = block_forward(params["shared_attn"], n_sa, policy, cfg, x, positions)
+        g = slice(start, min(start + k, n))
+        x = _run_layers(bf, ps[g], ns[g], keys[g], x, remat)
+    return x
+
+
+def _forward_encdec(params: dict, nas: Optional[dict], cfg, batch: dict, policy,
+                    remat: bool) -> torch.Tensor:
+    """whisper: the stub's frames plus sinusoidal positions through the
+    non-causal encoder and ``enc_ln_f``; the tokens plus sinusoidal
+    positions through the causal decoder, each block cross-attending to the
+    encoded frames; the lm_head's sums at ``partial_dtype``."""
+    cd = cfg.cdtype
+    enc = batch["frames"].to(cd)
+    Se = enc.shape[1]
+    enc = enc + L.sinusoidal_positions(Se, cfg.d_model, enc.device).to(cd)
+    positions_e = torch.arange(Se, device=enc.device)
+
+    def ebf(h, p, n, k):
+        pol = _with_key(policy, k)
+        a = attn.gqa_forward(p["attn"], _sub(n, "attn."), pol, cfg,
+                             L.apply_norm(h, p["ln1"], cfg.norm), positions_e, causal=False)
+        h = h + a.to(h.dtype)
+        f = mlp_forward(p["mlp"], _sub(n, "mlp."), pol, cfg, L.apply_norm(h, p["ln2"], cfg.norm))
+        return h + f.to(h.dtype)
+
+    enc = _scan_blocks(ebf, params["enc_blocks"], None if nas is None else nas["enc_blocks"],
+                       enc, remat, _layer_keys(policy, cfg.n_encoder_layers, 1))
+    enc = L.apply_norm(enc, params["enc_ln_f"], cfg.norm)
+
+    x = params["embed"][batch["tokens"].long()].to(cd)
+    S = x.shape[1]
+    x = x + L.sinusoidal_positions(S, cfg.d_model, x.device).to(cd)
+    positions = torch.arange(S, device=x.device)
+
+    def dbf(h, p, n, k):
+        pol = _with_key(policy, k)
+        a = attn.gqa_forward(p["attn"], _sub(n, "attn."), pol, cfg,
+                             L.apply_norm(h, p["ln1"], cfg.norm), positions, causal=True)
+        h = h + a.to(h.dtype)
+        xa = attn.cross_forward(p["xattn"], _sub(n, "xattn."), pol, cfg,
+                                L.apply_norm(h, p["ln2"], cfg.norm), enc)
+        h = h + xa.to(h.dtype)
+        f = mlp_forward(p["mlp"], _sub(n, "mlp."), pol, cfg, L.apply_norm(h, p["ln3"], cfg.norm))
+        return h + f.to(h.dtype)
+
+    x = _scan_blocks(dbf, params["dec_blocks"], None if nas is None else nas["dec_blocks"], x,
+                     remat, _layer_keys(policy, cfg.n_layers, 2))
+    x = L.apply_norm(x, params["ln_f"], cfg.norm)
+    head_nas = nas["lm_head"] if nas is not None else None
+    logits = L.qlinear(x, params["lm_head"], head_nas, policy, cfg.quant,
+                       compute_dtype=cd, partial_dtype=L.partial_dtype_of(cfg))
     return _mask_pad(logits.to(torch.float32), cfg)
 
 

@@ -177,7 +177,6 @@ def loss_and_grads(cfg, hp: TrainHParams, state: dict, batch: dict, kind: str,
 
 
 def _make_step(cfg, hp: TrainHParams, kind: str, specs=None) -> Callable:
-    tfm.check_trainable(cfg)
     opt_w, opt_t = make_optimizers(hp)
     opt, tree, ost = (opt_t, "nas", "opt_t") if kind == "theta" else (opt_w, "params", "opt_w")
 
@@ -225,12 +224,26 @@ def int8_products_per_step(cfg, remat: bool = True) -> int:
     forward returns, after the block's last product).  A block's sites:
     GQA's 4 or MLA's 5 projections, and the MLP's 3 (2 for GELU) or, in
     a MoE block, the shared expert's and the dense residual MLP's 3 each
-    (the router and the routed experts are no int8 products).  The MTP
-    block runs outside the checkpoint and calls the lm_head once more."""
-    tfm.check_trainable(cfg)
-    per_block = 5 if cfg.use_mla else 4
-    if not cfg.n_experts:
-        per_block += 3 if cfg.mlp_type == "swiglu" else 2
-    per_block += 3 * (bool(cfg.n_shared_experts) + bool(cfg.dense_residual_ff))
-    sites = cfg.n_layers * per_block + 1 + ((per_block + 1) if cfg.mtp else 0)
-    return 3 * sites + (cfg.n_layers * per_block if remat else 0)
+    (the router and the routed experts are no int8 products); a Mamba2
+    block's in_proj and out_proj; whisper's encoder block attention and
+    MLP, its decoder block self and cross attention and MLP.  The blocks
+    outside the checkpoint are not recomputed: the MTP block (which calls
+    the lm_head once more) and the hybrid's shared block, run before every
+    group of ``attn_every`` layers."""
+    attn_sites = 5 if cfg.use_mla else 4
+    mlp_sites = 3 if cfg.mlp_type == "swiglu" else 2
+    once = 1                                            # the lm_head
+    if cfg.family == "audio":
+        stacked = (cfg.n_encoder_layers * (attn_sites + mlp_sites)
+                   + cfg.n_layers * (2 * attn_sites + mlp_sites))
+    elif cfg.family in ("ssm", "hybrid"):
+        stacked = 2 * cfg.n_layers
+        if cfg.family == "hybrid":
+            once += -(-cfg.n_layers // cfg.attn_every) * (attn_sites + mlp_sites)
+    else:
+        per_block = attn_sites + (0 if cfg.n_experts else mlp_sites)
+        per_block += 3 * (bool(cfg.n_shared_experts) + bool(cfg.dense_residual_ff))
+        stacked = cfg.n_layers * per_block
+        if cfg.mtp:
+            once += per_block + 1
+    return 3 * (stacked + once) + (stacked if remat else 0)

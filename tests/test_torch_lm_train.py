@@ -75,6 +75,7 @@ from repro_torch import bridge
 from repro_torch.config import get_config
 from repro_torch.data import pipeline as pipe
 from repro_torch.kernels import int8_matmul as tim
+from repro_torch.launch import train as tlaunch
 from repro_torch.models import serving as tserving
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import optimizers as topt
@@ -126,18 +127,16 @@ def _configs(arch, mode, **over):
     return jcfg, tcfg, jhp, thp
 
 
-@functools.lru_cache(maxsize=None)
-def _reference(arch, mode, vocab=None):
-    """The reference's state, batch, and per step kind its loss, gradient
-    tree and the tree its update gives."""
-    jcfg, tcfg, jhp, thp = _configs(arch, mode, **({} if vocab is None else
-                                                   {"vocab_size": vocab}))
-    state = jax.jit(lambda k: jsteps.init_train_state(jcfg, jhp, k))(jax.random.PRNGKey(0))
-    batch = pipe.input_batch_for(tcfg, SEQ, BATCH, seed=0)
+def reference_objectives(jcfg, jhp, state, batch: dict, warmup: bool) -> dict:
+    """The reference's jitted objectives from ``state`` on the numpy
+    ``batch``, int8 rounding to nearest: per step kind its loss (and the
+    theta step's ``reg_cost``) and the gradient tree the step trains by;
+    the W and theta gradients from one ``value_and_grad`` of the search
+    objective over both trees, the warmup's (QAT8) when ``warmup``."""
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    specs = jtfm.cost_specs(jcfg, SEQ * BATCH)
+    specs = jtfm.cost_specs(jcfg, int(np.asarray(batch["tokens"]).size))
 
-    def warmup(st, b):
+    def warmup_fn(st, b):
         pol = jsteps._train_policy(jhp, JPolicy.QAT8, st["step"])
         return jax.value_and_grad(
             lambda p: jsteps._task_loss(jcfg, jhp, p, None, pol, b))(st["params"])
@@ -154,14 +153,27 @@ def _reference(arch, mode, vocab=None):
             st["params"], st["nas"])
         return lt, lr, gp, gn
 
-    out = dict(state=tree_to_numpy(state), batch=batch, tcfg=tcfg, thp=thp, jcfg=jcfg, jhp=jhp)
+    out = {}
     with _no_sr():
-        if (arch, mode, "warmup") in CASES:
-            wl, wg = jax.jit(warmup)(state, jb)
+        if warmup:
+            wl, wg = jax.jit(warmup_fn)(state, jb)
             out["warmup"] = dict(loss=float(wl), grads=tree_to_numpy(wg))
         lt, lr, gp, gn = jax.jit(search)(state, jb)
     out["w"] = dict(loss=float(lt), grads=tree_to_numpy(gp))
     out["theta"] = dict(loss=float(lt), reg_cost=float(lr), grads=tree_to_numpy(gn))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(arch, mode, vocab=None):
+    """The reference's state, batch, and per step kind its loss, gradient
+    tree and the tree its update gives."""
+    jcfg, tcfg, jhp, thp = _configs(arch, mode, **({} if vocab is None else
+                                                   {"vocab_size": vocab}))
+    state = jax.jit(lambda k: jsteps.init_train_state(jcfg, jhp, k))(jax.random.PRNGKey(0))
+    batch = pipe.input_batch_for(tcfg, SEQ, BATCH, seed=0)
+    out = dict(state=tree_to_numpy(state), batch=batch, tcfg=tcfg, thp=thp, jcfg=jcfg, jhp=jhp)
+    out.update(reference_objectives(jcfg, jhp, state, batch, (arch, mode, "warmup") in CASES))
     return out
 
 
@@ -223,11 +235,14 @@ def run_port_step(ref, kind):
     return metrics, grads, st, step_metrics
 
 
-@pytest.mark.parametrize("arch,mode,kind", CASES)
-def test_step_matches_reference(arch, mode, kind):
-    ref = _reference(arch, mode, VOCAB.get(arch))
+def assert_step_matches(ref, kind, mode, port_step=None):
+    """The port's ``kind`` step from the bridged reference state (``port_step``'s
+    ``(metrics, grads, state, step metrics)``, :func:`run_port_step`'s by
+    default) against the reference's: the loss and ``reg_cost``, every
+    gradient leaf within ``mode``'s tolerance, the update, the other tree
+    untouched.  Returns the port's gradient tree."""
     r = ref[kind]
-    metrics, grads, st, step_metrics = run_port_step(ref, kind)
+    metrics, grads, st, step_metrics = (port_step or run_port_step)(ref, kind)
     loss = float(metrics["loss"])
     assert abs(loss - r["loss"]) <= LOSS_RTOL[mode] * abs(r["loss"]), (loss, r["loss"])
     for k, v in metrics.items():                 # the step reports what it differentiated
@@ -244,6 +259,12 @@ def test_step_matches_reference(arch, mode, kind):
     for path, v in _paths(ref["state"][kept]):
         assert np.array_equal(_to64(dict(_paths(st[kept]))[path]), _to64(v)), (kind, path)
     assert st["step"] == 1
+    return grads
+
+
+@pytest.mark.parametrize("arch,mode,kind", CASES)
+def test_step_matches_reference(arch, mode, kind):
+    assert_step_matches(_reference(arch, mode, VOCAB.get(arch)), kind, mode)
 
 
 def test_vocab_padding_masks_and_matches():
@@ -339,17 +360,24 @@ def test_remat_on_equals_off_bitwise(compute):
 @pytest.mark.parametrize("arch,remat", [("qwen1.5-4b", True), ("qwen1.5-4b", False),
                                         ("phi-3-vision-4.2b", True),
                                         ("deepseek-v3-671b", True), ("deepseek-v3-671b", False),
-                                        ("arctic-480b", True)])
+                                        ("arctic-480b", True),
+                                        ("mamba2-780m", True), ("mamba2-780m", False),
+                                        ("zamba2-1.2b", True), ("whisper-small", True)])
 def test_int8_products_per_step(monkeypatch, arch, remat):
     """The int8 GEMM calls of each step kind equal
     ``steps.int8_products_per_step`` (forward, grad-input and grad-weight
     per site, and each block's recomputed forward under remat; deepseek's
     MLA, shared expert and MTP block with its second lm_head call, arctic's
-    dense residual MLP; no routed expert or router product)."""
+    dense residual MLP; no routed expert or router product; mamba2's
+    in_proj and out_proj; zamba2's shared block, at 3 layers run twice
+    outside the checkpoint; whisper's encoder and decoder blocks, cross
+    attention included)."""
     calls = []
     real = tim.scaled_int8_mm
     monkeypatch.setattr(tim, "scaled_int8_mm", lambda *a, **k: calls.append(1) or real(*a, **k))
     cfg = get_config(arch).reduced()
+    if arch == "zamba2-1.2b":
+        cfg = dataclasses.replace(cfg, n_layers=3)
     hp = tsteps.TrainHParams.for_arch(cfg, train_compute="int8", remat=remat)
     st = tsteps.init_train_state(cfg, hp, 0, "cpu")
     batch = pipe.input_batch_for(cfg, SEQ, BATCH)
@@ -381,10 +409,18 @@ def test_qwen_lm_head_overflows_int8_in_both():
 
 
 @pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b", "whisper-small"])
-def test_other_families_name_their_roadmap_item(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item 7\.[34]"):
-        tsteps.init_train_state(cfg, tsteps.TrainHParams.for_arch(cfg), 0, "cpu")
+def test_launcher_trains_family(arch, capsys):
+    """``launch/train.py`` trains the SSM, hybrid and audio families:
+    warmup, theta and W steps of the reduced model on the CPU at int8
+    compute, every logged loss finite (whisper's batches carry the stub's
+    frames)."""
+    tlaunch.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "5",
+                  "--warmup-steps", "2", "--theta-every", "2", "--seq", "12", "--batch", "2",
+                  "--train-compute", "int8"])
+    out = capsys.readouterr().out
+    assert "done: 5 steps" in out
+    losses = [float(t.split("=")[1]) for t in out.split() if t.startswith("loss=")]
+    assert losses and all(np.isfinite(losses))
 
 
 def test_deployed_from_search_equals_the_reference():

@@ -33,6 +33,7 @@ from repro.kernels import int8_matmul as jim
 from repro.models import layers as JL
 from repro.qtrain import linear as jqt
 from repro_torch.api.policy import PrecisionPolicy as TPolicy
+from repro_torch.config import get_config
 from repro_torch.kernels import int8_matmul as tim
 from repro_torch.kernels import ops
 from repro_torch.models import layers as TL
@@ -149,12 +150,43 @@ K5_CASES = _k5_shapes() + [
                   (1000, 300, 1000), (200, 3, 4099), (65536, 1024, 1000)]]
 
 
+def _train_k5_shapes():
+    """The (M, N, K) of the three int8 products of every searched linear of
+    a mamba2-780m, zamba2-1.2b and whisper-small training step at full
+    width, T = 1024 tokens (whisper's encoder and its cross-attention keys
+    and values over 8 x 1500 frames), with their ids."""
+    T, out = 1024, []
+    for arch in ("mamba2-780m", "zamba2-1.2b", "whisper-small"):
+        cfg = get_config(arch)
+        d, ff = cfg.d_model, cfg.d_ff
+        sites = {"lm_head": (cfg.padded_vocab, d, T)}
+        if cfg.family in ("ssm", "hybrid"):
+            d_inner = cfg.ssm_expand * d
+            n_in = 2 * d_inner + 2 * cfg.ssm_state + d_inner // cfg.ssm_head_dim
+            sites.update(in_proj=(n_in, d, T), out_proj=(d, d_inner, T))
+        if cfg.n_heads:
+            hd = cfg.n_heads * cfg.head_dim
+            sites.update({"attn": (hd, d, T), "mlp-up": (ff, d, T), "mlp-down": (d, ff, T)})
+        if cfg.family == "audio":
+            Te = 8 * cfg.encoder_seq
+            sites.update({"enc-attn": (hd, d, Te), "enc-mlp-up": (ff, d, Te),
+                          "enc-mlp-down": (d, ff, Te)})
+        for site, (n, k, m) in sites.items():
+            out += [pytest.param(m, n, k, "lm-shape", id=f"{arch}/{site}/forward"),
+                    pytest.param(m, k, n, "lm-shape", id=f"{arch}/{site}/grad-input"),
+                    pytest.param(n, k, m, "lm-shape", id=f"{arch}/{site}/grad-weight")]
+    return out
+
+
+TRAIN_K5_SHAPES = _train_k5_shapes()
+
+
 def test_k5_cases_cover_both_models():
     assert sum(1 for c in K5_CASES if c.id.startswith("resnet8")) == 30
     assert sum(1 for c in K5_CASES if c.id.startswith("dae-ad")) == 30
 
 
-@pytest.mark.parametrize("m,n,k,role", K5_CASES)
+@pytest.mark.parametrize("m,n,k,role", K5_CASES + TRAIN_K5_SHAPES)
 @pytest.mark.parametrize("sms", [132])
 def test_k5_plan(m, n, k, role, sms):
     plan = tim.k5_plan(m, n, k, sms)
@@ -230,15 +262,26 @@ MOE_K5_CASES = [
 ]
 
 
+# the SSM and encoder-decoder training shapes' odd widths, scaled down:
+# mamba2's in_proj N 6448 (no multiple of 64) on the panel kernel, its
+# grad-input contracting over it (K 6448 % 32 = 16) split, and a
+# grad-weight over whisper's 12000 encoder rows split.
+SSM_K5_CASES = [
+    pytest.param(64, 6448, 256, "ssm tall-m panel 1", id="ssm-in_proj-n6448"),
+    pytest.param(32, 128, 6448, "ssm tall-k split 51", id="ssm-in_proj-grad-input-k6448"),
+    pytest.param(64, 96, 12000, "ssm tall-k split 47", id="audio-grad-weight-k12000"),
+]
+
+
 @pytest.mark.parametrize("m,n,k,role", [c for c in K5_CASES if np.prod(c.values[:3]) < 4e8]
-                         + LM_K5_CASES + MOE_K5_CASES)
+                         + LM_K5_CASES + MOE_K5_CASES + SSM_K5_CASES)
 def test_k5_plan_emulation_equals_plain_bitwise(m, n, k, role):
     a, b, sa, sb = (torch.from_numpy(v) for v in _int8_operands(m + 7 * n + k, m, n, k))
     plan = tim.k5_plan(m, n, k, 132)
     if role.startswith("lm "):
         assert [plan.cls, plan.kernel] == role.split()[1:] and plan.splits == 1
         assert plan.kernel == "split" or plan.grid_m < plan.tiles_m
-    if role.startswith("moe "):
+    if role.startswith(("moe ", "ssm ")):
         cls, kernel, splits = role.split()[1:]
         assert (plan.cls, plan.kernel, plan.splits) == (cls, kernel, int(splits))
     assert torch.equal(_k5_emulation(a, b, sa, sb, plan), tim.scaled_int8_mm_plain(a, b, sa, sb))
