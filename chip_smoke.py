@@ -387,6 +387,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    verify within 2^-5 x max(1, max|y|) of 3 sequential steps (its f32
    router is a library ``matmul``, whose sums may follow M); K2's expert
    axis over a verify (capacity 12) on both plans.
+[mesh] Mesh serving, at the end of phase 4d: the same deepseek-v3-671b
+   (full width, 2 layers, 256 experts) on ``launch/mesh.make_test_mesh(2,
+   4, devices=[card] * 8)``, eight mesh positions on the one card, so
+   every shard of a sharded weight is launched on its own, one after the
+   other, and nothing is saved: ``ServingEngine(mesh=...)`` places the
+   weights (``dist/sharding.MeshContext.put_params``: a QTensor's fused
+   buffer in whole N-tiles (TP) or whole experts (EP) on the four model
+   positions, as views, and everything else whole on the first; the
+   placement may add at most ``MESH_PLACE_EXTRA`` bytes) and runs every
+   model call inside ``serving_mesh``.  (a) The default mixed deployment
+   on the 4d trace at kv None (dense rings): tokens equal the 4d run's,
+   every step's launches held to ``mesh_launches`` of the placed weights
+   (``we_down``: K3 once per expert shard, ``quant_matmul_fused_batched_ep``), and the same
+   engine without a mesh beside it; (b) the uniform 4-bit
+   ``serving.draft_model``: the same, with K1 once per N-tile shard
+   (``quant_matmul_fused_tp``: ``wq_b``, ``wkv_b`` and the shared
+   ``w_down``, the linears with a fused layout); (c) each sharded wrapper once at a decode shape and at M
+   40 (``wkv_b`` of (b), ``we_down`` of (a)): bitwise the unsharded launch
+   and within K1's and K3's bounds of the plain version, CUDA-event ms
+   beside the unsharded launch's; (d) at capacity factor 64 (no expert
+   drops, so a request's rows do not depend on its batch), all requests
+   submitted at once and ``fail_host(1)`` after the first tick: one
+   drain, requests requeued, host 1's slots dead, every request complete
+   with the tokens of the run without a failure.  Reported (``[mesh]``
+   lines, each labelled with ``MESH_LABEL`` and the card): the
+   ``explain()`` decisions counted by rule, each case's wall time and its
+   prefill and decode-step ms beside the engine without a mesh (host
+   clock, medians), shard launches a step, peak memory.  The counts of the
+   mesh engines' runs go to K1's, K2's and K3's ``launches_by_path``.
 [train] The LM training path (after 3g): minicpm-2b
    (arXiv 2404.06395) at full width and all 40 layers (2304 wide, 36 heads
    of 64, d_ff 5760, vocab 122753 padded to 122880; 3.0 B params) from
@@ -471,7 +500,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    beside it; K1, K2 and K4 launches also the seven families' paths', K4's
    rows at their decode shapes in its ``families`` entry; K1, K2 and K4
    launches also whisper-small's paths', K4's row at its decode shape in
-   its ``whisper`` entry; K1-K4 launches also the [paged] and [spec] runs';
+   its ``whisper`` entry; K1-K4 launches also the [paged], [spec] and
+   [mesh] runs' (K1's and K3's shard launches on the mesh beside them);
    K5's also the four LM training phases', with each model's step in its
    own entry; each wrapper's ``launches_by_path`` splitting them), the
    card's name and power limit, and the last line ``{"ok": true,
@@ -1448,6 +1478,7 @@ def moe_serving(dev, card, ops, gen):
     from repro_torch.models import serving
 
     report = {}
+    t_moe = time.perf_counter()
     full = get_config("deepseek-v3-671b")
     cfg = dataclasses.replace(full, n_layers=DS_LAYERS)
     log(f"[moe] deepseek-v3-671b at its published width, depth cut from {full.n_layers} "
@@ -1637,7 +1668,8 @@ def moe_serving(dev, card, ops, gen):
             "quant_matmul": sum(len(qt.bits) for qt in linears + stacks
                                 if qt.fused_packed is None),
             "quant_matmul_fused_batched": sum(qt.fused_packed is not None for qt in stacks),
-            "scaled_int8_mm": 0, "decode_attention": 0, "fused_mix": 0}
+            "scaled_int8_mm": 0, "decode_attention": 0, "fused_mix": 0,
+            "quant_matmul_fused_tp": 0, "quant_matmul_fused_batched_ep": 0}
     check(want["quant_matmul_fused_batched"] == cfg.n_layers
           and sum(len(qt.bits) for qt in stacks if qt.fused_packed is None)
           == 2 * 3 * cfg.n_layers, f"launches per step: {want}")
@@ -1992,11 +2024,16 @@ def moe_serving(dev, card, ops, gen):
                       plain_ms=k2e_step["plain_ms"],
                       bound_ms=k2e_step["bound_ms"], library_ms=k2e_step["library_ms"],
                       max_abs_err=max(r["max_abs_err"] for r in k2e_rows))
+    # -- [mesh]: the same model on a (2, 4) mesh of positions on this card --------
+    log(f"[clock] phase [mesh] starts {time.perf_counter() - t_moe:.1f} s into the MoE phase")
+    torch.cuda.empty_cache()
+    report["mesh"], mesh_launches_, mesh_mma = mesh_serving(dev, card, ops, cfg, dparams, reqs,
+                                                            arrivals, tokens[None], gen)
     del dparams
     torch.cuda.empty_cache()
     return (report, k3, k2_experts, k1_deepseek, path_launches, path_mma,
             report["paged"]["launches"], report["paged"]["mma_launches"], spec_launches,
-            spec_mma)
+            spec_mma, mesh_launches_, mesh_mma)
 
 # ---------------------------------------------------------------------------
 # The other LM families at full width: stablelm-12b, minicpm-2b,
@@ -2235,7 +2272,8 @@ def linear_launches(uses, qmk):
     want = {"quant_matmul_fused": sum(n for _, n in fused2),
             "quant_matmul": sum(n * len(qt.bits) for qt, n in groups),
             "quant_matmul_fused_batched": sum(n for _, n in fused3),
-            "scaled_int8_mm": 0, "decode_attention": 0, "fused_mix": 0}
+            "scaled_int8_mm": 0, "decode_attention": 0, "fused_mix": 0,
+            "quant_matmul_fused_tp": 0, "quant_matmul_fused_batched_ep": 0}
     want_mma = {"quant_matmul_fused": sum(n for qt, n in fused2
                                           if qmk.fused_2d_path(qt.tile_n, bf16) == "mma"),
                 "quant_matmul": sum(n * len(qt.bits) for qt, n in groups
@@ -3095,6 +3133,321 @@ def moe_spec(dev, card, ops, cfg, dparams, reqs, arrivals, gen):
     check(report["k2_experts_verify"]["M"] <= qmk.MMA_ROWS_MAX,
           "deepseek's verify capacity runs the decode plan")
     report.update(launches=launches, mma_launches=mma)
+    return report, launches, mma
+
+
+# -- [mesh]: deepseek-v3 on a (data, model) mesh ------------------------------
+
+MESH_SHAPE = (2, 4)          # (data, model): the reference's 8-way test mesh
+MESH_LABEL = "8 mesh positions on one H100"
+MESH_PLACE_EXTRA = 1 << 26   # bytes the placement may add (tables; shards are views)
+
+
+def mesh_launches(linears, stacks) -> tuple:
+    """Kernel launches and tensor-core launches one deepseek engine step
+    (prefill or decode) makes over these sites as placed: a fused linear or
+    expert stack that the mesh placement sharded (``QTensor.fused_shards``,
+    built by ``MeshContext.put_params``) launches K1 or K3 once a shard,
+    any other fused site once; a per-group weight K2 once a group."""
+    from repro_torch.core import quantizers as qz
+    from repro_torch.kernels import quant_matmul as qmk
+    bf = torch.bfloat16
+    fused = [qt for qt in linears if qt.fused_packed is not None]
+    fused3 = [qt for qt in stacks if qt.fused_packed is not None]
+
+    def shards(qt) -> int:
+        return 1 if qt.fused_shards is None else len(qt.fused_shards)
+    n1, n3 = [shards(qt) for qt in fused], [shards(qt) for qt in fused3]
+    groups = [(b, p) for qt in linears + stacks if qt.fused_packed is None
+              for b, p in zip(qt.bits, qt.packed)]
+    want = {"quant_matmul_fused": sum(n1), "quant_matmul": len(groups),
+            "quant_matmul_fused_batched": sum(n3), "scaled_int8_mm": 0,
+            "decode_attention": 0, "fused_mix": 0,
+            "quant_matmul_fused_tp": sum(shards(qt) for qt in fused
+                                         if qt.fused_shards is not None),
+            "quant_matmul_fused_batched_ep": sum(shards(qt) for qt in fused3
+                                                 if qt.fused_shards is not None)}
+    mma = {"quant_matmul_fused": sum(n for n, qt in zip(n1, fused)
+                                     if qmk.fused_2d_path(qt.tile_n, bf) == "mma"),
+           "quant_matmul": sum(qmk.pergroup_path(p.shape[-1] * qz.pack_factor(b), bf) == "mma"
+                               for b, p in groups),
+           "quant_matmul_fused_batched": sum(n for n, qt in zip(n3, fused3)
+                                             if qmk.fused_3d_path(qt.tile_n, bf) == "mma"),
+           "scaled_int8_mm": 0}
+    return want, mma
+
+
+def _ds_sites(dparams) -> tuple:
+    """deepseek's per-step linears (MLA, the shared expert, the lm_head)
+    and its expert stacks."""
+    layers = dparams["blocks"]
+    linears = [dl["w"] for blk in layers for dl in blk["attn"].values() if "w" in dl]
+    linears += [dl["w"] for blk in layers for dl in blk["ffn"]["shared"].values()]
+    linears.append(dparams["lm_head"]["w"])
+    stacks = [blk["ffn"][n]["w"] for blk in layers for n in ("we_gate", "we_up", "we_down")]
+    return linears, stacks
+
+
+def mesh_serving(dev, card, ops, cfg, dparams, reqs, arrivals, base_tokens, gen):
+    """Phase [mesh]: deepseek-v3-671b (full width, 2 layers, 256 experts) on
+    ``make_test_mesh(2, 4, devices=[card] * 8)``.  (a) the default mixed
+    deployment: tokens equal the engine without a mesh (``base_tokens``,
+    the 4d dense run at kv None), K3 once per expert shard; (b) the uniform
+    4-bit ``draft_model``: the same, K1 once per N-tile shard too; (c) one
+    call of each sharded wrapper at a decode shape and at M 40, bitwise the
+    unsharded launch and within K1's and K3's gates of the plain version;
+    (d) ``fail_host(1)`` after the first tick: one drain, requests requeued,
+    every request completed with the tokens of the run without a failure.
+    Every number is labelled: the positions share one card, so a shard
+    launch adds host time and saves nothing.  Returns the report and the
+    launches of the runs (a), (b) and (d), all and on the tensor cores."""
+    from repro_torch.api.scheduler import ServingEngine
+    from repro_torch.dist import fault
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import quant_matmul as qmk
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import serving
+
+    t_phase = time.perf_counter()
+    label = f"{MESH_LABEL} | {card}"
+    parts = MESH_SHAPE[1]
+    mesh = make_test_mesh(*MESH_SHAPE, devices=[dev] * (MESH_SHAPE[0] * MESH_SHAPE[1]))
+    report = {"mesh": dict(shape=list(MESH_SHAPE), positions=[str(d) for d in mesh.devices.flat])}
+    path = [zero_launches(ops), {k: 0 for k in ops.mma_launch_counts()}]
+
+    def counted(fn):
+        """``fn()``, its launches and tensor-core launches added to the
+        mesh path's."""
+        c0, m0 = ops.launch_counts(), ops.mma_launch_counts()
+        out = fn()
+        for acc, now, was in ((path[0], ops.launch_counts(), c0),
+                              (path[1], ops.mma_launch_counts(), m0)):
+            for k in acc:
+                acc[k] += now[k] - was[k]
+        return out, {k: v - c0[k] for k, v in ops.launch_counts().items()}
+    kw = dict(backend="cuda", max_slots=DS_SLOTS, max_len=DS_MAX_LEN, prefill_len=DS_PREFILL,
+              page_size=None)
+
+    def rule_counts(tree) -> dict:
+        rules = shd.ShardingRules(mesh)
+        rules.serving_shardings(tree)
+        counts = {}
+        for d in rules.decisions:
+            rule = d.note.split(" (chunk=")[0].split(" (E=")[0]
+            counts[rule] = counts.get(rule, 0) + 1
+        return counts
+
+    def placement_bytes(tree) -> tuple:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        placed = shd.MeshContext(mesh).put_params(tree)
+        torch.cuda.synchronize()
+        extra = torch.cuda.memory_allocated() - before
+        check(extra < MESH_PLACE_EXTRA, f"the mesh placement copied {extra} bytes")
+        return placed, extra
+
+    def engine_case(tag, tree, base=None):
+        """The engine without a mesh (its tokens: ``base`` when given,
+        else this run's) and on the mesh, each step's launches held to
+        ``mesh_launches`` of the tree as it is and as the mesh places it;
+        returns the case's report and the placed tree."""
+        placed, extra = placement_bytes(tree)
+        want1, mma1 = mesh_launches(*_ds_sites(tree))
+        wantm, mmam = mesh_launches(*_ds_sites(placed))
+        rep = dict(rules=rule_counts(tree), launches_a_step=wantm, mma_launches_a_step=mmam,
+                   launches_a_step_without_mesh=want1,
+                   shard_launches_a_step=dict(k1_tp=wantm["quant_matmul_fused_tp"],
+                                              k3_ep=wantm["quant_matmul_fused_batched_ep"],
+                                              per_shard_k1=wantm["quant_matmul_fused_tp"] // parts,
+                                              per_shard_k3=(wantm["quant_matmul_fused_batched_ep"]
+                                                            // parts)))
+        zero = {"cached": (zero_launches(ops), {k: 0 for k in mma1})}
+        t0 = time.perf_counter()
+        eng = ServingEngine(cfg, tree, **kw)
+        outs, kinds, _ = counted_run(eng, reqs, arrivals, ops,
+                                     {"prefill": (want1, mma1), "decode": (want1, mma1), **zero})
+        rep["without_mesh"] = dict(wall_s=time.perf_counter() - t0, steps=kinds)
+        toks = [outs[i].tokens.tolist() for i in range(len(reqs))]
+        del eng
+        if base is not None:
+            check(toks == base, f"[mesh] {tag}: the engine without a mesh moved off the 4d run")
+        base = toks
+        rep["placement_extra_bytes"] = extra
+        t0 = time.perf_counter()
+        eng = ServingEngine(cfg, tree, mesh=mesh, **kw)
+        check(eng.device == mesh.devices[0, 0], "the mesh engine runs on the first position")
+        (outs, kinds, _), launched = counted(lambda: counted_run(
+            eng, reqs, arrivals, ops, {"prefill": (wantm, mmam), "decode": (wantm, mmam), **zero}))
+        rep["mesh"] = dict(wall_s=time.perf_counter() - t0, steps=kinds, launches=launched)
+        del eng
+        got = [outs[i].tokens.tolist() for i in range(len(reqs))]
+        rep["tokens_equal"] = got == base
+        check(rep["tokens_equal"], f"[mesh] {tag}: the mesh engine's tokens != the engine "
+              "without a mesh")
+        log(f"[mesh] {tag}: tokens equal the engine without a mesh; rules "
+            f"{json.dumps(rep['rules'])}; shard launches a step "
+            f"{json.dumps(rep['shard_launches_a_step'])}; decode step "
+            f"{kinds.get('decode_ms_median', float('nan')):.4f} ms on the mesh, "
+            f"{rep['without_mesh']['steps'].get('decode_ms_median', float('nan')):.4f} ms "
+            f"without (host clock, medians), prefill {kinds.get('prefill_ms_median', 0):.4f} / "
+            f"{rep['without_mesh']['steps'].get('prefill_ms_median', 0):.4f} ms; wall "
+            f"{rep['mesh']['wall_s']:.3f} / {rep['without_mesh']['wall_s']:.3f} s; placement "
+            f"added {extra} B | {label}")
+        return rep, placed
+
+    # -- (a) the default mixed deployment: K3 EP ------------------------------
+    report["a_mixed"], placed_a = engine_case("(a) mixed deployment", dparams, base_tokens)
+    check(report["a_mixed"]["mesh"]["launches"]["quant_matmul_fused_batched_ep"] > 0
+          and report["a_mixed"]["launches_a_step"]["quant_matmul_fused_tp"] == 0,
+          f"(a): K3 EP launched, K1 TP not: {report['a_mixed']['mesh']['launches']}")
+
+    # -- (b) the uniform 4-bit deployment: K1 TP and K3 EP --------------------
+    t0 = time.perf_counter()
+    draft = serving.draft_model(dparams, cfg, 4)
+    torch.cuda.synchronize()
+    report["draft_s"] = time.perf_counter() - t0
+    report["b_uniform4"], placed_b = engine_case("(b) uniform 4-bit deployment", draft)
+    bl = report["b_uniform4"]["mesh"]["launches"]
+    check(bl["quant_matmul_fused_tp"] > 0 and bl["quant_matmul_fused_batched_ep"] > 0,
+          f"(b): K1 TP and K3 EP both launched: {bl}")
+    tp_sites = sorted({name for blk in placed_b["blocks"] for name, dl in blk["attn"].items()
+                       if "w" in dl and dl["w"].fused_shards is not None}
+                      | {f"shared/{name}" for blk in placed_b["blocks"]
+                         for name, dl in blk["ffn"]["shared"].items()
+                         if dl["w"].fused_shards is not None})
+    check({"wq_b", "wkv_b", "shared/w_down"} <= set(tp_sites), f"(b): TP sites {tp_sites}")
+    report["b_uniform4"]["tp_sites"] = tp_sites
+
+    # -- (c) each sharded wrapper at a decode shape and at M 40 ---------------
+    wkv = placed_b["blocks"][0]["attn"]["wkv_b"]["w"]
+    wd = placed_a["blocks"][0]["ffn"]["we_down"]["w"]
+    bf = torch.bfloat16
+    rows = []
+    for m in (DS_SLOTS, 40):
+        qt = wkv
+        Kp = -(-qt.c_in // qmk.FUSED_K_ALIGN) * qmk.FUSED_K_ALIGN
+        x = torch.from_numpy(gen.standard_normal((m, qt.c_in)).astype(np.float32)).to(dev).to(bf)
+        base_args = (qt.fused_packed, qt.fused_table, qt.fused_scales, qt.fused_perm,
+                     qt.tile_bits)
+
+        def one():
+            return ops.quant_matmul_fused(x, *base_args, qt.tile_n, qt.c_in, qt.c_out,
+                                          compute_dtype=bf, out_dtype=torch.float32)
+
+        def tp():
+            return ops.quant_matmul_fused_tp(x, qt.fused_shards, qt.fused_perm, qt.tile_bits,
+                                             qt.tile_n, qt.c_in, qt.c_out, compute_dtype=bf,
+                                             out_dtype=torch.float32)
+        y1, yt = one(), tp()
+        ref = qmk.quant_matmul_fused_2d_plain(x.float(), qt.fused_packed, qt.fused_scales,
+                                              qt.tile_bits, Kp=Kp, tile_n=qt.tile_n)
+        w = qmk.fused_dense_int(qt.fused_packed, qt.tile_bits, Kp, qt.tile_n).float()
+        xa = torch.nn.functional.pad(x.float().abs(), (0, Kp - qt.c_in))
+        mag = (xa @ w.abs().T).double() * qt.fused_scales.double().abs()
+        cols = (qt.fused_perm if qt.fused_perm is not None
+                else torch.arange(qt.c_out, device=dev))
+        d = (yt.double() - ref.index_select(1, cols).double()).abs()
+        worst = float((d / (2 * (Kp + 2) * U * mag.index_select(1, cols) + 1e-30)).max())
+        del w, mag
+        row = dict(wrapper="quant_matmul_fused_tp", site="wkv_b (4-bit)", M=m, Kp=Kp,
+                   N=qt.c_out, shards=len(qt.fused_shards),
+                   chunk_tiles=int(qt.fused_shards[0][1].shape[0]),
+                   bitwise_unsharded=torch.equal(y1, yt), max_abs_err=float(d.max()),
+                   worst_err_over_bound=worst, sharded_ms=cuda_ms(tp, iters=20),
+                   unsharded_ms=cuda_ms(one, iters=20))
+        check(row["bitwise_unsharded"] and worst <= 1.0 and bool(torch.isfinite(yt).all()),
+              f"[mesh] K1 TP off the unsharded launch or its plain version: {row}")
+        rows.append(row)
+        qt = wd
+        E = qt.experts
+        Kp = -(-qt.c_in // qmk.FUSED_K_ALIGN) * qmk.FUSED_K_ALIGN
+        x3 = torch.from_numpy(gen.standard_normal((E, 8 if m == DS_SLOTS else m, qt.c_in))
+                              .astype(np.float32)).to(dev).to(bf)
+        args3 = (qt.fused_packed, qt.fused_table, qt.fused_scales, qt.fused_perm, qt.tile_bits,
+                 qt.tile_n, qt.c_in, qt.c_out)
+
+        def one3():
+            return ops.quant_matmul_fused_batched(x3, *args3, compute_dtype=bf,
+                                                  out_dtype=torch.float32)
+
+        def ep():
+            return ops.quant_matmul_fused_batched_ep(x3, qt.fused_shards, qt.fused_perm,
+                                                     qt.tile_bits, qt.tile_n, qt.c_in,
+                                                     qt.c_out, compute_dtype=bf,
+                                                     out_dtype=torch.float32)
+        y1, ye = one3(), ep()
+        pargs = (qt.fused_packed, qt.fused_scales, qt.tile_bits)
+        ref = qmk.quant_matmul_fused_3d_plain(x3.float(), *pargs, Kp=Kp, tile_n=qt.tile_n,
+                                              compute_dtype=bf)
+        bound = qmk.fused_3d_error_bound(x3.float(), *pargs, Kp=Kp, tile_n=qt.tile_n,
+                                         compute_dtype=bf)
+        cols = (qt.fused_perm if qt.fused_perm is not None
+                else torch.arange(qt.c_out, device=dev))
+        d = (ye.double() - ref.index_select(2, cols).double()).abs()
+        worst = float((d / (bound.index_select(2, cols).double() + 1e-30)).max())
+        del ref, bound
+        row = dict(wrapper="quant_matmul_fused_batched_ep", site="we_down (mixed)", E=E,
+                   M=x3.shape[1], Kp=Kp, N=qt.c_out, shards=len(qt.fused_shards),
+                   bitwise_unsharded=torch.equal(y1, ye), max_abs_err=float(d.max()),
+                   worst_err_over_bound=worst, sharded_ms=cuda_ms(ep, iters=20),
+                   unsharded_ms=cuda_ms(one3, iters=20))
+        check(row["bitwise_unsharded"] and worst <= 1.0 and bool(torch.isfinite(ye).all()),
+              f"[mesh] K3 EP off the unsharded launch or its plain version: {row}")
+        rows.append(row)
+    for row in rows:
+        log("[mesh] (c) " + json.dumps(row) + f" | CUDA events, {label}")
+    report["c_wrappers"] = rows
+    del draft, placed_a, placed_b, wkv, wd
+    torch.cuda.empty_cache()
+
+    # -- (d) a host fails after the first tick --------------------------------
+    # at capacity 64 no token is dropped, so a request's rows do not depend
+    # on the requests it is batched with, and a replay gives its tokens
+    dcfg = dataclasses.replace(cfg, capacity_factor=SPEC_DS_CAPACITY)
+
+    def drive(fail):
+        eng = ServingEngine(dcfg, dparams, mesh=mesh, **kw)
+        rids = [eng.submit(r) for r in reqs]
+        outs, t = {}, 0
+        while eng.has_work():
+            if fail and t == 1:
+                eng.fail_host(1)
+            eng.step()
+            for o in eng.collect():
+                outs[o.rid] = o
+            t += 1
+        torch.cuda.synchronize()
+        return eng, [outs[r].tokens.tolist() for r in rids], t
+
+    t0 = time.perf_counter()
+    (_, base_d, ticks0), _ = counted(lambda: drive(False))
+    base_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (eng, got_d, ticks), launched = counted(lambda: drive(True))
+    st = dict(eng.stats)
+    rep = dict(wall_s=time.perf_counter() - t0, without_failure_wall_s=base_s, ticks=ticks,
+               without_failure_ticks=ticks0, host_drains=st["host_drains"],
+               drained_requests=st["drained_requests"], prefills=st["prefill_launches"],
+               dead_slots=[int(s) for s in np.nonzero(eng._dead_slots)[0]],
+               tokens_equal=got_d == base_d, launches=launched)
+    check(rep["host_drains"] == 1 and rep["drained_requests"] > 0
+          and rep["dead_slots"] == fault.owned_slots(1, DS_SLOTS, MESH_SHAPE[0])
+          and len(got_d) == len(reqs) and all(len(t) == r.max_tokens
+                                              for t, r in zip(got_d, reqs))
+          and rep["tokens_equal"], f"[mesh] (d) the drain: {rep}")
+    del eng
+    report["d_drain"] = rep
+    log(f"[mesh] (d) fail_host(1) after the first tick: {json.dumps(rep)} | {label}")
+
+    launches, mma = path
+    check(launches["quant_matmul_fused_tp"] > 0 and launches["quant_matmul_fused_batched_ep"] > 0,
+          f"[mesh] a sharded wrapper never launched on the mesh path: {launches}")
+    report.update(launches=launches, mma_launches=mma, phase_s=time.perf_counter() - t_phase,
+                  peak_memory_bytes=torch.cuda.max_memory_allocated())
+    log(f"[mesh] launches over the mesh path (the mesh engines of a, b and d; not the engines "
+        f"without a mesh nor the calls of c): {json.dumps(launches)}, on the tensor cores "
+        f"{json.dumps(mma)}; peak memory "
+        f"{report['peak_memory_bytes']} B; the phase {report['phase_s']:.1f} s | {label}")
     return report, launches, mma
 
 
@@ -4576,10 +4929,7 @@ def main() -> int:
                       f"{mname} {backend}: output shape or values")
                 launches = {k: after[k] - before[k] for k in after}
                 if mname == "resnet8-cifar10" and backend == "cuda":
-                    check(launches == {"quant_matmul_fused": n_sites, "quant_matmul": 0,
-                                       "quant_matmul_fused_batched": 0,
-                                       "scaled_int8_mm": 0, "decode_attention": 0,
-                                       "fused_mix": 0},
+                    check(launches == {**zero_launches(ops), "quant_matmul_fused": n_sites},
                           f"resnet8: {launches} for {n_sites} sites")
                 err = (y - frozen).abs()
                 outs[backend] = y
@@ -4984,7 +5334,8 @@ def main() -> int:
     # -- 3d, 4d, 5c. the MoE serving path: deepseek-v3-671b at full width, 2 layers
     log(f"[clock] phase 3d/4d/5c starts at {time.perf_counter() - t_run:.1f} s")
     (moe_report, k3_moe, k2_experts, k1_moe, moe_launches, moe_mma, moe_paged_launches,
-     moe_paged_mma, moe_spec_launches, moe_spec_mma) = moe_serving(dev, card, ops, gen)
+     moe_paged_mma, moe_spec_launches, moe_spec_mma, mesh_launches_,
+     mesh_mma) = moe_serving(dev, card, ops, gen)
     report["moe"] = moe_report
     paged_launches = {k: lm_paged_launches[k] + moe_paged_launches[k] for k in lm_paged_launches}
     paged_mma = {k: lm_paged_mma[k] + moe_paged_mma[k] for k in lm_paged_mma}
@@ -5002,7 +5353,7 @@ def main() -> int:
     wh_report, wh_launches, wh_mma, wh_k4 = whisper_serving(dev, card, ops, gen)
     report["whisper"] = wh_report
     extra = {"whisper": (wh_launches, wh_mma), "paged": (paged_launches, paged_mma),
-             "spec": (spec_launches, spec_mma)}
+             "spec": (spec_launches, spec_mma), "mesh": (mesh_launches_, mesh_mma)}
 
     # -- [train]. the LM training path: minicpm-2b at full width and depth, int8 --
     log(f"[clock] phase [train] starts at {time.perf_counter() - t_run:.1f} s")
@@ -5026,7 +5377,8 @@ def main() -> int:
     k5_new = {**k5_ssm, "whisper-small": k5_audio}
 
     def more(name, mma=False):
-        """Launches of the whisper and [paged] paths of one wrapper."""
+        """Launches of the whisper, [paged], [spec] and [mesh] paths of one
+        wrapper."""
         return sum(pair[1 if mma else 0][name] for pair in extra.values())
 
     def by_path(name):
@@ -5051,6 +5403,7 @@ def main() -> int:
                                    deepseek=moe_launches["quant_matmul_fused"],
                                    families=fam_launches["quant_matmul_fused"],
                                    **by_path("quant_matmul_fused")),
+             tp_shard_launches=mesh_launches_["quant_matmul_fused_tp"],
              deepseek=k1_moe),
         dict(name="quant_matmul_pergroup", route="cuda",
              source="src/repro_torch/kernels/csrc/quant_matmul.cu",
@@ -5116,7 +5469,8 @@ def main() -> int:
              mma_launches=(k3_moe["mma_launches"]
                            + more("quant_matmul_fused_batched", mma=True)),
              launches_by_path=dict(deepseek=k3_moe["launches"],
-                                   **by_path("quant_matmul_fused_batched"))),
+                                   **by_path("quant_matmul_fused_batched")),
+             ep_shard_launches=mesh_launches_["quant_matmul_fused_batched_ep"]),
         k6,
     ]
     log(f"[summary] K1 times are sums over the {len(per_site)} resnet8 GEMM sites at "
@@ -5138,7 +5492,9 @@ def main() -> int:
         f"K2's and K4's also whisper-small's dense and paged paths (K4 at its decode shape, pos "
         f"255 and 447, in its 'whisper' entry), K1's, K2's, K3's and K4's also the [paged] runs "
         f"and the [spec] runs (speculative decoding, phase 4g) of qwen1.5-4b and deepseek-v3 "
-        f"('launches_by_path'), K5's also the [train] path's (minicpm-2b at full width, int8: "
+        f"('launches_by_path'), K1's, K2's and K3's also the [mesh] runs (deepseek-v3 on a "
+        f"(2, 4) mesh, {MESH_LABEL}: K1 once per N-tile shard ('tp_shard_launches'), K3 once "
+        f"per expert shard ('ep_shard_launches'), each also counted as its kernel's), K5's also the [train] path's (minicpm-2b at full width, int8: "
         f"its step's products timed in its 'minicpm_train' entry) and the [train-moe] path's "
         f"(deepseek-v3 and arctic at full width, 2 layers, int8: deepseek's step in its "
         f"'deepseek_train' entry), the [train-ssm] and [train-audio] paths' (mamba2-780m, "

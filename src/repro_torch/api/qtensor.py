@@ -39,6 +39,12 @@ Backends (the reference's names in brackets):
   ``torch.matmul``); no kernel.
 
 On CPU tensors the two kernel backends run their kernels' plain versions.
+A QTensor that ``dist.sharding.MeshContext.put_params`` placed sharded
+carries its ``fused_shards``; inside ``dist.sharding.serving_mesh``,
+``"cuda"`` runs them through ``ops.quant_matmul_fused_tp`` (a launch per
+N-tile shard) or, for an expert stack, ``ops.quant_matmul_fused_batched_ep``
+(a launch per expert shard); everything else runs as without a mesh.
+
 PyTorch runs eagerly, so ``QTensor`` is a plain frozen dataclass (no
 pytree); :meth:`to` moves it between devices.  Compute is f32 unless
 ``matmul`` is given another ``compute_dtype`` (bf16 for the language
@@ -53,6 +59,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import quantizers as qz
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import quant_matmul as qmk
 
 BACKENDS = ("torch", "cuda", "cuda-pergroup")
@@ -171,6 +178,11 @@ class QTensor:
     #                                 the gather carries a leading expert axis,
     #                                 and matmul maps (E, ..., c_in) -> (E, ...,
     #                                 c_out), each expert its own weight
+    # -- mesh placement (dist/sharding.MeshContext.put_params; None = none) --
+    fused_shards: Optional[tuple] = None   # (packed, table, scales) per model
+    #                                        position: whole N-tiles (TP) or
+    #                                        whole experts (EP), each on its
+    #                                        position's device
 
     def __post_init__(self):
         if self.act_alpha is None:
@@ -385,6 +397,11 @@ class QTensor:
             # kernel API holds it in the dtype its routine reads)
             x = x.to(compute_dtype)
         if backend == "cuda" and self.fused_packed is not None:
+            if self.fused_shards is not None and shd.serving_ctx() is not None:
+                return kops.quant_matmul_fused_tp(
+                    x, self.fused_shards, self.fused_perm, self.tile_bits, self.tile_n,
+                    self.c_in, self.c_out, compute_dtype=compute_dtype,
+                    out_dtype=compute_dtype)
             return kops.quant_matmul_fused(
                 x, self.fused_packed, self.fused_table, self.fused_scales,
                 self.fused_perm, self.tile_bits, self.tile_n, self.c_in,
@@ -417,6 +434,11 @@ class QTensor:
         if backend in ("cuda", "cuda-pergroup"):
             x = x.to(compute_dtype)
         if backend == "cuda" and self.fused_packed is not None:
+            if self.fused_shards is not None and shd.serving_ctx() is not None:
+                return kops.quant_matmul_fused_batched_ep(
+                    x, self.fused_shards, self.fused_perm, self.tile_bits, self.tile_n,
+                    self.c_in, self.c_out, compute_dtype=compute_dtype,
+                    out_dtype=compute_dtype)
             return kops.quant_matmul_fused_batched(
                 x, self.fused_packed, self.fused_table, self.fused_scales,
                 self.fused_perm, self.tile_bits, self.tile_n, self.c_in,

@@ -1,6 +1,6 @@
 """Request-level serving: continuous batching over a paged KV cache.
 
-Counterpart of ``repro.api.scheduler`` without meshes and host failure:
+Counterpart of ``repro.api.scheduler``:
 
 * ``submit`` queues a :class:`Request`; an admission pads the queued
   prompts into ONE fixed ``(max_slots, prefill_len)`` prefill (per-row true
@@ -47,6 +47,18 @@ within ``MMA_ROWS_MAX``; a MoE's f32 router is a library ``matmul``, whose
 sums may follow the row count, so there a near tie can still pick another
 expert.
 
+A ``(data, model)`` mesh (``launch/mesh.py``, ``mesh=``) keeps the tokens
+of the engine without one: the weights are placed by
+``dist.sharding.MeshContext.put_params`` (a QTensor's fused buffers in
+whole N-tiles or whole experts on the ``model`` positions, everything else
+on the first position, which holds the caches and runs the rest), and
+every model call runs inside ``serving_mesh``, so the fused kernels launch
+once per shard.  The ``data`` axis is the fleet of hosts: each host owns
+the slots ``fault.owned_slots`` gives it, beats once a ``step``, and a host
+whose heartbeat goes stale (``fail_host`` stops it) has its slots retired
+and its requests requeued at the front of the queue, to be replayed from
+scratch by the surviving hosts (greedy: the same tokens).
+
 PyTorch runs eagerly, so there is no compile cache to guard (the
 reference's ``compile_counts``); :meth:`ServingEngine.launch_counts`
 exposes the kernels' launch counters instead.
@@ -63,10 +75,8 @@ import torch
 from repro_torch.api import sampling as smp
 from repro_torch.api.engine import resolve_device
 from repro_torch.cache import NULL_PAGE, PagePool
-
-# the option of the reference engine that the port does not serve yet, and
-# the ROADMAP.md item that ports it
-_NOT_PORTED = {"mesh": "queue 1 item 8 (multi-GPU serving)"}
+from repro_torch.dist import fault
+from repro_torch.dist import sharding as shd
 
 
 @dataclasses.dataclass
@@ -156,9 +166,15 @@ class ServingEngine:
     bit-width) proposes ``speculate_k`` tokens a round over its own KV pool
     at ``draft_kv_bits`` (default ``None``, the int8-per-token cache;
     dense rings, or pages behind a static identity table with no allocator
-    and no sharing), and one verify step keeps the accepted ones.  ``mesh``
-    raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that
-    ports it.
+    and no sharing), and one verify step keeps the accepted ones.
+
+    ``mesh``: a ``(data, model)`` mesh (``launch/mesh.make_test_mesh``); the
+    engine then runs on its first position (``device`` must agree), the
+    weights (and a draft that is not the model itself) are placed by
+    ``MeshContext.put_params``, an auto-sized page pool is padded to a
+    multiple of ``data``, and ``heartbeat_timeout`` (in ticks) declares a
+    host dead; ``fail_host`` injects a failure.  A mesh without the
+    ``("data", "model")`` axes raises ``ValueError``.
     """
 
     def __init__(self, cfg, dparams, backend: str = "cuda",
@@ -167,15 +183,16 @@ class ServingEngine:
                  sampling: smp.SamplingParams = smp.GREEDY, seed: int = 0,
                  page_size="auto", num_pages: Optional[int] = None, prefix_sharing="auto",
                  kv_bits=None, speculate_k: int = 0, draft_dparams=None,
-                 draft_kv_bits=None, mesh=None, device=None):
+                 draft_kv_bits=None, mesh=None, heartbeat_timeout: float = 2.0, device=None):
         from repro_torch.models import serving
-        if mesh is not None:
-            raise NotImplementedError(
-                f"ServingEngine(mesh=...) is not ported yet: ROADMAP.md {_NOT_PORTED['mesh']}")
-        device = resolve_device(device)
-        self.device = dparams["embed"].device
+        self.mesh_ctx = shd.MeshContext(mesh)
+        on_mesh = self.mesh_ctx.is_active
+        # with a mesh the weights go to its first position, which runs the engine
+        self.device = self.mesh_ctx.device if on_mesh else dparams["embed"].device
+        device = self.device if on_mesh and device is None else resolve_device(device)
         if self.device.type != device.type or device.index not in (None, self.device.index):
-            raise ValueError(f"the deployed model is on {self.device}, the engine on {device}")
+            raise ValueError(f"the {'mesh starts' if on_mesh else 'deployed model is'} on "
+                             f"{self.device}, the engine on {device}")
         self.speculate_k = int(speculate_k)
         if self.speculate_k < 0:
             raise ValueError("speculate_k must be >= 0")
@@ -190,11 +207,17 @@ class ServingEngine:
             serving.kv_specs(cfg, draft_kv_bits)
             if draft_dparams is None:
                 draft_dparams = dparams          # self-draft
-            elif draft_dparams["embed"].device != self.device:
+            elif not on_mesh and draft_dparams["embed"].device != self.device:
                 raise ValueError(f"the draft is on {draft_dparams['embed'].device}, "
                                  f"the engine on {self.device}")
         else:
             draft_kv_bits = draft_dparams = None
+        if on_mesh:
+            placed = self.mesh_ctx.put_params(dparams)
+            # a self-draft keeps sharing the verifier's placed weights
+            draft_dparams = (placed if draft_dparams is dparams
+                             else self.mesh_ctx.put_params(draft_dparams))
+            dparams = placed
         self.draft_dparams, self.draft_kv_bits = draft_dparams, draft_kv_bits
         self.cfg, self.dparams, self.backend = cfg, dparams, backend
         self.max_slots, self.max_len = max_slots, max_len
@@ -237,15 +260,20 @@ class ServingEngine:
             self.caches = serving.init_caches(cfg, max_slots, max_len, kv_bits=kv_bits,
                                               device=self.device)
         else:
+            user_pages = num_pages is not None
             if num_pages is None:
                 num_pages = 1 + max_slots * self.pages_per_slot
             if num_pages < 2:
                 raise ValueError("num_pages must be >= 2 (NULL page + one "
                                  "allocatable page)")
-            self.pool = PagePool(num_pages, page_size, prefix_sharing=self.prefix_sharing)
+            # an auto-sized pool rounds up to a multiple of the data axis; an
+            # explicit num_pages is honored verbatim
+            self.pool = PagePool(num_pages, page_size, prefix_sharing=self.prefix_sharing,
+                                 pad_to=1 if user_pages else self.mesh_ctx.data)
             self._pages = np.full((max_slots, self.pages_per_slot), NULL_PAGE, np.int64)
-            self.caches = serving.init_paged_caches(cfg, max_slots, num_pages, page_size,
-                                                    kv_bits=kv_bits, device=self.device)
+            self.caches = serving.init_paged_caches(cfg, max_slots, self.pool.num_pages,
+                                                    page_size, kv_bits=kv_bits,
+                                                    device=self.device)
             mask = serving.paged_leaf_mask(cfg)
             self._page_bytes = sum(t.numel() * t.element_size() // t.shape[1]
                                    for k, t in self.caches.items() if mask[k])
@@ -286,7 +314,21 @@ class ServingEngine:
                           occupancy_sum=0.0, idle_ticks=0, prefix_hits=0,
                           zero_prefill_admits=0, cached_tokens=0, deferred_admissions=0,
                           evictions=0, pages_peak=0, draft_launches=0, verify_launches=0,
-                          spec_rounds=0, accepted_tokens=0)
+                          spec_rounds=0, accepted_tokens=0, host_drains=0,
+                          drained_requests=0)
+        # -- host liveness (drain on death) --------------------------------
+        # the data axis is the fleet of hosts: host h owns the slots
+        # fault.owned_slots(h, max_slots, n_hosts); every host that has not
+        # failed beats once a step() on a tick clock, and a host the
+        # heartbeat declares dead has its slots retired and its requests
+        # requeued (_drain_host)
+        self.n_hosts = self.mesh_ctx.data
+        self.heartbeat = fault.Heartbeat(list(range(self.n_hosts)),
+                                         timeout_s=heartbeat_timeout)
+        self._hb_clock = 0
+        self._failed_hosts: set = set()
+        self._dead_slots = np.zeros(max_slots, bool)
+        self._requests: Dict[int, Request] = {}
 
     # -- request lifecycle ---------------------------------------------------
     def submit(self, request: Request) -> int:
@@ -335,6 +377,9 @@ class ServingEngine:
                 "encoder and decode garbage")
         self._next_rid += 1
         self._pending[rid] = request
+        # kept past admission so that a host drain can requeue the request
+        # (dropped when it finishes)
+        self._requests[rid] = request
         self.queue.append(rid)
         return rid
 
@@ -397,14 +442,23 @@ class ServingEngine:
         most one prefill; a fully cached prompt admits with none), else a
         decode tick over the live slots, a speculative round when
         ``speculate_k > 0``; ``kind`` in {"prefill", "cached", "decode",
-        "speculative", "idle"}."""
-        free = [i for i, s in enumerate(self._slots) if s is None]
-        if self.queue and free:
-            out = self._admit_tick(free)
-            if out is not None:
-                return out
-        if self._live.any():
-            return self._speculative_tick() if self.speculate_k else self._decode_tick()
+        "speculative", "idle"}.  First every live host beats, and the
+        hosts the heartbeat declares dead are drained; a model call runs
+        inside the engine's ``serving_mesh``."""
+        self._hb_clock += 1
+        for h in range(self.n_hosts):
+            if h not in self._failed_hosts:
+                self.heartbeat.beat(h, self._hb_clock)
+        for h in self.heartbeat.check(self._hb_clock):
+            self._drain_host(h)
+        free = [i for i, s in enumerate(self._slots) if s is None and not self._dead_slots[i]]
+        with shd.serving_mesh(self.mesh_ctx):
+            if self.queue and free:
+                out = self._admit_tick(free)
+                if out is not None:
+                    return out
+            if self._live.any():
+                return self._speculative_tick() if self.speculate_k else self._decode_tick()
         self.stats["idle_ticks"] += 1
         return {"kind": "idle"}
 
@@ -750,6 +804,47 @@ class ServingEngine:
             self._slots[slot] = None
             self._live[slot] = False
             self._catchup[slot] = False
+            self._requests.pop(st.rid, None)
+
+    # -- host failure and drain ------------------------------------------------
+    def fail_host(self, host: int) -> None:
+        """Stop beating ``host``: the heartbeat declares it dead after
+        ``heartbeat_timeout`` ticks and ``step()`` drains its slots (the
+        failure injection of the tests and of ``launch/serve.py
+        --fail-host``)."""
+        if not 0 <= host < self.n_hosts:
+            raise ValueError(f"host {host} outside fleet of {self.n_hosts}")
+        self._failed_hosts.add(host)
+
+    def _drain_host(self, host: int) -> None:
+        """Retire a dead host's slots and requeue their requests: pages go
+        back through the refcount release, the slots never admit again, and
+        the drained requests rejoin the FRONT of the queue (rid order), to
+        be replayed from scratch (greedy decoding: the same tokens).
+        Raises ``fault.HostFailure`` when no slot is left with work to do."""
+        drained = []
+        for slot in fault.owned_slots(host, self.max_slots, self.n_hosts):
+            self._dead_slots[slot] = True
+            st = self._slots[slot]
+            if st is None:
+                continue
+            if self.pool is not None:
+                self.pool.release(int(p) for p in self._pages[slot] if p != NULL_PAGE)
+                self._pages[slot, :] = NULL_PAGE
+                self._reserved -= st.worst - st.mapped
+                self._note_pool()
+            self._slots[slot] = None
+            self._live[slot] = False
+            self._suppress[slot] = False
+            self._catchup[slot] = False
+            drained.append(st.rid)
+        for rid in sorted(drained):
+            self._pending[rid] = self._requests[rid]
+        self.queue = sorted(drained) + [r for r in self.queue if r not in drained]
+        self.stats["host_drains"] += 1
+        self.stats["drained_requests"] += len(drained)
+        if self._dead_slots.all() and (self.queue or self._live.any()):
+            raise fault.HostFailure(host)
 
     # -- whole-trace driver --------------------------------------------------
     def run(self, requests: Sequence[Request],

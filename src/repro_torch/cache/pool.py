@@ -1,7 +1,6 @@
 """PagePool — the host-side page manager the serving scheduler talks to.
 
-A copy of ``repro.cache.pool`` without its ``pad_to`` (the rounding for a
-mesh, which the port does not serve yet).
+A copy of ``repro.cache.pool``.
 
 Coordinates the :class:`~repro_torch.cache.allocator.PageAllocator` (who owns
 which physical page) with the :class:`~repro_torch.cache.radix.RadixIndex` (which
@@ -36,7 +35,13 @@ from repro_torch.cache.radix import RadixIndex
 
 class PagePool:
     def __init__(self, num_pages: int, page_size: int,
-                 prefix_sharing: bool = True):
+                 prefix_sharing: bool = True, pad_to: int = 1):
+        """``pad_to``: round ``num_pages`` up to the next multiple (the mesh
+        engine's auto-sized pool pads to the ``data`` axis, along which the
+        reference shards the physical-page axis; extra pages just enlarge
+        the free list)."""
+        if pad_to > 1:
+            num_pages += (-num_pages) % pad_to
         self.page_size = page_size
         self.allocator = PageAllocator(num_pages, reserved=(NULL_PAGE,))
         self.radix = RadixIndex(page_size) if prefix_sharing else None

@@ -5,9 +5,9 @@ port.
 
 Counterpart of ``repro.kernels.ops`` (``quant_matmul``,
 ``quant_matmul_fused``, ``quant_matmul_fused_batched``, ``qtensor_matmul``,
-``quant_conv2d``, ``qtensor_conv2d``, ``fused_mix``; ``count_launches`` in
-place of ``count_pallas_launches``); the reference's multi-device wrappers
-``quant_matmul_fused_tp``/``_batched_ep`` are not ported.  ``compute_dtype``
+``quant_conv2d``, ``qtensor_conv2d``, ``fused_mix``, and the sharded
+``quant_matmul_fused_tp``/``quant_matmul_fused_batched_ep``;
+``count_launches`` in place of ``count_pallas_launches``).  ``compute_dtype``
 rounds x before the product and ``out_dtype`` the result, as in the
 reference; the kernels themselves read and write f32.  The reference pads M
 up to a tile multiple (``_pick_bm``) and x up to ``Kp`` before its kernels;
@@ -15,10 +15,23 @@ the CUDA kernels mask ragged M and read missing K columns as zeros instead,
 so here nothing is copied: the wrappers only flatten, launch and restore
 the channel order.
 
+The sharded wrappers are the reference's ``shard_map`` programs for a mesh
+driven by one process (``launch/mesh.py``): x goes to each shard's device,
+the unmodified fused kernel (K1) or expert kernel (K3) runs once per shard
+over that shard's whole tiles or whole experts, and the pieces come back
+to x's device, concatenated along N or E, before the channel gather.  They
+take the placement ``tp_shards`` / ``ep_shards`` built, which the mesh's
+``MeshContext.put_params`` keeps in ``QTensor.fused_shards``.  Each
+shard's launch is bitwise its slice of the unsharded launch (the kernels'
+sums depend on M and K alone); on CPU tensors each shard runs the plain
+version.
+
 Launch counters: :func:`launch_counts` / :func:`reset_launch_counts` read
 and clear the ``launches`` int of each kernel wrapper (and the
 ``mma_launches`` int of the four GEMM wrappers with a tensor-core path, read
-by :func:`mma_launch_counts`); :func:`count_launches` counts one call's.
+by :func:`mma_launch_counts`); :func:`count_launches` counts one call's.  A
+sharded wrapper counts each shard launch that its kernel's wrapper
+counted.
 """
 from __future__ import annotations
 
@@ -40,7 +53,7 @@ KERNEL_WRAPPERS = {
     "scaled_int8_mm": imk.scaled_int8_mm,
     "decode_attention": datt.decode_attention,
     "fused_mix": fqk.fused_mix_2d,
-}
+}     # and the two sharded wrappers, added below their definitions
 
 
 # the wrappers with a tensor-core path (K5 has no other)
@@ -179,6 +192,105 @@ def quant_matmul_fused_batched(x: torch.Tensor, fused_packed: torch.Tensor,
                                   Kp=Kp, tile_n=tile_n, compute_dtype=compute_dtype)
     y = y.index_select(2, fused_perm) if fused_perm is not None else y[..., :c_out]
     return y.to(out_dtype).reshape(E, *lead, c_out)
+
+
+def tp_shards(fused_packed: torch.Tensor, fused_scales: torch.Tensor, tile_bits: tuple,
+              chunk: tuple, Kp: int, tile_n: int, devices) -> tuple:
+    """Tensor-parallel placement of a fused buffer whose schedule
+    ``tile_bits`` is ``len(devices)`` copies of ``chunk``
+    (``quant_matmul.tp_chunk``): ``(packed, table, scales)`` of each shard
+    on its device.  Every shard's bytes start at 0, so each shard's table
+    is the first chunk's; a slice that is already on its device is a
+    view."""
+    parts = len(devices)
+    if tuple(chunk) * parts != tuple(tile_bits):
+        raise ValueError(f"chunk {chunk} x {parts} does not tile schedule {tile_bits}")
+    nbytes = sum(qmk.fused_tile_bytes(b, Kp, tile_n) for b in chunk)
+    cols = len(chunk) * tile_n
+    if fused_packed.numel() != nbytes * parts or fused_scales.numel() != cols * parts:
+        raise ValueError(f"a fused buffer of {fused_packed.numel()} bytes is not {parts} "
+                         f"chunks {chunk} of {nbytes}")
+    table = qmk.fused_table(chunk, Kp, tile_n)
+    return tuple((fused_packed[m * nbytes:(m + 1) * nbytes].to(d), table.to(d),
+                  fused_scales[m * cols:(m + 1) * cols].to(d))
+                 for m, d in enumerate(devices))
+
+
+def ep_shards(fused_packed: torch.Tensor, fused_table: torch.Tensor,
+              fused_scales: torch.Tensor, devices) -> tuple:
+    """Expert-parallel placement of an expert stack's fused buffers:
+    ``(packed, table, scales)`` of each shard's ``E / len(devices)``
+    consecutive experts on its device, each with the one schedule."""
+    E, parts = fused_packed.shape[0], len(devices)
+    if E % parts:
+        raise ValueError(f"E={E} not divisible by {parts} shards")
+    n = E // parts
+    return tuple((fused_packed[m * n:(m + 1) * n].to(d), fused_table.to(d),
+                  fused_scales[m * n:(m + 1) * n].to(d)) for m, d in enumerate(devices))
+
+
+def quant_matmul_fused_tp(x: torch.Tensor, shards: tuple, fused_perm: Optional[torch.Tensor],
+                          tile_bits: tuple, tile_n: int, c_in: int, c_out: int,
+                          compute_dtype=torch.float32, out_dtype=torch.float32) -> torch.Tensor:
+    """Tensor-parallel :func:`quant_matmul_fused` over the placement
+    ``shards`` that :func:`tp_shards` built (``QTensor.fused_shards``):
+    ONE launch of the fused kernel per shard over its own whole tiles, the
+    outputs concatenated along N on x's device and then gathered by
+    ``fused_perm``: bitwise the unsharded launch."""
+    chunk = tuple(tile_bits[:len(tile_bits) // len(shards)])
+    _check_c_in(x, c_in)
+    Kp = -(-c_in // qmk.FUSED_K_ALIGN) * qmk.FUSED_K_ALIGN
+    lead = x.shape[:-1]
+    x2 = _kernel_x(x, c_in, compute_dtype, qmk.fused_2d_path(tile_n, compute_dtype))
+    ys = []
+    for packed, table, scales in shards:
+        was = qmk.quant_matmul_fused_2d.launches
+        ys.append(qmk.quant_matmul_fused_2d(x2.to(packed.device), packed, table, scales, chunk,
+                                            Kp=Kp, tile_n=tile_n,
+                                            compute_dtype=compute_dtype).to(x2.device))
+        quant_matmul_fused_tp.launches += qmk.quant_matmul_fused_2d.launches - was
+    y = torch.cat(ys, dim=1)
+    y = y.index_select(1, fused_perm) if fused_perm is not None else y[:, :c_out]
+    return y.to(out_dtype).reshape(*lead, c_out)
+
+
+quant_matmul_fused_tp.launches = 0
+
+
+def quant_matmul_fused_batched_ep(x: torch.Tensor, shards: tuple,
+                                  fused_perm: Optional[torch.Tensor], tile_bits: tuple,
+                                  tile_n: int, c_in: int, c_out: int,
+                                  compute_dtype=torch.float32,
+                                  out_dtype=torch.float32) -> torch.Tensor:
+    """Expert-parallel :func:`quant_matmul_fused_batched` over the placement
+    ``shards`` that :func:`ep_shards` built (every expert keeps its whole
+    schedule): ONE launch of the expert kernel per shard over its own
+    experts, the outputs concatenated along E on x's device, then gathered
+    by ``fused_perm``: bitwise the unsharded launch."""
+    E = sum(packed.shape[0] for packed, _, _ in shards)
+    check_experts(x, E)
+    _check_c_in(x, c_in)
+    Kp = -(-c_in // qmk.FUSED_K_ALIGN) * qmk.FUSED_K_ALIGN
+    lead = x.shape[1:-1]
+    x2 = _kernel_x(x, c_in, compute_dtype,
+                   qmk.fused_3d_path(tile_n, compute_dtype)).reshape(E, -1, c_in)
+    ys, e0 = [], 0
+    for packed, table, scales in shards:
+        n = packed.shape[0]
+        was = qmk.quant_matmul_fused_3d.launches
+        ys.append(qmk.quant_matmul_fused_3d(x2[e0:e0 + n].to(packed.device), packed, table,
+                                            scales, tile_bits, Kp=Kp, tile_n=tile_n,
+                                            compute_dtype=compute_dtype).to(x2.device))
+        quant_matmul_fused_batched_ep.launches += qmk.quant_matmul_fused_3d.launches - was
+        e0 += n
+    y = torch.cat(ys, dim=0)
+    y = y.index_select(2, fused_perm) if fused_perm is not None else y[..., :c_out]
+    return y.to(out_dtype).reshape(E, *lead, c_out)
+
+
+quant_matmul_fused_batched_ep.launches = 0
+KERNEL_WRAPPERS.update(quant_matmul_fused_tp=quant_matmul_fused_tp,
+                       quant_matmul_fused_batched_ep=quant_matmul_fused_batched_ep)
 
 
 def qtensor_matmul(x: torch.Tensor, qt, out_dtype=torch.float32) -> torch.Tensor:

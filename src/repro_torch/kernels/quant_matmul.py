@@ -91,6 +91,24 @@ def fused_tile_offsets(tile_bits, Kp: int, tile_n: int) -> tuple:
     return tuple(offs)
 
 
+def tp_chunk(tile_bits, parts: int):
+    """Per-shard tile schedule for ``parts``-way tensor parallelism: the
+    fused buffer splits across devices only when its schedule is ``parts``
+    identical chunks, so that each shard owns whole static-bit tiles and
+    the same bytes and runs the same launch.  Returns that per-shard
+    schedule, or None when the schedule does not divide (the caller
+    replicates).  A copy of the reference's ``tp_chunk``."""
+    if not tile_bits or parts <= 1:
+        return None
+    T = len(tile_bits)
+    if T % parts:
+        return None
+    chunk = tuple(tile_bits[:T // parts])
+    if tuple(tile_bits) != chunk * parts:
+        return None
+    return chunk
+
+
 def fused_table(tile_bits, Kp: int, tile_n: int) -> torch.Tensor:
     """``(T, 2)`` int32 ``[bits, byte offset]`` per tile: the schedule as
     the fused kernel reads it (built once at deploy)."""

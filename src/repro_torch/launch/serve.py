@@ -2,8 +2,7 @@
 continuous batching over a paged KV cache
 (:class:`repro_torch.api.scheduler.ServingEngine`), optionally speculative.
 
-Counterpart of ``repro.launch.serve`` without meshes and host failure
-(``ROADMAP.md``).  The launcher draws a random deployed
+Counterpart of ``repro.launch.serve``.  The launcher draws a random deployed
 model (``serving.init_deployed_model``), synthesizes a staggered-arrival
 trace (ragged prompts and outputs arriving over time) and serves it through
 the paged slot pool, sharing the KV pages of repeated prompt prefixes
@@ -18,6 +17,22 @@ drain it, repeat): the shortest-job barrier continuous batching removes.
 ``--arch`` takes every id of ``config.ARCH_IDS`` (dense, VLM, MoE, SSM,
 hybrid and audio families).
 
+``--mesh d,m`` serves on a ``(data, model)`` mesh (``launch/mesh.py``):
+the engine places the weights itself (a QTensor's fused buffers in whole
+N-tiles or experts on the ``model`` positions, launched once per shard;
+everything else, the caches too, on the first position) and keeps the
+tokens of the engine without a mesh.  With ``--device cpu`` every position
+is the CPU; on the card the positions are the first ``d * m`` cards.
+``--fail-host h`` (needs ``--mesh``)
+stops host ``h`` of the ``data`` axis partway through the trace: its slots
+drain and every request still completes.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \\
+        --reduced --device cpu --mesh 2,4 --fail-host 1
+
+``--production-mesh`` asks for the reference's 16 x 16 mesh of cards and
+raises with fewer.
+
 Runs on the card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
@@ -30,6 +45,7 @@ import numpy as np
 from repro_torch.api.qtensor import BACKENDS
 from repro_torch.api.scheduler import Request, ServingEngine
 from repro_torch.config import ARCH_IDS, get_config
+from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
 from repro_torch.models import serving
 
 
@@ -60,7 +76,7 @@ def build_trace(cfg, args, rng):
     return reqs, arrivals
 
 
-def _engine(cfg, dparams, args):
+def _engine(cfg, dparams, args, mesh=None):
     page_size = {0: None, -1: "auto"}.get(args.page_size, args.page_size)
     draft = None
     if args.speculate_k and args.draft_bits:
@@ -70,7 +86,8 @@ def _engine(cfg, dparams, args):
                          page_size=page_size, num_pages=args.num_pages or None,
                          prefix_sharing=False if args.no_prefix_sharing else "auto",
                          kv_bits=args.kv_bits, speculate_k=args.speculate_k,
-                         draft_dparams=draft, device=args.device)
+                         draft_dparams=draft, mesh=mesh,
+                         device=None if mesh is not None else args.device)
 
 
 def _paged_line(eng):
@@ -87,10 +104,35 @@ def _paged_line(eng):
             f"{eng.kv_bytes_resident()} B vs dense {eng.kv_bytes_dense()} B")
 
 
-def run_continuous(cfg, dparams, reqs, arrivals, args):
-    eng = _engine(cfg, dparams, args)
+def _run_failing(eng, reqs, arrivals, args) -> dict:
+    """``eng.run``'s schedule with one ``fail_host`` call partway through:
+    the heartbeat drains the host's slots and the trace still completes.
+    Outputs keyed by request index."""
+    order = sorted(range(len(reqs)), key=lambda i: (arrivals[i], i))
+    fail_at = max(2, args.stagger // 2)
+    rid_to_idx, outs, nxt, t = {}, {}, 0, 0
+    while nxt < len(order) or eng.has_work():
+        while nxt < len(order) and arrivals[order[nxt]] <= t:
+            rid_to_idx[eng.submit(reqs[order[nxt]])] = order[nxt]
+            nxt += 1
+        if t == fail_at:
+            eng.fail_host(args.fail_host)
+            print(f"fail-host:  host {args.fail_host} stopped beating at tick {t}")
+        eng.step()
+        for o in eng.collect():
+            outs[rid_to_idx[o.rid]] = o
+        t += 1
+    print(f"fail-host:  {eng.stats['host_drains']} drains, "
+          f"{eng.stats['drained_requests']} requests requeued, "
+          f"{len(outs)}/{len(reqs)} completed")
+    return outs
+
+
+def run_continuous(cfg, dparams, reqs, arrivals, args, mesh=None):
+    eng = _engine(cfg, dparams, args, mesh=mesh)
     t0 = time.perf_counter()
-    outs = eng.run(reqs, arrivals)
+    outs = (_run_failing(eng, reqs, arrivals, args) if args.fail_host >= 0
+            else eng.run(reqs, arrivals))
     dt = time.perf_counter() - t0
     st = eng.stats
     steps = st["prefill_launches"] + st["decode_launches"]
@@ -112,10 +154,10 @@ def run_continuous(cfg, dparams, reqs, arrivals, args):
     return dt, st["useful_tokens"]
 
 
-def run_lockstep(cfg, dparams, reqs, args):
+def run_lockstep(cfg, dparams, reqs, args, mesh=None):
     """Wave-at-a-time baseline on the same engine: submit a wave, drain it
     to completion, repeat."""
-    eng = _engine(cfg, dparams, args)
+    eng = _engine(cfg, dparams, args, mesh=mesh)
     t0, useful = time.perf_counter(), 0
     for w0 in range(0, len(reqs), args.slots):
         for r in reqs[w0:w0 + args.slots]:
@@ -166,16 +208,36 @@ def main(argv=None) -> None:
     p.add_argument("--lockstep", action="store_true",
                    help="also run the wave-at-a-time lockstep baseline")
     p.add_argument("--device", default=None, help="default: the card")
+    p.add_argument("--mesh", default="",
+                   help="serve on a (data, model) mesh, e.g. '--mesh 2,4' (the CPU at "
+                        "every position with --device cpu, else data*model cards); the "
+                        "tokens of the engine without a mesh")
+    p.add_argument("--fail-host", type=int, default=-1,
+                   help="stop this host of the data axis partway through the trace "
+                        "(the drain on death; requires --mesh)")
+    p.add_argument("--production-mesh", action="store_true",
+                   help="the reference's 16 x 16 mesh of cards (raises with fewer)")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
+    if args.fail_host >= 0 and not args.mesh:
+        raise SystemExit("--fail-host requires --mesh (the data axis is the host fleet)")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    dparams = serving.init_deployed_model(cfg, seed=args.seed, device=args.device)
+    mesh = None
+    if args.production_mesh:
+        mesh = make_production_mesh()
+    elif args.mesh:
+        d, m = (int(v) for v in args.mesh.split(","))
+        cpu = args.device is not None and args.device.startswith("cpu")
+        mesh = make_test_mesh(d, m, devices=[args.device] * (d * m) if cpu else None)
+        print(f"mesh:       (data={d}, model={m}) over {[str(v) for v in mesh.devices.flat]}")
+    device = args.device if mesh is None else mesh.devices.flat[0]
+    dparams = serving.init_deployed_model(cfg, seed=args.seed, device=device)
     reqs, arrivals = build_trace(cfg, args, np.random.default_rng(args.seed))
-    run_continuous(cfg, dparams, reqs, arrivals, args)
+    run_continuous(cfg, dparams, reqs, arrivals, args, mesh=mesh)
     if args.lockstep:
-        run_lockstep(cfg, dparams, reqs, args)
+        run_lockstep(cfg, dparams, reqs, args, mesh=mesh)
 
 
 if __name__ == "__main__":

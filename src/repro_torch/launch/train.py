@@ -17,6 +17,9 @@ families, the MoE ones (deepseek-v3-671b with MLA and its MTP head,
 arctic-480b), mamba2-780m (SSM), zamba2-1.2b (hybrid: Mamba2 with a shared
 attention block) and whisper-small (encoder-decoder; the batches carry the
 audio stub's frames).  Runs on the card unless ``--device cpu`` is given.
+``--production-mesh`` asks for the reference's 16 x 16 mesh of cards
+(``launch/mesh.make_production_mesh``, which raises with fewer); sharded
+training state is ``ROADMAP.md`` item 8.2.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from repro_torch.api.engine import resolve_device
 from repro_torch.api.policy import PrecisionPolicy
 from repro_torch.config import ARCH_IDS, get_config
 from repro_torch.data import pipeline as pipe
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train import steps as steps_mod
 
@@ -63,15 +67,16 @@ def main(argv=None) -> None:
     p.add_argument("--ckpt-every", type=int, default=20)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--production-mesh", action="store_true",
-                   help="the 16x16 mesh of the reference (not ported)")
+                   help="the reference's 16 x 16 mesh of cards (raises with fewer)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' for a CPU run)")
     args = p.parse_args(argv)
 
     if args.production_mesh:
-        raise NotImplementedError("--production-mesh: multi-device training is not "
-                                  "ported yet: ROADMAP.md queue 1 item 8")
+        make_production_mesh()          # raises with fewer than its 256 cards
+        raise NotImplementedError("--production-mesh: sharded training state is "
+                                  "ROADMAP.md queue 1 item 8.2")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()

@@ -132,7 +132,8 @@ def test_cpu_tensors_take_the_plain_versions():
     assert ops.launch_counts() == {"quant_matmul_fused": 0, "quant_matmul": 0,
                                    "quant_matmul_fused_batched": 0,
                                    "scaled_int8_mm": 0, "decode_attention": 0,
-                                   "fused_mix": 0}
+                                   "fused_mix": 0, "quant_matmul_fused_tp": 0,
+                                   "quant_matmul_fused_batched_ep": 0}
     frozen = eng.forward(batch, PrecisionPolicy.FROZEN)
     for y in outs:
         assert y.device.type == "cpu" and y.shape == (2, 10)

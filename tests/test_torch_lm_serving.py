@@ -31,8 +31,9 @@
 * Sampling: ``argmax`` takes the first of tied maxima, as ``jnp.argmax``;
   ``top_k=1`` is greedy for every generator; temperature sampling draws
   from the softmax.
-* The launcher runs on the CPU; the option not ported (``mesh``) raises,
-  naming ``ROADMAP.md``; the speculative options build an engine, and a
+* The launcher runs on the CPU; a mesh without the ``("data", "model")``
+  axes raises ``ValueError`` and ``heartbeat_timeout`` is taken (the mesh
+  itself: ``test_torch_mesh_serving.py``); the speculative options build an engine, and a
   two-token (verify) decode step raises ``ValueError`` for a family that
   cannot verify.
 """
@@ -50,6 +51,7 @@ from repro_torch.api import sampling as smp
 from repro_torch.api import scheduler as sch
 from repro_torch.config import get_config
 from repro_torch.launch import serve as launcher
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import attention as tattn
 from repro_torch.models import kv_quant as tkvq
 from repro_torch.models import serving as tserving
@@ -269,8 +271,15 @@ def test_launcher_serves_on_the_cpu(capsys):
 
 def test_options_not_ported_raise(models):
     _, cfg, _, dp = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a mesh is served (tests/test_torch_mesh_serving.py); one without the
+    # ("data", "model") axes is refused, and the heartbeat timeout is taken
+    with pytest.raises(ValueError, match=r"\('data', 'model'\) axes"):
         sch.ServingEngine(cfg, dp, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match=r"\('data', 'model'\) axes"):
+        sch.ServingEngine(cfg, dp, device="cpu",
+                          mesh=Mesh(np.array([[torch.device("cpu")]], dtype=object), ("x", "y")))
+    eng = sch.ServingEngine(cfg, dp, device="cpu", heartbeat_timeout=5.0)
+    assert eng.heartbeat.timeout_s == 5.0 and eng.n_hosts == 1
     for opt in (dict(speculate_k=2), dict(draft_kv_bits=4)):   # speculative decoding is served
         sch.ServingEngine(cfg, dp, device="cpu", **opt)
     logits, _ = tserving.decode_step(dp, cfg, torch.zeros((1, 2), dtype=torch.int64),
