@@ -490,6 +490,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    theta and 2 W steps (771 K5 launches a step: the encoder's 12000 frame
    rows and the cross-attention's keys and values over them), the checked
    W step, K5 at the step's shapes, the split.
+[examples] The four examples of ``examples_torch/`` through their ``main``
+   on the card (after whisper-small's phase), each example's counts zeroed
+   just before it and read just after: ``quickstart.py`` (dae-ad searched,
+   fine-tuned, deployed and served; resnet8 deployed and served through
+   the packed conv), ``search_tinyml.py`` (dscnn-kws, channel-wise against
+   EdMIPS), ``serve_mixed_precision.py`` (reduced qwen1.5-4b, 8 requests
+   on ``"cuda"``, paged with prefix sharing) and ``train_lm.py`` (the 10M
+   preset, ``EX_TRAIN_STEPS`` steps).  Gates: both quickstart models
+   within 1e-4 * max(1, max|y|) of the FROZEN forward; resnet8 one K1
+   launch a layer on ``"cuda"``; finite search figures; all 8 requests
+   served, a prefix hit, mixed bytes below all-8b; finite losses.
+[dryrun] The cost count of ``launch/costs.py`` (at the end): a decode step
+   of qwen1.5-4b (``LM_LAYERS``, 4 slots, ring 1024) and of deepseek-v3
+   (2 layers, 4 slots, ring 512), kv_bits (2, 4, 8), every row at the
+   ring's last position, counted once on the card's tensors (the kernels
+   launching; the counts zeroed just before and read just after) and once
+   on fake tensors of the same shapes: the two ``Costs`` equal and each
+   kernel API call counted one launch (gated).  Each step's roofline bound
+   beside its device-busy ms (profiler) and host ms (median of 10).  Then
+   ``dryrun.run_cell`` of qwen1.5-4b/decode_32k and
+   deepseek-v3-671b/train_4k at full config (single-pod grid, fake
+   tensors), run in a subprocess on the host's CPU at the lowest priority
+   from the start of [examples] (after the serving phases, whose host times
+   it would share the CPU with): both records ok, their trace times
+   printed.
 6. The kernel summary line (K1 at the resnet8 shapes with deepseek's three
    K1 shapes beside them and the launches of both paths, K2 over one
    qwen1.5-4b decode step with its SIMT routine's time, its prefill forward
@@ -501,7 +526,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    rows at their decode shapes in its ``families`` entry; K1, K2 and K4
    launches also whisper-small's paths', K4's row at its decode shape in
    its ``whisper`` entry; K1-K4 launches also the [paged], [spec] and
-   [mesh] runs' (K1's and K3's shard launches on the mesh beside them);
+   [mesh] runs' (K1's and K3's shard launches on the mesh beside them),
+   and the [examples] and [dryrun] runs';
    K5's also the four LM training phases', with each model's step in its
    own entry; each wrapper's ``launches_by_path`` splitting them), the
    card's name and power limit, and the last line ``{"ok": true,
@@ -524,10 +550,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-PEAK_F32_FLOP_PER_S = 67e12     # H100 SXM, f32 outside the tensor cores
-PEAK_BF16_FLOP_PER_S = 989e12   # H100 SXM, bf16 tensor cores, dense
-PEAK_INT8_OP_PER_S = 1979e12    # H100 SXM, int8 tensor cores, dense
+# the port's package; outside the repository this import fails, and the run
+# with it
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+# every kernel's bound formula and the H100's rates, each defined once
+from repro_torch.kernels import costs as kcost  # noqa: E402
+from repro_torch.launch import costs  # noqa: E402
+from repro_torch.launch.costs import (PEAK_BF16_FLOP_PER_S, PEAK_BYTES_PER_S,  # noqa: E402
+                                      PEAK_F32_FLOP_PER_S, PEAK_INT8_OP_PER_S)
 SERVE_TOL = 1e-4
 # card vs CPU, first f32 step: loss rtol; a gradient leaf within this share
 # of its norm plus GRAD_ATOL of the norm of all the gradients compared
@@ -705,8 +735,8 @@ def k5_timed(cases, card, sms, tag="K5"):
             if row["k5_device_ops"]:
                 break
             row["k5_device_ops"] = len(device_kernels(fns["k5"])[0])
-        row["bytes_ms"] = (M * K + N * K + 4 * (M + N) + 4 * M * N) / PEAK_BYTES_PER_S * 1e3
-        row["ops_ms"] = 2.0 * M * N * K / PEAK_INT8_OP_PER_S * 1e3
+        row["bytes_ms"] = kcost.k5_bytes(M, N, K) / PEAK_BYTES_PER_S * 1e3
+        row["ops_ms"] = kcost.gemm_flops(M, N, K) / PEAK_INT8_OP_PER_S * 1e3
         row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
         row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
         rows.append(row)
@@ -738,8 +768,8 @@ def k5_summed(rows, what, card, weights=None):
 # ---------------------------------------------------------------------------
 
 LM_SLOTS, LM_MAX_LEN, LM_PREFILL = 4, 1024, 512
-# qwen's depth in phases 3c/4c/5b, [paged] and [spec]: its host-bound decode
-# steps took ~470-600 s of the run at all 40 layers, and with the training
+# qwen's depth in phases 3c/4c/5b, [paged], [spec] and [dryrun]: its host-bound
+# decode steps took ~470-600 s of the run at all 40 layers, and with the training
 # phases the run passed its 1200 s
 LM_LAYERS = 20
 LM_KV = (None, 8, (2, 4, 8))
@@ -893,13 +923,6 @@ class LMGates:
             self.k4_ratios.append(r)
             self.k4_cases += 1
         return out
-
-
-def k4_bytes(B, KV, rep, hd, NB, G, pos, S, q_bytes, out_bytes):
-    """The bytes decode attention must move: the packed K and V entries
-    <= pos with their scales, q once, the output once."""
-    n = sum(min(int(p) + 1, S) for p in pos)
-    return n * KV * 2 * (NB + 4 * G) + B * KV * rep * hd * (q_bytes + out_bytes)
 
 
 def lm_serving(dev, card, ops, gen):
@@ -1255,9 +1278,9 @@ def lm_serving(dev, card, ops, gen):
             row[f"{name}_loop_ms"] = cuda_ms(fn, iters=50)
             row[f"{name}_ms"], row[f"{name}_timer"] = kernel_ms(
                 fn, 20, row[f"{name}_loop_ms"], graph=name != "plain")
-        nbytes = k4_bytes(LM_SLOTS, kvh, 1, hd, spec.packed_bytes, spec.n_groups, pos_list,
+        nbytes = kcost.k4_bytes(LM_SLOTS, kvh, 1, hd, spec.packed_bytes, spec.n_groups, pos_list,
                           LM_MAX_LEN, 4, 2)
-        flops = 4.0 * sum(pp + 1 for pp in pos_list) * kvh * hd
+        flops = kcost.k4_flops(pos_list, LM_MAX_LEN, kvh, 1, hd)
         row.update(bytes=nbytes, bytes_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
                    ops_ms=flops / PEAK_F32_FLOP_PER_S * 1e3)
         k4_times[key] = row
@@ -1294,9 +1317,9 @@ def lm_serving(dev, card, ops, gen):
                 row[f"{key}_loop_ms"] = cuda_ms(fn, iters=20)
                 row[f"{key}_ms"], row[f"{key}_timer"] = kernel_ms(
                     fn, 10, row[f"{key}_loop_ms"], graph=key != "plain")
-            nbytes = 2 * m * K + pk.numel() + 4 * N + 2 * m * N
+            nbytes = kcost.k2_bytes(m, K, N, pk.numel(), N, 2, 2)
             row["bytes_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
-            row["ops_ms"] = 2.0 * m * N * K / PEAK_BF16_FLOP_PER_S * 1e3
+            row["ops_ms"] = kcost.gemm_flops(m, N, K) / PEAK_BF16_FLOP_PER_S * 1e3
             row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
             for key in sums[m]:
                 sums[m][key] += calls * row[key]
@@ -1454,14 +1477,6 @@ class MoEGates:
             self.attn.quant_per_token, kvq.quant_channelwise = orig_q
         self._ratio(y, y_ref, "mla decode")
         return y, cache
-
-
-def k3_bytes(E, M, Kp, N, qt):
-    """The bytes the expert GEMM must move: x and y at 2 bytes (the
-    reference's bf16 dot), every expert's packed bytes, scales and the
-    schedule once."""
-    return (2 * E * M * Kp + qt.fused_packed.numel() + 4 * qt.fused_scales.numel()
-            + 4 * qt.fused_table.numel() + 2 * E * M * N)
 
 
 def moe_serving(dev, card, ops, gen):
@@ -1914,9 +1929,10 @@ def moe_serving(dev, card, ops, gen):
             row[f"{key}_loop_ms"] = cuda_ms(fn, iters=iters, warmup=1)
             row[f"{key}_ms"], row[f"{key}_timer"] = kernel_ms(
                 fn, iters, row[f"{key}_loop_ms"], graph=key not in ("plain", "simt"))
-        nb = k3_bytes(E, m, Kp, N, wd)
+        nb = kcost.k3_bytes(E, m, Kp, N, wd.fused_packed.numel(), wd.fused_scales.numel(),
+                            wd.fused_table.numel())
         row.update(bytes=nb, bytes_ms=nb / PEAK_BYTES_PER_S * 1e3,
-                   ops_ms=2.0 * E * m * Kp * N / PEAK_BF16_FLOP_PER_S * 1e3)
+                   ops_ms=kcost.gemm_flops(E * m, N, Kp) / PEAK_BF16_FLOP_PER_S * 1e3)
         k3_times[m] = row
         log("[times] K3 we_down " + json.dumps(row) + f" | {card}")
     del wb
@@ -1949,10 +1965,10 @@ def moe_serving(dev, card, ops, gen):
             row[f"{key}_loop_ms"] = cuda_ms(fn, iters=iters, warmup=1)
             row[f"{key}_ms"], row[f"{key}_timer"] = kernel_ms(
                 fn, iters, row[f"{key}_loop_ms"], graph=key != "plain")
-        nb = (2 * m * qt.c_in + qt.fused_packed.numel() + 4 * qt.fused_scales.numel()
-              + 4 * qt.fused_table.numel() + 2 * m * qt.c_out)
+        nb = kcost.k1_bytes(m, qt.c_in, qt.c_out, qt.fused_packed.numel(),
+                            qt.fused_scales.numel(), qt.fused_table.numel(), 2, 2)
         row.update(bytes=nb, bytes_ms=nb / PEAK_BYTES_PER_S * 1e3,
-                   ops_ms=2.0 * m * qt.c_in * qt.c_out / PEAK_BF16_FLOP_PER_S * 1e3)
+                   ops_ms=kcost.gemm_flops(m, qt.c_out, qt.c_in) / PEAK_BF16_FLOP_PER_S * 1e3)
         row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
         row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
         k1_times[name] = row
@@ -1983,9 +1999,9 @@ def moe_serving(dev, card, ops, gen):
             row[f"{key}_loop_ms"] = cuda_ms(fn, iters=iters, warmup=1)
             row[f"{key}_ms"], row[f"{key}_timer"] = kernel_ms(
                 fn, iters, row[f"{key}_loop_ms"], graph=key not in ("plain", "simt"))
-        nb = 2 * E * 8 * Kg + pk.numel() + 4 * sc.numel() + 2 * E * 8 * pk.shape[1]
+        nb = kcost.k2_bytes(E * 8, Kg, pk.shape[1], pk.numel(), sc.numel(), 2, 2)
         row["bytes_ms"] = nb / PEAK_BYTES_PER_S * 1e3
-        row["ops_ms"] = 2.0 * E * 8 * pk.shape[1] * Kg / PEAK_BF16_FLOP_PER_S * 1e3
+        row["ops_ms"] = kcost.gemm_flops(E * 8, pk.shape[1], Kg) / PEAK_BF16_FLOP_PER_S * 1e3
         for key in ("k2_ms", "simt_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms"):
             k2e_step[key] += calls * row[key]
         k2e_step["bound_ms"] += calls * max(row["bytes_ms"], row["ops_ms"])
@@ -2534,8 +2550,8 @@ def k4_at_decode_shape(label, dev, card, gen, B, KV, rp, hd, S, positions, kv_bi
             row[f"{name}_loop_ms"] = cuda_ms(fn, iters=20)
             row[f"{name}_ms"], row[f"{name}_timer"] = kernel_ms(
                 fn, 10, row[f"{name}_loop_ms"], graph=name != "plain")
-        nbytes = k4_bytes(B, KV, rp, hd, spec.packed_bytes, spec.n_groups, [at] * B, S, 4, 2)
-        flops = 4.0 * B * (at + 1) * KV * rp * hd
+        nbytes = kcost.k4_bytes(B, KV, rp, hd, spec.packed_bytes, spec.n_groups, [at] * B, S, 4, 2)
+        flops = kcost.k4_flops([at] * B, S, KV, rp, hd)
         row.update(bytes=nbytes, bytes_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
                    ops_ms=flops / PEAK_F32_FLOP_PER_S * 1e3)
         row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
@@ -3679,18 +3695,6 @@ K6_BIG = (524289, 4096)          # N * K = 2,147,487,744 > 2^31 elements
 K6_CHUNK_ROWS = 65536            # rows of the plain version at a time on K6_BIG
 
 
-def k6_ops(n, k, nb):
-    """f32 operations of the mixture: a clip (2) and, per bit-width, a
-    division, a round, two products and a sum (5) an element; per row the
-    floor and the |P| steps."""
-    return n * k * (2 + 5 * nb) + n * (1 + nb)
-
-
-def k6_bytes(n, k, nb, w_bytes=4):
-    """w read once, the f32 output written once, gamma_hat and alpha read once."""
-    return n * k * (w_bytes + 4) + n * (nb + 1) * 4
-
-
 def k6_phase(dev, card, ops, engines):
     """Phase 3e: the fused Eq. 5 mixture (K6) through the kernel API.
 
@@ -3827,11 +3831,11 @@ def k6_phase(dev, card, ops, engines):
                "plain": lambda: kref.fused_mix_ref(w, g, a, (2, 4, 8))}
         for key, fn in fns.items():
             row[f"{key}_events_ms"] = cuda_ms(fn, iters=10, warmup=2)
-            dev_ms = device_ms(fn, iters=10, warmup=1)
-            row[f"{key}_ms"] = row[f"{key}_events_ms"] if dev_ms is None else dev_ms
-            row[f"{key}_timer"] = "events" if dev_ms is None else "profiler"
-        row["bytes_ms"] = k6_bytes(n, k, 3) / PEAK_BYTES_PER_S * 1e3
-        row["ops_ms"] = k6_ops(n, k, 3) / PEAK_F32_FLOP_PER_S * 1e3
+            # where the profiler loses events, a CUDA graph: the event loop
+            # of a ~26 us call reads the host's launch gaps
+            row[f"{key}_ms"], row[f"{key}_timer"] = kernel_ms(fn, 10, row[f"{key}_events_ms"])
+        row["bytes_ms"] = kcost.k6_bytes(n, k, 3) / PEAK_BYTES_PER_S * 1e3
+        row["ops_ms"] = kcost.k6_ops(n, k, 3) / PEAK_F32_FLOP_PER_S * 1e3
         del w, g, a
         torch.cuda.empty_cache()
         return row
@@ -4589,6 +4593,241 @@ def audio_train(dev, card, ops, sms):
     return report, k5
 
 
+# -- [examples] and [dryrun] --------------------------------------------------
+
+EX_TRAIN_STEPS = 10          # train_lm.py's steps here (its default is 60)
+# the dry run's full-config cells, counted on fake tensors in a subprocess
+# that runs on the host's CPU beside [examples] and the training phases
+DRY_CELLS = (("qwen1.5-4b", "decode_32k"), ("deepseek-v3-671b", "train_4k"))
+DRY_TIMEOUT_S = 900
+
+
+def dryrun_start():
+    """Start ``dryrun.run_cell`` of :data:`DRY_CELLS` (single-pod grid) in
+    a subprocess with one torch thread at the lowest CPU priority: its
+    records come back one JSON line each on its stdout, its stderr in a
+    temporary file."""
+    import os
+    import tempfile
+    code = ("import json, os, sys\n"
+            "os.nice(19)\n"
+            "from repro_torch.launch import dryrun\n"
+            "for arch, shape in json.loads(sys.argv[1]):\n"
+            "    print(json.dumps(dryrun.run_cell(arch, shape, multi_pod=False)), flush=True)\n")
+    src = str(Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    err = tempfile.TemporaryFile(mode="w+")         # a pipe could fill and stall it
+    proc = subprocess.Popen([sys.executable, "-c", code, json.dumps(DRY_CELLS)],
+                            stdout=subprocess.PIPE, stderr=err, text=True, env=env)
+    proc.err_file, proc.started = err, time.perf_counter()
+    return proc
+
+
+def dryrun_stop(proc) -> None:
+    """End the dry run's subprocess if it is still running."""
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def examples_phase(dev, card, ops):
+    """[examples]: the four examples of ``examples_torch/`` through their
+    ``main`` on the card.  Gates: quickstart's served dae-ad and resnet8
+    within 1e-4 * max(1, max|frozen|) of the FROZEN forward and resnet8 on
+    ``"cuda"`` one K1 launch a layer (one K2 launch a group on
+    ``"cuda-pergroup"``); both searches of ``search_tinyml.py`` finite;
+    all 8 requests of ``serve_mixed_precision.py`` served on ``"cuda"``
+    with a prefix hit and the mixed deployment's bytes below all-8b;
+    ``train_lm.py``'s losses finite.  Returns the report and the phase's
+    launches (all, and on the tensor cores), counted per example."""
+    import math
+    import shutil
+    import tempfile
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "examples_torch"))
+    import quickstart
+    import search_tinyml
+    import serve_mixed_precision
+    import train_lm
+    report = {}
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    mma = dict.fromkeys(ops.mma_launch_counts(), 0)
+
+    def timed(name, fn):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in ops.launch_counts().items():
+            launches[k] += v
+        for k, v in ops.mma_launch_counts().items():
+            mma[k] += v
+        log(f"[clock] [examples] {name} took {time.perf_counter() - t0:.1f} s, the phase at "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        return out
+
+    qs = timed("quickstart", lambda: quickstart.main([]))
+    # quickstart's own count of the "cuda" forward was cleared by its next count
+    for k, v in qs["launches"]["cuda"].items():
+        launches[k] += v
+    for tag, err, ref in (("dae-ad", "served_frozen_err", "frozen_absmax"),
+                          ("resnet8", "conv_served_frozen_err", "conv_frozen_absmax")):
+        check(qs[err] <= SERVE_TOL * max(1.0, qs[ref]),
+              f"quickstart {tag}: served {qs[err]:.3g} off FROZEN (max |y| {qs[ref]:.3g})")
+    layers = qs["conv_layers"]
+    on_k1, on_k2 = qs["launches"]["cuda"], qs["launches"]["cuda-pergroup"]
+    check(on_k1["quant_matmul_fused"] == layers and sum(on_k1.values()) == layers,
+          f"resnet8 on 'cuda': one K1 launch for each of its {layers} layers, got {on_k1}")
+    check(on_k2["quant_matmul"] >= layers and on_k2["quant_matmul_fused"] == 0,
+          f"resnet8 on 'cuda-pergroup': one K2 launch a precision group, got {on_k2}")
+    st = timed("search_tinyml", lambda: search_tinyml.main([]))
+    check(all(math.isfinite(r[k]) for r in st.values() for k in ("metric", "size_kb", "energy")),
+          f"search_tinyml: finite figures {st}")
+    sv = timed("serve_mixed_precision", lambda: serve_mixed_precision.main([]))
+    check(sv["backend"] == "cuda" and sv["served"] == sv["requests"] == 8,
+          f"serve_mixed_precision: all 8 requests served on 'cuda' ({sv['served']})")
+    check(sv["prefix_hits"] >= 1 and sv["mixed_bytes"] < sv["all8_bytes"],
+          f"serve_mixed_precision: a prefix hit ({sv['prefix_hits']}) and mixed bytes "
+          f"{sv['mixed_bytes']} below all-8b {sv['all8_bytes']}")
+    ck = tempfile.mkdtemp(prefix="train_lm_")
+    try:
+        tl = timed("train_lm", lambda: train_lm.main(["--steps", str(EX_TRAIN_STEPS),
+                                                    "--ckpt", ck]))
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    check(len(tl["losses"]) == EX_TRAIN_STEPS and all(math.isfinite(v) for v in tl["losses"]),
+          f"train_lm: {EX_TRAIN_STEPS} finite losses, got {tl['losses']}")
+    check(launches["quant_matmul_fused"] > 0 and launches["quant_matmul"] > 0,
+          f"the examples launched K1 and K2: {launches}")
+    report.update(
+        quickstart={k: qs[k] for k in ("served_frozen_err", "frozen_absmax",
+                                       "conv_served_frozen_err", "conv_frozen_absmax",
+                                       "size_kb", "all8_kb", "deployed_kb", "launches",
+                                       "conv_layers")},
+        search_tinyml=st,
+        serve_mixed_precision={k: v for k, v in sv.items() if k != "tokens"},
+        train_lm={k: tl[k] for k in ("losses", "steps", "n_params", "seconds")},
+        launches=launches, mma_launches=mma, phase_s=time.perf_counter() - t_phase)
+    log("[examples] " + json.dumps({k: v for k, v in report.items()
+                                    if k not in ("launches", "mma_launches")}) + f" | {card}")
+    log(f"[examples] launches {launches}; tensor-core launches {mma}")
+    return report, launches, mma
+
+
+# the API functions the counter charges, by the launch counter of the
+# wrapper each launches once a call
+_API_WRAPPER = {"quant_matmul": "quant_matmul", "quant_matmul_fused": "quant_matmul_fused",
+                "quant_matmul_fused_batched": "quant_matmul_fused_batched",
+                "decode_attention": "decode_attention"}
+
+
+def dryrun_phase(dev, card, ops, proc):
+    """[dryrun]: ``launch/costs.py``'s count of a decode step, real against
+    fake, for qwen1.5-4b at the depth and slots of phase 4c and deepseek-v3
+    at its 2 layers (kv_bits (2, 4, 8), every row at the ring's last
+    position: K4 reads the whole ring, as its formula charges).  Each step
+    is counted once on the card's tensors, its kernels launching, and once
+    on fake tensors of the same shapes (``FakeTensorMode``, nothing
+    launched); the two ``Costs`` must be equal, and each kernel API call
+    counted must be one launch.  The step's roofline bound is printed
+    beside its device-busy ms (profiler) and host ms (median).  Then the
+    subprocess's ``dryrun.run_cell`` records (:data:`DRY_CELLS`, full
+    config) with their trace times.  Returns the report and the counted
+    runs' launches (all, and on the tensor cores)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.config import get_config
+    from repro_torch.launch import workloads as wk
+    from repro_torch.models import serving
+    report = {"steps": {}}
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    mma = dict.fromkeys(ops.mma_launch_counts(), 0)
+    kv = (2, 4, 8)
+    for arch, layers, slots, max_len in (("qwen1.5-4b", LM_LAYERS, LM_SLOTS, LM_MAX_LEN),
+                                         ("deepseek-v3-671b", DS_LAYERS, DS_SLOTS, DS_MAX_LEN)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        dp = serving.init_deployed_model(cfg, seed=0)
+        caches = serving.init_caches(cfg, slots, max_len, kv_bits=kv)
+        tok = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
+        pos = torch.full((slots,), max_len - 1, dtype=torch.int32, device=dev)
+        step = lambda: serving.decode_step(dp, cfg, tok, caches, pos, kv_bits=kv)
+        step()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        real = costs.count(step)
+        torch.cuda.synchronize()
+        real_s = time.perf_counter() - t0
+        got, got_mma = ops.launch_counts(), ops.mma_launch_counts()
+        for k in launches:
+            launches[k] += got[k]
+        for k in mma:
+            mma[k] += got_mma[k]
+        fdev = wk.card_device()
+        t0 = time.perf_counter()
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            fdp = wk.to_device(serving.init_deployed_model(cfg, 0, device="cpu"), fdev)
+            fc = wk.to_device(serving.init_caches(cfg, slots, max_len, kv_bits=kv,
+                                                  device="cpu"), fdev)
+            ftok = torch.zeros((slots, 1), dtype=torch.int32, device=fdev)
+            fpos = torch.full((slots,), max_len - 1, dtype=torch.int32, device=fdev)
+            fake = costs.count(lambda: serving.decode_step(fdp, cfg, ftok, fc, fpos,
+                                                           kv_bits=kv))
+        fake_s = time.perf_counter() - t0
+        check(fake == real, f"[dryrun] {arch}: the fake step counts {fake}, the card's {real}")
+        for api, wrapper in _API_WRAPPER.items():
+            check(real.kernel_calls.get(api, 0) == got[wrapper],
+                  f"[dryrun] {arch}: {real.kernel_calls.get(api, 0)} {api} calls counted, "
+                  f"{got[wrapper]} launched")
+        check(set(real.kernel_calls) <= set(_API_WRAPPER), f"{real.kernel_calls}")
+        roof = costs.roofline_terms(real)
+        host = host_ms(step, iters=10, warmup=2)
+        events, _ = device_kernels(step)
+        busy = sum(us for _, us in events) / 1e3
+        row = dict(arch=arch, n_layers=layers, slots=slots, max_len=max_len, kv_bits=str(kv),
+                   costs=real.as_dict(), roofline=roof.as_dict(),
+                   bound_ms=roof.bound_s * 1e3, device_busy_ms=busy, device_kernels=len(events),
+                   host_ms=host, count_real_s=real_s, count_fake_s=fake_s,
+                   real_equals_fake=True)
+        report["steps"][arch] = row
+        log(f"[dryrun] {arch} decode step ({layers} layers, {slots} slots at pos "
+            f"{max_len - 1} of {max_len}, kv {kv}): bound {row['bound_ms']:.4f} ms "
+            f"({roof.bottleneck}; compute {roof.compute_s * 1e3:.4f}, memory "
+            f"{roof.memory_s * 1e3:.4f}) | device busy {busy:.4f} ms ({len(events)} kernels) "
+            f"| host {host:.4f} ms | counted real == fake: flops {real.flops}, hbm bytes "
+            f"{real.hbm_bytes:.6g}, peak live {real.peak_live_bytes}, kernel calls "
+            f"{real.kernel_calls} | {card}")
+        log(f"[clock] [dryrun] {arch} done at {time.perf_counter() - t_phase:.1f} s")
+        del dp, caches, fdp, fc, step
+        torch.cuda.empty_cache()
+    left = max(1.0, DRY_TIMEOUT_S - (time.perf_counter() - proc.started))
+    try:
+        out, _ = proc.communicate(timeout=left)
+    except subprocess.TimeoutExpired:
+        dryrun_stop(proc)
+        raise RuntimeError(f"chip_smoke check failed: the dry run's subprocess ran past "
+                           f"{DRY_TIMEOUT_S} s")
+    proc.err_file.seek(0)
+    check(proc.returncode == 0, f"the dry run's subprocess exited {proc.returncode}: "
+          f"{proc.err_file.read()[-2000:]}")
+    recs = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    check(len(recs) == len(DRY_CELLS) and all(r["ok"] for r in recs),
+          f"dryrun.run_cell: {[(r['arch'], r['shape'], r.get('error')) for r in recs]}")
+    report["cells"] = recs
+    for r in recs:
+        roof = r["roofline"]
+        log(f"[dryrun] run_cell {r['arch']}/{r['shape']} (16x16 grid, full config, fake "
+            f"tensors, the host's CPU): build {r['build_s']} s, trace {r['trace_s']} s, wall "
+            f"{r['wall_s']} s; bound {roof['bound_s'] * 1e3:.6g} ms ({roof['bottleneck']}), "
+            f"flops {r['costs']['total_flops']:.6g}, hbm bytes {roof['hbm_bytes']:.6g}, "
+            f"args/position {r['bytes_per_device']}, peak live {r['memory']['temp_bytes']}, "
+            f"useful flops {r['useful_flops_ratio']:.4f}")
+    report.update(launches=launches, mma_launches=mma, phase_s=time.perf_counter() - t_phase)
+    log(f"[dryrun] launches of the counted card steps {launches}; tensor-core launches {mma}")
+    return report, launches, mma
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement as JSON here")
@@ -4597,7 +4836,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs on the card",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    dry: list = []
+    try:
+        return run(opts, dry)
+    finally:
+        for proc in dry:
+            dryrun_stop(proc)
+
+
+def run(opts, dry: list) -> int:
+    """The phases of the module docstring; the dry run's subprocess, started
+    at [examples], is appended to ``dry``."""
     from repro_torch.api import Engine, PrecisionPolicy, QTensor
     from repro_torch.core import quantizers as qz
     from repro_torch.core.search import SearchSettings
@@ -5211,13 +5460,14 @@ def main() -> int:
         fargs = (x, qt.fused_packed, qt.fused_table, qt.fused_scales, qt.tile_bits)
         w_dense = qt.dequantize()
         groups = list(zip(qt.bits, qt.packed, qt.scales))
-        flops = 2.0 * m * c * qt.c_out
+        flops = kcost.gemm_flops(m, qt.c_out, c)
         # each input as stored read once, the (M, c_out) result written once:
         # the tile padding's output columns are the kernel's cost, not the bound's
-        f_bytes = (4 * m * c + qt.fused_packed.numel() + 4 * qt.fused_scales.numel()
-                   + 4 * m * qt.c_out)
-        g_bytes = sum(4 * m * c + p.numel() + 4 * p.shape[0] * (1 + m) for _, p, _ in groups)
-        g_flops = sum(2.0 * m * c * p.shape[0] for _, p, _ in groups)
+        f_bytes = kcost.k1_bytes(m, c, qt.c_out, qt.fused_packed.numel(),
+                                 qt.fused_scales.numel())
+        g_bytes = sum(kcost.k2_bytes(m, c, p.shape[0], p.numel(), p.shape[0])
+                      for _, p, _ in groups)
+        g_flops = sum(kcost.gemm_flops(m, p.shape[0], c) for _, p, _ in groups)
         row = dict(site=site, M=m, c_in=c, c_out=qt.c_out, tile_n=qt.tile_n,
                    tile_bits="".join(str(b) for b in qt.tile_bits), groups=len(groups))
         fns = {
@@ -5324,7 +5574,7 @@ def main() -> int:
     report["k6"] = k6_report
     torch.cuda.empty_cache()
 
-    # -- 3c, 4c, 5b. the LM serving path: qwen1.5-4b at full width, 20 layers ------
+    # -- 3c, 4c, 5b. the LM serving path: qwen1.5-4b at full width, LM_LAYERS -------
     log(f"[clock] phase 3c/4c/5b starts at {time.perf_counter() - t_run:.1f} s")
     (lm_report, k2_lm, k4_lm, lm_paged_launches, lm_paged_mma, lm_spec_launches,
      lm_spec_mma) = lm_serving(dev, card, ops, gen)
@@ -5355,6 +5605,13 @@ def main() -> int:
     extra = {"whisper": (wh_launches, wh_mma), "paged": (paged_launches, paged_mma),
              "spec": (spec_launches, spec_mma), "mesh": (mesh_launches_, mesh_mma)}
 
+    # -- [examples]. the four examples of examples_torch/ on the card -------------
+    log(f"[clock] phase [examples] starts at {time.perf_counter() - t_run:.1f} s")
+    dry.append(dryrun_start())
+    torch.cuda.empty_cache()
+    report["examples"], ex_launches, ex_mma = examples_phase(dev, card, ops)
+    extra["examples"] = (ex_launches, ex_mma)
+
     # -- [train]. the LM training path: minicpm-2b at full width and depth, int8 --
     log(f"[clock] phase [train] starts at {time.perf_counter() - t_run:.1f} s")
     torch.cuda.empty_cache()
@@ -5375,6 +5632,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["audio_train"], k5_audio = audio_train(dev, card, ops, sms)
     k5_new = {**k5_ssm, "whisper-small": k5_audio}
+
+    # -- [dryrun]. the cost count: a decode step real vs fake, run_cell's records ---
+    log(f"[clock] phase [dryrun] starts at {time.perf_counter() - t_run:.1f} s")
+    torch.cuda.empty_cache()
+    report["dryrun"], dry_launches, dry_mma = dryrun_phase(dev, card, ops, dry[0])
+    extra["dryrun"] = (dry_launches, dry_mma)
 
     def more(name, mma=False):
         """Launches of the whisper, [paged], [spec] and [mesh] paths of one
@@ -5494,7 +5757,10 @@ def main() -> int:
         f"and the [spec] runs (speculative decoding, phase 4g) of qwen1.5-4b and deepseek-v3 "
         f"('launches_by_path'), K1's, K2's and K3's also the [mesh] runs (deepseek-v3 on a "
         f"(2, 4) mesh, {MESH_LABEL}: K1 once per N-tile shard ('tp_shard_launches'), K3 once "
-        f"per expert shard ('ep_shard_launches'), each also counted as its kernel's), K5's also the [train] path's (minicpm-2b at full width, int8: "
+        f"per expert shard ('ep_shard_launches'), each also counted as its kernel's), K1's, "
+        f"K2's, K3's and K4's also the [examples] runs (the four examples of examples_torch/) "
+        f"and the [dryrun] runs (one counted decode step of qwen1.5-4b and of deepseek-v3), "
+        f"K5's also the [train] path's (minicpm-2b at full width, int8: "
         f"its step's products timed in its 'minicpm_train' entry) and the [train-moe] path's "
         f"(deepseek-v3 and arctic at full width, 2 layers, int8: deepseek's step in its "
         f"'deepseek_train' entry), the [train-ssm] and [train-audio] paths' (mamba2-780m, "

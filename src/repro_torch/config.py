@@ -185,23 +185,31 @@ class ArchConfig:
 ARCH_IDS = ("qwen1.5-4b", "deepseek-v3-671b", "stablelm-12b", "minicpm-2b", "chatglm3-6b",
             "phi-3-vision-4.2b", "arctic-480b", "mamba2-780m", "zamba2-1.2b", "whisper-small")
 
+# the four MLPerf-Tiny models, whose configs live in ``models/tinyml.py``
+# (``TinyConfig``) and resolve through the same registry
+TINYML_IDS = ("resnet8-cifar10", "dscnn-kws", "mobilenetv1-vww", "dae-ad")
+
+_MODULE_FOR = {i: "repro_torch.configs." + i.replace("-", "_").replace(".", "_")
+               for i in ARCH_IDS + TINYML_IDS}
+
 # ids of the reference's pool the port does not serve yet, each with the
 # ROADMAP.md item that ports it
 NOT_PORTED: dict = {}
 
 
 def list_archs() -> tuple:
-    """The ids :func:`get_config` takes."""
+    """The language-model ids of :func:`get_config` (the tinyml ids,
+    ``TINYML_IDS``, resolve too)."""
     return ARCH_IDS
 
 
-def get_config(arch_id: str) -> ArchConfig:
+def get_config(arch_id: str):
+    """The ``ArchConfig`` of a language-model id, or the ``TinyConfig`` of
+    a tinyml id."""
     if arch_id in NOT_PORTED:
         raise NotImplementedError(
             f"{arch_id!r} is not served by the port yet: ROADMAP.md "
             f"{NOT_PORTED[arch_id]}")
-    if arch_id not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {list(ARCH_IDS)}")
-    mod = importlib.import_module(
-        "repro_torch.configs." + arch_id.replace("-", "_").replace(".", "_"))
-    return mod.CONFIG
+    if arch_id not in _MODULE_FOR:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULE_FOR)}")
+    return importlib.import_module(_MODULE_FOR[arch_id]).CONFIG

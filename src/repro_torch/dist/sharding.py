@@ -9,8 +9,9 @@ One declarative rule table maps every leaf of the train / serve trees onto
 the (data, model) mesh:
 
 * **column-parallel** weights ``(c_out, c_in)`` put c_out on ``model``; the
-  c_in axis is FSDP-sharded on ``data`` only when the leaf is large enough
-  (>= ``FSDP_MIN_SIZE`` elements) for the gather to amortize.
+  c_in axis is FSDP-sharded on ``data`` only when ``fsdp`` is on and the
+  leaf is large enough (>= ``FSDP_MIN_SIZE`` elements) for the gather to
+  amortize.
 * **row-parallel** weights (``w_down``/``wo``/``out_proj``) put c_in on
   ``model`` and FSDP c_out on ``data``.
 * **MoE expert** stacks ``(L, E, c_out, c_in)`` put experts on ``model``
@@ -58,9 +59,10 @@ _AXIS_OF = {"D": "data", "M": "model", None: None}
 
 _state = threading.local()
 
-# The reference's defaults, the only settings any ported caller uses: FSDP
-# on for leaves of at least this many elements, no sequence sharding of the
-# caches, experts on ``model`` alone.
+# The reference's defaults, the only settings any ported caller uses but
+# ``fsdp`` (the dry run's ``--no-fsdp``): FSDP for leaves of at least this
+# many elements, no sequence sharding of the caches, experts on ``model``
+# alone.
 FSDP_MIN_SIZE = 1 << 20
 
 
@@ -131,10 +133,12 @@ def _shape(leaf) -> tuple:
 
 
 class ShardingRules:
-    """Path-pattern -> spec engine for one mesh."""
+    """Path-pattern -> spec engine for one mesh; ``fsdp`` gates the
+    ``data`` axis of large weights."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, fsdp: bool = True):
         self.mesh = mesh
+        self.fsdp = fsdp
         self.decisions: list[Decision] = []
 
     # Token-level axis size; tests monkeypatch this to simulate big meshes.
@@ -164,7 +168,7 @@ class ShardingRules:
         big = 1
         for d in shape:
             big *= d
-        fsdp_on = big >= FSDP_MIN_SIZE
+        fsdp_on = self.fsdp and big >= FSDP_MIN_SIZE
 
         in_cache = "caches" in parts or leaf in _CACHE_LEAVES
         if in_cache and len(shape) >= 4:

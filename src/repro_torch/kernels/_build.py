@@ -102,11 +102,24 @@ def build_all(sources=tuple(SIGNATURES)) -> dict:
             for src in sources}
 
 
+def is_fake(t) -> bool:
+    """Whether ``t`` is a fake tensor (``FakeTensorMode``: a shape, a dtype
+    and a device, no data).  A kernel wrapper given one checks it as it
+    checks a card's tensor (:func:`check_cuda`), then returns its output
+    uninitialized, as the kernel allocates it, and launches nothing: the
+    analysis route of ``launch/costs.py``, never a fall-back for a real
+    tensor."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
 def check_cuda(name: str, tensors: dict, dtypes: dict) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor of its dtype:
-    a kernel reads raw pointers and would read the wrong bytes."""
+    a kernel reads raw pointers and would read the wrong bytes.  A fake
+    tensor is held to its dtype and contiguity alone (the dry run places
+    its fake trees on ``meta`` where torch has no CUDA)."""
     for key, t in tensors.items():
-        if t.device.type != "cuda":
+        if t.device.type != "cuda" and not is_fake(t):
             raise ValueError(f"{name}: {key} is on {t.device}, expected cuda")
         if t.dtype != dtypes[key]:
             raise TypeError(f"{name}: {key} is {t.dtype}, expected {dtypes[key]}")

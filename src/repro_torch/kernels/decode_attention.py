@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core import quantizers as qz
 from repro_torch.kernels import _build
+from repro_torch.kernels import costs
 from repro_torch.models import kv_quant as kvq
 
 MAX_GROUPS = 4          # channel groups the kernel takes
@@ -135,6 +136,7 @@ def decode_attention_plain(q, k_packed, k_scales, v_packed, v_scales, pos,
     return attend(q, kf, vf, pos, out_dtype)
 
 
+@costs.charged_as("decode_attention", costs.k4_cost)
 def decode_attention(q, k_packed, k_scales, v_packed, v_scales, pos,
                      bits: tuple, sizes: tuple,
                      out_dtype=torch.bfloat16) -> torch.Tensor:
@@ -172,6 +174,8 @@ def decode_attention(q, k_packed, k_scales, v_packed, v_scales, pos,
                            v_scales=v_scales, pos=pos),
                       dict(q=q.dtype, k_packed=torch.uint8, k_scales=torch.float32,
                            v_packed=torch.uint8, v_scales=torch.float32, pos=torch.int32))
+    if _build.is_fake(q):
+        return q.new_empty((B, KV, rep, hd), dtype=out_dtype)
     out = torch.empty((B, KV, rep, hd), dtype=out_dtype, device=q.device)
     if out.numel() == 0:
         return out

@@ -63,6 +63,8 @@ def fused_mix_2d(w: torch.Tensor, gamma_hat: torch.Tensor, alpha: torch.Tensor,
         raise TypeError(f"fused_mix_2d: w is {w.dtype}, expected one of {W_DTYPES}")
     _build.check_cuda("fused_mix_2d", dict(w=w, gamma_hat=gamma_hat, alpha=alpha),
                       dict(w=w.dtype, gamma_hat=torch.float32, alpha=torch.float32))
+    if _build.is_fake(w):
+        return w.new_empty(w.shape, dtype=torch.float32)
     N, K = w.shape
     out = torch.empty((N, K), dtype=torch.float32, device=w.device)
     if N == 0 or K == 0:

@@ -35,6 +35,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import costs
 
 # K ceiling for exact int32 accumulation: K * 127 * 127 <= 2^31 - 1.
 K_INT32_EXACT_MAX = (2 ** 31 - 1) // (127 * 127)
@@ -234,6 +235,7 @@ def _split_buffers(device: torch.device, stream: int, ints: int, tiles: int) -> 
     return ws, counters
 
 
+@costs.charged_as("scaled_int8_mm", costs.k5_cost)
 def scaled_int8_mm(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
                    sb: torch.Tensor, backend: str = "cuda") -> torch.Tensor:
     """``a_i8 (M, K) @ b_i8 (N, K)^T * sa[:, None] * sb[None, :] -> f32``.
@@ -269,6 +271,8 @@ def scaled_int8_mm(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
                          f"match M={M}, N={N}")
     _build.check_cuda("scaled_int8_mm", dict(a=a, b=b, sa=sa, sb=sb),
                       dict(a=torch.int8, b=torch.int8, sa=torch.float32, sb=torch.float32))
+    if _build.is_fake(a):
+        return a.new_empty((M, N), dtype=torch.float32)
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     if M == 0 or N == 0:
         return out

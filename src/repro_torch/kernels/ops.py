@@ -32,6 +32,11 @@ and clear the ``launches`` int of each kernel wrapper (and the
 by :func:`mma_launch_counts`); :func:`count_launches` counts one call's.  A
 sharded wrapper counts each shard launch that its kernel's wrapper
 counted.
+
+Cost hooks: inside a ``launch/costs.CostCounter`` each kernel API function
+below (and ``decode_attention``, ``scaled_int8_mm``) is charged once a call
+by its kernel's formula (``kernels/costs.py``: ``k1_cost`` ... ``k6_cost``,
+``charged_as``), and the ops it runs are not counted again.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ from repro_torch.kernels import fake_quant as fqk
 from repro_torch.kernels import int8_matmul as imk
 from repro_torch.kernels import quant_conv as qc
 from repro_torch.kernels import quant_matmul as qmk
+from repro_torch.kernels import costs
 
 KERNEL_WRAPPERS = {
     "quant_matmul_fused": qmk.quant_matmul_fused_2d,
@@ -115,6 +121,7 @@ def check_experts(x: torch.Tensor, E: int) -> None:
                          f"(E, ..., c_in); got {tuple(x.shape)}")
 
 
+@costs.charged_as("quant_matmul", costs.k2_cost)
 def quant_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                  bits: int, c_in: int, compute_dtype=torch.float32,
                  out_dtype=torch.float32) -> torch.Tensor:
@@ -144,6 +151,7 @@ def quant_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     return y.to(out_dtype).reshape(*lead, n)
 
 
+@costs.charged_as("quant_matmul_fused", costs.k1_cost)
 def quant_matmul_fused(x: torch.Tensor, fused_packed: torch.Tensor,
                        fused_table: torch.Tensor, fused_scales: torch.Tensor,
                        fused_perm: Optional[torch.Tensor], tile_bits: tuple,
@@ -169,6 +177,7 @@ def quant_matmul_fused(x: torch.Tensor, fused_packed: torch.Tensor,
     return y.to(out_dtype).reshape(*lead, c_out)
 
 
+@costs.charged_as("quant_matmul_fused_batched", costs.k3_cost)
 def quant_matmul_fused_batched(x: torch.Tensor, fused_packed: torch.Tensor,
                                fused_table: torch.Tensor, fused_scales: torch.Tensor,
                                fused_perm: Optional[torch.Tensor], tile_bits: tuple,
@@ -229,6 +238,7 @@ def ep_shards(fused_packed: torch.Tensor, fused_table: torch.Tensor,
                   fused_scales[m * n:(m + 1) * n].to(d)) for m, d in enumerate(devices))
 
 
+@costs.charged_as("quant_matmul_fused_tp", costs.k1_tp_cost)
 def quant_matmul_fused_tp(x: torch.Tensor, shards: tuple, fused_perm: Optional[torch.Tensor],
                           tile_bits: tuple, tile_n: int, c_in: int, c_out: int,
                           compute_dtype=torch.float32, out_dtype=torch.float32) -> torch.Tensor:
@@ -257,6 +267,7 @@ def quant_matmul_fused_tp(x: torch.Tensor, shards: tuple, fused_perm: Optional[t
 quant_matmul_fused_tp.launches = 0
 
 
+@costs.charged_as("quant_matmul_fused_batched_ep", costs.k3_ep_cost)
 def quant_matmul_fused_batched_ep(x: torch.Tensor, shards: tuple,
                                   fused_perm: Optional[torch.Tensor], tile_bits: tuple,
                                   tile_n: int, c_in: int, c_out: int,
@@ -331,6 +342,7 @@ def qtensor_conv2d(x: torch.Tensor, qt, stride=1, padding: str = "SAME",
                      backend="cuda", compute_dtype=out_dtype)
 
 
+@costs.charged_as("fused_mix", costs.k6_cost)
 def fused_mix(w: torch.Tensor, gamma_hat: torch.Tensor, alpha: torch.Tensor,
               bitwidths=(2, 4, 8)) -> torch.Tensor:
     """The fused Eq. 5 weight mixture of ``w (N, K)``: one launch of the

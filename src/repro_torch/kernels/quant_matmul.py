@@ -325,6 +325,8 @@ def quant_matmul_fused_2d(x: torch.Tensor, fused_packed: torch.Tensor,
                      scales=fused_scales),
                 dict(x=torch.bfloat16 if mma else torch.float32, packed=torch.uint8,
                      table=torch.int32, scales=torch.float32))
+    if _build.is_fake(x):
+        return x.new_empty((M, T * tile_n), dtype=torch.float32)
     out = torch.empty((M, T * tile_n), dtype=torch.float32, device=x.device)
     if M == 0:
         return out
@@ -382,6 +384,8 @@ def quant_matmul_2d(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     _build.check_cuda("quant_matmul_2d", dict(x=x, packed=packed, scale=scale),
                       dict(x=torch.bfloat16 if mma else torch.float32, packed=torch.uint8,
                            scale=torch.float32))
+    if _build.is_fake(x):
+        return x.new_empty(x.shape[:-1] + (N,), dtype=torch.float32)
     out = torch.empty(x.shape[:-1] + (N,), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0 or E == 0:
         return out
@@ -448,6 +452,8 @@ def quant_matmul_fused_3d(x: torch.Tensor, fused_packed: torch.Tensor,
                       dict(x=x, packed=fused_packed, table=fused_table_, scales=fused_scales),
                       dict(x=torch.bfloat16 if mma else torch.float32, packed=torch.uint8,
                            table=torch.int32, scales=torch.float32))
+    if _build.is_fake(x):
+        return x.new_empty((E, M, T * tile_n), dtype=torch.float32)
     out = torch.empty((E, M, T * tile_n), dtype=torch.float32, device=x.device)
     if M == 0 or E == 0:
         return out

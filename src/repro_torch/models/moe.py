@@ -75,7 +75,11 @@ def dispatch_indices(experts: torch.Tensor, n_experts: int, capacity: int) -> tu
     experts = experts.to(torch.int64)
     order = torch.argsort(experts, stable=True)
     sorted_e = experts[order]
-    counts = torch.bincount(experts, minlength=n_experts)
+    # the ids' counts, (n_experts,) whatever the ids: a static shape (bincount's
+    # depends on the largest id, so the card reads it back and a fake tensor
+    # has none)
+    counts = torch.zeros(n_experts, dtype=torch.int64, device=experts.device).scatter_add_(
+        0, experts, torch.ones_like(experts))
     starts = torch.cumsum(counts, 0) - counts                    # exclusive
     rank = torch.arange(n, device=experts.device) - starts[sorted_e]
     keep_sorted = rank < capacity

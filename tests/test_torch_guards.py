@@ -1,8 +1,8 @@
 """Structural guards of the PyTorch port.
 
-* No module of ``src/repro_torch/`` or ``bench_torch/``, and not
-  ``chip_smoke.py``, imports ``jax`` or the reference package ``repro``
-  (an AST scan of every import).
+* No module of ``src/repro_torch/``, ``bench_torch/`` or
+  ``examples_torch/``, and not ``chip_smoke.py``, imports ``jax`` or the
+  reference package ``repro`` (an AST scan of every import).
 * The engine and the search driver run on the card unless asked otherwise:
   with no CUDA device, ``Engine.for_tinyml(cfg)``, ``SearchDriver(...)`` and
   ``run_search(...)`` raise instead of carrying on on the CPU.
@@ -36,7 +36,8 @@ from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-              + sorted((ROOT / "bench_torch").glob("*.py")) + [ROOT / "chip_smoke.py"])
+              + sorted((ROOT / "bench_torch").glob("*.py"))
+              + sorted((ROOT / "examples_torch").glob("*.py")) + [ROOT / "chip_smoke.py"])
 
 
 def _imported_roots(path: Path) -> set:
@@ -169,3 +170,68 @@ def test_deployed_sites_and_depthwise_layout():
 def test_unknown_backend_raises():
     with pytest.raises(ValueError):
         PrecisionPolicy.deployed("pallas")
+
+
+def test_shape_only_route_is_for_fake_tensors_alone():
+    """A kernel wrapper returns its output shape-only, launching nothing,
+    for a FakeTensor alone (``launch/costs.py``'s analysis route): a real
+    tensor off the CPU that is not on the card (``meta``) is refused as a
+    card tensor of the wrong device is, never served by a plain version."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    from repro_torch.kernels import fake_quant as fqk
+    from repro_torch.kernels import int8_matmul as imk
+    from repro_torch.kernels import quant_matmul as qmk
+
+    def calls(dev):
+        x, sc = torch.zeros((4, 40), device=dev), torch.zeros((8,), device=dev)
+        pk = torch.zeros((8, 20), dtype=torch.uint8, device=dev)
+        a, b = torch.zeros((4, 40), dtype=torch.int8, device=dev), \
+            torch.zeros((8, 40), dtype=torch.int8, device=dev)
+        w, g, al = torch.zeros((8, 40), device=dev), torch.zeros((8, 3), device=dev), \
+            torch.ones((8,), device=dev)
+        return ((lambda: qmk.quant_matmul_2d(x, pk, sc, 4), (4, 8)),
+                (lambda: imk.scaled_int8_mm(a, b, sc[:4], sc), (4, 8)),
+                (lambda: fqk.fused_mix_2d(w, g, al), (8, 40)))
+
+    for fn, _ in calls("meta"):
+        with pytest.raises(ValueError, match="expected cuda"):
+            fn()
+    ops.reset_launch_counts()
+    with FakeTensorMode():
+        for fn, shape in calls("meta"):
+            y = fn()
+            assert isinstance(y, FakeTensor) and tuple(y.shape) == shape
+    assert sum(ops.launch_counts().values()) == 0
+
+
+def _bad_fake_call(case):
+    from repro_torch.kernels import fake_quant as fqk
+    from repro_torch.kernels import int8_matmul as imk
+    from repro_torch.kernels import quant_matmul as qmk
+    x, sc = torch.zeros((4, 40), device="meta"), torch.zeros((8,), device="meta")
+    pk = torch.zeros((8, 20), dtype=torch.uint8, device="meta")
+    a, b = torch.zeros((4, 40), dtype=torch.int8, device="meta"), \
+        torch.zeros((8, 40), dtype=torch.int8, device="meta")
+    w, g, al = torch.zeros((8, 40), device="meta"), torch.zeros((8, 3), device="meta"), \
+        torch.ones((8,), device="meta")
+    return {
+        "k2-x-view": lambda: qmk.quant_matmul_2d(torch.zeros((40, 4), device="meta").t(),
+                                                 pk, sc, 4),
+        "k2-packed-int8": lambda: qmk.quant_matmul_2d(x, pk.to(torch.int8), sc, 4),
+        "k5-scale-view": lambda: imk.scaled_int8_mm(a, b, torch.zeros((8,), device="meta")[::2],
+                                                    sc),
+        "k6-alpha-f64": lambda: fqk.fused_mix_2d(w, g, al.double()),
+    }[case]
+
+
+@pytest.mark.parametrize("case,err", [("k2-x-view", ValueError), ("k2-packed-int8", TypeError),
+                                      ("k5-scale-view", ValueError), ("k6-alpha-f64", TypeError)])
+def test_fake_tensors_are_checked_as_card_tensors(case, err):
+    """A fake tensor that the kernel could not read (a strided view, the
+    wrong dtype) is refused as a card tensor is, before the shape-only
+    output: the dry run counts no call that would raise on the card."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    ops.reset_launch_counts()
+    with FakeTensorMode(), pytest.raises(err):
+        _bad_fake_call(case)()
+    assert sum(ops.launch_counts().values()) == 0
