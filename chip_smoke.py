@@ -387,35 +387,60 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    verify within 2^-5 x max(1, max|y|) of 3 sequential steps (its f32
    router is a library ``matmul``, whose sums may follow M); K2's expert
    axis over a verify (capacity 12) on both plans.
-[mesh] Mesh serving, at the end of phase 4d: the same deepseek-v3-671b
-   (full width, 2 layers, 256 experts) on ``launch/mesh.make_test_mesh(2,
-   4, devices=[card] * 8)``, eight mesh positions on the one card, so
-   every shard of a sharded weight is launched on its own, one after the
-   other, and nothing is saved: ``ServingEngine(mesh=...)`` places the
-   weights (``dist/sharding.MeshContext.put_params``: a QTensor's fused
-   buffer in whole N-tiles (TP) or whole experts (EP) on the four model
-   positions, as views, and everything else whole on the first; the
-   placement may add at most ``MESH_PLACE_EXTRA`` bytes) and runs every
-   model call inside ``serving_mesh``.  (a) The default mixed deployment
-   on the 4d trace at kv None (dense rings): tokens equal the 4d run's,
-   every step's launches held to ``mesh_launches`` of the placed weights
-   (``we_down``: K3 once per expert shard, ``quant_matmul_fused_batched_ep``), and the same
-   engine without a mesh beside it; (b) the uniform 4-bit
+[mesh] Mesh serving on ``launch/mesh.make_test_mesh(2, 4, devices=[card] *
+   8)``, eight mesh positions on the one card, so every shard of a sharded
+   weight and every data row's cache work is launched on its own, one
+   after the other, and nothing is saved: ``ServingEngine(mesh=...)``
+   places the weights (``dist/sharding.MeshContext.put_params``: a
+   QTensor keeps only its fused buffer's whole N-tiles (TP) or whole
+   experts (EP) on the four model positions, views of the buffer since
+   every position is the card; each data row a copy of MLA's ``wkv_b``,
+   the first row's own tensors here; everything else on the first
+   position; the placement may add at most ``MESH_PLACE_EXTRA`` bytes) and
+   the caches (``put_caches``: each leaf a block of slots or pages a data
+   row, a tensor of its own), and runs every model call inside
+   ``serving_mesh``: the work that reads or writes a cache on each row
+   over its slots, the rest on the first position.  The qwen part runs at
+   the end of 4c on its tree: qwen1.5-4b at full width, 4 of its layers
+   (``MESH_QWEN_LAYERS``), paged at kv (2, 4, 8) with prefix sharing on the
+   shared-prefix trace, beside the same layers without a mesh: tokens and
+   schedule equal, every step's launches held (a decode step K4 once a
+   layer and data row), every cache leaf on the rows, the cross-row page
+   bytes and each position's bytes reported; K4 over each row's slots of
+   one captured layer input bitwise its slice of the whole launch when
+   planned for the whole batch (``decode_attention(plan_slots=)``); the
+   decode step with and without the mesh timed interleaved.  The deepseek
+   part runs at the end of phase 4d on the same deepseek-v3-671b (full
+   width, 2 layers, 256 experts).  (a) The default mixed deployment on
+   the 4d trace at kv None (dense rings): tokens equal the 4d run's, every
+   step's launches held to ``mesh_launches`` of the placed weights
+   (``we_down``: K3 once per expert shard, ``quant_matmul_fused_batched_ep``;
+   a decode step each data row's ``wkv_b`` too), no whole fused buffer
+   beside a sharded QTensor's shards, every cache leaf on the rows, and
+   the same engine without a mesh beside it; (b) the uniform 4-bit
    ``serving.draft_model``: the same, with K1 once per N-tile shard
    (``quant_matmul_fused_tp``: ``wq_b``, ``wkv_b`` and the shared
-   ``w_down``, the linears with a fused layout); (c) each sharded wrapper once at a decode shape and at M
-   40 (``wkv_b`` of (b), ``we_down`` of (a)): bitwise the unsharded launch
-   and within K1's and K3's bounds of the plain version, CUDA-event ms
-   beside the unsharded launch's; (d) at capacity factor 64 (no expert
-   drops, so a request's rows do not depend on its batch), all requests
-   submitted at once and ``fail_host(1)`` after the first tick: one
-   drain, requests requeued, host 1's slots dead, every request complete
-   with the tokens of the run without a failure.  Reported (``[mesh]``
-   lines, each labelled with ``MESH_LABEL`` and the card): the
-   ``explain()`` decisions counted by rule, each case's wall time and its
-   prefill and decode-step ms beside the engine without a mesh (host
-   clock, medians), shard launches a step, peak memory.  The counts of the
-   mesh engines' runs go to K1's, K2's and K3's ``launches_by_path``.
+   ``w_down``, the linears with a fused layout); (c) each sharded wrapper
+   once at a decode shape and at M 40 (``wkv_b`` of (b), ``we_down`` of
+   (a)): bitwise the unsharded launch of the unplaced weight and within
+   K1's and K3's bounds of the plain version, CUDA-event ms beside the
+   unsharded launch's; (d) at capacity factor 64 (no expert drops, so a
+   request's rows do not depend on its batch), all requests submitted at
+   once and ``fail_host(1)`` after the first tick: one drain, requests
+   requeued, host 1's slots dead, every request complete with the tokens
+   of the run without a failure; (e) ``wkv_b`` over each data row's
+   slots' latents (M 1024) bitwise its slice of the whole batch's (M
+   2048), in (a) and (b), and MLA's two attention ``einsum``s over a row's
+   slots padded to the whole batch bitwise their slices (as they are:
+   reported, since cuBLAS picks its kernel by the batch count); (f) the
+   decode step with and without the mesh timed interleaved.  Reported (``[mesh]`` lines, each labelled with
+   ``MESH_LABEL`` and the card): the ``explain()`` decisions counted by
+   rule, each case's wall time and its prefill and decode-step ms beside
+   the engine without a mesh (host clock, medians), shard launches a
+   step, each position's bytes as on distinct cards
+   (``MeshContext.placement_bytes``: weights, shards, caches), peak
+   memory.  The counts of the mesh engines' runs go to K1's, K2's, K3's
+   and K4's ``launches_by_path``.
 [train] The LM training path (after 3g): minicpm-2b
    (arXiv 2404.06395) at full width and all 40 layers (2304 wide, 36 heads
    of 64, d_ff 5760, vocab 122753 padded to 122880; 3.0 B params) from
@@ -909,9 +934,11 @@ class LMGates:
         check(next(feed, None) is None, "the plain block did not quantize k and v")
         return y_ref
 
-    def _decode_attention(self, q, kp, ks, vp, vs, pos, bits, sizes, out_dtype=torch.bfloat16):
+    def _decode_attention(self, q, kp, ks, vp, vs, pos, bits, sizes, out_dtype=torch.bfloat16,
+                          plan_slots=None):
         datt, kvq = self.datt, self.kvq
-        out = self._orig["decode_attention"](q, kp, ks, vp, vs, pos, bits, sizes, out_dtype)
+        out = self._orig["decode_attention"](q, kp, ks, vp, vs, pos, bits, sizes, out_dtype,
+                                             plan_slots=plan_slots)
         if self.on:
             ref = datt.decode_attention_plain(q, kp, ks, vp, vs, pos, bits, sizes, out_dtype)
             spec = kvq.KVQuantSpec(tuple(bits), tuple(sizes))
@@ -1147,6 +1174,9 @@ def lm_serving(dev, card, ops, gen):
         dev, card, ops, cfg, dparams, reqs, arrivals, tokens[("cuda", SPEC_KV)],
         report["paged"]["bit_identity"], groups_per_step, gen)
 
+    # -- [mesh], qwen part: 4 of these layers on a (2, 4) mesh ---------------------
+    report["mesh"], mesh_launches_, mesh_mma = mesh_qwen(dev, card, ops, cfg, dparams, gen)
+
     # the reference's acceptance pin: on the plain backend the packed 8-bit
     # cache gives the int8-per-token cache's tokens
     for kv_bits in (None, 8):
@@ -1359,7 +1389,8 @@ def lm_serving(dev, card, ops, gen):
               max_abs_err=max(r["max_abs_err"] for r in k2_rows),
               prefill=dict((k, k2_prefill[k]) for k in ("k2_ms", "simt_ms", "library_ms",
                                                           "bound_ms", "bound_by")))
-    return report, k2, k4, paged_launches, paged_mma, spec_launches, spec_mma
+    return (report, k2, k4, paged_launches, paged_mma, spec_launches, spec_mma, mesh_launches_,
+            mesh_mma)
 
 
 # ---------------------------------------------------------------------------
@@ -3156,7 +3187,11 @@ def moe_spec(dev, card, ops, cfg, dparams, reqs, arrivals, gen):
 
 MESH_SHAPE = (2, 4)          # (data, model): the reference's 8-way test mesh
 MESH_LABEL = "8 mesh positions on one H100"
-MESH_PLACE_EXTRA = 1 << 26   # bytes the placement may add (tables; shards are views)
+# bytes the weights' placement may add: the shards' tables (every position is
+# the card, so the shards are views of the whole buffers and each data row's
+# copy of wkv_b is the first row's own tensors)
+MESH_PLACE_EXTRA = 1 << 26
+MESH_QWEN_LAYERS = 4         # qwen1.5-4b on the mesh: 4 of the 4c tree's layers
 
 
 def mesh_launches(linears, stacks) -> tuple:
@@ -3168,13 +3203,13 @@ def mesh_launches(linears, stacks) -> tuple:
     from repro_torch.core import quantizers as qz
     from repro_torch.kernels import quant_matmul as qmk
     bf = torch.bfloat16
-    fused = [qt for qt in linears if qt.fused_packed is not None]
-    fused3 = [qt for qt in stacks if qt.fused_packed is not None]
+    fused = [qt for qt in linears if qt.is_fused]
+    fused3 = [qt for qt in stacks if qt.is_fused]
 
     def shards(qt) -> int:
         return 1 if qt.fused_shards is None else len(qt.fused_shards)
     n1, n3 = [shards(qt) for qt in fused], [shards(qt) for qt in fused3]
-    groups = [(b, p) for qt in linears + stacks if qt.fused_packed is None
+    groups = [(b, p) for qt in linears + stacks if not qt.is_fused
               for b, p in zip(qt.bits, qt.packed)]
     want = {"quant_matmul_fused": sum(n1), "quant_matmul": len(groups),
             "quant_matmul_fused_batched": sum(n3), "scaled_int8_mm": 0,
@@ -3193,15 +3228,319 @@ def mesh_launches(linears, stacks) -> tuple:
     return want, mma
 
 
-def _ds_sites(dparams) -> tuple:
+def _ds_sites(dparams, decode=False) -> tuple:
     """deepseek's per-step linears (MLA, the shared expert, the lm_head)
-    and its expert stacks."""
+    and its expert stacks; ``decode``: a decode step's, where each data
+    row past the first expands its own latents through its copy of
+    ``wkv_b`` (``MeshContext.put_params``)."""
+    from repro_torch.dist import sharding as shd
     layers = dparams["blocks"]
-    linears = [dl["w"] for blk in layers for dl in blk["attn"].values() if "w" in dl]
+    linears = [dl["w"] for blk in layers for name, dl in blk["attn"].items()
+               if name != shd.ROWS and "w" in dl]
+    if decode:
+        linears += [rc["wkv_b"]["w"] for blk in layers for rc in blk["attn"].get(shd.ROWS, ())[1:]]
     linears += [dl["w"] for blk in layers for dl in blk["ffn"]["shared"].values()]
     linears.append(dparams["lm_head"]["w"])
     stacks = [blk["ffn"][n]["w"] for blk in layers for n in ("we_gate", "we_up", "we_down")]
     return linears, stacks
+
+
+def placement_report(ctx, weights, caches) -> dict:
+    """``MeshContext.placement_bytes`` per position ``"(r, m)"``, as on
+    distinct cards: the weights but their fused shards, the shards, the
+    caches."""
+    w = ctx.placement_bytes(weights, shards=False)
+    sh = ctx.placement_bytes(weights, shards=True)
+    c = ctx.placement_bytes(caches)
+    return {f"({r}, {m})": dict(weights=int(w[r, m]), shards=int(sh[r, m]), caches=int(c[r, m]))
+            for r in range(ctx.data) for m in range(ctx.model)}
+
+
+def wkv_b_rows(ctx, tag, placed, tree, dev, gen, label) -> dict:
+    """deepseek's latent expansion on the data rows: ``wkv_b`` over the
+    whole batch's ``DS_SLOTS x DS_MAX_LEN`` cached latents (K1, or its TP
+    shards, on the first row's weights) and over each row's slots (on the
+    row's copy), inside ``serving_mesh``: each row bitwise its slice
+    (gated), and both bitwise the unplaced tree's launch outside the mesh;
+    CUDA-event ms of the whole launch and of the rows' launches."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import quant_matmul as qmk
+    from repro_torch.models import serving
+    attn_p, attn_u = placed["blocks"][0]["attn"], tree["blocks"][0]["attn"]
+    qt = attn_p["wkv_b"]["w"]
+    x = torch.from_numpy(gen.standard_normal((DS_SLOTS, DS_MAX_LEN, qt.c_in))
+                         .astype(np.float32)).to(dev).to(torch.bfloat16)
+    rows = [(r, slice(*fault_slots(r)), ctx.position(r, 0)) for r in range(ctx.data)]
+
+    def whole():
+        with shd.serving_mesh(ctx):
+            return serving.dq_linear(x, attn_p["wkv_b"])
+
+    def per_row():
+        with shd.serving_mesh(ctx):
+            return [serving.dq_linear(x[sl].to(d), shd.row_params(attn_p, r)["wkv_b"])
+                    for r, sl, d in rows]
+    y, parts = whole(), per_row()
+    y_u = serving.dq_linear(x, attn_u["wkv_b"])
+    rep = dict(site=f"wkv_b {tag}", tp_shards=0 if qt.fused_shards is None else len(qt.fused_shards),
+               M_whole=DS_SLOTS * DS_MAX_LEN,
+               M_row=[(sl.stop - sl.start) * DS_MAX_LEN for _, sl, _ in rows],
+               plan_whole=list(qmk.mma_plan(DS_SLOTS * DS_MAX_LEN)),
+               plan_row=list(qmk.mma_plan((rows[0][1].stop - rows[0][1].start) * DS_MAX_LEN)),
+               rows_bitwise_their_slices=all(torch.equal(part, y[sl])
+                                             for part, (_, sl, _) in zip(parts, rows)),
+               bitwise_unplaced=torch.equal(y, y_u),
+               whole_ms=cuda_ms(whole, iters=10), rows_ms=cuda_ms(per_row, iters=10))
+    check(rep["rows_bitwise_their_slices"] and rep["bitwise_unplaced"],
+          f"[mesh] (e) wkv_b per row off its slice of the whole launch: {rep}")
+    log("[mesh] (e) " + json.dumps(rep) + f" | CUDA events, {label}")
+    return rep
+
+
+def library_rows(cfg, dev, gen, label) -> dict:
+    """MLA's two attention ``einsum``s (cuBLAS) at deepseek's decode shape
+    (``DS_SLOTS`` slots, ``DS_MAX_LEN`` cached tokens, every head), run
+    over each data row's slots as they are and padded to the whole batch
+    (``sharding.pad_rows``, what the mesh path runs), each against its
+    slice of the whole batch's product: padded bitwise (gated), as they
+    are reported."""
+    from repro_torch.dist import sharding as shd
+    H, nope, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+
+    def rand(*shape):
+        return torch.from_numpy(gen.standard_normal(shape).astype(np.float32)).to(dev)
+    q, k = rand(DS_SLOTS, 1, H, nope), rand(DS_SLOTS, DS_MAX_LEN, H, nope)
+    w = torch.softmax(rand(DS_SLOTS, H, 1, DS_MAX_LEN), -1)
+    v = rand(DS_SLOTS, DS_MAX_LEN, H, vd)
+    products = {"score": ("bqhn,bkhn->bhqk", q, k), "value": ("bhqk,bkhv->bqhv", w, v)}
+    rep = {}
+    for name, (eq, a, b) in products.items():
+        whole = torch.einsum(eq, a, b)
+        rows = [slice(*fault_slots(r)) for r in range(MESH_SHAPE[0])]
+        rep[f"{name}_rows_bitwise"] = all(torch.equal(torch.einsum(eq, a[sl], b[sl]), whole[sl])
+                                          for sl in rows)
+        rep[f"{name}_padded_rows_bitwise"] = all(
+            torch.equal(torch.einsum(eq, shd.pad_rows(a[sl], DS_SLOTS),
+                                     shd.pad_rows(b[sl], DS_SLOTS))[:sl.stop - sl.start],
+                        whole[sl]) for sl in rows)
+    check(rep["score_padded_rows_bitwise"] and rep["value_padded_rows_bitwise"],
+          f"[mesh] MLA's products padded to the whole batch off their slices: {rep}")
+    log("[mesh] (e) MLA's einsums over each data row's slots, against the whole batch's: "
+        + json.dumps(rep) + f" (as they are: reported; padded to the whole batch: gated) | {label}")
+    return rep
+
+
+def fault_slots(r: int) -> tuple:
+    """``(start, stop)`` of data row ``r``'s slots (``fault.owned_slots``)."""
+    from repro_torch.dist import fault
+    own = fault.owned_slots(r, DS_SLOTS, MESH_SHAPE[0])
+    return own[0], own[-1] + 1
+
+
+def mesh_step_times(tag, dev, cfg, tree, ctx, kv_bits, page_size, slots, max_len, pos,
+                    label) -> dict:
+    """One decode step (every slot at ``pos``) of the engine's path without
+    a mesh and on ``ctx``'s mesh (the weights placed, the caches on the
+    data rows, the step inside ``serving_mesh``), timed interleaved in this
+    process in ``PAGED_STEP_PAIRS`` alternating pairs (host clock around
+    the step and a synchronize, medians), each also profiled once (device
+    busy ms and device launches); the two steps' logits equal (gated).
+    Paged (``page_size``): slot ``b``'s page ``j`` is ``1 + j * slots + b``,
+    so each slot's pages alternate between the rows, and the bytes a mesh
+    step moves between rows are reported."""
+    from repro_torch.cache import paged
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import serving
+    placed = ctx.put_params(tree)
+    pages = None
+    if page_size is None:
+        def make():
+            return serving.init_caches(cfg, slots, max_len, kv_bits, dev)
+    else:
+        pps = max_len // page_size
+        n = 1 + slots * pps
+        n += (-n) % ctx.data
+
+        def make():
+            return serving.init_paged_caches(cfg, slots, n, page_size, kv_bits, dev)
+        pages = (1 + torch.arange(pps, device=dev)[None, :] * slots
+                 + torch.arange(slots, device=dev)[:, None])
+    caches = {"without_mesh": make(), "mesh": ctx.put_caches(make())}
+    toks = torch.zeros((slots, 1), dtype=torch.int64, device=dev)
+    p = torch.full((slots,), pos, dtype=torch.int32, device=dev)
+
+    def step(name):
+        if name == "mesh":
+            with shd.serving_mesh(ctx):
+                return serving.decode_step(placed, cfg, toks, caches[name], p, "cuda",
+                                           kv_bits=kv_bits, pages=pages, page_size=page_size)[0]
+        return serving.decode_step(tree, cfg, toks, caches[name], p, "cuda", kv_bits=kv_bits,
+                                   pages=pages, page_size=page_size)[0]
+    names = ("without_mesh", "mesh")
+    was = paged.cross_row_bytes
+    logits = {name: step(name) for name in names}              # warm-up
+    moved = paged.cross_row_bytes - was
+    check(torch.equal(logits["mesh"], logits["without_mesh"]),
+          f"[mesh] {tag}: the mesh decode step's logits != the step without a mesh")
+    times = {name: [] for name in names}
+    for i in range(PAGED_STEP_PAIRS):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(name)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    rep = dict(pos=pos, page_size=page_size, kv_bits=str(kv_bits), pairs=PAGED_STEP_PAIRS,
+               logits_equal=True, cross_row_bytes_a_step=moved)
+    for name in names:
+        events, profiled_ms = device_kernels(lambda: step(name))
+        rep[f"{name}_step_ms_median"] = statistics.median(times[name])
+        rep[f"{name}_device_busy_ms"] = sum(t for _, t in events) / 1e3
+        rep[f"{name}_launches"] = len(events)
+        rep[f"{name}_profiled_ms"] = profiled_ms
+    log(f"[mesh] {tag} decode step, without a mesh vs on the mesh, interleaved: "
+        + json.dumps(rep) + f" | host clock, {label}")
+    del caches, placed
+    return rep
+
+
+def mesh_qwen(dev, card, ops, cfg, dparams, gen) -> tuple:
+    """[mesh], qwen part (inside phase 4c, on its tree): qwen1.5-4b at full
+    width, ``MESH_QWEN_LAYERS`` of the 4c tree's layers, paged at kv (2,
+    4, 8) with prefix sharing, on the shared-prefix trace, on
+    ``make_test_mesh(2, 4, devices=[card] * 8)`` beside the same layers
+    without a mesh: tokens and schedule equal (gated), every step's
+    launches held (K2 once a group; a decode step K4 once a layer and data
+    row), the caches on the rows, the cross-row page bytes and each
+    position's bytes reported; K4 over each row's slots of one captured
+    layer input bitwise its slice of the whole launch (gated) when planned
+    for the whole batch (``plan_slots``), and whether it is with the row's
+    own plan; the decode step with and without the mesh timed interleaved.
+    Returns the report and the mesh engine's launches (all, on the tensor
+    cores)."""
+    from repro_torch.api.scheduler import ServingEngine
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import decode_attention as datt
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import attention as attn_mod
+    t_phase = time.perf_counter()
+    label = f"{MESH_LABEL} | {card}"
+    qcfg = dataclasses.replace(cfg, n_layers=MESH_QWEN_LAYERS)
+    tree = dict(dparams, blocks=dparams["blocks"][:MESH_QWEN_LAYERS])
+    mesh = make_test_mesh(*MESH_SHAPE, devices=[dev] * (MESH_SHAPE[0] * MESH_SHAPE[1]))
+    ctx = shd.MeshContext(mesh)
+    linears = [dl["w"] for blk in tree["blocks"] for part in ("attn", "ffn")
+               for dl in blk[part].values()] + [tree["lm_head"]["w"]]
+    groups = sum(len(qt.bits) for qt in linears)
+    zero, zero_mma = zero_launches(ops), {k: 0 for k in ops.mma_launch_counts()}
+    k2, k2_mma = dict(zero, quant_matmul=groups), dict(zero_mma, quant_matmul=groups)
+    sreqs, sarr = shared_prefix_trace(qcfg)
+    kw = dict(backend="cuda", max_slots=LM_SLOTS, max_len=LM_MAX_LEN, prefill_len=LM_PREFILL,
+              kv_bits=PAGED_KV, page_size="auto")
+    report = dict(layers=[MESH_QWEN_LAYERS, cfg.n_layers], kv_bits=str(PAGED_KV),
+                  prompts=[len(r.tokens) for r in sreqs])
+    captured = {}
+
+    class Capture:
+        """``models/attention``'s view of the K4 module during the run
+        without a mesh: its 9th ``decode_attention`` call's inputs are kept
+        (one layer input), every call goes to the kernel's wrapper."""
+        calls = 0
+
+        def __getattr__(self, name):
+            return getattr(datt, name)
+
+        def decode_attention(self, *a, **k):
+            Capture.calls += 1
+            if Capture.calls == 9:
+                captured["args"] = a
+            return datt.decode_attention(*a, **k)
+    runs, launched = {}, {}
+    for tag, m, rows in (("without_mesh", None, 1), ("mesh", mesh, MESH_SHAPE[0])):
+        eng = ServingEngine(qcfg, tree, mesh=m, **kw)
+        check(eng.prefix_sharing, "qwen on the mesh shares prefixes")
+        want = {"prefill": (k2, k2_mma), "cached": (zero, zero_mma),
+                "decode": (dict(k2, decode_attention=qcfg.n_layers * rows), k2_mma)}
+        c0, m0 = ops.launch_counts(), ops.mma_launch_counts()
+        t0 = time.perf_counter()
+        if m is None:
+            attn_mod.datt = Capture()
+        try:
+            outs, kinds, _ = counted_run(eng, sreqs, sarr, ops, want)
+        finally:
+            attn_mod.datt = datt
+        runs[tag] = dict(wall_s=time.perf_counter() - t0, steps=kinds, stats=dict(eng.stats),
+                         tokens=[outs[i].tokens.tolist() for i in range(len(sreqs))])
+        launched[tag] = ({k: v - c0[k] for k, v in ops.launch_counts().items()},
+                         {k: v - m0[k] for k, v in ops.mma_launch_counts().items()})
+        if m is not None:
+            report["cache_rows"] = {k: [list(leaf.row(r).shape) for r in range(leaf.n_rows)]
+                                    for k, leaf in eng.caches.items()}
+            check(all(isinstance(leaf, shd.Rows) and leaf.n_rows == MESH_SHAPE[0]
+                      and all(shd.same_device(leaf.row(r).device, ctx.position(r, 0))
+                              for r in range(MESH_SHAPE[0])) for leaf in eng.caches.values()),
+                  "[mesh] qwen: a cache leaf is not on the data rows")
+            report["placement_bytes"] = placement_report(ctx, [eng.dparams], [eng.caches])
+        del eng
+    a, b = runs["without_mesh"], runs["mesh"]
+    same = {k: a["stats"][k] == v for k, v in b["stats"].items() if k != "cross_row_bytes"}
+    report.update(tokens_equal=a["tokens"] == b["tokens"], stats_equal=all(same.values()),
+                  prefix_hits=b["stats"]["prefix_hits"],
+                  cross_row_bytes=b["stats"]["cross_row_bytes"],
+                  decode_steps=b["stats"]["decode_launches"],
+                  mesh=dict(wall_s=b["wall_s"], steps=b["steps"], launches=launched["mesh"][0]),
+                  without_mesh=dict(wall_s=a["wall_s"], steps=a["steps"]))
+    check(report["tokens_equal"] and report["stats_equal"] and report["prefix_hits"] > 0,
+          f"[mesh] qwen: the mesh engine's tokens or schedule != the engine without a mesh: "
+          f"{same}, hits {report['prefix_hits']}")
+    log(f"[mesh] qwen1.5-4b ({MESH_QWEN_LAYERS} of the 4c tree's {cfg.n_layers} layers, paged, kv "
+        f"{PAGED_KV}, prefix sharing, the shared-prefix trace): tokens and schedule equal the "
+        f"engine without a mesh; {report['prefix_hits']} prefix hits; "
+        f"{report['cross_row_bytes']} B of pages crossed rows over "
+        f"{report['decode_steps']} decode steps; caches {json.dumps(report['cache_rows'])}; "
+        f"decode step {b['steps'].get('decode_ms_median', float('nan')):.4f} ms on the mesh, "
+        f"{a['steps'].get('decode_ms_median', float('nan')):.4f} ms without (host clock, "
+        f"medians, not interleaved) | {label}")
+    log(f"[mesh] qwen1.5-4b bytes a position holds, as on distinct cards: "
+        f"{json.dumps(report['placement_bytes'])} | {label}")
+
+    # -- K4 per data row on the captured layer input ---------------------------
+    q, kp, ks, vp, vs, pos, bits, sizes = captured["args"][:8]
+    B, KV, rep_, hd = q.shape
+    S = kp.shape[2]
+    st = shd.row_starts(B, MESH_SHAPE[0])
+    sls = [slice(st[r], st[r + 1]) for r in range(MESH_SHAPE[0])]
+
+    def whole():
+        return datt.decode_attention(q, kp, ks, vp, vs, pos, bits, sizes, out_dtype=torch.bfloat16)
+
+    def rows_k4(plan_slots):
+        return [datt.decode_attention(q[sl].contiguous(), kp[sl], ks[sl], vp[sl], vs[sl],
+                                      pos[sl].contiguous(), bits, sizes, out_dtype=torch.bfloat16,
+                                      plan_slots=plan_slots) for sl in sls]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    y = whole()
+    k4 = dict(B=B, KV=KV, rep=rep_, hd=hd, S=S, pos=pos.tolist(), kv_bits=str(PAGED_KV),
+              plan_whole=datt.k4_plan(B, KV, rep_, hd, S, sms),
+              plan_row_own=datt.k4_plan(st[1] - st[0], KV, rep_, hd, S, sms),
+              rows_bitwise_their_slices=all(torch.equal(part, y[sl])
+                                            for part, sl in zip(rows_k4(B), sls)),
+              rows_own_plan_bitwise=all(torch.equal(part, y[sl])
+                                        for part, sl in zip(rows_k4(None), sls)),
+              whole_ms=cuda_ms(whole, iters=20), rows_ms=cuda_ms(lambda: rows_k4(B), iters=20))
+    check(k4["rows_bitwise_their_slices"],
+          f"[mesh] qwen: K4 over a row's slots off its slice of the whole launch: {k4}")
+    report["k4_rows"] = k4
+    log("[mesh] qwen1.5-4b K4 per data row on one captured layer input: " + json.dumps(k4)
+        + f" | CUDA events, {label}")
+    del captured, q, kp, ks, vp, vs
+
+    # -- the decode step on the mesh and without, interleaved ------------------
+    report["step_times"] = mesh_step_times("qwen1.5-4b", dev, qcfg, tree, ctx, PAGED_KV, 16,
+                                           LM_SLOTS, LM_MAX_LEN, 400, label)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[clock] [mesh] qwen part took {report['phase_s']:.1f} s")
+    return report, launched["mesh"][0], launched["mesh"][1]
 
 
 def mesh_serving(dev, card, ops, cfg, dparams, reqs, arrivals, base_tokens, gen):
@@ -3244,6 +3583,28 @@ def mesh_serving(dev, card, ops, cfg, dparams, reqs, arrivals, base_tokens, gen)
     kw = dict(backend="cuda", max_slots=DS_SLOTS, max_len=DS_MAX_LEN, prefill_len=DS_PREFILL,
               page_size=None)
 
+    ctx = shd.MeshContext(mesh)
+
+    def cache_rows(eng) -> dict:
+        """Each cache leaf a ``Rows`` whose block ``r`` holds the slots
+        ``fault.owned_slots(r, ...)`` on position ``(r, 0)``, in storage
+        of its own (gated); the block shapes."""
+        out = {}
+        for k, leaf in eng.caches.items():
+            ok = isinstance(leaf, shd.Rows) and leaf.n_rows == MESH_SHAPE[0]
+            ok = ok and all(
+                shd.same_device(leaf.row(r).device, ctx.position(r, 0))
+                and leaf.row(r).shape[1] == len(fault.owned_slots(r, leaf.shape[1], MESH_SHAPE[0]))
+                for r in range(MESH_SHAPE[0]))
+            ok = ok and len({leaf.row(r).untyped_storage().data_ptr()
+                             for r in range(MESH_SHAPE[0])}) == MESH_SHAPE[0]
+            check(ok, f"[mesh] cache leaf {k} is not on the data rows: {type(leaf).__name__}")
+            out[k] = [list(leaf.row(r).shape) for r in range(MESH_SHAPE[0])]
+        return out
+
+    def position_bytes(eng) -> dict:
+        return placement_report(ctx, [eng.dparams, eng.draft_dparams], [eng.caches])
+
     def rule_counts(tree) -> dict:
         rules = shd.ShardingRules(mesh)
         rules.serving_shardings(tree)
@@ -3265,11 +3626,17 @@ def mesh_serving(dev, card, ops, cfg, dparams, reqs, arrivals, base_tokens, gen)
     def engine_case(tag, tree, base=None):
         """The engine without a mesh (its tokens: ``base`` when given,
         else this run's) and on the mesh, each step's launches held to
-        ``mesh_launches`` of the tree as it is and as the mesh places it;
-        returns the case's report and the placed tree."""
+        ``mesh_launches`` of the tree as it is and as the mesh places it
+        (a decode step: each data row's ``wkv_b`` too), no whole fused
+        buffer left beside a sharded QTensor's shards, and the caches on
+        the rows; returns the case's report and the placed tree."""
         placed, extra = placement_bytes(tree)
+        check(all(qt.fused_packed is None and qt.fused_scales is None and qt.fused_table is None
+                  for qt in _qtensors(placed) if qt.fused_shards is not None),
+              f"[mesh] {tag}: a sharded QTensor kept its whole fused buffer")
         want1, mma1 = mesh_launches(*_ds_sites(tree))
         wantm, mmam = mesh_launches(*_ds_sites(placed))
+        wantd, mmad = mesh_launches(*_ds_sites(placed, decode=True))
         rep = dict(rules=rule_counts(tree), launches_a_step=wantm, mma_launches_a_step=mmam,
                    launches_a_step_without_mesh=want1,
                    shard_launches_a_step=dict(k1_tp=wantm["quant_matmul_fused_tp"],
@@ -3292,9 +3659,12 @@ def mesh_serving(dev, card, ops, cfg, dparams, reqs, arrivals, base_tokens, gen)
         t0 = time.perf_counter()
         eng = ServingEngine(cfg, tree, mesh=mesh, **kw)
         check(eng.device == mesh.devices[0, 0], "the mesh engine runs on the first position")
+        rep["cache_rows"] = cache_rows(eng)
         (outs, kinds, _), launched = counted(lambda: counted_run(
-            eng, reqs, arrivals, ops, {"prefill": (wantm, mmam), "decode": (wantm, mmam), **zero}))
-        rep["mesh"] = dict(wall_s=time.perf_counter() - t0, steps=kinds, launches=launched)
+            eng, reqs, arrivals, ops, {"prefill": (wantm, mmam), "decode": (wantd, mmad), **zero}))
+        rep["mesh"] = dict(wall_s=time.perf_counter() - t0, steps=kinds, launches=launched,
+                           cross_row_bytes=eng.stats["cross_row_bytes"])
+        rep["placement_bytes"] = position_bytes(eng)
         del eng
         got = [outs[i].tokens.tolist() for i in range(len(reqs))]
         rep["tokens_equal"] = got == base
@@ -3309,6 +3679,9 @@ def mesh_serving(dev, card, ops, cfg, dparams, reqs, arrivals, base_tokens, gen)
             f"{rep['without_mesh']['steps'].get('prefill_ms_median', 0):.4f} ms; wall "
             f"{rep['mesh']['wall_s']:.3f} / {rep['without_mesh']['wall_s']:.3f} s; placement "
             f"added {extra} B | {label}")
+        log(f"[mesh] {tag}: every cache leaf on the data rows {json.dumps(rep['cache_rows'])}; "
+            f"bytes a position holds, as on distinct cards: {json.dumps(rep['placement_bytes'])}"
+            f" | {label}")
         return rep, placed
 
     # -- (a) the default mixed deployment: K3 EP ------------------------------
@@ -3335,16 +3708,18 @@ def mesh_serving(dev, card, ops, cfg, dparams, reqs, arrivals, base_tokens, gen)
     report["b_uniform4"]["tp_sites"] = tp_sites
 
     # -- (c) each sharded wrapper at a decode shape and at M 40 ---------------
-    wkv = placed_b["blocks"][0]["attn"]["wkv_b"]["w"]
-    wd = placed_a["blocks"][0]["ffn"]["we_down"]["w"]
+    # (the placed weights keep only their shards: the unsharded launch and
+    # the plain version read the trees as deployed)
+    wkv, wkv_u = (t["blocks"][0]["attn"]["wkv_b"]["w"] for t in (placed_b, draft))
+    wd, wd_u = (t["blocks"][0]["ffn"]["we_down"]["w"] for t in (placed_a, dparams))
     bf = torch.bfloat16
     rows = []
     for m in (DS_SLOTS, 40):
-        qt = wkv
+        qt, qu = wkv, wkv_u
         Kp = -(-qt.c_in // qmk.FUSED_K_ALIGN) * qmk.FUSED_K_ALIGN
         x = torch.from_numpy(gen.standard_normal((m, qt.c_in)).astype(np.float32)).to(dev).to(bf)
-        base_args = (qt.fused_packed, qt.fused_table, qt.fused_scales, qt.fused_perm,
-                     qt.tile_bits)
+        base_args = (qu.fused_packed, qu.fused_table, qu.fused_scales, qu.fused_perm,
+                     qu.tile_bits)
 
         def one():
             return ops.quant_matmul_fused(x, *base_args, qt.tile_n, qt.c_in, qt.c_out,
@@ -3355,11 +3730,11 @@ def mesh_serving(dev, card, ops, cfg, dparams, reqs, arrivals, base_tokens, gen)
                                              qt.tile_n, qt.c_in, qt.c_out, compute_dtype=bf,
                                              out_dtype=torch.float32)
         y1, yt = one(), tp()
-        ref = qmk.quant_matmul_fused_2d_plain(x.float(), qt.fused_packed, qt.fused_scales,
-                                              qt.tile_bits, Kp=Kp, tile_n=qt.tile_n)
-        w = qmk.fused_dense_int(qt.fused_packed, qt.tile_bits, Kp, qt.tile_n).float()
+        ref = qmk.quant_matmul_fused_2d_plain(x.float(), qu.fused_packed, qu.fused_scales,
+                                              qu.tile_bits, Kp=Kp, tile_n=qu.tile_n)
+        w = qmk.fused_dense_int(qu.fused_packed, qu.tile_bits, Kp, qu.tile_n).float()
         xa = torch.nn.functional.pad(x.float().abs(), (0, Kp - qt.c_in))
-        mag = (xa @ w.abs().T).double() * qt.fused_scales.double().abs()
+        mag = (xa @ w.abs().T).double() * qu.fused_scales.double().abs()
         cols = (qt.fused_perm if qt.fused_perm is not None
                 else torch.arange(qt.c_out, device=dev))
         d = (yt.double() - ref.index_select(1, cols).double()).abs()
@@ -3374,13 +3749,13 @@ def mesh_serving(dev, card, ops, cfg, dparams, reqs, arrivals, base_tokens, gen)
         check(row["bitwise_unsharded"] and worst <= 1.0 and bool(torch.isfinite(yt).all()),
               f"[mesh] K1 TP off the unsharded launch or its plain version: {row}")
         rows.append(row)
-        qt = wd
+        qt, qu = wd, wd_u
         E = qt.experts
         Kp = -(-qt.c_in // qmk.FUSED_K_ALIGN) * qmk.FUSED_K_ALIGN
         x3 = torch.from_numpy(gen.standard_normal((E, 8 if m == DS_SLOTS else m, qt.c_in))
                               .astype(np.float32)).to(dev).to(bf)
-        args3 = (qt.fused_packed, qt.fused_table, qt.fused_scales, qt.fused_perm, qt.tile_bits,
-                 qt.tile_n, qt.c_in, qt.c_out)
+        args3 = (qu.fused_packed, qu.fused_table, qu.fused_scales, qu.fused_perm, qu.tile_bits,
+                 qu.tile_n, qu.c_in, qu.c_out)
 
         def one3():
             return ops.quant_matmul_fused_batched(x3, *args3, compute_dtype=bf,
@@ -3392,7 +3767,7 @@ def mesh_serving(dev, card, ops, cfg, dparams, reqs, arrivals, base_tokens, gen)
                                                      qt.c_out, compute_dtype=bf,
                                                      out_dtype=torch.float32)
         y1, ye = one3(), ep()
-        pargs = (qt.fused_packed, qt.fused_scales, qt.tile_bits)
+        pargs = (qu.fused_packed, qu.fused_scales, qu.tile_bits)
         ref = qmk.quant_matmul_fused_3d_plain(x3.float(), *pargs, Kp=Kp, tile_n=qt.tile_n,
                                               compute_dtype=bf)
         bound = qmk.fused_3d_error_bound(x3.float(), *pargs, Kp=Kp, tile_n=qt.tile_n,
@@ -3413,7 +3788,19 @@ def mesh_serving(dev, card, ops, cfg, dparams, reqs, arrivals, base_tokens, gen)
     for row in rows:
         log("[mesh] (c) " + json.dumps(row) + f" | CUDA events, {label}")
     report["c_wrappers"] = rows
-    del draft, placed_a, placed_b, wkv, wd
+
+    # -- (e) wkv_b per data row: bitwise its slice of the whole batch's launch
+    report["e_wkv_b_rows"] = [wkv_b_rows(ctx, tag, placed, tree, dev, gen, label)
+                              for tag, placed, tree in (("(a) mixed", placed_a, dparams),
+                                                        ("(b) uniform 4-bit", placed_b, draft))]
+    report["e_library_rows"] = library_rows(cfg, dev, gen, label)
+    del draft, placed_b, wkv, wd, wkv_u, wd_u
+    torch.cuda.empty_cache()
+
+    # -- (f) the decode step on the mesh and without, interleaved -------------
+    report["f_step_times"] = mesh_step_times("deepseek-v3-671b (a) mixed", dev, cfg, dparams,
+                                             ctx, None, None, DS_SLOTS, DS_MAX_LEN, 200, label)
+    del placed_a
     torch.cuda.empty_cache()
 
     # -- (d) a host fails after the first tick --------------------------------
@@ -5577,20 +5964,22 @@ def run(opts, dry: list) -> int:
     # -- 3c, 4c, 5b. the LM serving path: qwen1.5-4b at full width, LM_LAYERS -------
     log(f"[clock] phase 3c/4c/5b starts at {time.perf_counter() - t_run:.1f} s")
     (lm_report, k2_lm, k4_lm, lm_paged_launches, lm_paged_mma, lm_spec_launches,
-     lm_spec_mma) = lm_serving(dev, card, ops, gen)
+     lm_spec_mma, lm_mesh_launches, lm_mesh_mma) = lm_serving(dev, card, ops, gen)
     report["lm"] = lm_report
     torch.cuda.empty_cache()
 
     # -- 3d, 4d, 5c. the MoE serving path: deepseek-v3-671b at full width, 2 layers
     log(f"[clock] phase 3d/4d/5c starts at {time.perf_counter() - t_run:.1f} s")
     (moe_report, k3_moe, k2_experts, k1_moe, moe_launches, moe_mma, moe_paged_launches,
-     moe_paged_mma, moe_spec_launches, moe_spec_mma, mesh_launches_,
-     mesh_mma) = moe_serving(dev, card, ops, gen)
+     moe_paged_mma, moe_spec_launches, moe_spec_mma, ds_mesh_launches,
+     ds_mesh_mma) = moe_serving(dev, card, ops, gen)
     report["moe"] = moe_report
     paged_launches = {k: lm_paged_launches[k] + moe_paged_launches[k] for k in lm_paged_launches}
     paged_mma = {k: lm_paged_mma[k] + moe_paged_mma[k] for k in lm_paged_mma}
     spec_launches = {k: lm_spec_launches[k] + moe_spec_launches[k] for k in lm_spec_launches}
     spec_mma = {k: lm_spec_mma[k] + moe_spec_mma[k] for k in lm_spec_mma}
+    mesh_launches_ = {k: lm_mesh_launches[k] + ds_mesh_launches[k] for k in lm_mesh_launches}
+    mesh_mma = {k: lm_mesh_mma[k] + ds_mesh_mma[k] for k in lm_mesh_mma}
 
     # -- 3f, 4e, 5e. the other LM families at full width ---------------------------
     log(f"[clock] phase 3f/4e/5e starts at {time.perf_counter() - t_run:.1f} s")

@@ -40,10 +40,13 @@ Backends (the reference's names in brackets):
 
 On CPU tensors the two kernel backends run their kernels' plain versions.
 A QTensor that ``dist.sharding.MeshContext.put_params`` placed sharded
-carries its ``fused_shards``; inside ``dist.sharding.serving_mesh``,
-``"cuda"`` runs them through ``ops.quant_matmul_fused_tp`` (a launch per
-N-tile shard) or, for an expert stack, ``ops.quant_matmul_fused_batched_ep``
-(a launch per expert shard); everything else runs as without a mesh.
+carries its ``fused_shards`` and no whole fused buffer, scales or table;
+inside ``dist.sharding.serving_mesh``, ``"cuda"`` runs the shards through
+``ops.quant_matmul_fused_tp`` (a launch per N-tile shard) or, for an
+expert stack, ``ops.quant_matmul_fused_batched_ep`` (a launch per expert
+shard); outside it the whole buffer is rebuilt from the shards bitwise
+(:meth:`QTensor.fused_buffers`) for the unsharded launch, and :meth:`to`
+gives the unplaced QTensor; everything else runs as without a mesh.
 
 PyTorch runs eagerly, so ``QTensor`` is a plain frozen dataclass (no
 pytree); :meth:`to` moves it between devices.  Compute is f32 unless
@@ -182,7 +185,8 @@ class QTensor:
     fused_shards: Optional[tuple] = None   # (packed, table, scales) per model
     #                                        position: whole N-tiles (TP) or
     #                                        whole experts (EP), each on its
-    #                                        position's device
+    #                                        position's device; the fused
+    #                                        buffers above are then None
 
     def __post_init__(self):
         if self.act_alpha is None:
@@ -302,10 +306,34 @@ class QTensor:
                    experts=experts, **fused)
 
     def to(self, device) -> "QTensor":
-        """The same QTensor with every tensor on ``device``."""
-        return dataclasses.replace(self, **{
-            f.name: _move(getattr(self, f.name), device)
-            for f in dataclasses.fields(self)})
+        """The same QTensor with every tensor on ``device``; a placed one
+        comes back unplaced, its whole fused buffer rebuilt from its
+        shards."""
+        qt = self
+        if self.fused_shards is not None:
+            packed, table, scales = self.fused_buffers()
+            qt = dataclasses.replace(self, fused_packed=packed, fused_table=table,
+                                     fused_scales=scales, fused_shards=None)
+        return dataclasses.replace(qt, **{
+            f.name: _move(getattr(qt, f.name), device)
+            for f in dataclasses.fields(qt)})
+
+    @property
+    def is_fused(self) -> bool:
+        """Whether the weight has the fused layout (whole or in shards)."""
+        return self.fused_packed is not None or self.fused_shards is not None
+
+    def fused_buffers(self) -> tuple:
+        """``(fused_packed, fused_table, fused_scales)`` of the whole fused
+        layout: the QTensor's own, or, placed sharded, rebuilt bitwise from
+        its shards on shard 0's device (``ops.tp_whole`` / ``ep_whole``)."""
+        if self.fused_packed is not None or self.fused_shards is None:
+            return self.fused_packed, self.fused_table, self.fused_scales
+        from repro_torch.kernels import ops as kops
+        if self.experts is not None:
+            return kops.ep_whole(self.fused_shards)
+        Kp = -(-self.c_in // qmk.FUSED_K_ALIGN) * qmk.FUSED_K_ALIGN
+        return kops.tp_whole(self.fused_shards, self.tile_bits, Kp, self.tile_n)
 
     # -- geometry -----------------------------------------------------------
     @property
@@ -325,6 +353,8 @@ class QTensor:
         there is one (tile padding included), else the per-group bytes."""
         if self.fused_packed is not None:
             return int(self.fused_packed.numel()) * 8
+        if self.fused_shards is not None:
+            return sum(int(p.numel()) * 8 for p, _, _ in self.fused_shards)
         return sum(int(p.numel()) * 8 for p in self.packed)
 
     # -- compute ------------------------------------------------------------
@@ -396,16 +426,16 @@ class QTensor:
             # rounded to compute_dtype once for every group's launch (the
             # kernel API holds it in the dtype its routine reads)
             x = x.to(compute_dtype)
-        if backend == "cuda" and self.fused_packed is not None:
+        if backend == "cuda" and self.is_fused:
             if self.fused_shards is not None and shd.serving_ctx() is not None:
                 return kops.quant_matmul_fused_tp(
                     x, self.fused_shards, self.fused_perm, self.tile_bits, self.tile_n,
                     self.c_in, self.c_out, compute_dtype=compute_dtype,
                     out_dtype=compute_dtype)
+            packed, table, scales = self.fused_buffers()
             return kops.quant_matmul_fused(
-                x, self.fused_packed, self.fused_table, self.fused_scales,
-                self.fused_perm, self.tile_bits, self.tile_n, self.c_in,
-                self.c_out, compute_dtype=compute_dtype, out_dtype=compute_dtype)
+                x, packed, table, scales, self.fused_perm, self.tile_bits, self.tile_n,
+                self.c_in, self.c_out, compute_dtype=compute_dtype, out_dtype=compute_dtype)
         if backend in ("cuda", "cuda-pergroup"):
             # fused-layout groups are packed at the common Kp; the kernel
             # reads x's missing columns as zeros (the reference pads x)
@@ -433,16 +463,16 @@ class QTensor:
         kops.check_experts(x, E)
         if backend in ("cuda", "cuda-pergroup"):
             x = x.to(compute_dtype)
-        if backend == "cuda" and self.fused_packed is not None:
+        if backend == "cuda" and self.is_fused:
             if self.fused_shards is not None and shd.serving_ctx() is not None:
                 return kops.quant_matmul_fused_batched_ep(
                     x, self.fused_shards, self.fused_perm, self.tile_bits, self.tile_n,
                     self.c_in, self.c_out, compute_dtype=compute_dtype,
                     out_dtype=compute_dtype)
+            packed, table, scales = self.fused_buffers()
             return kops.quant_matmul_fused_batched(
-                x, self.fused_packed, self.fused_table, self.fused_scales,
-                self.fused_perm, self.tile_bits, self.tile_n, self.c_in,
-                self.c_out, compute_dtype=compute_dtype, out_dtype=compute_dtype)
+                x, packed, table, scales, self.fused_perm, self.tile_bits, self.tile_n,
+                self.c_in, self.c_out, compute_dtype=compute_dtype, out_dtype=compute_dtype)
         if backend in ("cuda", "cuda-pergroup"):
             def gemm(b, p, s):
                 return kops.quant_matmul(x, p, s, b, self.c_in, compute_dtype=compute_dtype,

@@ -48,16 +48,25 @@ sums may follow the row count, so there a near tie can still pick another
 expert.
 
 A ``(data, model)`` mesh (``launch/mesh.py``, ``mesh=``) keeps the tokens
-of the engine without one: the weights are placed by
-``dist.sharding.MeshContext.put_params`` (a QTensor's fused buffers in
-whole N-tiles or whole experts on the ``model`` positions, everything else
-on the first position, which holds the caches and runs the rest), and
-every model call runs inside ``serving_mesh``, so the fused kernels launch
-once per shard.  The ``data`` axis is the fleet of hosts: each host owns
-the slots ``fault.owned_slots`` gives it, beats once a ``step``, and a host
-whose heartbeat goes stale (``fail_host`` stops it) has its slots retired
-and its requests requeued at the front of the queue, to be replayed from
-scratch by the surviving hosts (greedy: the same tokens).
+of the engine without one, as the reference's engine places its state:
+the weights by ``dist.sharding.MeshContext.put_params`` (a QTensor keeps
+only its fused buffer's whole N-tiles or whole experts on the ``model``
+positions, each data row a copy of the weights its cache work reads,
+everything else on the first position), the caches and the draft's by
+``put_caches`` (each leaf's slots or pages in one block a ``data`` row),
+the tokens and the draft's page table by ``put_replicated``.  Every model
+call runs inside ``serving_mesh``: the fused kernels launch once per
+shard, the work that reads or writes a cache runs on each row over its
+slots, and the rest on the first position.  The dense merge writes each
+admitted slot's rows into its row's block, the paged one each prompt page
+into the row that owns it; a decode step's page reads and writes that
+cross rows are counted in ``stats["cross_row_bytes"]``.  The ``data`` axis
+is the fleet of hosts: each host owns the slots ``fault.owned_slots``
+gives it (its row's block), beats once a ``step``, and a host whose
+heartbeat goes stale (``fail_host`` stops it) has its slots retired and
+its requests requeued at the front of the queue, to be replayed from
+scratch by the surviving hosts (greedy: the same tokens); its row keeps
+its cache blocks.
 
 PyTorch runs eagerly, so there is no compile cache to guard (the
 reference's ``compile_counts``); :meth:`ServingEngine.launch_counts`
@@ -171,10 +180,11 @@ class ServingEngine:
     ``mesh``: a ``(data, model)`` mesh (``launch/mesh.make_test_mesh``); the
     engine then runs on its first position (``device`` must agree), the
     weights (and a draft that is not the model itself) are placed by
-    ``MeshContext.put_params``, an auto-sized page pool is padded to a
-    multiple of ``data``, and ``heartbeat_timeout`` (in ticks) declares a
-    host dead; ``fail_host`` injects a failure.  A mesh without the
-    ``("data", "model")`` axes raises ``ValueError``.
+    ``MeshContext.put_params``, the caches by ``MeshContext.put_caches``
+    (an auto-sized page pool is padded to a multiple of ``data``, so that
+    its pages split over the rows), and ``heartbeat_timeout`` (in ticks)
+    declares a host dead; ``fail_host`` injects a failure.  A mesh
+    without the ``("data", "model")`` axes raises ``ValueError``.
     """
 
     def __init__(self, cfg, dparams, backend: str = "cuda",
@@ -302,6 +312,13 @@ class ServingEngine:
         self._catchup = np.zeros(max_slots, bool)
         self._catchup_tok = np.zeros(max_slots, np.int64)
         self.tokens = torch.zeros((max_slots, 1), dtype=torch.int64, device=self.device)
+        # the reference's placement: the caches on the data rows, the tokens
+        # and the draft's page table on the first position
+        self.caches = self.mesh_ctx.put_caches(self.caches)
+        self.tokens = self.mesh_ctx.put_replicated(self.tokens)
+        if self.speculate_k:
+            self.draft_caches = self.mesh_ctx.put_caches(self.draft_caches)
+            self._draft_pages = self.mesh_ctx.put_replicated(self._draft_pages)
         self._pos = np.zeros(max_slots, np.int64)
         self._live = np.zeros(max_slots, bool)
         self._slots: List[Optional[_Slot]] = [None] * max_slots
@@ -315,7 +332,7 @@ class ServingEngine:
                           zero_prefill_admits=0, cached_tokens=0, deferred_admissions=0,
                           evictions=0, pages_peak=0, draft_launches=0, verify_launches=0,
                           spec_rounds=0, accepted_tokens=0, host_drains=0,
-                          drained_requests=0)
+                          drained_requests=0, cross_row_bytes=0)
         # -- host liveness (drain on death) --------------------------------
         # the data axis is the fleet of hosts: host h owns the slots
         # fault.owned_slots(h, max_slots, n_hosts); every host that has not
@@ -627,11 +644,9 @@ class ServingEngine:
         from repro_torch.models import serving
         dev = self.device
         if wp_flat is None:
-            idx = torch.from_numpy(np.nonzero(admit)[0]).to(dev)
-            emb = serving.embed_caches({k: v[:, idx] for k, v in pf.items()},
-                                       {k: v[:, idx] for k, v in caches.items()})
-            for k, v in emb.items():
-                caches[k][:, idx] = v
+            slots = np.nonzero(admit)[0]
+            for k, v in pf.items():
+                serving.merge_slots(caches[k], v, slots)
         else:
             serving.merge_paged_caches(self.cfg, pf, caches, torch.from_numpy(admit).to(dev),
                                        torch.from_numpy(wp_flat).to(dev))
@@ -654,8 +669,8 @@ class ServingEngine:
             self._note_pool()
             pages = torch.from_numpy(self._pages).to(dev)
         live_write = live & ~self._suppress
-        logits, self.caches = serving.decode_step(
-            self.dparams, self.cfg, self.tokens, self.caches,
+        logits, self.caches = self._counted(
+            serving.decode_step, self.dparams, self.cfg, self.tokens, self.caches,
             torch.from_numpy(self._pos).to(dev), self.backend,
             live=torch.from_numpy(live_write).to(dev), kv_bits=self.kv_bits,
             pages=pages, page_size=self.page_size)
@@ -671,13 +686,23 @@ class ServingEngine:
             self._record(int(slot), int(tok_np[slot]))
         return {"kind": "decode", "live": n_live}
 
+    def _counted(self, step, *args, **kwargs):
+        """``step(*args, **kwargs)`` (a decode step), the bytes its paged
+        reads and writes moved between data rows (``cache.paged.RowRoute``)
+        added to ``stats["cross_row_bytes"]``."""
+        from repro_torch.cache import paged
+        was = paged.cross_row_bytes
+        out = step(*args, **kwargs)
+        self.stats["cross_row_bytes"] += paged.cross_row_bytes - was
+        return out
+
     def _draft_step(self, tokens: torch.Tensor, pos: np.ndarray, live: np.ndarray):
         """One one-token step of the draft over its own pool: logits ``(B,
         1, V)``."""
         from repro_torch.models import serving
         dev = self.device
-        logits, _ = serving.decode_step(
-            self.draft_dparams, self.cfg, tokens, self.draft_caches,
+        logits, _ = self._counted(
+            serving.decode_step, self.draft_dparams, self.cfg, tokens, self.draft_caches,
             torch.from_numpy(pos).to(dev), self.backend, live=torch.from_numpy(live).to(dev),
             kv_bits=self.draft_kv_bits, pages=self._draft_pages, page_size=self.page_size)
         self.stats["draft_launches"] += 1
@@ -754,8 +779,9 @@ class ServingEngine:
             dtoks.append(cur)
             dlgs.append(lg[:, 0])
         draft_toks = torch.cat(dtoks, dim=1)                          # (B, k)
-        logits, self.caches = serving.decode_step(
-            self.dparams, self.cfg, torch.cat([self.tokens, draft_toks], dim=1), self.caches,
+        logits, self.caches = self._counted(
+            serving.decode_step, self.dparams, self.cfg,
+            torch.cat([self.tokens, draft_toks], dim=1), self.caches,
             torch.from_numpy(pos0).to(dev), self.backend, live=torch.from_numpy(live).to(dev),
             kv_bits=self.kv_bits, pages=pages, page_size=self.page_size)
         accepted, out_tokens = smp.speculative_accept(

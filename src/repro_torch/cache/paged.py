@@ -16,23 +16,101 @@ or shared pages, the junk tail of a short prompt) carry the out-of-bounds
 sentinel ``num_pages`` and are dropped, as the reference's
 ``mode="drop"`` scatters drop them.  Unlike the reference, the writers
 update the pool in place.
+
+On a serving mesh a pool may lie on the ``data`` rows
+(``dist.sharding.Rows``, a contiguous block of pages a row) while the
+allocator's page ids stay the reference's, so a slot's table may map a
+page that another row owns.  A row's decode then routes through
+:class:`RowRoute`: each new entry is written into its page's owner, and
+each mapped page of the row's slots is read from its owner (the NULL page
+is the zeros it holds, read nowhere); ``cross_row_bytes`` counts the bytes
+that cross rows, 0 when every page of a row's slots is its own.
+:func:`scatter_prefill` sends each prompt page to its owner.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
+
+from repro_torch.dist import sharding as shd
+
+# bytes the decode's page traffic moved between data rows (RowRoute): a
+# plain int, read and reset by the serving engine around each step
+cross_row_bytes = 0
 
 
 def gather_pages(pool: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
     """Per-slot rings: pool ``(NP, *mid, T, F)`` gathered by ``pages (B,
     P)`` -> ``(B, *mid, P*T, F)``, the dense ring layout the decode
     attention reads."""
-    g = pool[pages.long()]                  # (B, P, *mid, T, F)
+    return _ring_view(pool[pages.long()])
+
+
+def _ring_view(g: torch.Tensor) -> torch.Tensor:
+    """Gathered pages ``(B, P, *mid, T, F)`` as rings ``(B, *mid, P*T, F)``."""
     nm = g.ndim - 4                         # number of *mid axes
     g = g.permute((0,) + tuple(range(2, 2 + nm)) + (1, 2 + nm, 3 + nm))
     sh = g.shape
     return g.reshape(sh[:-3] + (sh[-3] * sh[-2], sh[-1]))
+
+
+class RowRoute:
+    """One data row's paged write and gather over a pool placed on the rows
+    (a ``dist.sharding.Rows`` along the page axis): ``phys``/``off`` (the
+    row's :func:`write_coords`, ``(B_r,)`` or ``(B_r, W)``) and ``pages
+    (B_r, P)`` (its slots' table rows, global page ids) are copied to the
+    host once and split by the row owning each page.  Entries at the
+    sentinel and NULL pages route nowhere.  Shared by every leaf of a
+    layer's cache (they have one page axis)."""
+
+    def __init__(self, pool, row: int, phys: torch.Tensor, off: torch.Tensor,
+                 pages: torch.Tensor):
+        self.row, self.dev, self.table = row, pages.device, tuple(pages.shape)
+        self.n_lead = phys.ndim
+        ph = phys.reshape(-1).cpu().numpy()
+        of = off.reshape(-1).cpu().numpy()
+        pg = pages.reshape(-1).cpu().numpy()
+        self.writes, self.reads = [], []
+        for o, blk in enumerate(pool.blocks):
+            lo, hi = pool.starts[o], pool.starts[o + 1]
+            w = np.nonzero((ph >= lo) & (ph < hi))[0]
+            g = np.nonzero((pg >= lo) & (pg < hi) & (pg != 0))[0]
+            dev = blk.device
+            if w.size:
+                self.writes.append((o, torch.from_numpy(w).to(self.dev),
+                                    torch.from_numpy(ph[w] - lo).to(dev),
+                                    torch.from_numpy(of[w]).to(dev)))
+            if g.size:
+                self.reads.append((o, torch.from_numpy(g).to(self.dev),
+                                   torch.from_numpy(pg[g] - lo).to(dev)))
+
+    def write(self, pool, new: torch.Tensor) -> None:
+        """:func:`write_pages` of ``new (*phys.shape, *mid, F)`` into the
+        owners' blocks, in place."""
+        global cross_row_bytes
+        flat = new.reshape((-1,) + tuple(new.shape[self.n_lead:]))
+        for o, sel, at, off in self.writes:
+            blk = pool.row(o)
+            val = flat.index_select(0, sel).to(blk.device).to(blk.dtype)
+            blk.movedim(-2, 1)[at, off] = val
+            if o != self.row:
+                cross_row_bytes += val.numel() * val.element_size()
+
+    def gather(self, pool) -> torch.Tensor:
+        """:func:`gather_pages` of the row's table from the owners' blocks:
+        ``(B_r, *mid, P*T, F)`` on the row's device."""
+        global cross_row_bytes
+        page = tuple(pool.row(0).shape[1:])                 # (*mid, T, F)
+        out = torch.zeros((self.table[0] * self.table[1],) + page, dtype=pool.dtype,
+                          device=self.dev)
+        for o, sel, at in self.reads:
+            got = pool.row(o).index_select(0, at)
+            if o != self.row:
+                cross_row_bytes += got.numel() * got.element_size()
+            out[sel] = got.to(self.dev)
+        return _ring_view(out.reshape(self.table + page))
 
 
 def write_coords(pos: torch.Tensor, live: Optional[torch.Tensor], pages: torch.Tensor,
@@ -89,7 +167,8 @@ def scatter_prefill(pool: torch.Tensor, pf: torch.Tensor, wp_flat: torch.Tensor)
     ``b``'s prompt page ``j`` (flattened ``b * n_pp + j``) to its physical
     page, or to ``NP`` (dropped) for pages that must not be written: slots
     not being admitted, the junk tail past a short prompt, and prefix-shared
-    pages (read-only, already holding the same bits).  Returns ``pool``.
+    pages (read-only, already holding the same bits).  A pool on the data
+    rows takes each page into its owner's block.  Returns ``pool``.
     """
     X, B = pf.shape[0], pf.shape[1]
     T, F = pool.shape[-2], pool.shape[-1]
@@ -99,7 +178,14 @@ def scatter_prefill(pool: torch.Tensor, pf: torch.Tensor, wp_flat: torch.Tensor)
     x = pf.reshape((X, B) + mid + (n_pp, T, F))
     x = x.permute((0, 1, 2 + nm) + tuple(range(2, 2 + nm)) + (3 + nm, 4 + nm))
     x = x.reshape((X, B * n_pp) + mid + (T, F))
-    wp = wp_flat.to(device=pool.device, dtype=torch.int64)
+    wp = wp_flat.to(device=x.device, dtype=torch.int64)
+    if isinstance(pool, shd.Rows):                 # each page to the row that owns it
+        for o, blk in enumerate(pool.blocks):
+            keep = (wp >= pool.starts[o]) & (wp < pool.starts[o + 1])
+            blk[:, (wp[keep] - pool.starts[o]).to(blk.device)] = \
+                x[:, keep].to(blk.device).to(blk.dtype)
+        return pool
+    wp = wp.to(pool.device)
     keep = wp < pool.shape[1]
     pool[:, wp[keep]] = x[:, keep].to(pool.dtype)
     return pool

@@ -39,12 +39,23 @@ whole N-tiles (tensor parallel, ``kernels/quant_matmul.tp_chunk``) or whole
 experts (expert parallel), where ``kernels/ops.quant_matmul_fused_tp`` /
 ``_batched_ep`` launch the unmodified kernels once per shard; every other
 weight replicates.  :class:`MeshContext.put_params` builds that placement:
-each sharded QTensor carries its shards on the ``model`` positions of the
-first ``data`` row (``QTensor.fused_shards``), and everything else, the
-whole fused buffers included, lives on the first position, which runs all
-but the shard launches.  The ``data`` axis is the fleet of hosts for the
-engine's heartbeat and drain; the caches stay whole on the first position
-(``cache_shardings`` states the rule the reference places them by).
+each sharded QTensor keeps only its shards, on the ``model`` positions of
+the first ``data`` row (``QTensor.fused_shards``; the whole fused buffer is
+dropped, and a shard is a view of it only when every position is the
+buffer's device), and everything else lives on the first position, which
+runs the work that couples the rows (projections, norms, MLPs, the MoE
+router and dispatch, the lm_head).  The ``data`` axis is the fleet of
+hosts for the engine's heartbeat and drain, and it holds the caches:
+:meth:`MeshContext.put_caches` applies ``cache_shardings`` (the reference's
+rule, the slot or page axis on ``data``), so each leaf whose axis 1
+``data`` divides becomes a :class:`Rows`, one block of contiguous slots or
+pages a row on the row's first position.  The work that reads or writes a
+cache leaf runs on the leaf's row over the row's slots (``row_work``), and
+its result comes back to the first position through
+:func:`replicate_serving`; each row holds a copy of the weights that work
+reads (MLA's ``wkv_b``, a Mamba2 layer's conv and state parameters, under
+the key ``ROWS``).  :meth:`MeshContext.placement_bytes` reports the bytes
+each position holds.
 """
 from __future__ import annotations
 
@@ -53,6 +64,7 @@ import dataclasses
 import threading
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 _AXIS_OF = {"D": "data", "M": "model", None: None}
@@ -84,6 +96,110 @@ def serving_ctx() -> Optional["MeshContext"]:
     return getattr(_state, "serving_ctx", None)
 
 
+def replicate_serving(parts) -> torch.Tensor:
+    """Bring a per-row result back to the first position: ``parts``, the
+    data rows' results in row order (each over its row's slots,
+    :func:`row_work`), stitched along the slot axis (0) on the first
+    position of the active serving mesh (outside ``serving_mesh``, on the
+    first part's device)."""
+    ctx = serving_ctx()
+    home = ctx.device if ctx is not None else parts[0].device
+    return torch.cat([t.to(home) for t in parts], dim=0)
+
+
+def row_starts(n: int, d: int) -> tuple:
+    """The offsets of ``d`` contiguous blocks of ``n`` entries: block ``r``
+    is ``fault.owned_slots(r, n, d)`` (balanced to within one)."""
+    return tuple(r * n // d for r in range(d + 1))
+
+
+class Rows:
+    """One cache leaf placed on the ``data`` rows (:meth:`MeshContext.put_caches`):
+    block ``r`` holds entries ``starts[r]:starts[r + 1]`` of the split axis
+    (``axis``: 1, the slot or page axis of a leaf stacked per layer; 0 for
+    one layer of it) as a tensor of its own on row ``r``'s first position.
+    Indexing a leading axis (``leaf[layer]``) gives that layer's blocks."""
+
+    def __init__(self, blocks, starts, axis: int):
+        self.blocks, self.starts, self.axis = list(blocks), tuple(starts), axis
+
+    @property
+    def n_rows(self) -> int:
+        return len(self.blocks)
+
+    @property
+    def shape(self) -> torch.Size:
+        s = list(self.blocks[0].shape)
+        s[self.axis] = self.starts[-1]
+        return torch.Size(s)
+
+    @property
+    def dtype(self):
+        return self.blocks[0].dtype
+
+    def numel(self) -> int:
+        return sum(b.numel() for b in self.blocks)
+
+    def element_size(self) -> int:
+        return self.blocks[0].element_size()
+
+    def row(self, r: int) -> torch.Tensor:
+        return self.blocks[r]
+
+    def __getitem__(self, i: int) -> "Rows":
+        if self.axis == 0:
+            raise IndexError("Rows: only the axes before the split axis index")
+        return Rows([b[i] for b in self.blocks], self.starts, self.axis - 1)
+
+
+def row_work(leaf, n_slots: int):
+    """``[(row, slots slice, device)]`` of the cache-bound work over
+    ``n_slots`` slots when ``leaf`` lies on the rows (a :class:`Rows`: its
+    slot blocks, or the rows of a page pool), one entry a row that owns
+    slots; None when ``leaf`` is whole, and the work runs on the whole
+    batch as without a mesh."""
+    if not isinstance(leaf, Rows):
+        return None
+    st = row_starts(n_slots, leaf.n_rows)
+    return [(r, slice(st[r], st[r + 1]), leaf.blocks[r].device)
+            for r in range(leaf.n_rows) if st[r + 1] > st[r]]
+
+
+def pad_rows(t: torch.Tensor, n: Optional[int]) -> torch.Tensor:
+    """``t`` zero-padded along axis 0 to ``n`` entries (``None``, or ``t``
+    that long already: ``t``).  A data row's operands of a batched library
+    product (``einsum``/``matmul``) take the whole batch's shape this way:
+    the library then picks the whole batch's kernel (on the card cuBLAS
+    picks by the batch count, and its sums follow the pick), so each
+    slot's result is bitwise its slice of the whole batch's."""
+    if n is None or t.shape[0] >= n:
+        return t
+    return torch.cat([t, t.new_zeros((n - t.shape[0],) + tuple(t.shape[1:]))])
+
+
+def set_slots(leaf, slots, value: torch.Tensor) -> None:
+    """``leaf[:, slots] = value`` in place (``slots`` ascending host ints,
+    ``value (X, len(slots), ...)``); a :class:`Rows` leaf takes each slot's
+    entry into the block of the row that owns it."""
+    slots = [int(s) for s in slots]
+    if not isinstance(leaf, Rows):
+        leaf[:, torch.tensor(slots, dtype=torch.int64, device=leaf.device)] = value.to(leaf.dtype)
+        return
+    for r, blk in enumerate(leaf.blocks):
+        lo, hi = leaf.starts[r], leaf.starts[r + 1]
+        mine = [j for j, s in enumerate(slots) if lo <= s < hi]
+        if mine:
+            at = torch.tensor([slots[j] - lo for j in mine], dtype=torch.int64, device=blk.device)
+            pick = torch.tensor(mine, dtype=torch.int64, device=value.device)
+            blk[:, at] = value.index_select(1, pick).to(blk.device).to(blk.dtype)
+
+
+def row_params(p: dict, r: int) -> dict:
+    """The weights row ``r``'s cache-bound work reads from block ``p``: its
+    copy under ``ROWS`` (``MeshContext.put_params``), else ``p`` itself."""
+    return p[ROWS][r] if ROWS in p else p
+
+
 @dataclasses.dataclass
 class Decision:
     path: str
@@ -101,6 +217,11 @@ _EXPERT = ("we_gate", "we_up", "we_down")
 _CACHE_LEAVES = ("k", "v", "ckv", "krope", "k_scale", "v_scale", "ckv_scale")
 # the reference's layer stacks, lists of per-layer trees in the port
 _STACKS = ("blocks", "enc_blocks", "dec_blocks")
+# the weights the cache-bound work of a data row reads (a block holding the
+# first name holds them all): MLA's latent expansion, a Mamba2 layer's conv
+# and state step; put_params keeps a copy a row under ROWS
+_ROW_READ = (("wkv_b",), ("conv_w", "conv_b", "A_log", "D"))
+ROWS = "rows"
 # a QTensor's array fields: the reference's leaves, in its flatten order,
 # then the port's own
 _QT_FIELDS = ("packed", "scales", "inv_perm", "fused_packed", "fused_scales", "fused_perm",
@@ -346,10 +467,15 @@ class MeshContext:
     ``mesh=None`` (the default everywhere) makes every method the identity
     and ``data``/``model`` 1.  With a live ``(data, model)`` mesh the
     context owns the placement: ``put_params`` places the weights by
-    :meth:`ShardingRules.serving_shardings`; ``put_replicated`` puts
-    tensors on the first position; ``cache_shardings`` is the rule the
-    reference places the caches by (the slot/page axis on ``data``).  A
-    mesh without the ``("data", "model")`` axes raises ``ValueError``.
+    :meth:`ShardingRules.serving_shardings` (a sharded QTensor keeps only
+    its shards; each data row gets a copy of the weights its cache-bound
+    work reads); ``put_caches`` puts each cache leaf whose slot or page
+    axis ``data`` divides on the rows (a :class:`Rows`), by
+    ``cache_shardings``, the rule the reference places the caches by;
+    ``put_replicated`` puts tensors on the first position;
+    ``placement_bytes`` counts what each position holds.  At ``(1, m)``
+    the caches and the rows' copies stay as without a mesh.  A mesh
+    without the ``("data", "model")`` axes raises ``ValueError``.
     """
 
     def __init__(self, mesh=None):
@@ -375,13 +501,22 @@ class MeshContext:
     @property
     def device(self):
         """The first position: it holds every replicated tensor and runs
-        all but the shard launches."""
+        the work that couples the rows and the shard launches' gathers."""
         return self.mesh.devices.flat[0]
+
+    def position(self, r: int, m: int):
+        """The device at data row ``r``, model position ``m`` (index 0 of
+        any other axis)."""
+        idx = [0] * self.mesh.devices.ndim
+        idx[self.mesh.axis_names.index("data")] = r
+        idx[self.mesh.axis_names.index("model")] = m
+        return self.mesh.devices[tuple(idx)]
 
     # -- placement (identity when inactive) ---------------------------------
     def put_params(self, tree):
         if not self.is_active or tree is None:
             return tree
+        tree = _unplaced(tree)                  # a placed tree is decided afresh
         return _place(tree, self.rules.serving_shardings(tree), self)
 
     def put_replicated(self, tree):
@@ -400,6 +535,69 @@ class MeshContext:
             return (None, "data") if len(shape) >= 2 and d > 1 and shape[1] % d == 0 else ()
         return _map_leaves(tree, one)
 
+    def put_caches(self, tree):
+        """``tree`` placed by :meth:`cache_shardings`: a leaf sharded on
+        ``data`` becomes a :class:`Rows` whose block ``r`` (the slots
+        ``fault.owned_slots(r, B, data)``, or the same split of the pages)
+        is a tensor of its own on position ``(r, 0)``; a replicated leaf
+        stays whole on the first position."""
+        if not self.is_active or tree is None:
+            return tree
+        specs = self.cache_shardings(tree)
+
+        def one(leaf, spec):
+            if spec == ():
+                return leaf.to(self.device)
+            st = row_starts(leaf.shape[1], self.data)
+            return Rows([_own_copy(leaf[:, st[r]:st[r + 1]], self.position(r, 0))
+                         for r in range(self.data)], st, 1)
+        return _zip_leaves(tree, specs, one)
+
+    def placement_bytes(self, tree, shards: Optional[bool] = None) -> np.ndarray:
+        """``(data, model)`` int64: the bytes each position holds of
+        ``tree`` (placed weights, caches, or both) as a deployment on
+        distinct cards would hold them.  A :class:`Rows` block counts at
+        its row, a QTensor's shard ``m`` at ``(row, m)``, a row's copy
+        under ``ROWS`` at its row, everything else at the first position;
+        a tensor counts once a position however often the tree holds it,
+        and a view counts its own bytes where it was placed (positions that
+        share a device share storage, which this count does not see).
+        ``shards=True`` counts the QTensors' shards alone, ``False`` all
+        but them."""
+        out = np.zeros((self.data, self.model), np.int64)
+        seen = set()
+
+        def add(t, r, m, is_shard):
+            if t is None or (shards is not None and shards != is_shard) or (r, m, id(t)) in seen:
+                return
+            seen.add((r, m, id(t)))
+            out[r, m] += t.numel() * t.element_size()
+
+        def walk(node, r):
+            if isinstance(node, Rows):
+                for rr, blk in enumerate(node.blocks):
+                    add(blk, rr, 0, False)
+            elif _is_qt(node):
+                for _, leaf in _qt_leaves(node):
+                    add(leaf, r, 0, False)
+                for m, shard in enumerate(node.fused_shards or ()):
+                    for t in shard:
+                        add(t, r, m, True)
+            elif isinstance(node, dict):
+                for k, v in node.items():
+                    if k == ROWS:
+                        for rr, sub in enumerate(v):
+                            walk(sub, rr)
+                    else:
+                        walk(v, r)
+            elif isinstance(node, (list, tuple)):
+                for v in node:
+                    walk(v, r)
+            elif isinstance(node, torch.Tensor):
+                add(node, r, 0, False)
+        walk(tree, 0)
+        return out
+
 
 def _map_leaves(tree, fn):
     if isinstance(tree, dict):
@@ -409,9 +607,89 @@ def _map_leaves(tree, fn):
     return None if tree is None else fn(tree)
 
 
+def _zip_leaves(tree, specs, fn):
+    if isinstance(tree, dict):
+        return {k: _zip_leaves(v, specs[k], fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_leaves(v, s, fn) for v, s in zip(tree, specs))
+    return None if tree is None else fn(tree, specs)
+
+
+def _own_copy(t: torch.Tensor, device) -> torch.Tensor:
+    """A contiguous copy of ``t`` with storage of its own on ``device``."""
+    out = torch.empty(t.shape, dtype=t.dtype, device=device)
+    out.copy_(t)
+    return out
+
+
+def _qt_moved(qt, device, shard_devices):
+    """A placed QTensor with its whole leaves on ``device`` and shard ``m``
+    on ``shard_devices[m]`` (a row's copy; ``.to`` keeps a tensor already
+    there, so positions that share a device share storage)."""
+    moved = {}
+    for name in _QT_FIELDS:
+        v = getattr(qt, name)
+        moved[name] = (tuple(u.to(device) for u in v) if isinstance(v, tuple)
+                       else None if v is None else v.to(device))
+    shards = None if qt.fused_shards is None else tuple(
+        tuple(t.to(d) for t in shard) for shard, d in zip(qt.fused_shards, shard_devices))
+    return dataclasses.replace(qt, fused_shards=shards, **moved)
+
+
+def _on_row(node, ctx: MeshContext, r: int):
+    if _is_qt(node):
+        return _qt_moved(node, ctx.position(r, 0), [ctx.position(r, m) for m in range(ctx.model)])
+    if isinstance(node, dict):
+        return {k: _on_row(v, ctx, r) for k, v in node.items()}
+    return node.to(ctx.position(r, 0)) if isinstance(node, torch.Tensor) else node
+
+
+def same_device(a, b) -> bool:
+    """Whether two devices are one (``cuda`` without an index is the
+    current card)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or a.index == b.index:
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == (cur if b.index is None else b.index)
+
+
+def _drop_whole(qt, shards, home):
+    """``qt`` keeping only ``shards``: its whole fused buffer, scales and
+    table are dropped.  A shard stays a view of the whole buffer only when
+    every shard lies on the buffer's device; otherwise each shard tensor
+    that shares the buffer's storage takes storage of its own, so the
+    whole buffer can be freed."""
+    if not all(same_device(t.device, home) for shard in shards for t in shard):
+        whole = {t.untyped_storage().data_ptr()
+                 for t in (qt.fused_packed, qt.fused_scales, qt.fused_table)}
+        shards = tuple(tuple(_own_copy(t, t.device) if t.untyped_storage().data_ptr() in whole
+                             else t for t in shard) for shard in shards)
+    return dataclasses.replace(qt, fused_packed=None, fused_scales=None, fused_table=None,
+                               fused_shards=shards)
+
+
+def _unplaced(tree):
+    """``tree`` without a placement: each sharded QTensor whole again (on
+    its first shard's device), the rows' copies dropped; every other node
+    is the tree's own."""
+    if _is_qt(tree):
+        return tree if tree.fused_shards is None else tree.to(tree.fused_shards[0][0].device)
+    if isinstance(tree, dict):
+        return {k: _unplaced(v) for k, v in tree.items() if k != ROWS}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_unplaced(v) for v in tree)
+    return tree
+
+
 def _place(tree, specs, ctx: MeshContext):
-    """``tree`` with every tensor on the first position, and each QTensor
-    whose fused buffer is sharded under ``specs`` carrying its shards."""
+    """``tree`` with every tensor on the first position, each QTensor whose
+    fused buffer is sharded under ``specs`` keeping only its shards, and,
+    when ``specs`` are given on more than one data row, each block that
+    holds the weights of a row's cache-bound work (``_ROW_READ``) carrying
+    a copy of them a row under ``ROWS`` (row 0's the block's own)."""
     home = ctx.device
     if _is_qt(tree):
         qt = tree.to(home)
@@ -428,9 +706,16 @@ def _place(tree, specs, ctx: MeshContext):
             shards = ops.tp_shards(qt.fused_packed, qt.fused_scales, qt.tile_bits,
                                    qm.tp_chunk(qt.tile_bits, len(devices)), Kp, qt.tile_n,
                                    devices)
-        return dataclasses.replace(qt, fused_shards=shards)
+        return _drop_whole(qt, shards, home)
     if isinstance(tree, dict):
-        return {k: _place(v, None if specs is None else specs[k], ctx) for k, v in tree.items()}
+        out = {k: _place(v, None if specs is None else specs[k], ctx) for k, v in tree.items()}
+        if specs is not None and ctx.data > 1:
+            for names in _ROW_READ:
+                if names[0] in out:
+                    mine = {n: out[n] for n in names}
+                    out[ROWS] = (mine,) + tuple({n: _on_row(v, ctx, r) for n, v in mine.items()}
+                                                for r in range(1, ctx.data))
+        return out
     if isinstance(tree, (list, tuple)):
         return type(tree)(_place(v, None if specs is None else specs[i], ctx)
                           for i, v in enumerate(tree))

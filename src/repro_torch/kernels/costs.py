@@ -165,7 +165,7 @@ def k3_ep_cost(x, shards, fused_perm, tile_bits, tile_n, c_in, c_out,
 
 
 def k4_cost(q, k_packed, k_scales, v_packed, v_scales, pos, bits, sizes,
-            out_dtype=torch.bfloat16) -> KernelCost:
+            out_dtype=torch.bfloat16, plan_slots=None) -> KernelCost:
     """``decode_attention``: one K4 launch, charged for a full ring (every
     row at ``pos = S - 1``): the count reads no data, as the reference's
     count of a masked dense attention reads none."""

@@ -139,13 +139,17 @@ def decode_attention_plain(q, k_packed, k_scales, v_packed, v_scales, pos,
 @costs.charged_as("decode_attention", costs.k4_cost)
 def decode_attention(q, k_packed, k_scales, v_packed, v_scales, pos,
                      bits: tuple, sizes: tuple,
-                     out_dtype=torch.bfloat16) -> torch.Tensor:
+                     out_dtype=torch.bfloat16, plan_slots=None) -> torch.Tensor:
     """Packed-cache GQA decode attention.
 
     ``q (B, KV, rep, hd)`` f32 (after RoPE) or bf16; ``k_packed``/
     ``v_packed (B, KV, S, NB)`` uint8; ``k_scales``/``v_scales
     (B, KV, S, G)`` f32; ``pos (B,)`` int32.  Returns ``(B, KV, rep, hd)``
-    in ``out_dtype`` (bf16 or f32).
+    in ``out_dtype`` (bf16 or f32).  ``plan_slots`` (default ``B``): the
+    slots the ring split is planned for (:func:`k4_plan`).  A slot's sums
+    depend on the split alone, so a launch over some of a batch's slots
+    planned for the whole batch (a data row's, on a serving mesh) is
+    bitwise its slice of the whole batch's launch.
     """
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_packed, k_scales, v_packed, v_scales,
@@ -179,7 +183,7 @@ def decode_attention(q, k_packed, k_scales, v_packed, v_scales, pos,
     out = torch.empty((B, KV, rep, hd), dtype=out_dtype, device=q.device)
     if out.numel() == 0:
         return out
-    P = k4_plan(B, KV, rep, hd, S,
+    P = k4_plan(B if plan_slots is None else max(B, int(plan_slots)), KV, rep, hd, S,
                 torch.cuda.get_device_properties(q.device).multi_processor_count)
     scratch = torch.empty((B, KV, rep, S), dtype=torch.float32, device=q.device)
     # per block: its max and its sum per query head, its partial value dot

@@ -21,7 +21,8 @@ the unmodified fused kernel (K1) or expert kernel (K3) runs once per shard
 over that shard's whole tiles or whole experts, and the pieces come back
 to x's device, concatenated along N or E, before the channel gather.  They
 take the placement ``tp_shards`` / ``ep_shards`` built, which the mesh's
-``MeshContext.put_params`` keeps in ``QTensor.fused_shards``.  Each
+``MeshContext.put_params`` keeps in ``QTensor.fused_shards`` (and nothing
+else of the buffer: ``tp_whole`` / ``ep_whole`` rebuild it bitwise).  Each
 shard's launch is bitwise its slice of the unsharded launch (the kernels'
 sums depend on M and K alone); on CPU tensors each shard runs the plain
 version.
@@ -236,6 +237,26 @@ def ep_shards(fused_packed: torch.Tensor, fused_table: torch.Tensor,
     n = E // parts
     return tuple((fused_packed[m * n:(m + 1) * n].to(d), fused_table.to(d),
                   fused_scales[m * n:(m + 1) * n].to(d)) for m, d in enumerate(devices))
+
+
+def tp_whole(shards: tuple, tile_bits: tuple, Kp: int, tile_n: int) -> tuple:
+    """The inverse of :func:`tp_shards`: ``(fused_packed, fused_table,
+    fused_scales)`` of the whole schedule ``tile_bits`` on shard 0's device.
+    The shards are whole N-tile chunks in order, so their bytes and scales
+    concatenate to the original buffers, and the table is the schedule's."""
+    dev = shards[0][0].device
+    return (torch.cat([p.to(dev) for p, _, _ in shards]),
+            qmk.fused_table(tile_bits, Kp, tile_n).to(dev),
+            torch.cat([s.to(dev) for _, _, s in shards]))
+
+
+def ep_whole(shards: tuple) -> tuple:
+    """The inverse of :func:`ep_shards`: ``(fused_packed, fused_table,
+    fused_scales)`` of every expert in order on shard 0's device (every
+    shard carries the one schedule)."""
+    dev = shards[0][0].device
+    return (torch.cat([p.to(dev) for p, _, _ in shards]), shards[0][1],
+            torch.cat([s.to(dev) for _, _, s in shards]))
 
 
 @costs.charged_as("quant_matmul_fused_tp", costs.k1_tp_cost)

@@ -19,10 +19,13 @@ hybrid and audio families).
 
 ``--mesh d,m`` serves on a ``(data, model)`` mesh (``launch/mesh.py``):
 the engine places the weights itself (a QTensor's fused buffers in whole
-N-tiles or experts on the ``model`` positions, launched once per shard;
-everything else, the caches too, on the first position) and keeps the
-tokens of the engine without a mesh.  With ``--device cpu`` every position
-is the CPU; on the card the positions are the first ``d * m`` cards.
+N-tiles or experts on the ``model`` positions, launched once per shard,
+with no whole buffer left; everything else on the first position) and
+the caches on the ``data`` rows (a block of slots or pages a row, whose
+cache-bound work runs there), and keeps the tokens of the engine without
+a mesh.  Both runs print each position's resident bytes (weights,
+shards, caches).  With ``--device cpu`` every position is the CPU; on
+the card the positions are the first ``d * m`` cards.
 ``--fail-host h`` (needs ``--mesh``)
 stops host ``h`` of the ``data`` axis partway through the trace: its slots
 drain and every request still completes.
@@ -104,6 +107,19 @@ def _paged_line(eng):
             f"{eng.kv_bytes_resident()} B vs dense {eng.kv_bytes_dense()} B")
 
 
+def _placement_lines(eng) -> list:
+    """Each mesh position's resident bytes, as on distinct cards
+    (``MeshContext.placement_bytes``): the weights (the draft's too) but
+    their fused shards, the shards, and the caches."""
+    ctx = eng.mesh_ctx
+    weights = [eng.dparams, eng.draft_dparams]
+    caches = [eng.caches, getattr(eng, "draft_caches", None) if eng.speculate_k else None]
+    w, sh = ctx.placement_bytes(weights, shards=False), ctx.placement_bytes(weights, shards=True)
+    c = ctx.placement_bytes(caches)
+    return [f"position ({r}, {m}): weights {w[r, m]} B, shards {sh[r, m]} B, caches {c[r, m]} B"
+            for r in range(ctx.data) for m in range(ctx.model)]
+
+
 def _run_failing(eng, reqs, arrivals, args) -> dict:
     """``eng.run``'s schedule with one ``fail_host`` call partway through:
     the heartbeat drains the host's slots and the trace still completes.
@@ -151,6 +167,8 @@ def run_continuous(cfg, dparams, reqs, arrivals, args, mesh=None):
               f"accepted/verify, {st['useful_tokens'] / verifier:.2f} useful tokens per "
               f"verifier step (+{st['draft_launches']} draft steps)")
     print("sample token ids:", outs[0].tokens[:16])
+    if mesh is not None:
+        print("\n".join(_placement_lines(eng)))
     return dt, st["useful_tokens"]
 
 
@@ -170,6 +188,8 @@ def run_lockstep(cfg, dparams, reqs, args, mesh=None):
     print(f"lockstep:   {len(reqs)} requests, {useful} useful tokens in {dt:.2f}s "
           f"({useful / dt:.1f} tok/s, host clock) over "
           f"{st['prefill_launches'] + st['decode_launches']} steps")
+    if mesh is not None:
+        print("\n".join(_placement_lines(eng)))
     return dt, useful
 
 

@@ -51,6 +51,7 @@ import torch
 
 from repro_torch.cache import paged
 from repro_torch.core import quantizers as qz
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import decode_attention as datt
 from repro_torch.models import kv_quant as kvq
 from repro_torch.models import layers as L
@@ -314,13 +315,15 @@ def _ring_write(ring: torch.Tensor, wpos: torch.Tensor, new: torch.Tensor) -> No
 
 
 def _write_and_read(cache: dict, keys: tuple, new: tuple, pos, live, pages, page_size,
-                    mid: bool) -> tuple:
+                    mid: bool, row: int = 0) -> tuple:
     """Write each leaf's new entries (``new[i]`` of ``(B, W, [KV,] F)``
     into ``cache[keys[i]]``) at the slots' positions ``pos (B, W)``, in
     place, and return the leaves as per-slot rings: the dense rings
     themselves, or with ``pages`` the pools written through the page table
     and gathered back.  ``mid``: the leaves carry the KV-head axis before
-    the ring axis."""
+    the ring axis.  Pools on the data rows (``row``'s slots' entries and
+    table): each entry written into, and each page read from, the row that
+    owns it (``paged.RowRoute``)."""
     if pages is None:
         S = cache[keys[0]].shape[2 if mid else 1]
         wpos = slot_write_pos(pos, live, S)
@@ -329,9 +332,26 @@ def _write_and_read(cache: dict, keys: tuple, new: tuple, pos, live, pages, page
                         t if mid else t[:, :, None])
         return tuple(cache[k] for k in keys)
     phys, off = paged.write_coords(pos, live, pages, page_size, cache[keys[0]].shape[0])
+    if isinstance(cache[keys[0]], shd.Rows):
+        route = paged.RowRoute(cache[keys[0]], row, phys, off, pages)
+        for key, t in zip(keys, new):
+            route.write(cache[key], t)
+        return tuple(route.gather(cache[k]) for k in keys)
     for key, t in zip(keys, new):
         paged.write_pages(cache[key], phys, off, t)
     return tuple(paged.gather_pages(cache[k], pages) for k in keys)
+
+
+def _row_cache(cache: dict, keys: tuple, r: int, paged_: bool) -> dict:
+    """Row ``r``'s view of a cache on the data rows: its slot blocks of the
+    dense leaves, or the page pools as they are (the route finds each
+    page's row)."""
+    return {k: cache[k] if paged_ else cache[k].row(r) for k in keys}
+
+
+def _on(t, sl, dev):
+    """Rows ``sl`` of ``t`` (None stays None) on ``dev``."""
+    return None if t is None else t[sl].to(dev)
 
 
 def gqa_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: torch.Tensor,
@@ -364,7 +384,6 @@ def gqa_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     """
     B, W = x.shape[:2]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    cd = cfg.cdtype
     posk = _positions(pos, B, W, x.device)                             # (B, W)
     q = dq_linear(x, p["wq"]).reshape(B, W, H, hd)
     k = dq_linear(x, p["wk"]).reshape(B, W, KV, hd)
@@ -379,10 +398,35 @@ def gqa_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     else:
         kq, ks = kvq.quant_channelwise(k.transpose(1, 2), kv_spec)
         vq, vs = kvq.quant_channelwise(v.transpose(1, 2), kv_spec)
-    ki, vi, ksc, vsc = _write_and_read(
-        cache, ("k", "v", "k_scale", "v_scale"),
-        tuple(t.transpose(1, 2) for t in (kq, vq, ks, vs)), posk, live, pages, page_size,
-        mid=True)
+    new = tuple(t.transpose(1, 2) for t in (kq, vq, ks, vs))
+    keys = ("k", "v", "k_scale", "v_scale")
+    rows = shd.row_work(cache["k"], B)
+    if rows is None:
+        o = _gqa_attend(cfg, cache, keys, new, q, posk, live, pages, page_size, kv_spec, backend)
+    else:                           # the cache-bound work on each data row, over its slots
+        o = shd.replicate_serving([
+            _gqa_attend(cfg, _row_cache(cache, keys, r, pages is not None), keys,
+                        tuple(t[sl].to(dev) for t in new), q[sl].to(dev), posk[sl].to(dev),
+                        _on(live, sl, dev), _on(pages, sl, dev), page_size, kv_spec, backend,
+                        row=r, plan_slots=B)
+            for r, sl, dev in rows])
+    return dq_linear(o, p["wo"]), cache
+
+
+def _gqa_attend(cfg, cache, keys, new, q, posk, live, pages, page_size, kv_spec, backend,
+                row: int = 0, plan_slots: Optional[int] = None) -> torch.Tensor:
+    """The cache-bound half of :func:`gqa_decode` over one set of slots:
+    the ring write, the read (the page gather) and the ``W`` single-query
+    attention steps -> ``(B, W, H * hd)`` before ``wo``.  ``plan_slots``:
+    the whole batch's slots, when these are a data row's: K4 (a packed ring
+    under ``"cuda"``) plans its ring split for them, and the dequantized
+    attention's products run padded to them (``sharding.pad_rows``), so
+    that the row's results are bitwise its slice of the whole batch's."""
+    B, W = q.shape[:2]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cd = cfg.cdtype
+    ki, vi, ksc, vsc = _write_and_read(cache, keys, new, posk, live, pages, page_size,
+                                       mid=True, row=row)
     rep = H // KV
     kernel = kv_spec is not None and backend == "cuda"
     if not kernel:
@@ -398,11 +442,12 @@ def gqa_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: torch.Tensor,
         if kernel:
             qg = qg.contiguous()                  # a strided view when W > 1
             o = datt.decode_attention(qg, ki, ksc, vi, vsc, posk[:, j].contiguous(), kv_spec.bits,
-                                      kv_spec.sizes, out_dtype=cd)
+                                      kv_spec.sizes, out_dtype=cd, plan_slots=plan_slots)
         else:
-            o = datt.attend(qg, kf, vf, posk[:, j], cd)
+            o = datt.attend(*(shd.pad_rows(t, plan_slots) for t in (qg, kf, vf, posk[:, j])),
+                            cd)[:B]
         outs.append(o.reshape(B, 1, H * hd))
-    return dq_linear(torch.cat(outs, dim=1) if W > 1 else outs[0], p["wo"]), cache
+    return torch.cat(outs, dim=1) if W > 1 else outs[0]
 
 
 def _positions(pos, B: int, W: int, device) -> torch.Tensor:
@@ -468,7 +513,6 @@ def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     H = cfg.n_heads
     nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     kvr = cfg.kv_lora_rank
-    cd = cfg.cdtype
     posk = _positions(pos, B, W, x.device)                             # (B, W)
 
     cq = L.rmsnorm(dq_linear(x, p["wq_a"]), p["q_norm"])
@@ -485,10 +529,40 @@ def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: torch.Tensor,
         qc, qs = quant_per_token(c_kv)                       # (B, W, kvr), (B, W, 1)
     else:
         qc, qs = kvq.quant_channelwise(c_kv, kv_spec)
+    new = (qc, qs, k_rope_new.to(torch.bfloat16))
+    keys = ("ckv", "ckv_scale", "krope")
+    rows = shd.row_work(cache["ckv"], B)
+    if rows is None:
+        o = _mla_attend(p, cfg, cache, keys, new, q_nope, q_rope, posk, live, pages, page_size,
+                        kv_spec, dq_linear)
+    else:                           # the cache-bound work on each data row, over its slots
+        o = shd.replicate_serving([
+            _mla_attend(shd.row_params(p, r), cfg, _row_cache(cache, keys, r, pages is not None),
+                        keys, tuple(t[sl].to(dev) for t in new), q_nope[sl].to(dev),
+                        q_rope[sl].to(dev), posk[sl].to(dev), _on(live, sl, dev),
+                        _on(pages, sl, dev), page_size, kv_spec, dq_linear, row=r,
+                        plan_slots=B)
+            for r, sl, dev in rows])
+    return dq_linear(o, p["wo"]), cache
+
+
+def _mla_attend(p, cfg, cache, keys, new, q_nope, q_rope, posk, live, pages, page_size,
+                kv_spec, dq_linear, row: int = 0, plan_slots: Optional[int] = None) -> torch.Tensor:
+    """The cache-bound half of :func:`mla_decode` over one set of slots:
+    the latent write and read, the latents' dequantization, their
+    expansion through ``p["wkv_b"]`` (K1 on the kernel path, over these
+    slots' ``B * S`` latents: its sums do not depend on the rows' count)
+    and the ``W`` single-query attention steps -> ``(B, W, H * vd)``
+    before ``wo``.  ``plan_slots``: the whole batch's slots, when these are
+    a data row's: the attention's products run padded to them
+    (``sharding.pad_rows``), bitwise the whole batch's rows."""
+    B, W = q_nope.shape[:2]
+    H = cfg.n_heads
+    nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    cd = cfg.cdtype
     # dense: the (B, S, F) rings seen as (B, 1, S, F), one "kv-head" of the GQA writer
-    ckv_i, ckv_s, krope_i = _write_and_read(
-        cache, ("ckv", "ckv_scale", "krope"), (qc, qs, k_rope_new.to(torch.bfloat16)), posk,
-        live, pages, page_size, mid=False)
+    ckv_i, ckv_s, krope_i = _write_and_read(cache, keys, new, posk, live, pages, page_size,
+                                            mid=False, row=row)
     S = ckv_i.shape[1]
     if kv_spec is None:
         ckv_f = (ckv_i.to(torch.float32) * ckv_s).to(cd)
@@ -497,17 +571,19 @@ def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     kv = dq_linear(ckv_f, p["wkv_b"]).reshape(B, S, H, nope + vd)
     k_nope, v = kv[..., :nope], kv[..., nope:]
     f32 = torch.float32
-    k_nope32, krope32, v32 = k_nope.to(cd).to(f32), krope_i.to(cd).to(f32), v.to(cd).to(f32)
-    ring = torch.arange(S, device=x.device)[None, None, None, :]
+    k_nope32, krope32, v32, q_nope, q_rope, posk = (shd.pad_rows(t, plan_slots) for t in (
+        k_nope.to(cd).to(f32), krope_i.to(cd).to(f32), v.to(cd).to(f32), q_nope, q_rope, posk))
+    dev = q_nope.device
+    ring = torch.arange(S, device=dev)[None, None, None, :]
     outs = []
     for j in range(W):
         s = torch.einsum("bqhn,bkhn->bhqk", q_nope[:, j:j + 1].to(cd).to(f32), k_nope32)
         s = s + torch.einsum("bqhr,bkr->bhqk", q_rope[:, j:j + 1].to(cd).to(f32), krope32)
         s = qz.over(s, math.sqrt(nope + rope))
         valid = ring <= posk[:, j, None, None, None]
-        s = torch.where(valid, s, torch.full((), -math.inf, device=x.device))
+        s = torch.where(valid, s, torch.full((), -math.inf, device=dev))
         e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
         w = (e / torch.sum(e, dim=-1, keepdim=True)).to(cd)
-        o = torch.einsum("bhqk,bkhv->bqhv", w.to(f32), v32).to(cd)
+        o = torch.einsum("bhqk,bkhv->bqhv", w.to(f32), v32).to(cd)[:B]
         outs.append(o.reshape(B, 1, H * vd))
-    return dq_linear(torch.cat(outs, dim=1) if W > 1 else outs[0], p["wo"]), cache
+    return torch.cat(outs, dim=1) if W > 1 else outs[0]

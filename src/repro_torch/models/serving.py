@@ -53,6 +53,7 @@ from repro_torch.api.engine import resolve_device
 from repro_torch.api.qtensor import QTensor, _auto_tile_n
 from repro_torch.cache import paged
 from repro_torch.core import quantizers as qz
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import quant_matmul as qmk
 from repro_torch.models import attention as attn
 from repro_torch.models import kv_quant as kvq
@@ -717,13 +718,25 @@ def merge_paged_caches(cfg, prefill_caches: dict, caches: dict, admit: torch.Ten
     per-slot leaves take the rows of the slots in ``admit (B,) bool``,
     right-padded to their shape."""
     mask = paged_leaf_mask(cfg)
+    slots = np.nonzero(admit.cpu().numpy())[0]
     for k, pc in prefill_caches.items():
         if mask[k]:
             paged.scatter_prefill(caches[k], pc, wp_flat)
         else:
-            pc = embed_caches({k: pc}, {k: caches[k]})[k]
-            caches[k][:, admit] = pc[:, admit]
+            merge_slots(caches[k], pc, slots)
     return caches
+
+
+def merge_slots(leaf, pc: torch.Tensor, slots) -> None:
+    """Admit the prefill cache ``pc (X, B, ...)`` of the slots ``slots``
+    (ascending host ints) into the per-slot cache ``leaf (X, B, ...)``, in
+    place, right-padded along the sequence axis to the leaf's shape: the
+    dense engine's row merge; a leaf on the data rows takes each slot's
+    row into the block of the row that owns it."""
+    idx = torch.as_tensor(np.asarray(slots, np.int64), device=pc.device)
+    shape = (leaf.shape[0], len(slots)) + tuple(leaf.shape[2:])
+    template = torch.empty(shape, dtype=leaf.dtype, device="meta")
+    shd.set_slots(leaf, slots, embed_caches({"x": pc.index_select(1, idx)}, {"x": template})["x"])
 
 
 def embed_caches(prefill_caches: dict, ring: dict) -> dict:
@@ -755,20 +768,37 @@ def _cross_decode(p, cfg, x, cache, backend, kv_spec=None):
     :func:`init_caches` weighs every frame alike on either layout."""
     B = x.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    cd, f32 = cfg.cdtype, torch.float32
-    dq = _dq(cd, backend)
+    dq = _dq(cfg.cdtype, backend)
     qg = dq(x, p["wq"]).reshape(B, KV, H // KV, hd)
+    rows = shd.row_work(cache["k"], B)
+    if rows is None:
+        o = _cross_attend(cfg, qg, cache, kv_spec)
+    else:                           # each data row over its slots' cross cache
+        o = shd.replicate_serving([
+            _cross_attend(cfg, qg[sl].to(dev), {k: t.row(r) for k, t in cache.items()}, kv_spec,
+                          plan_slots=B)
+            for r, sl, dev in rows])
+    return dq(o.reshape(B, 1, H * hd), p["wo"])
+
+
+def _cross_attend(cfg, qg, cache, kv_spec, plan_slots=None):
+    """The cache-bound half of :func:`_cross_decode` over one set of slots:
+    the encoder cache dequantized and attended by ``qg (B, KV, rep, hd)``
+    (``plan_slots``: the whole batch's slots, when these are a data row's:
+    the products run padded to them, bitwise the whole batch's rows)."""
+    cd, f32 = cfg.cdtype, torch.float32
+    B = qg.shape[0]
     if kv_spec is None:
         kf = (cache["k"].to(f32) * cache["k_scale"]).to(cd)
         vf = (cache["v"].to(f32) * cache["v_scale"]).to(cd)
     else:
         kf = kvq.dequant_channelwise(cache["k"], cache["k_scale"], kv_spec, cd)
         vf = kvq.dequant_channelwise(cache["v"], cache["v_scale"], kv_spec, cd)
-    s = qz.over(torch.einsum("bgrd,bgkd->bgrk", qg.to(f32), kf.to(f32)), math.sqrt(hd))
+    qg, kf, vf = (shd.pad_rows(t, plan_slots) for t in (qg, kf, vf))
+    s = qz.over(torch.einsum("bgrd,bgkd->bgrk", qg.to(f32), kf.to(f32)), math.sqrt(cfg.head_dim))
     e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
     w = (e / torch.sum(e, dim=-1, keepdim=True)).to(cd)
-    o = torch.einsum("bgrk,bgkd->bgrd", w.to(f32), vf.to(f32)).to(cd)
-    return dq(o.reshape(B, 1, H * hd), p["wo"])
+    return torch.einsum("bgrk,bgkd->bgrd", w.to(f32), vf.to(f32)).to(cd)[:B]
 
 
 def decode_block(p, cfg, h, cache, pos, live=None, kv_spec=None, backend="cuda",

@@ -39,6 +39,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding as shd
 from repro_torch.models import layers as L
 
 CONV_K = 4  # mamba2 depthwise conv kernel size
@@ -140,17 +141,20 @@ def conv_step(window: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     return silu(acc.to(window.dtype) + b)
 
 
-def ssd_step(h: torch.Tensor, xbc: torch.Tensor, dt_raw: torch.Tensor, p: dict, cfg) -> tuple:
+def ssd_step(h: torch.Tensor, xbc: torch.Tensor, dt_raw: torch.Tensor, p: dict, cfg,
+             dt: Optional[torch.Tensor] = None) -> tuple:
     """One token of the SSD recurrence: the state ``h (B, H, P, N)`` f32,
-    the conv output ``xbc (B, C)`` and the raw steps ``dt_raw (B, H)`` ->
-    ``(h', y (B, H, P) f32)`` with the skip term ``D x`` added."""
+    the conv output ``xbc (B, C)`` and the raw steps ``dt_raw (B, H)`` (or
+    their softplus ``dt`` computed already) -> ``(h', y (B, H, P) f32)``
+    with the skip term ``D x`` added."""
     B = xbc.shape[0]
     d_inner, H, N, P = dims(cfg)
     f32 = torch.float32
     xs = xbc[..., :d_inner].reshape(B, H, P).to(f32)
     Bm = xbc[..., d_inner:d_inner + N].to(f32)
     Cm = xbc[..., d_inner + N:].to(f32)
-    dt = F.softplus(dt_raw.to(f32) + p["dt_bias"])               # (B, H)
+    if dt is None:
+        dt = F.softplus(dt_raw.to(f32) + p["dt_bias"])           # (B, H)
     decay = torch.exp(-torch.exp(p["A_log"]) * dt)
     xdt = xs * dt[..., None]                                     # (B, H, P)
     h = h * decay[:, :, None, None] + xdt[..., None] * Bm[:, None, None, :]
@@ -235,17 +239,42 @@ def mamba2_decode(p: dict, cfg, x: torch.Tensor, cache: dict, dq_linear,
     zxbcdt = dq_linear(x, p["in_proj"])[:, 0]                  # (B, 2 di + 2 N + H)
     z = zxbcdt[..., :d_inner]
     xbc_new = zxbcdt[..., d_inner:2 * d_inner + 2 * N]
-    dt_raw = zxbcdt[..., -H:]
-    window = torch.cat([cache["conv"].to(cd), xbc_new[:, None].to(cd)], dim=1)  # (B, K, C)
-    xbc = conv_step(window, p["conv_w"].to(cd), p["conv_b"].to(cd))
-    h, y = ssd_step(cache["h"], xbc, dt_raw, p, cfg)
+    # the steps are the token's own (and torch's CPU softplus rounds by the
+    # tensor's size): on the whole batch
+    dt = F.softplus(zxbcdt[..., -H:].to(torch.float32) + p["dt_bias"])   # (B, H)
+    rows = shd.row_work(cache["h"], B)
+    if rows is None:
+        y = _state_step(p, cfg, cache, xbc_new, dt, live)
+    else:                           # each data row steps its own slots' conv ring and state
+        y = shd.replicate_serving([
+            _state_step(shd.row_params(p, r), cfg, {k: cache[k].row(r) for k in ("h", "conv")},
+                        xbc_new[sl].to(dev), dt[sl].to(dev),
+                        None if live is None else live[sl].to(dev), plan_slots=B)
+            for r, sl, dev in rows])
     y = y.reshape(B, 1, d_inner).to(cd)
     y = L.rmsnorm(y * silu(z[:, None].to(cd)), p["norm"])
-    out = dq_linear(y, p["out_proj"])
+    return dq_linear(y, p["out_proj"]), cache
+
+
+def _state_step(p: dict, cfg, cache: dict, xbc_new, dt, live,
+                plan_slots: Optional[int] = None) -> torch.Tensor:
+    """The cache-bound half of :func:`mamba2_decode` over one set of slots:
+    the conv ring and the SSD state step (``dt`` the softplus'd steps),
+    written in place (``live=False`` slots keep theirs) -> ``y (B, H, P)``
+    f32.  ``plan_slots``: the whole batch's slots, when these are a data
+    row's: the state step runs padded to them (``sharding.pad_rows``; its
+    output ``einsum`` is a library product), bitwise the whole batch's."""
+    cd = cfg.cdtype
+    B = xbc_new.shape[0]
+    window = torch.cat([cache["conv"].to(cd), xbc_new[:, None].to(cd)], dim=1)  # (B, K, C)
+    xbc = conv_step(window, p["conv_w"].to(cd), p["conv_b"].to(cd))
+    h, y = ssd_step(*(shd.pad_rows(t, plan_slots) for t in (cache["h"], xbc)), None, p, cfg,
+                    dt=shd.pad_rows(dt, plan_slots))
+    h, y = h[:B], y[:B]
     new_conv = window[:, 1:].to(torch.bfloat16)
     if live is not None:
         h = torch.where(live[:, None, None, None], h, cache["h"])
         new_conv = torch.where(live[:, None, None], new_conv, cache["conv"])
     cache["h"].copy_(h)
     cache["conv"].copy_(new_conv)
-    return out, cache
+    return y
