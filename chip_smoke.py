@@ -486,6 +486,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and 8 of 128 experts (softmax routing, the dense residual MLP): one
    int8 W step, the same gates but the bitwise check, its counts zeroed
    and read around it.
+[train-mesh] The train state placed on a mesh (after [train-moe]): the
+   positions of ``make_test_mesh(2, 4, devices=[card] * 8)``, eight on the
+   one H100, as in [mesh].  minicpm-2b at full width and
+   ``TRAIN_MESH_LAYERS`` (20) of its 40 layers, AdamW, and deepseek-v3 at
+   every width, 2 layers + MTP and ``TRAIN_MESH_EXPERTS`` (8) of its 256
+   experts (``model`` = 4 divides 8: the expert stacks take the EP rule),
+   Adafactor, both at int8 compute, ``SyntheticLM`` seq 128 x batch 8:
+   each trained twice from seed 0 in lockstep, once placed
+   (``MeshContext.put_train_state``; the placed steps gather the params
+   onto the first position, compute there, cut the gradient into the
+   blocks and update each block on its position, Adafactor's leaves
+   whole) and once unsharded: 1 warmup, 1 theta, 1 W step, then
+   ``TRAIN_MESH_PAIRS`` (2) W steps each, interleaved, then a checked
+   placed W step.  Each placed step's counts are zeroed just before it and
+   read just after.  Gates: after every step the gathered state and the
+   metrics bitwise the unsharded run's; K5 launches equal on both sides
+   (``int8_products_per_step``), all on the int8 tensor cores, nothing
+   else of the port; every K5 call of the checked step bitwise its plain
+   version; AdamW updates no leaf whole, Adafactor some.  Reported:
+   ``placement_bytes`` per position (params, NAS, both optimizer states,
+   as on distinct cards), the whole-leaf updates, the bytes a step moves
+   across positions, each step's ms, host ms and peak GB, the interleaved
+   W steps' host ms placed against unsharded with the placed step's
+   CUDA-event split (gather, compute, scatter, optimizer), the phase's
+   seconds; every number labelled "8 mesh positions on one H100".
 [train-ssm] The SSM and hybrid training path (after [train-moe]), each
    model at its published widths and full depth from seed 0 on its
    config's hints (f32 params, AdamW, cosine), ``train_compute="int8"``,
@@ -4771,6 +4796,233 @@ def moe_train(dev, card, ops, sms):
 
 
 # ---------------------------------------------------------------------------
+# [train-mesh]: the train state placed on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+# minicpm-2b on the mesh: 20 of its 40 layers (the placed and the unsharded
+# state side by side, and the run's 1200 s)
+TRAIN_MESH_LAYERS = 20
+# deepseek-v3 on the mesh: 8 of its 256 experts (a gathered copy of the 32
+# experts' 27 GB of params would not fit beside the two states)
+TRAIN_MESH_EXPERTS = 8
+TRAIN_MESH_SCHEDULE = ("warmup", "theta", "w")
+TRAIN_MESH_PAIRS = 2         # interleaved placed / unsharded W step pairs timed
+
+
+def same_placed_state(placed, base, dev) -> bool:
+    """Whether the placed state, each leaf gathered in turn, equals the
+    unsharded one bitwise (one leaf whole at a time)."""
+    from repro_torch.dist import sharding as shd
+
+    def walk(p, b):
+        if isinstance(p, dict):
+            return p.keys() == b.keys() and all(walk(p[k], b[k]) for k in p)
+        if isinstance(p, shd.Shards):
+            p = p.whole(dev)
+        if isinstance(p, torch.Tensor):
+            return p.dtype == b.dtype and bool(torch.equal(p, b))
+        return p == b
+    return walk(placed, base)
+
+
+def mesh_train_model(tag, cfg, hp, ctx, dev, card, ops, label) -> tuple:
+    """``cfg`` trained twice from seed 0 in lockstep, once on ``ctx``'s
+    placement and once unsharded: ``TRAIN_MESH_SCHEDULE``'s steps (the
+    placed steps' counts zeroed just before each and read just after),
+    then ``TRAIN_MESH_PAIRS`` W steps each, interleaved and timed (the
+    placed step split into gather, compute, scatter and optimizer by CUDA
+    events, the unsharded one into compute and optimizer), then a checked
+    placed W step (every K5 call bitwise its plain
+    version).  Gates: after every step the gathered state and the metrics
+    bitwise the unsharded run's; K5 launches equal, ``int8_products_per_step``
+    a step, all on the tensor cores, nothing else.  Returns the report and
+    the placed steps' K5 launches (all, on the tensor cores)."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist import sharding as shd
+    from repro_torch.optim import optimizers as opt_mod
+    from repro_torch.train import steps as steps_mod
+
+    t_model = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = steps_mod.init_train_state(cfg, hp, 0, dev)
+    placed = ctx.put_train_state(steps_mod.init_train_state(cfg, hp, 0, dev))
+    torch.cuda.synchronize()
+    check(same_placed_state(placed, base, dev), f"[{tag}] {cfg.name}: placed state != unsharded")
+    leaves = [t for k in ("params", "nas", "opt_w", "opt_t")
+              for t in opt_mod.tree_leaves(placed[k])]
+    parts = {k: ctx.placement_bytes(placed[k]) for k in ("params", "nas", "opt_w", "opt_t")}
+    per_position = {f"({r}, {m})": {k: int(b[r, m]) for k, b in parts.items()}
+                    for r in range(ctx.data) for m in range(ctx.model)}
+    report = dict(arch=cfg.name, n_layers=cfg.n_layers, n_experts=cfg.n_experts,
+                  optimizer=hp.optimizer, train_compute=hp.train_compute,
+                  params=sum(t.numel() for t in opt_mod.tree_leaves(base["params"])),
+                  sharded_leaves=sum(isinstance(t, shd.Shards) for t in leaves),
+                  leaves=len(leaves), placement_bytes=per_position,
+                  init_s=time.perf_counter() - t_model,
+                  resident_gb=torch.cuda.memory_allocated() / 1e9)
+    log(f"[{tag}] {cfg.name}: {report['params']} params, {hp.optimizer}, int8; "
+        f"{report['sharded_leaves']} of {report['leaves']} state leaves sharded; the placed and "
+        f"the unsharded state resident {report['resident_gb']:.2f} GB | {label}")
+    for pos, row in per_position.items():
+        log(f"[{tag}] {cfg.name} position {pos}: " + ", ".join(f"{k} {v} B" for k, v in row.items())
+            + f" (as on distinct cards) | {label}")
+
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    plain = {"warmup": steps_mod.make_qat_warmup_step(cfg, hp),
+             "theta": steps_mod.make_theta_step(cfg, hp, tokens),
+             "w": steps_mod.make_train_step(cfg, hp)}
+    on_mesh = {"warmup": steps_mod.make_qat_warmup_step(cfg, hp, mesh=ctx),
+               "theta": steps_mod.make_theta_step(cfg, hp, tokens, mesh=ctx),
+               "w": steps_mod.make_train_step(cfg, hp, mesh=ctx)}
+    want = steps_mod.int8_products_per_step(cfg, hp.remat)
+    it = iter(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    launches, mma = 0, 0
+
+    def lockstep(kind, fn_placed, batch, fn_plain=None):
+        """One placed step (its counts zeroed just before, read just after)
+        and the unsharded step on the same batch, gated; their rows."""
+        nonlocal placed, base, launches, mma
+        ops.reset_launch_counts()
+        was = shd.cross_position_bytes
+        placed, prow = fn_placed(placed, batch)
+        moved = shd.cross_position_bytes - was
+        counts, mcounts = ops.launch_counts(), ops.mma_launch_counts()
+        launches += counts["scaled_int8_mm"]
+        mma += mcounts["scaled_int8_mm"]
+        check(counts["scaled_int8_mm"] == mcounts["scaled_int8_mm"] == want
+              and sum(counts.values()) == want,
+              f"[{tag}] {cfg.name} {kind}: {counts['scaled_int8_mm']} K5 launches placed, {want} "
+              f"derived, all on the tensor cores and nothing else")
+        base, brow = timed_step(fn_plain or plain[kind], batch, base)
+        check(brow["k5_launches"] == want, f"[{tag}] {cfg.name} {kind}: unsharded K5 launches")
+        metrics = [k for k in brow if k in ("loss", "reg_cost")]
+        check(all(prow[k] == brow[k] for k in metrics) and np.isfinite(prow["loss"]),
+              f"[{tag}] {cfg.name} {kind}: placed metrics != unsharded")
+        check(same_placed_state(placed, base, dev),
+              f"[{tag}] {cfg.name} {kind}: the gathered state != the unsharded state bitwise")
+        return dict(prow, cross_position_bytes=moved), brow
+
+    # the main path: placed steps, each gated against the unsharded one
+    steps = []
+    for kind in TRAIN_MESH_SCHEDULE:
+        prow, brow = lockstep(kind, lambda st, b, f=on_mesh[kind]: timed_step(f, b, st),
+                              next(it))
+        row = dict(kind=kind, placed=prow, unsharded=brow,
+                   whole_leaf_updates=on_mesh[kind].whole_leaf_updates)
+        steps.append(row)
+        log(f"[{tag}] {cfg.name} {kind} step, placed == unsharded bitwise (state, metrics, "
+            f"{want} K5 launches each): " + json.dumps(row) + f" | {label}")
+    report["steps"] = steps
+
+    # W steps interleaved: host ms placed against unsharded; the placed
+    # step's CUDA-event split
+    log(f"[clock] [{tag}] {cfg.name} at {time.perf_counter() - t_model:.1f} s")
+    def marked(fn, evs):
+        """``fn`` as a ``timed_step`` step whose phases (``mark``) end in
+        CUDA events appended to ``evs``."""
+        def mark(phase):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            evs.append((phase, e))
+
+        def step(s, b):
+            mark("start")
+            return fn(s, b, mark=mark)
+        return step
+
+    def split_ms(evs) -> dict:
+        return {ph: a.elapsed_time(e) for (_, a), (ph, e) in zip(evs, evs[1:])}
+
+    pairs = []
+    for _ in range(TRAIN_MESH_PAIRS):
+        pe, be = [], []
+        prow, brow = lockstep("w", lambda st, b: timed_step(marked(on_mesh["w"], pe), b, st),
+                              next(it), marked(plain["w"], be))
+        pairs.append(dict(placed_host_ms=prow["host_ms"], unsharded_host_ms=brow["host_ms"],
+                          placed_ms=prow["ms"], unsharded_ms=brow["ms"],
+                          placed_peak_gb=prow["peak_gb"], unsharded_peak_gb=brow["peak_gb"],
+                          placed_split_ms=split_ms(pe), unsharded_split_ms=split_ms(be),
+                          cross_position_bytes=prow["cross_position_bytes"]))
+        log(f"[{tag}] {cfg.name} W step pair (interleaved; host ms, CUDA-event ms, peak): "
+            + json.dumps(pairs[-1]) + f" | {label}")
+    report["w_pairs"] = pairs
+
+    # a checked placed W step: every K5 call bitwise its plain version
+    log(f"[clock] [{tag}] {cfg.name} at {time.perf_counter() - t_model:.1f} s")
+    batch = next(it)
+    ops.reset_launch_counts()
+    placed, row, kept, counts, worst = checked_k5_step(on_mesh["w"], batch, placed, want)
+    launches += ops.launch_counts()["scaled_int8_mm"]
+    mma += ops.mma_launch_counts()["scaled_int8_mm"]
+    del kept
+    base, brow = timed_step(plain["w"], batch, base)
+    check(row["loss"] == brow["loss"] and same_placed_state(placed, base, dev),
+          f"[{tag}] {cfg.name}: the checked placed W step != the unsharded step")
+    report["checked_w_step"] = dict(row, k5_calls_bitwise=want, max_abs_err=worst)
+    log(f"[{tag}] {cfg.name} checked placed W step: all {want} K5 calls bitwise equal to the "
+        f"plain version ({len(counts)} shapes), the state bitwise the unsharded step's; "
+        f"whole-leaf updates {on_mesh['w'].whole_leaf_updates} | {label}")
+    report.update(whole_leaf_updates=on_mesh["w"].whole_leaf_updates,
+                  cross_position_bytes_w=pairs[-1]["cross_position_bytes"],
+                  peak_gb=max(max(s["placed"]["peak_gb"] for s in steps),
+                              max(p["placed_peak_gb"] for p in pairs)),
+                  k5_launches=launches, seconds=time.perf_counter() - t_model)
+    del placed, base, batch
+    torch.cuda.empty_cache()
+    return report, launches, mma, worst
+
+
+def train_mesh(dev, card, ops):
+    """Phase [train-mesh]: the train state placed on ``make_test_mesh(2, 4,
+    devices=[card] * 8)`` by the sharding rules (``MeshContext.
+    put_train_state``), each step gathering the params onto the first
+    position, computing there and updating each block on its position;
+    minicpm-2b at full width and ``TRAIN_MESH_LAYERS`` layers (AdamW: every
+    block on its position) and deepseek-v3 at every width, 2 layers and
+    ``TRAIN_MESH_EXPERTS`` experts (Adafactor: every placed leaf whole),
+    int8 compute, each against the unsharded run (``mesh_train_model``).
+    Returns the report and K5's entry for the summary line."""
+    from repro_torch.config import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train import steps as steps_mod
+
+    t_phase = time.perf_counter()
+    label = f"{MESH_LABEL} | {card}"
+    ctx = shd.MeshContext(make_test_mesh(*MESH_SHAPE, devices=[dev] * (MESH_SHAPE[0]
+                                                                        * MESH_SHAPE[1])))
+    full = get_config(TRAIN_ARCH)
+    check((full.d_model, full.n_layers, full.n_heads, full.d_ff, full.padded_vocab)
+          == (2304, 40, 36, 5760, 122880), "[train-mesh] minicpm-2b at its published widths")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_MESH_LAYERS)
+    hp = steps_mod.TrainHParams.for_arch(cfg, train_compute="int8", warmup_steps=1,
+                                         total_steps=100)
+    check(hp.optimizer == "adamw", "[train-mesh] minicpm trains on AdamW")
+    report = {"mesh": dict(shape=list(MESH_SHAPE),
+                           positions=[str(d) for d in ctx.mesh.devices.flat])}
+    report["minicpm"], n1, m1, e1 = mesh_train_model("train-mesh", cfg, hp, ctx, dev, card, ops,
+                                                     label)
+    check(report["minicpm"]["whole_leaf_updates"] == 0,
+          "[train-mesh] AdamW updates every block on its position")
+    log(f"[clock] [train-mesh] at {time.perf_counter() - t_phase:.1f} s")
+    dcfg = _moe_train_config("deepseek-v3-671b", TRAIN_MESH_EXPERTS)
+    dhp = steps_mod.TrainHParams.for_arch(dcfg, train_compute="int8", warmup_steps=1,
+                                          total_steps=100)
+    check(dhp.optimizer == "adafactor", "[train-mesh] deepseek trains on Adafactor")
+    report["deepseek"], n2, m2, e2 = mesh_train_model("train-mesh", dcfg, dhp, ctx, dev, card,
+                                                      ops, label)
+    check(report["deepseek"]["whole_leaf_updates"] > 0,
+          "[train-mesh] Adafactor updates its placed leaves whole")
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train-mesh] phase took {report['phase_s']:.1f} s")
+    k5 = dict(launches=n1 + n2, mma_launches=m1 + m2, max_abs_err=max(e1, e2),
+              minicpm_launches_per_step=report["minicpm"]["steps"][0]["placed"]["k5_launches"],
+              deepseek_launches_per_step=report["deepseek"]["steps"][0]["placed"]["k5_launches"])
+    return report, k5
+
+
+# ---------------------------------------------------------------------------
 # The SSM, hybrid and encoder-decoder training paths (mamba2-780m,
 # zamba2-1.2b, whisper-small at full width and depth, int8 compute)
 # ---------------------------------------------------------------------------
@@ -6013,6 +6265,11 @@ def run(opts, dry: list) -> int:
     moe_train_report, k5_moe = moe_train(dev, card, ops, sms)
     report["moe_train"] = moe_train_report
 
+    # -- [train-mesh]. the train state placed on a (2, 4) mesh: minicpm, deepseek ---
+    log(f"[clock] phase [train-mesh] starts at {time.perf_counter() - t_run:.1f} s")
+    torch.cuda.empty_cache()
+    report["train_mesh"], k5_mesh = train_mesh(dev, card, ops)
+
     # -- [train-ssm], [train-audio]. mamba2, zamba2 and whisper training, int8 ----
     log(f"[clock] phase [train-ssm] starts at {time.perf_counter() - t_run:.1f} s")
     torch.cuda.empty_cache()
@@ -6076,24 +6333,27 @@ def run(opts, dry: list) -> int:
              source="src/repro_torch/kernels/csrc/int8_matmul.cu",
              replaces="src/repro/kernels/int8_matmul.py:82",
              launches=(train_launches["scaled_int8_mm"] + k5_lm["launches"] + k5_moe["launches"]
-                       + sum(v["launches"] for v in k5_new.values())),
+                       + k5_mesh["launches"] + sum(v["launches"] for v in k5_new.values())),
              mma_launches=(train_mma["scaled_int8_mm"] + k5_lm["mma_launches"]
-                           + k5_moe["mma_launches"]
+                           + k5_moe["mma_launches"] + k5_mesh["mma_launches"]
                            + sum(v["mma_launches"] for v in k5_new.values())),
              launches_by_path=dict(tinyml_training=train_launches["scaled_int8_mm"],
                                    lm_training=k5_lm["launches"],
                                    moe_training=k5_moe["launches"],
+                                   mesh_training=k5_mesh["launches"],
                                    **{f"{arch}_training": v["launches"]
                                       for arch, v in k5_new.items()}),
              max_abs_err=max([r["max_abs_err"] for r in k5_rows]
-                             + [k5_lm["max_abs_err"], k5_moe["max_abs_err"]]
+                             + [k5_lm["max_abs_err"], k5_moe["max_abs_err"],
+                                k5_mesh["max_abs_err"]]
                              + [v["max_abs_err"] for v in k5_new.values()]),
              ms=k5_sum["k5_ms"], plain_ms=k5_sum["plain_ms"], bound_ms=k5_bound,
              bound_by=k5_bound_by, library_ms=k5_sum["library_ms"],
              dae_ad=dict(ms=k5_dae_sum["k5_ms"], plain_ms=k5_dae_sum["plain_ms"],
                          bound_ms=k5_dae_sum["bound_ms"], bound_by=k5_dae_sum["bound_by"],
                          library_ms=k5_dae_sum["library_ms"], products=len(k5_dae)),
-             minicpm_train=k5_lm, deepseek_train=k5_moe, mamba2_train=k5_new["mamba2-780m"],
+             minicpm_train=k5_lm, deepseek_train=k5_moe, mesh_train=k5_mesh,
+             mamba2_train=k5_new["mamba2-780m"],
              zamba2_train=k5_new["zamba2-1.2b"], whisper_train=k5_new["whisper-small"]),
         dict(k4_lm, launches=(k4_lm["launches"] + fam_launches["decode_attention"]
                               + more("decode_attention")),
@@ -6152,7 +6412,10 @@ def run(opts, dry: list) -> int:
         f"K5's also the [train] path's (minicpm-2b at full width, int8: "
         f"its step's products timed in its 'minicpm_train' entry) and the [train-moe] path's "
         f"(deepseek-v3 and arctic at full width, 2 layers, int8: deepseek's step in its "
-        f"'deepseek_train' entry), the [train-ssm] and [train-audio] paths' (mamba2-780m, "
+        f"'deepseek_train' entry), the [train-mesh] path's (the placed steps of minicpm-2b "
+        f"at {TRAIN_MESH_LAYERS} layers and deepseek-v3 at 2 layers and {TRAIN_MESH_EXPERTS} "
+        f"experts on a (2, 4) mesh, {MESH_LABEL}: 'mesh_train'), "
+        f"the [train-ssm] and [train-audio] paths' (mamba2-780m, "
         f"zamba2-1.2b and whisper-small at full width and depth, int8: their steps in the "
         f"'mamba2_train', 'zamba2_train' and 'whisper_train' entries), K6's the kernel API's over the "
         f"tinyml search-phase weights (no model path calls K6, in the reference or the port); "

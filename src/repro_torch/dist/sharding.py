@@ -1,4 +1,5 @@
-"""Sharding rules and the serving mesh's placement.
+"""Sharding rules, the placement of the train state and of the serving
+mesh, and the in-model activation annotations.
 
 Counterpart of ``repro.dist.sharding`` for a mesh driven by one process
 (``launch/mesh.py``): a spec is a plain tuple of axis names (``"data"``,
@@ -23,15 +24,35 @@ the (data, model) mesh:
 
 Every assignment passes a **divisibility gate** (an axis the mesh-axis
 size does not divide replicates) and is recorded in ``decisions`` for
-``explain()``.  The reference stacks a model's layers along a leading axis
-(``blocks``, ``enc_blocks``, ``dec_blocks``) where the port keeps a list of
-per-layer trees: the rules decide each stacked site once, under the
-reference's path and its stacked shape ``(L, ...)``, so the decisions are
-the reference's leaf for leaf, and each layer's leaf takes the spec without
-the layer axis (which no rule shards).  A :class:`QTensor` contributes the
-reference's leaves (``packed/i``, ``scales/i``, ``inv_perm``,
-``fused_packed``, ``fused_scales``, ``fused_perm``) and the port's own
-``fused_table`` (the kernel's schedule) and ``act_alpha``.
+``explain()``.  The train state keeps the reference's stacked layer axis
+``(L, ...)``, so its specs are the reference's as they stand.  The serving
+trees keep a list of per-layer trees (``blocks``, ``enc_blocks``,
+``dec_blocks``) where the reference stacks: the rules decide each stacked
+site once, under the reference's path and its stacked shape ``(L, ...)``,
+so the decisions are the reference's leaf for leaf, and each layer's leaf
+takes the spec without the layer axis (which no rule shards in a serving
+tree).  A :class:`QTensor` contributes the reference's leaves (``packed/i``,
+``scales/i``, ``inv_perm``, ``fused_packed``, ``fused_scales``,
+``fused_perm``) and the port's own ``fused_table`` (the kernel's schedule)
+and ``act_alpha``.
+
+**Training.**  :meth:`MeshContext.put_train_state` places ``{"params",
+"nas", "opt_w", "opt_t", "tau", "step"}`` by ``tree_shardings``, as the
+reference's launcher ``device_put``s it: a leaf whose spec shards an axis
+of size > 1 becomes a :class:`Shards`, block ``(r, m)`` the slice of data
+chunk ``r`` and model chunk ``m`` on position ``(r, m)``; every other leaf
+lies whole on the first position.  The reference's step is one SPMD
+program whose numbers are the unsharded step's; one process cannot split
+the batch and keep them (the int8 grad-weight product scales each row of
+its contraction over all tokens), so a placed step (``train/steps.py``)
+gathers the params onto the first position (:func:`gather`), computes
+there on the whole batch, cuts the gradient into the blocks
+(:func:`scatter`) and updates each block on its position
+(``optim/optimizers._Optimizer.apply_placed_``): bit for bit the
+unsharded step.  ``cross_position_bytes`` counts the bytes
+the gathers, scatters and whole-leaf updates move between positions.
+Inside :func:`activation_sharding` the models' :func:`constrain` calls
+record each annotated site's shape and spec; the values never change.
 
 The serving contract is **token identity** with the engine that has no
 mesh (``serving_shardings``): only a QTensor's fused buffers shard, along
@@ -76,6 +97,42 @@ _state = threading.local()
 # many elements, no sequence sharding of the caches, experts on ``model``
 # alone.
 FSDP_MIN_SIZE = 1 << 20
+
+
+@contextlib.contextmanager
+def activation_sharding(mesh):
+    """Enable :func:`constrain`'s annotations for code run inside this
+    context; yields the record they append to, ``[(site shape, spec)]`` in
+    call order.  Apart from :func:`serving_mesh`, as in the reference: the
+    serving engine's mesh leaves the training annotations inert."""
+    prev = getattr(_state, "act", None)
+    record: list = []
+    _state.act = (mesh, record)
+    try:
+        yield record
+    finally:
+        _state.act = prev
+
+
+def constrain(x, *tokens):
+    """Annotate the intermediate ``x`` with a (data/model) layout: per axis
+    ``"D"`` (data), ``"M"`` (model) or ``None`` (replicated).  Outside
+    :func:`activation_sharding` the identity.  Inside it the site's shape
+    and spec (an axis the mesh does not divide replicates, the reference's
+    gate on the full extents) join the context's record, and ``x`` itself
+    is returned: a placed step computes whole on the first position, so no
+    value moves."""
+    act = getattr(_state, "act", None)
+    if act is None:
+        return x
+    mesh, record = act
+    assert len(tokens) == x.ndim, (tokens, tuple(x.shape))
+    spec = []
+    for tok, extent in zip(tokens, x.shape):
+        ax = _AXIS_OF[tok]
+        spec.append(ax if ax is not None and extent % mesh.shape[ax] == 0 else None)
+    record.append((tuple(x.shape), tuple(spec)))
+    return x
 
 
 @contextlib.contextmanager
@@ -150,6 +207,138 @@ class Rows:
         if self.axis == 0:
             raise IndexError("Rows: only the axes before the split axis index")
         return Rows([b[i] for b in self.blocks], self.starts, self.axis - 1)
+
+
+class Shards:
+    """One train-state leaf split on up to two mesh axes by its ``spec``
+    (:meth:`MeshContext.put_train_state`): block ``(r, m)`` is the slice of
+    data chunk ``r`` and model chunk ``m``, a tensor with storage of its own
+    on position ``(r, m)``.  An axis the spec leaves unsharded has one
+    block, at index 0 of that mesh axis, so block ``(0, 0)`` always lies on
+    the first position; a mesh axis of size 1 shards nothing.  The training
+    counterpart of :class:`Rows`."""
+
+    def __init__(self, blocks: dict, spec: tuple, shape):
+        self.blocks, self.spec, self._shape = dict(blocks), tuple(spec), torch.Size(shape)
+        self.n_data = 1 + max(r for r, _ in self.blocks)
+        self.n_model = 1 + max(m for _, m in self.blocks)
+
+    @classmethod
+    def cut(cls, t: torch.Tensor, spec: tuple, ctx: "MeshContext") -> "Shards":
+        """``t`` split by ``spec`` (each named axis of size > 1 on
+        ``ctx``'s mesh), block ``(r, m)`` on ``ctx.position(r, m)``."""
+        n = (ctx.data if "data" in spec else 1, ctx.model if "model" in spec else 1)
+        return cls({(r, m): _own_copy(t[_block_index(spec, t.shape, n, r, m)],
+                                      ctx.position(r, m))
+                    for r in range(n[0]) for m in range(n[1])}, spec, t.shape)
+
+    @property
+    def shape(self) -> torch.Size:
+        return self._shape
+
+    @property
+    def dtype(self):
+        return self.blocks[(0, 0)].dtype
+
+    @property
+    def device(self):
+        """The first position's device (block ``(0, 0)``'s)."""
+        return self.blocks[(0, 0)].device
+
+    def _axis(self, name: str):
+        return self.spec.index(name) if name in self.spec else None
+
+    def slices(self, r: int, m: int) -> tuple:
+        """Block ``(r, m)``'s index into the whole leaf."""
+        return _block_index(self.spec, self._shape, (self.n_data, self.n_model), r, m)
+
+    def same_split(self, other) -> bool:
+        """Whether ``other`` is a :class:`Shards` with these blocks (spec
+        and shape: block ``(r, m)`` covers the same elements)."""
+        return (isinstance(other, Shards) and other.spec == self.spec
+                and other.shape == self.shape and other.blocks.keys() == self.blocks.keys())
+
+    def whole(self, device) -> torch.Tensor:
+        """The leaf whole again on ``device``, bitwise (a new tensor)."""
+        rows = []
+        for r in range(self.n_data):
+            parts = [self.blocks[(r, m)].to(device) for m in range(self.n_model)]
+            rows.append(parts[0] if len(parts) == 1 else torch.cat(parts, self._axis("model")))
+        return rows[0] if len(rows) == 1 else torch.cat(rows, self._axis("data"))
+
+    def like(self, t: torch.Tensor) -> "Shards":
+        """The whole tensor ``t`` (this leaf's shape) cut into these
+        blocks, each on its block's device."""
+        return Shards({k: _own_copy(t[self.slices(*k)], b.device) for k, b in self.blocks.items()},
+                      self.spec, self._shape)
+
+    def assign_(self, t: torch.Tensor) -> None:
+        """Write the whole tensor ``t`` (on the first position) into the
+        blocks, in place; counted in ``cross_position_bytes``."""
+        _count(self)
+        for k, b in self.blocks.items():
+            b.copy_(t[self.slices(*k)])
+
+    def off_first(self) -> int:
+        """The bytes of the blocks off the first position: what a gather
+        onto it, or a scatter from it, moves across positions."""
+        return sum(b.numel() * b.element_size() for k, b in self.blocks.items() if k != (0, 0))
+
+
+def _block_index(spec, shape, n, r: int, m: int) -> tuple:
+    """The index of block ``(r, m)`` of a leaf of ``shape`` split by
+    ``spec`` into ``n = (data chunks, model chunks)``: the contiguous
+    chunk ``r`` of the axis on ``data``, ``m`` of the axis on ``model``."""
+    idx = [slice(None)] * len(shape)
+    for name, i, k in (("data", r, n[0]), ("model", m, n[1])):
+        if name in spec:
+            a = spec.index(name)
+            step = shape[a] // k
+            idx[a] = slice(i * step, (i + 1) * step)
+    return tuple(idx)
+
+
+# bytes that gather, scatter and the optimizer's whole-leaf updates moved
+# between mesh positions (counted as on distinct cards)
+cross_position_bytes = 0
+
+
+def _count(leaf: Shards) -> None:
+    global cross_position_bytes
+    cross_position_bytes += leaf.off_first()
+
+
+def gather(tree, device):
+    """``tree`` with each :class:`Shards` whole on ``device`` (the first
+    position), bitwise; every other tensor moved there (the same tensor
+    when it lies there); other leaves as they are."""
+    def one(leaf):
+        if isinstance(leaf, Shards):
+            _count(leaf)
+            return leaf.whole(device)
+        return leaf.to(device) if isinstance(leaf, torch.Tensor) else leaf
+    return _map_leaves(tree, one)
+
+
+def scatter(placed, whole):
+    """The whole tree ``whole`` cut into ``placed``'s placement: a leaf
+    placed as a :class:`Shards` into its blocks (new tensors), any other
+    tensor moved to the placed leaf's device.  Each leaf of ``whole``'s
+    dicts is dropped (set to None) once cut, so the whole tree and the
+    blocks are never all alive at once."""
+    if isinstance(placed, dict):
+        out = {}
+        for k, p in placed.items():
+            out[k] = scatter(p, whole[k])
+            if not isinstance(whole[k], dict):
+                whole[k] = None
+        return out
+    if isinstance(placed, (list, tuple)):
+        return type(placed)(scatter(p, w) for p, w in zip(placed, whole))
+    if isinstance(placed, Shards):
+        _count(placed)
+        return placed.like(whole)
+    return whole.to(placed.device) if isinstance(whole, torch.Tensor) else whole
 
 
 def row_work(leaf, n_slots: int):
@@ -473,8 +662,10 @@ class MeshContext:
     axis ``data`` divides on the rows (a :class:`Rows`), by
     ``cache_shardings``, the rule the reference places the caches by;
     ``put_replicated`` puts tensors on the first position;
-    ``placement_bytes`` counts what each position holds.  At ``(1, m)``
-    the caches and the rows' copies stay as without a mesh.  A mesh
+    ``put_train_state`` places a train state by ``tree_shardings`` (each
+    sharded leaf a :class:`Shards`); ``placement_bytes`` counts what each
+    position holds.  At ``(1, m)`` the caches and the rows' copies stay as
+    without a mesh, and at ``(1, 1)`` the train state too.  A mesh
     without the ``("data", "model")`` axes raises ``ValueError``.
     """
 
@@ -553,12 +744,45 @@ class MeshContext:
                          for r in range(self.data)], st, 1)
         return _zip_leaves(tree, specs, one)
 
+    def train_shardings(self, state):
+        """The spec tree ``put_train_state`` places ``state`` by: the
+        rules' ``tree_shardings`` (the reference launcher's), each axis
+        named for a mesh axis of size 1 unsharded."""
+        sizes = {"data": self.data, "model": self.model}
+
+        def norm(specs):
+            if isinstance(specs, dict):
+                return {k: norm(v) for k, v in specs.items()}
+            if isinstance(specs, list):
+                return [norm(v) for v in specs]
+            return tuple(a if a is not None and sizes[a] > 1 else None for a in specs)
+        return norm(ShardingRules(self.mesh).tree_shardings(state))
+
+    def put_train_state(self, state):
+        """``state`` (``{"params", "nas", "opt_w", "opt_t", "tau",
+        "step"}``, or any tree of it) placed by :meth:`train_shardings`, as
+        the reference's ``jax.device_put(state, rules.tree_shardings(state))``:
+        a leaf whose spec names an axis becomes a :class:`Shards`; every
+        other tensor lies whole on the first position (at ``(1, 1)``: the
+        same tensor when it lies there already); numbers stay."""
+        if not self.is_active or state is None:
+            return state
+
+        def one(leaf, spec):
+            if not isinstance(leaf, torch.Tensor):
+                return leaf
+            if any(a is not None for a in spec):
+                return Shards.cut(leaf, spec, self)
+            return leaf.to(self.device)
+        return _zip_leaves(state, self.train_shardings(state), one)
+
     def placement_bytes(self, tree, shards: Optional[bool] = None) -> np.ndarray:
         """``(data, model)`` int64: the bytes each position holds of
         ``tree`` (placed weights, caches, or both) as a deployment on
         distinct cards would hold them.  A :class:`Rows` block counts at
         its row, a QTensor's shard ``m`` at ``(row, m)``, a row's copy
         under ``ROWS`` at its row, everything else at the first position;
+        a :class:`Shards` block ``(r, m)`` at ``(r, m)``;
         a tensor counts once a position however often the tree holds it,
         and a view counts its own bytes where it was placed (positions that
         share a device share storage, which this count does not see).
@@ -577,6 +801,9 @@ class MeshContext:
             if isinstance(node, Rows):
                 for rr, blk in enumerate(node.blocks):
                     add(blk, rr, 0, False)
+            elif isinstance(node, Shards):
+                for (rr, m), blk in node.blocks.items():
+                    add(blk, rr, m, False)
             elif _is_qt(node):
                 for _, leaf in _qt_leaves(node):
                     add(leaf, r, 0, False)

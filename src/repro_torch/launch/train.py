@@ -1,13 +1,18 @@
 """Training launcher: Alg. 1's search on a language model, with
 checkpoint and resume.
 
-Counterpart of ``repro.launch.train`` without meshes: warmup (QAT at 8
-bits) for ``--warmup-steps`` steps, then the search, one theta step every
+Counterpart of ``repro.launch.train``: warmup (QAT at 8 bits) for
+``--warmup-steps`` steps, then the search, one theta step every
 ``--theta-every`` steps and W steps between (the 20/80 split), tau annealed
 every ``--anneal-every`` steps.  The state (params, NAS logits, both
-optimizer states, tau, step) and the data pipeline's position are
-checkpointed every ``--ckpt-every`` steps and at the end, so ``--resume``
-continues bit for bit.
+optimizer states, tau, step) is placed on a mesh by the sharding rules
+(``dist/sharding.MeshContext.put_train_state``), as the reference's
+launcher places it, and each position's bytes are printed once; the steps
+run placed (``train/steps.py``: the params gathered onto the first
+position, the gradient cut into the blocks, each block updated on its
+position).  The state and the data pipeline's position are checkpointed
+every ``--ckpt-every`` steps and at the end, so ``--resume`` continues bit
+for bit, on any mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \\
         --reduced --device cpu --steps 12 --ckpt-dir /tmp/ck [--resume]
@@ -17,9 +22,10 @@ families, the MoE ones (deepseek-v3-671b with MLA and its MTP head,
 arctic-480b), mamba2-780m (SSM), zamba2-1.2b (hybrid: Mamba2 with a shared
 attention block) and whisper-small (encoder-decoder; the batches carry the
 audio stub's frames).  Runs on the card unless ``--device cpu`` is given.
-``--production-mesh`` asks for the reference's 16 x 16 mesh of cards
-(``launch/mesh.make_production_mesh``, which raises with fewer); sharded
-training state is ``ROADMAP.md`` item 8.2.
+The mesh is ``launch/mesh.make_test_mesh(1, 1)`` over ``--device`` (the
+identity placement) unless ``--production-mesh`` asks for the reference's
+16 x 16 mesh of cards (``launch/mesh.make_production_mesh``, which raises
+with fewer).
 """
 from __future__ import annotations
 
@@ -30,7 +36,8 @@ from repro_torch.api.engine import resolve_device
 from repro_torch.api.policy import PrecisionPolicy
 from repro_torch.config import ARCH_IDS, get_config
 from repro_torch.data import pipeline as pipe
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.dist.sharding import MeshContext
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train import steps as steps_mod
 
@@ -38,6 +45,15 @@ from repro_torch.train import steps as steps_mod
 def build_batch_iter(cfg, seq: int, global_batch: int, seed: int = 0) -> pipe.SyntheticLM:
     return pipe.SyntheticLM(cfg.vocab_size, seq, global_batch, seed=seed,
                             extra=pipe.lm_extra(cfg))
+
+
+def position_lines(ctx: MeshContext, state: dict) -> list:
+    """One line a mesh position: the bytes of each part of the placed
+    train state it holds (``MeshContext.placement_bytes``, as on distinct
+    cards)."""
+    parts = {k: ctx.placement_bytes(state[k]) for k in ("params", "nas", "opt_w", "opt_t")}
+    return [f"position ({r}, {m}): " + ", ".join(f"{k} {b[r, m]} B" for k, b in parts.items())
+            for r in range(ctx.data) for m in range(ctx.model)]
 
 
 def main(argv=None) -> None:
@@ -73,14 +89,12 @@ def main(argv=None) -> None:
                    help="torch device (default: the card; 'cpu' for a CPU run)")
     args = p.parse_args(argv)
 
-    if args.production_mesh:
-        make_production_mesh()          # raises with fewer than its 256 cards
-        raise NotImplementedError("--production-mesh: sharded training state is "
-                                  "ROADMAP.md queue 1 item 8.2")
+    device = resolve_device(args.device)
+    ctx = MeshContext(mesh_mod.make_production_mesh() if args.production_mesh
+                      else mesh_mod.make_test_mesh(1, 1, devices=[device]))
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    device = resolve_device(args.device)
     hp = steps_mod.TrainHParams.for_arch(
         cfg, lr=args.lr, lam=args.lam, objective=args.objective, lut_name=args.lut,
         warmup_steps=min(args.warmup_steps, 100), total_steps=args.steps,
@@ -89,22 +103,25 @@ def main(argv=None) -> None:
           steps_mod._train_policy(hp, PrecisionPolicy.search(cfg.quant.tau0), 0),
           f"(search phase; opt_state_dtype={hp.opt_state_dtype}; device={device})")
 
-    state = steps_mod.init_train_state(cfg, hp, args.seed, device)
+    state = ctx.put_train_state(steps_mod.init_train_state(cfg, hp, args.seed, ctx.device))
+    print(f"mesh: (data {ctx.data}, model {ctx.model}), first position {ctx.device}")
+    for line in position_lines(ctx, state):
+        print(line)
     data = build_batch_iter(cfg, args.seq, args.batch, seed=args.seed)
 
     mgr = None
     if args.ckpt_dir:
         mgr = ckpt_mod.CheckpointManager(args.ckpt_dir)
         if args.resume:
-            restored, step0, meta = mgr.restore_latest(state)
+            restored, step0, meta = mgr.restore_latest(state, ctx)
             if restored is not None:
                 state = restored
                 data.state.step = int(meta.get("data_step", 0))
                 print(f"resumed from step {step0}")
 
-    warm = steps_mod.make_qat_warmup_step(cfg, hp)
-    train = steps_mod.make_train_step(cfg, hp)
-    theta = steps_mod.make_theta_step(cfg, hp, args.seq * args.batch)
+    warm = steps_mod.make_qat_warmup_step(cfg, hp, mesh=ctx)
+    train = steps_mod.make_train_step(cfg, hp, mesh=ctx)
+    theta = steps_mod.make_theta_step(cfg, hp, args.seq * args.batch, mesh=ctx)
     meta = lambda: {"data_step": data.state.step, "arch": cfg.name,
                     "config": ckpt_mod.config_hash(cfg)}
 

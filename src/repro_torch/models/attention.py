@@ -66,7 +66,8 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_offset: int = 0) -> torch.Tensor:
     """``softmax(q k^T / sqrt(d)) v`` over KV chunks with a running
     (max, denominator, numerator).  ``q (B, H, Sq, D)``, ``k``/``v
-    (B, H, Skv, D)``; returns ``(B, H, Sq, Dv)`` in ``q``'s dtype."""
+    (B, H, Skv, D)``; returns ``(B, H, Sq, Dv)`` in ``q``'s dtype.  The
+    ``constrain`` sites are the reference's, in its order."""
     B, H, Sq, D = q.shape
     Dv = v.shape[-1]
     Skv = k.shape[2]
@@ -77,17 +78,26 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k = torch.nn.functional.pad(k, (0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, pad))
     dev = q.device
+    q = shd.constrain(q, "D", "M", None, None)
+    kc = shd.constrain(k.reshape(B, H, n_chunks, k_chunk, D).permute(2, 0, 1, 3, 4),
+                       None, "D", "M", None, None)
+    vc = shd.constrain(v.reshape(B, H, n_chunks, k_chunk, Dv).permute(2, 0, 1, 3, 4),
+                       None, "D", "M", None, None)
     scale = 1.0 / math.sqrt(D)
     q_pos = q_offset + torch.arange(Sq, device=dev)
     q32 = q.to(torch.float32)
-    m = torch.full((B, H, Sq), -math.inf, dtype=torch.float32, device=dev)
-    d_sum = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, H, Sq, Dv), dtype=torch.float32, device=dev)
+    m = shd.constrain(torch.full((B, H, Sq), -math.inf, dtype=torch.float32, device=dev),
+                      "D", "M", None)
+    d_sum = shd.constrain(torch.zeros((B, H, Sq), dtype=torch.float32, device=dev), "D", "M", None)
+    acc = shd.constrain(torch.zeros((B, H, Sq, Dv), dtype=torch.float32, device=dev),
+                        "D", "M", None, None)
     neg_inf = torch.full((), -math.inf, device=dev)
     zero = torch.zeros((), device=dev)
     for ci in range(n_chunks):
-        kb = k[:, :, ci * k_chunk:(ci + 1) * k_chunk]
-        vb = v[:, :, ci * k_chunk:(ci + 1) * k_chunk]
+        kb, vb = kc[ci], vc[ci]
+        if ci == 0:      # the reference's scan traces its body, and these sites, once
+            kb = shd.constrain(kb, "D", "M", None, None)
+            vb = shd.constrain(vb, "D", "M", None, None)
         kv_pos = ci * k_chunk + torch.arange(k_chunk, device=dev)
         s = torch.matmul(q32, kb.to(torch.float32).transpose(-1, -2)) * scale
         mask = kv_pos[None, :] < Skv
@@ -163,9 +173,9 @@ def gqa_forward(p: dict, nas: Optional[dict], policy, cfg, x: torch.Tensor,
         return L.qlinear(t, p[name], getn(name), policy, cfg.quant, compute_dtype=cd,
                          partial_dtype=pd)
 
-    q = lin("wq", x).reshape(B, S, H, hd)
-    k = lin("wk", x).reshape(B, S, KV, hd)
-    v = lin("wv", x).reshape(B, S, KV, hd)
+    q = shd.constrain(lin("wq", x).reshape(B, S, H, hd), "D", None, "M", None)
+    k = shd.constrain(lin("wk", x).reshape(B, S, KV, hd), "D", None, "M", None)
+    v = shd.constrain(lin("wv", x).reshape(B, S, KV, hd), "D", None, "M", None)
     if cfg.rope_partial > 0:
         cos, sin, rot = L.rope_freqs(hd, cfg.rope_theta, positions, cfg.rope_partial)
         q = L.apply_rope(q, cos, sin, rot)

@@ -18,7 +18,8 @@ have unique buffer rows, so the dispatch is a copy, and the combine sums
 each token's k slots in slot order.  Under autograd the token repeat is an
 ``expand`` (its backward a sum over the k slots) and each kept row is
 read once (the drops read a spare zero row, whose gradient is dropped), so
-no gradient that is kept is an atomic sum either.
+no gradient that is kept is an atomic sum either.  Their ``constrain``
+sites are the reference's six in ``moe_forward``, in its order.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import torch
 from repro_torch.api.policy import Phase, PrecisionPolicy
 from repro_torch.core import mixedprec as mp
 from repro_torch.core import quantizers as qz
+from repro_torch.dist import sharding as shd
 from repro_torch.models import layers as L
 
 
@@ -104,10 +106,13 @@ def dispatch(xt: torch.Tensor, dest: torch.Tensor, keep: torch.Tensor, n_experts
     is cut off (no host sync), unused rows zero."""
     T, d = xt.shape
     k = dest.shape[0] // T
+    xt = shd.constrain(xt, "D", None)
+    contrib = shd.constrain(xt[:, None, :].expand(T, k, d).reshape(T * k, d), "D", None)
     rows = torch.where(keep, dest, torch.full_like(dest, n_experts * capacity))
     buf = torch.zeros((n_experts * capacity + 1, d), dtype=xt.dtype, device=xt.device)
-    buf = buf.index_put((rows,), xt[:, None, :].expand(T, k, d).reshape(T * k, d))
-    return buf[:n_experts * capacity].reshape(n_experts, capacity, d)
+    buf = buf.index_put((rows,), contrib)
+    return shd.constrain(buf[:n_experts * capacity].reshape(n_experts, capacity, d),
+                         "M", "D", None)
 
 
 def combine(out_buf: torch.Tensor, dest: torch.Tensor, keep: torch.Tensor,
@@ -117,13 +122,15 @@ def combine(out_buf: torch.Tensor, dest: torch.Tensor, keep: torch.Tensor,
     summed in slot order in the buffer's dtype, each add rounded."""
     E, C, d = out_buf.shape
     T, k = gates.shape
+    out_buf = shd.constrain(out_buf, "M", "D", None)
     flat = torch.cat([out_buf.reshape(E * C, d), out_buf.new_zeros((1, d))])
     rows = torch.where(keep, dest, torch.full_like(dest, E * C))
-    contrib = (flat[rows] * gates.reshape(T * k, 1).to(out_buf.dtype)).reshape(T, k, d)
+    gathered = shd.constrain(flat[rows], "D", None)
+    contrib = (gathered * gates.reshape(T * k, 1).to(out_buf.dtype)).reshape(T, k, d)
     out = torch.zeros((T, d), dtype=out_buf.dtype, device=out_buf.device)
     for j in range(k):
         out = out + contrib[:, j]
-    return out
+    return shd.constrain(out, "D", None)
 
 
 # ---------------------------------------------------------------------------

@@ -170,7 +170,8 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.T
     ``A (H,)`` decay rates (positive); ``Bm``/``Cm (B, S, N)`` shared across
     heads (one group).  Returns ``(y (B, S, H, P), final state (B, H, P,
     N))``, f32.  The sequence is zero-padded to whole chunks, as in the
-    reference (a padded step has ``dt = 0``: decay 1, no input).
+    reference (a padded step has ``dt = 0``: decay 1, no input).  The
+    ``constrain`` sites are the reference's, in its order.
     """
     Bsz, S, H, P = xh.shape
     N = Bm.shape[-1]
@@ -181,15 +182,26 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.T
         dt = F.pad(dt, (0, 0, 0, pad))
         Bm = F.pad(Bm, (0, 0, 0, pad))
         Cm = F.pad(Cm, (0, 0, 0, pad))
+    to_chunks = lambda t: t.reshape(Bsz, nc, chunk, *t.shape[2:]).transpose(0, 1)
+    xc = shd.constrain(to_chunks(xh), None, "D", None, "M", None)
+    dtc = shd.constrain(to_chunks(dt), None, "D", None, "M")
+    Bc = shd.constrain(to_chunks(Bm), None, "D", None, None)
+    Cc = shd.constrain(to_chunks(Cm), None, "D", None, None)
     negA = -A
     dev = xh.device
     mask = (torch.arange(chunk, device=dev)[:, None]
             >= torch.arange(chunk, device=dev)[None, :])[None, :, :, None]
-    h = torch.zeros((Bsz, H, P, N), dtype=xh.dtype, device=dev) if h0 is None else h0
+    if h0 is None:
+        h = shd.constrain(torch.zeros((Bsz, H, P, N), dtype=xh.dtype, device=dev),
+                          "D", "M", None, None)
+    else:
+        h = h0
     ys = []
     for c in range(nc):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        xq, dtq, Bq, Cq = xh[:, sl], dt[:, sl], Bm[:, sl], Cm[:, sl]
+        xq, dtq, Bq, Cq = xc[c], dtc[c], Bc[c], Cc[c]
+        if c == 0:      # the reference's scan traces its body, and these sites, once
+            xq = shd.constrain(xq, "D", None, "M", None)
+            h = shd.constrain(h, "D", "M", None, None)
         dA = dtq * negA                                         # (B, Q, H), <= 0
         cum = torch.cumsum(dA, dim=1)
         # intra-chunk: L[t, s] = exp(cum[t] - cum[s]) for s <= t

@@ -16,7 +16,9 @@ the same update one leaf at a time, in place: each leaf's update is added
 to its param, its moments are overwritten and its gradient is dropped from
 the ``grads`` tree before the next leaf (AdamW and SGD a block of rows at
 a time), so the step's peak is the state plus one block's temporaries.
-Both give the same bits.
+``apply_placed_`` does the same over a train state placed on a mesh
+(``dist/sharding.py``), each block on its position.  All give the same
+bits.
 
 Every division divides by a tensor on the operands' device: CUDA computes a
 tensor divided by a Python number, or by a CPU scalar, as a product with
@@ -73,6 +75,15 @@ def _leaf_slots(tree, *rest):
 
 def _full(like: torch.Tensor, value: float) -> torch.Tensor:
     return torch.full((), value, dtype=torch.float32, device=like.device)
+
+
+def _on(c, device):
+    """``c`` (a tensor, a tuple of the step's constants, or None) with each
+    tensor copied to ``device`` (bitwise; the same tensor when it lies
+    there)."""
+    if isinstance(c, tuple):
+        return tuple(_on(x, device) for x in c)
+    return c.to(device) if isinstance(c, torch.Tensor) else c
 
 
 def _mean(t: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
@@ -142,13 +153,13 @@ class _Optimizer:
     ELEMENTWISE = True
     CHUNK = 1 << 24
 
-    def _clip(self, grads):
+    def clip_scale(self, grads):
         """The global-norm clip's scale, or ``None``."""
         clip = getattr(self, "clip_norm", None)
         return None if clip is None else _clip_scale(grads, clip)[0]
 
     def update(self, grads, state: dict, params, step: int):
-        scale, c = self._clip(grads), self._consts(step, params)
+        scale, c = self.clip_scale(grads), self._consts(step, params)
         new_s, deltas = [], []
         for _, _, g, s, p in self._slots(grads, state, params):
             d, ns = self._leaf(g if scale is None else g * scale, s, p, c)
@@ -160,17 +171,68 @@ class _Optimizer:
         """The update of :meth:`update`, applied in place leaf by leaf:
         ``params`` and ``state`` hold the new values after the call and
         ``grads``' leaves are dropped (set to ``None``) as they are used."""
-        scale, c = self._clip(grads), self._consts(step, params)
+        scale, c = self.clip_scale(grads), self._consts(step, params)
         for holder, key, g, s, p in self._slots(grads, state, params):
             holder[key] = None
-            for rows in self._blocks(p):
-                gb = g[rows]
-                d, ns = self._leaf(gb if scale is None else gb * scale,
-                                   self._rows(s, rows), p[rows], c)
-                p[rows].add_(d)
-                self._write(self._rows(s, rows), ns)
-                del gb, d, ns
+            self._apply_leaf(g, s, p, scale, c)
             del g
+
+    def apply_placed_(self, grads, state: dict, params, step: int, scale) -> int:
+        """:meth:`apply_` over a placed tree (``dist/sharding.py``: leaves
+        may be :class:`~repro_torch.dist.sharding.Shards`), bitwise the
+        update of the whole tree; ``scale`` is the clip's scale from the
+        whole gradient (``clip_scale``, before it was cut; ``None``: no clip).
+        An elementwise rule whose param, gradient and state leaves share one
+        split updates each block on its position, with its own copy of the
+        step's device scalars (CUDA divides by a Python number through its
+        reciprocal); any other placed leaf (Adafactor's, or a state split
+        unlike its param) is gathered onto the first position, updated
+        whole and written back into its blocks.  Returns the number of
+        leaves updated whole."""
+        from repro_torch.dist import sharding as shd
+        c = self._consts(step, params)
+        n_whole = 0
+        for holder, key, g, s, p in self._slots(grads, state, params):
+            holder[key] = None
+            parts = [p, g, *self._state_leaves(s)]
+            if not any(isinstance(t, shd.Shards) for t in parts):
+                self._apply_leaf(g, s, p, _on(scale, p.device), _on(c, p.device))
+            elif self.ELEMENTWISE and all(p.same_split(t) for t in parts[1:]):
+                for k, pb in p.blocks.items():
+                    self._apply_leaf(g.blocks[k], self._map_state(s, lambda t: t.blocks[k]), pb,
+                                     _on(scale, pb.device), _on(c, pb.device))
+            else:
+                n_whole += 1
+                home = p.device
+                pw, gw = shd.gather(p, home), shd.gather(g, home)
+                sw = self._map_state(s, lambda t: shd.gather(t, home))
+                self._apply_leaf(gw, sw, pw, _on(scale, home), _on(c, home))
+                for t, w in [(p, pw)] + list(zip(self._state_leaves(s), self._state_leaves(sw))):
+                    if isinstance(t, shd.Shards):
+                        t.assign_(w)
+                del pw, gw, sw
+            del g, parts
+        return n_whole
+
+    def _apply_leaf(self, g, s, p, scale, c) -> None:
+        """One leaf's update in place, a row block at a time."""
+        for rows in self._blocks(p):
+            gb = g[rows]
+            d, ns = self._leaf(gb if scale is None else gb * scale,
+                               self._rows(s, rows), p[rows], c)
+            p[rows].add_(d)
+            self._write(self._rows(s, rows), ns)
+            del gb, d, ns
+
+    @staticmethod
+    def _state_leaves(s) -> list:
+        return list(s.values()) if isinstance(s, dict) else list(s)
+
+    @staticmethod
+    def _map_state(s, fn):
+        if isinstance(s, dict):
+            return {k: fn(v) for k, v in s.items()}
+        return tuple(fn(t) for t in s)
 
     def _blocks(self, p: torch.Tensor) -> list:
         """Row ranges of ``p`` (index objects) to update one after another."""
@@ -179,11 +241,9 @@ class _Optimizer:
         step = max(1, self.CHUNK // (p.numel() // p.shape[0]))
         return [slice(i, i + step) for i in range(0, p.shape[0], step)]
 
-    @staticmethod
-    def _rows(s, rows):
-        if isinstance(s, dict):
-            return {k: v[rows] for k, v in s.items()}
-        return tuple(t[rows] for t in s)
+    @classmethod
+    def _rows(cls, s, rows):
+        return cls._map_state(s, lambda t: t[rows])
 
     def _slots(self, grads, state, params):
         return _leaf_slots(grads, self._per_leaf(state), params)

@@ -20,7 +20,12 @@ PyTorch counterpart of ``repro.train.checkpoint``, with the same layout:
 A state is a nested dict of tensors and Python numbers (the step); a
 restore puts every tensor on the template's device in the template's dtype,
 and every number back as the template's type, so a resumed run continues
-bit for bit.
+bit for bit.  A state placed on a mesh (``dist/sharding.MeshContext.
+put_train_state``) is saved whole, each :class:`~repro_torch.dist.sharding.
+Shards` gathered, so the files keep the reference's layout and keys
+whatever the mesh; ``restore(.., mesh=)`` places the loaded tree by that
+mesh's rules (the reference's ``shardings=``), so a state saved on one
+mesh restores on another.
 """
 from __future__ import annotations
 
@@ -34,6 +39,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.dist.sharding import Shards
 
 
 def _walk(tree, prefix=""):
@@ -63,15 +70,19 @@ def _flatten(tree) -> dict:
 
 def _host_copy(tree):
     """The state's tensors copied to the host (the snapshot an async save
-    serializes while training goes on)."""
+    serializes while training goes on), each placed leaf whole."""
     if isinstance(tree, dict):
         return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, Shards):
+        return tree.whole("cpu")
     return tree.detach().to("cpu", copy=True) if isinstance(tree, torch.Tensor) else tree
 
 
-def _unflatten_into(template, loaded: dict, prefix=""):
+def _unflatten_into(template, loaded: dict, prefix="", host=False):
+    """``loaded`` in ``template``'s structure and dtypes, on its devices (a
+    placed leaf's first position), or on the host when ``host``."""
     if isinstance(template, dict):
-        return {k: _unflatten_into(v, loaded, f"{prefix}/{k}" if prefix else str(k))
+        return {k: _unflatten_into(v, loaded, f"{prefix}/{k}" if prefix else str(k), host)
                 for k, v in template.items()}
     if prefix + "~bf16" in loaded:
         arr = loaded[prefix + "~bf16"]
@@ -80,12 +91,12 @@ def _unflatten_into(template, loaded: dict, prefix=""):
         t = torch.from_numpy(np.array(loaded[prefix]))
     else:
         raise KeyError(f"checkpoint missing leaf {prefix!r}")
-    if not isinstance(template, torch.Tensor):
+    if not isinstance(template, (torch.Tensor, Shards)):
         return type(template)(t.item())
     if tuple(t.shape) != tuple(template.shape):
         raise ValueError(f"shape mismatch for {prefix}: checkpoint {tuple(t.shape)} "
                          f"vs model {tuple(template.shape)}")
-    return t.to(device=template.device, dtype=template.dtype)
+    return t.to(device="cpu" if host else template.device, dtype=template.dtype)
 
 
 def config_hash(cfg) -> str:
@@ -161,18 +172,21 @@ class CheckpointManager:
         with open(os.path.join(self.dir, f"step_{step:010d}", "manifest.json")) as f:
             return json.load(f)
 
-    def restore(self, step: int, template):
-        """Step ``step`` in the structure, devices and dtypes of
-        ``template``."""
+    def restore(self, step: int, template, mesh=None):
+        """Step ``step`` in the structure and dtypes of ``template``: on
+        its devices, or placed by ``mesh`` (a ``MeshContext``:
+        ``put_train_state``, each block cut from the host copy)."""
         path = os.path.join(self.dir, f"step_{step:010d}", f"shard_{self.host_id}.npz")
         with np.load(path) as z:
             loaded = {k: z[k] for k in z.files}
-        return _unflatten_into(template, loaded)
+        if mesh is None or not mesh.is_active:
+            return _unflatten_into(template, loaded)
+        return mesh.put_train_state(_unflatten_into(template, loaded, host=True))
 
-    def restore_latest(self, template) -> tuple:
+    def restore_latest(self, template, mesh=None) -> tuple:
         """``(state, step, manifest)``, or ``(None, None, {})`` when no
-        complete checkpoint exists."""
+        complete checkpoint exists; ``mesh`` as for :meth:`restore`."""
         step = self.latest_step()
         if step is None:
             return None, None, {}
-        return self.restore(step, template), step, self.manifest(step)
+        return self.restore(step, template, mesh), step, self.manifest(step)

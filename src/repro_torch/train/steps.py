@@ -23,6 +23,21 @@ state with its metrics, which stay on the device.
 ``"bf16"`` or ``"int8"`` (the hand-written int8 GEMM for the forward and
 both backward products of every searched linear, the backward rounding
 stochastically from a seed of ``(sr_seed, step)``).
+
+Each step factory takes ``mesh``, a ``dist/sharding.MeshContext`` whose
+``put_train_state`` placed the state.  A placed step gathers the params
+and the NAS logits onto the first position (``sharding.gather``), runs
+:func:`loss_and_grads` there on the whole batch inside
+``activation_sharding`` (the models' ``constrain`` sites record their
+layouts), frees the gathered copies, takes the clip's scale from the whole
+gradient, cuts the gradient into the placed blocks (``sharding.scatter``)
+and updates each block on its position (``Optimizer.apply_placed_``): bit
+for bit the unsharded step, with as many int8 GEMM launches.  Its
+transient peak over the unsharded step's is the gathered params' bytes
+once.  Splitting the batch over the data rows would not keep those bits:
+the int8 grad-weight product scales each row of its contraction over all
+tokens (``qtrain/linear.py``), and its stochastic rounding draws by the
+operand's shape.
 """
 from __future__ import annotations
 
@@ -35,6 +50,7 @@ from repro_torch.api.engine import resolve_device
 from repro_torch.api.policy import PrecisionPolicy
 from repro_torch.core import mixedprec as mp
 from repro_torch.core import regularizers as reg
+from repro_torch.dist import sharding as shd
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import optimizers as opt_mod
 from repro_torch.qtrain.linear import fold_in
@@ -176,41 +192,80 @@ def loss_and_grads(cfg, hp: TrainHParams, state: dict, batch: dict, kind: str,
     return {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def _make_step(cfg, hp: TrainHParams, kind: str, specs=None) -> Callable:
+def _make_step(cfg, hp: TrainHParams, kind: str, specs=None, mesh=None) -> Callable:
     opt_w, opt_t = make_optimizers(hp)
     opt, tree, ost = (opt_t, "nas", "opt_t") if kind == "theta" else (opt_w, "params", "opt_w")
 
-    def step_fn(state: dict, batch: dict) -> tuple:
+    def step_fn(state: dict, batch: dict, mark=None) -> tuple:
+        """The step; ``mark(phase)``, when given, is called as each of
+        ``"compute"`` and ``"optimizer"`` ends (a timer's hook)."""
+        mark = mark or (lambda phase: None)
         batch = device_batch(batch, state["tau"].device)
         metrics, grads = loss_and_grads(cfg, hp, state, batch, kind, specs)
+        mark("compute")
         with torch.no_grad():
             opt.apply_(grads, state[ost], state[tree], state["step"])
+        mark("optimizer")
         state["step"] += 1
         return state, metrics
 
-    return step_fn
+    def placed_step_fn(state: dict, batch: dict, mark=None) -> tuple:
+        """The placed step; ``mark`` as for the step without a mesh, called
+        as each of ``"gather"``, ``"compute"``, ``"scatter"`` and
+        ``"optimizer"`` ends.  ``placed_step_fn.whole_leaf_updates``: the
+        leaves its optimizer updated whole."""
+        mark = mark or (lambda phase: None)
+        home = mesh.device
+        batch = device_batch(batch, home)
+        whole = {"params": shd.gather(state["params"], home),
+                 "nas": shd.gather(state["nas"], home),
+                 "step": state["step"], "tau": state["tau"]}
+        mark("gather")
+        with shd.activation_sharding(mesh.mesh):
+            metrics, grads = loss_and_grads(cfg, hp, whole, batch, kind, specs)
+        del whole
+        mark("compute")
+        with torch.no_grad():
+            scale = opt.clip_scale(grads)
+            placed = shd.scatter(state[tree], grads)
+            del grads
+            mark("scatter")
+            placed_step_fn.whole_leaf_updates = opt.apply_placed_(
+                placed, state[ost], state[tree], state["step"], scale)
+        mark("optimizer")
+        state["step"] += 1
+        return state, metrics
+
+    if mesh is None or not mesh.is_active:
+        return step_fn
+    placed_step_fn.whole_leaf_updates = 0
+    return placed_step_fn
 
 
-def make_train_step(cfg, hp: TrainHParams) -> Callable:
+def make_train_step(cfg, hp: TrainHParams, mesh=None) -> Callable:
     """The W step of the search (Alg. 1 l.6): ``(state, batch) -> (state,
-    {"loss"})``, the params updated in place."""
-    return _make_step(cfg, hp, "w")
+    {"loss"})``, the params updated in place; on ``mesh`` (a
+    ``MeshContext``) the state is the one its ``put_train_state`` placed."""
+    return _make_step(cfg, hp, "w", mesh=mesh)
 
 
-def make_theta_step(cfg, hp: TrainHParams, tokens_per_batch: int) -> Callable:
+def make_theta_step(cfg, hp: TrainHParams, tokens_per_batch: int, mesh=None) -> Callable:
     """The theta step (Alg. 1 l.5): ``(state, batch) -> (state, {"loss",
     "reg_cost"})``, the NAS logits updated in place; the cost counts
-    ``tokens_per_batch`` tokens a product."""
-    return _make_step(cfg, hp, "theta", tfm.cost_specs(cfg, tokens_per_batch))
+    ``tokens_per_batch`` tokens a product.  ``mesh`` as for
+    :func:`make_train_step`."""
+    return _make_step(cfg, hp, "theta", tfm.cost_specs(cfg, tokens_per_batch), mesh)
 
 
-def make_qat_warmup_step(cfg, hp: TrainHParams) -> Callable:
-    """The warmup step (Alg. 1 l.1-2): QAT at 8 bits, NAS untouched."""
-    return _make_step(cfg, hp, "warmup")
+def make_qat_warmup_step(cfg, hp: TrainHParams, mesh=None) -> Callable:
+    """The warmup step (Alg. 1 l.1-2): QAT at 8 bits, NAS untouched.
+    ``mesh`` as for :func:`make_train_step`."""
+    return _make_step(cfg, hp, "warmup", mesh=mesh)
 
 
 def anneal_epoch(state: dict, cfg) -> dict:
-    """End-of-epoch tau annealing (Alg. 1 l.8)."""
+    """End-of-epoch tau annealing (Alg. 1 l.8), on tau's device (where a
+    mesh placed it)."""
     return {**state, "tau": mp.anneal_tau(state["tau"], cfg.quant)}
 
 
