@@ -489,7 +489,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 [train-mesh] The train state placed on a mesh (after [train-moe]): the
    positions of ``make_test_mesh(2, 4, devices=[card] * 8)``, eight on the
    one H100, as in [mesh].  minicpm-2b at full width and
-   ``TRAIN_MESH_LAYERS`` (20) of its 40 layers, AdamW, and deepseek-v3 at
+   ``TRAIN_MESH_LAYERS`` (4; 20 before [train-dp] came after it) of its 40
+   layers, AdamW, and deepseek-v3 at
    every width, 2 layers + MTP and ``TRAIN_MESH_EXPERTS`` (8) of its 256
    experts (``model`` = 4 divides 8: the expert stacks take the EP rule),
    Adafactor, both at int8 compute, ``SyntheticLM`` seq 128 x batch 8:
@@ -511,6 +512,42 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    W steps' host ms placed against unsharded with the placed step's
    CUDA-event split (gather, compute, scatter, optimizer), the phase's
    seconds; every number labelled "8 mesh positions on one H100".
+[train-dp] Training across processes (after [train-mesh]): minicpm-2b at
+   its published widths and ``TRAIN_DP_LAYERS`` (2) of its 40 layers, int8
+   compute, AdamW, ``SyntheticLM`` seq 128 x batch 8.  First the schedule
+   ``TRAIN_DP_SCHEDULE`` (1 warmup, 1 theta, 2 W steps) unsharded in this
+   process, each step's counts zeroed just before it and read just after
+   (K5 ``int8_products_per_step`` a step, nothing else).  Then
+   ``TRAIN_DP_PROCS`` (2) processes, spawned after the kernels are built
+   (their libraries loaded from the build), each joining the group
+   through the launcher's own set-up (``launch/train.mesh_context``, with
+   the environment ``torch.distributed.run`` gives: gloo, both processes
+   on the one card), building the state placed by the rules on the
+   ``(2, 1)`` mesh (``init_train_state(mesh=)``: drawn on the card a
+   weight at a time into host memory, its own row's blocks kept) and
+   running the schedule on its row's block of each batch.  Gates, in
+   each process: K5 launches a step equal to the unsharded step's, all on
+   the int8 tensor cores (the grad-weight products in K5's int32 form),
+   nothing else; in the first process, each step against the unsharded
+   step run there from the state the processes' step started from
+   (gathered), on the whole batch: the loss within ``DP_LOSS_RTOL`` and
+   every leaf within the CPU test's int8 tolerances
+   (``tests/test_torch_train_dp.py``); in the last W step (the checked
+   one) every K5 call of each process, the int32 partials included,
+   bitwise ``scaled_int8_mm_plain`` on the same int8 operands, the first
+   (the lm_head's) and last grad-weight products bitwise the whole
+   batch's product on the plain twin from the gathered operands, and the
+   first grad-input product's rows of the processes, gathered, bitwise
+   the whole batch's; each loss within ``DP_LOSS_RTOL`` of this process's
+   unsharded run.  Any failure in a process fails the spawn and the run.
+   Reported: per process and step its host ms, CUDA-event ms, peak GB, the
+   elements its Eq. 5 mixture ran over, the bytes its collectives brought
+   in from the other process (by operation; gloo moves the step's through
+   host memory itself) and the bytes the wrappers staged, its state's
+   bytes and its peak GB while building it; the unsharded step's and
+   state's beside them (the first W step is the timed one); the checked
+   step's K5 max abs error; labelled "2 processes sharing one H100 through
+   gloo".
 [train-ssm] The SSM and hybrid training path (after [train-moe]), each
    model at its published widths and full depth from seed 0 on its
    config's hints (f32 params, AdamW, cosine), ``train_compute="int8"``,
@@ -589,6 +626,7 @@ Exits non-zero without a CUDA device, and when run outside the repository
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -4377,9 +4415,9 @@ def checked_k5_step(fn, batch, state, want):
     kept, counts, worst, calls = {}, {}, [0.0], [0]
     orig = tqt._int8_mm
 
-    def spy(a, b, seed_a, seed_b, backend):
-        y = orig(a, b, seed_a, seed_b, backend)
-        qa, sa = imk.rowwise_quantize(a.contiguous(), seed_a)
+    def spy(a, b, seed_a, seed_b, backend, a_block=None):
+        y = orig(a, b, seed_a, seed_b, backend, a_block=a_block)
+        qa, sa = imk.rowwise_quantize(a.contiguous(), seed_a, block=a_block)
         qb, sb = imk.rowwise_quantize(b.contiguous(), seed_b)
         ref = imk.scaled_int8_mm_plain(qa, qb, sa, sb)
         check(torch.equal(y, ref), f"K5 != its plain version bitwise at {tuple(y.shape)} "
@@ -4799,9 +4837,9 @@ def moe_train(dev, card, ops, sms):
 # [train-mesh]: the train state placed on a (data, model) mesh
 # ---------------------------------------------------------------------------
 
-# minicpm-2b on the mesh: 20 of its 40 layers (the placed and the unsharded
-# state side by side, and the run's 1200 s)
-TRAIN_MESH_LAYERS = 20
+# minicpm-2b on the mesh: 4 of its 40 layers (the placed and the unsharded
+# state side by side, and the run's 1200 s: 20 until [train-dp] came after it)
+TRAIN_MESH_LAYERS = 4
 # deepseek-v3 on the mesh: 8 of its 256 experts (a gathered copy of the 32
 # experts' 27 GB of params would not fit beside the two states)
 TRAIN_MESH_EXPERTS = 8
@@ -5019,6 +5057,389 @@ def train_mesh(dev, card, ops):
     k5 = dict(launches=n1 + n2, mma_launches=m1 + m2, max_abs_err=max(e1, e2),
               minicpm_launches_per_step=report["minicpm"]["steps"][0]["placed"]["k5_launches"],
               deepseek_launches_per_step=report["deepseek"]["steps"][0]["placed"]["k5_launches"])
+    return report, k5
+
+
+# ---------------------------------------------------------------------------
+# [train-dp]: training across processes, one process a data row
+# ---------------------------------------------------------------------------
+
+# minicpm-2b across processes: 2 of its 40 layers (the vocabulary's 2 x 283 M
+# params of embedding and lm_head are most of the bytes the processes
+# exchange; gloo moves them through host memory)
+TRAIN_DP_LAYERS = 2
+TRAIN_DP_PROCS = 2
+# the last W step is the checked one (every K5 call against its plain twin,
+# the captured products against the whole batch's); the one before it is timed
+TRAIN_DP_SCHEDULE = ("warmup", "theta", "w", "w")
+# tests/test_torch_train_dp.py's int8 tolerances: the loss's rtol; a leaf's
+# error in norm against rtol * ||leaf|| + atol, the activation clips and NAS
+# logits apart
+DP_LOSS_RTOL = 2e-3
+DP_LEAF_TOL, DP_CLIP_TOL, DP_CLIPS = (3e-3, 0.0), (2e-2, 0.0), ("ax", "delta")
+DP_LABEL = "2 processes sharing one H100 through gloo"
+
+
+def _dp_model():
+    """minicpm-2b at its published widths and ``TRAIN_DP_LAYERS`` layers,
+    int8 compute, AdamW (its config's hints)."""
+    from repro_torch.config import get_config
+    from repro_torch.train import steps as steps_mod
+    full = get_config(TRAIN_ARCH)
+    check((full.d_model, full.n_layers, full.n_heads, full.d_ff, full.padded_vocab)
+          == (2304, 40, 36, 5760, 122880), "[train-dp] minicpm-2b at its published widths")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_DP_LAYERS)
+    hp = steps_mod.TrainHParams.for_arch(cfg, train_compute="int8", warmup_steps=1,
+                                         total_steps=100)
+    check(hp.optimizer == "adamw", "[train-dp] minicpm trains on AdamW")
+    return cfg, hp
+
+
+class _Mixed:
+    """Counts the elements the Eq. 5 mixture runs over while it is entered
+    (``mixedprec.effective_weight`` wrapped; a block's, in a process)."""
+
+    def __enter__(self):
+        from repro_torch.core import mixedprec as mp
+        self.mp, self.orig, self.elements = mp, mp.effective_weight, 0
+
+        def counted(w, *a, **k):
+            self.elements += w.numel()
+            return self.orig(w, *a, **k)
+        mp.effective_weight = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mp.effective_weight = self.orig
+
+
+def _dp_steps(cfg, hp, mesh=None) -> dict:
+    from repro_torch.train import steps as steps_mod
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    return {"warmup": steps_mod.make_qat_warmup_step(cfg, hp, mesh=mesh),
+            "theta": steps_mod.make_theta_step(cfg, hp, tokens, mesh=mesh),
+            "w": steps_mod.make_train_step(cfg, hp, mesh=mesh)}
+
+
+def _dp_leaf_errors(got: dict, want: dict, dev) -> tuple:
+    """The largest relative error in norm of ``got``'s leaves (host
+    copies) against ``want``'s (on ``dev``), a clip's apart, and whether
+    every leaf is within its tolerance; non-tensor leaves equal."""
+    worst, clips, ok = (0.0, ""), (0.0, ""), True
+
+    def walk(g, w, path):
+        nonlocal worst, clips, ok
+        if isinstance(w, dict):
+            for k in w:
+                walk(g[k], w[k], f"{path}/{k}" if path else k)
+            return
+        if not isinstance(w, torch.Tensor):
+            ok = ok and g == w
+            return
+        gd = g.to(dev)
+        err = float(torch.linalg.norm((gd.float() - w.float()).flatten()))
+        norm = float(torch.linalg.norm(w.float().flatten()))
+        clip = path.rsplit("/", 1)[-1] in DP_CLIPS
+        rtol, atol = DP_CLIP_TOL if clip else DP_LEAF_TOL
+        ok = ok and gd.dtype == w.dtype and gd.shape == w.shape and err <= rtol * norm + atol
+        rel = (err / norm if norm else err, path)
+        if clip:
+            clips = max(clips, rel)
+        else:
+            worst = max(worst, rel)
+    walk(got, want, "")
+    return worst, clips, ok
+
+
+class _DpChecked:
+    """Inside, in a process of [train-dp]: every K5 call of the int8
+    linear (forward, grad-input, and the grad-weight leg's int32 partial)
+    held bitwise to ``scaled_int8_mm_plain`` on the same int8 operands
+    (``scaled_int8_mm`` wrapped in the kernels module as ``qtrain/linear``
+    sees it, so the wrapper's own counts stay the path's); the first and
+    last grad-weight products across the processes and the first
+    grad-input product of a block of rows kept for :meth:`verify`."""
+
+    def __enter__(self):
+        import types
+        from repro_torch.kernels import int8_matmul as imk
+        from repro_torch.qtrain import linear as tqt
+        self.tqt, self.imk, self.orig_im = tqt, imk, tqt.im
+        self.orig_gw, self.orig_i8 = tqt.dp_grad_weight, tqt._int8_mm
+        self.calls, self.int32_calls, self.worst = 0, 0, 0.0
+        self.grad_weight, self.grad_input = [], None
+
+        def mm(a, b, sa=None, sb=None, backend="cuda"):
+            y = imk.scaled_int8_mm(a, b, sa, sb, backend=backend)
+            ref = imk.scaled_int8_mm_plain(a, b, sa, sb)
+            check(torch.equal(y, ref), f"[train-dp] K5 != its plain twin bitwise at "
+                  f"{tuple(y.shape)} x K {a.shape[1]} ({'int32' if sa is None else 'f32'} form)")
+            self.worst = max(self.worst, float((y.double() - ref.double()).abs().max()))
+            self.calls += 1
+            self.int32_calls += sa is None
+            return y
+
+        def gw(dy2, x2, sd, sx, backend, grp):
+            y = self.orig_gw(dy2, x2, sd, sx, backend, grp)
+            kept = (dy2, x2, sd, sx, y)
+            self.grad_weight = [self.grad_weight[0] if self.grad_weight else kept, kept]
+            return y
+
+        def i8(a, b, seed_a, seed_b, backend, a_block=None):
+            y = self.orig_i8(a, b, seed_a, seed_b, backend, a_block=a_block)
+            if a_block is not None and self.grad_input is None:
+                self.grad_input = (a, b, seed_a, seed_b, y)
+            return y
+        tqt.im = types.SimpleNamespace(**dict(vars(imk), scaled_int8_mm=mm))
+        tqt.dp_grad_weight, tqt._int8_mm = gw, i8
+        return self
+
+    def __exit__(self, *exc):
+        self.tqt.im = self.orig_im
+        self.tqt.dp_grad_weight, self.tqt._int8_mm = self.orig_gw, self.orig_i8
+
+    def verify(self, group) -> list:
+        """The kept products against the whole batch's on the plain twin
+        (``qtrain/linear._int8_mm`` with ``backend="torch"``) from the
+        gathered operands: each grad-weight product bitwise on the first
+        process (which keeps it), the grad-input rows of every process
+        gathered bitwise.  A collective; the rows checked (first process)."""
+        tqt, rows = self.tqt, []
+        check(len(self.grad_weight) == 2 and self.grad_input is not None,
+              "[train-dp] the checked step's products were captured")
+        for dy2, x2, sd, sx, y in self.grad_weight:
+            dy, x = group.all_gather(dy2, 0), group.all_gather(x2, 0)
+            if group.rank == 0:
+                whole = tqt._int8_mm(dy.T, x.T, sd, sx, "torch")
+                check(torch.equal(y, whole), f"[train-dp] a grad-weight product across the "
+                      f"processes ({tuple(y.shape)}) != the whole batch's bitwise")
+                rows.append(dict(leg="grad_weight", N=whole.shape[0], K=whole.shape[1],
+                                 tokens=dy.shape[0], bitwise=True))
+            del dy, x
+        a, b, sa, sb, y = self.grad_input
+        dy, dx = group.all_gather(a, 0), group.all_gather(y, 0)
+        if group.rank == 0:
+            whole = tqt._int8_mm(dy, b, sa, sb, "torch")
+            check(torch.equal(dx, whole), "[train-dp] the grad-input rows of the processes "
+                  f"({tuple(dx.shape)}) != the whole batch's bitwise")
+            rows.append(dict(leg="grad_input", M=whole.shape[0], N=whole.shape[1],
+                             contraction=b.shape[1], bitwise=True))
+        self.grad_weight, self.grad_input = [], None
+        return rows
+
+
+def train_dp_process(rank: int, size: int, port: int, out_dir: str, card: str) -> None:
+    """One process of [train-dp]: joins the group as ``torch.distributed.run``
+    would start it (the launcher's own set-up, ``launch/train.mesh_context``:
+    gloo, every process on the one card), builds minicpm-2b's state placed
+    by the rules on the ``(size, 1)`` mesh (``init_train_state(mesh=)``:
+    drawn on the card a weight at a time, its own row's blocks kept) and
+    runs ``TRAIN_DP_SCHEDULE`` on its row's block of each batch.  Around
+    each step: the counts zeroed just before and read just after; the
+    state before and after it gathered to host memory, and on rank 0 the
+    unsharded step run from the state before on the whole batch and every
+    leaf held to the result.  The last step is the checked one
+    (:class:`_DpChecked`).  Writes its rows to ``out_dir/rank<r>.json``;
+    any failed check raises, and the spawn with it."""
+    import os
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(size), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(size), MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim import optimizers as opt_mod
+    from repro_torch.train import steps as steps_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = launch_train.mesh_context("cuda")
+    group, dev = ctx.group, ctx.device
+    check(group is not None and group.size == size and group.backend == "gloo"
+          and dev.type == "cuda", "[train-dp] the launcher's set-up: a gloo group on the card")
+    try:
+        cfg, hp = _dp_model()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = steps_mod.init_train_state(cfg, hp, 0, dev, mesh=ctx)
+        torch.cuda.synchronize()
+        init_peak = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+        parts = {k: ctx.placement_bytes(state[k]) for k in ("params", "nas", "opt_w", "opt_t")}
+        result = dict(rank=rank, backend=group.backend, device=str(dev),
+                      position_bytes={k: int(b[rank, 0]) for k, b in parts.items()},
+                      resident_gb=torch.cuda.memory_allocated() / 1e9, init_peak_gb=init_peak,
+                      sharded_leaves=sum(isinstance(t, shd.Shards) for k in parts
+                                         for t in opt_mod.tree_leaves(state[k])),
+                      init_s=time.perf_counter() - t0, steps=[])
+        fns = _dp_steps(cfg, hp, ctx)
+        plain = _dp_steps(cfg, hp) if rank == 0 else None
+        want = steps_mod.int8_products_per_step(cfg, hp.remat)
+        rows = iter(launch_train.build_batch_iter(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0, ctx=ctx))
+        whole_batches = iter(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+        # the state gathered to host memory before the first step; each
+        # step's gathered state after it is the next one's before
+        before = {k: shd.gather(v, "cpu") for k, v in state.items()}
+        for i, kind in enumerate(TRAIN_DP_SCHEDULE):
+            checked = i == len(TRAIN_DP_SCHEDULE) - 1
+            group.reset_counts()
+            ops.reset_launch_counts()
+            with contextlib.ExitStack() as stack:
+                mixed = stack.enter_context(_Mixed())
+                spies = stack.enter_context(_DpChecked()) if checked else None
+                state, row = timed_step(fns[kind], next(rows), state)
+            counts, mma = ops.launch_counts(), ops.mma_launch_counts()
+            moved = group.counts()
+            check(counts["scaled_int8_mm"] == mma["scaled_int8_mm"] == want
+                  and sum(counts.values()) == want,
+                  f"[train-dp] rank {rank} {kind}: {counts['scaled_int8_mm']} K5 launches, "
+                  f"{want} derived, all on the tensor cores and nothing else")
+            check(np.isfinite(row["loss"]), f"[train-dp] rank {rank} {kind}: loss not finite")
+            row.update(kind=kind, checked=checked, mixture_elements=mixed.elements,
+                       exchange=moved, moved_bytes=sum(moved["moved"].values()),
+                       staged_bytes=sum(moved["staged"].values()))
+            if checked:
+                check(spies.calls == want, f"[train-dp] rank {rank}: {spies.calls} K5 calls "
+                      f"checked, {want} launched")
+                row.update(k5_calls_bitwise=spies.calls, k5_int32_calls=spies.int32_calls,
+                           k5_max_abs_err=spies.worst, captured=spies.verify(group))
+                del spies
+            after = {k: shd.gather(v, "cpu") for k, v in state.items()}
+            if rank == 0:
+                base = opt_mod.tree_map(lambda t: t.to(dev) if isinstance(t, torch.Tensor) else t,
+                                        before)
+                del before
+                with _Mixed() as mixed_whole:
+                    base, brow = timed_step(plain[kind], next(whole_batches), base)
+                worst, clips, ok = _dp_leaf_errors(after, base, dev)
+                check(abs(row["loss"] - brow["loss"]) <= DP_LOSS_RTOL * abs(brow["loss"]),
+                      f"[train-dp] {kind}: loss {row['loss']} across the processes, "
+                      f"{brow['loss']} unsharded")
+                check(ok, f"[train-dp] {kind}: a leaf outside its tolerance (worst {worst}, "
+                          f"clips {clips})")
+                row.update(unsharded_loss=brow["loss"], unsharded_mixture_elements=
+                           mixed_whole.elements, worst_leaf=worst, worst_clip=clips)
+                del base
+            before = after
+            torch.cuda.empty_cache()
+            result["steps"].append(row)
+            log(f"[train-dp] rank {rank} {kind}: " + json.dumps(row) + f" | {DP_LABEL} | {card}")
+            group.barrier()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        coll.destroy()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def train_dp(dev, card, ops):
+    """Phase [train-dp]: minicpm-2b at its published widths and
+    ``TRAIN_DP_LAYERS`` layers, int8, AdamW, trained across
+    ``TRAIN_DP_PROCS`` processes sharing the card through gloo (one data row
+    a process: ``train_dp_process``), after the same schedule unsharded in
+    this process (its counts zeroed just before each step and read just
+    after).  Returns the report and K5's entry for the summary line."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as tmp
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train import steps as steps_mod
+
+    t_phase = time.perf_counter()
+    label = f"{DP_LABEL} | {card}"
+    cfg, hp = _dp_model()
+    want = steps_mod.int8_products_per_step(cfg, hp.remat)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = steps_mod.init_train_state(cfg, hp, 0, dev)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    fns = _dp_steps(cfg, hp)
+    it = iter(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    unsharded = []
+    for kind in TRAIN_DP_SCHEDULE:
+        ops.reset_launch_counts()
+        with _Mixed() as mixed:
+            state, row = timed_step(fns[kind], next(it), state)
+        counts = ops.launch_counts()
+        check(counts["scaled_int8_mm"] == want and sum(counts.values()) == want,
+              f"[train-dp] unsharded {kind}: {counts['scaled_int8_mm']} K5 launches, {want} "
+              f"derived")
+        row.update(kind=kind, mixture_elements=mixed.elements)
+        unsharded.append(row)
+        log(f"[train-dp] unsharded {kind} (one process, the whole batch): " + json.dumps(row)
+            + f" | {card}")
+    del state
+    torch.cuda.empty_cache()
+
+    out = tempfile.mkdtemp(prefix="train_dp_")
+    try:
+        log(f"[clock] [train-dp] spawning {TRAIN_DP_PROCS} processes at "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        tmp.spawn(train_dp_process, args=(TRAIN_DP_PROCS, _free_port(), out, card),
+                  nprocs=TRAIN_DP_PROCS, join=True)
+        ranks = [json.loads(Path(out, f"rank{r}.json").read_text())
+                 for r in range(TRAIN_DP_PROCS)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    first = ranks[0]["steps"]
+    for u, r in zip(unsharded, first):
+        check(abs(r["loss"] - u["loss"]) <= DP_LOSS_RTOL * abs(u["loss"]),
+              f"[train-dp] {u['kind']}: loss {r['loss']} across the processes, {u['loss']} "
+              f"in this process's unsharded run")
+    last = first[-1]
+    check(last["checked"] and [c["leg"] for c in last["captured"]]
+          == ["grad_weight", "grad_weight", "grad_input"]
+          and all(c["bitwise"] for c in last["captured"]),
+          "[train-dp] the checked step's captured products")
+    check(all(rk["steps"][-1]["k5_calls_bitwise"] == want for rk in ranks),
+          "[train-dp] every K5 call of the checked step in each process bitwise its plain twin")
+    launches = sum(s["k5_launches"] for rk in ranks for s in rk["steps"])
+    # the timed W step: the first (the last one is the checked one)
+    w = TRAIN_DP_SCHEDULE.index("w")
+    summary = dict(
+        arch=cfg.name, n_layers=cfg.n_layers, processes=TRAIN_DP_PROCS,
+        backend=ranks[0]["backend"], k5_launches_per_step=want,
+        w_step=dict(unsharded_host_ms=unsharded[w]["host_ms"],
+                    unsharded_ms=unsharded[w]["ms"],
+                    unsharded_peak_gb=unsharded[w]["peak_gb"], unsharded_init_peak_gb=init_peak,
+                    unsharded_mixture_elements=unsharded[w]["mixture_elements"],
+                    per_process={rk["rank"]: dict(
+                        host_ms=rk["steps"][w]["host_ms"], ms=rk["steps"][w]["ms"],
+                        peak_gb=rk["steps"][w]["peak_gb"], init_peak_gb=rk["init_peak_gb"],
+                        mixture_elements=rk["steps"][w]["mixture_elements"],
+                        moved_bytes=rk["steps"][w]["moved_bytes"],
+                        staged_bytes=rk["steps"][w]["staged_bytes"],
+                        exchange=rk["steps"][w]["exchange"],
+                        resident_gb=rk["resident_gb"], position_bytes=rk["position_bytes"])
+                        for rk in ranks},
+                    worst_leaf=max(s["worst_leaf"] for s in first),
+                    worst_clip=max(s["worst_clip"] for s in first)),
+        checked_w_step=dict(k5_calls_bitwise=want, k5_int32_calls=last["k5_int32_calls"],
+                            max_abs_err=max(rk["steps"][-1]["k5_max_abs_err"] for rk in ranks),
+                            captured=last["captured"]),
+        seconds=time.perf_counter() - t_phase)
+    log(f"[train-dp] W step, {TRAIN_DP_PROCS} processes against one (host ms, CUDA-event ms, "
+        f"peak GB a process in the step and in building the state, mixture elements, bytes "
+        f"across processes and bytes the wrappers staged through host memory; worst leaf and "
+        f"clip over the schedule): " + json.dumps(summary["w_step"]) + f" | {label}")
+    log(f"[train-dp] checked W step: every K5 call in each process bitwise its plain twin "
+        f"({want} a process, {last['k5_int32_calls']} in the int32 form), the captured "
+        f"products bitwise the whole batch's: " + json.dumps(summary["checked_w_step"])
+        + f" | {label}")
+    log(f"[train-dp] phase took {summary['seconds']:.1f} s")
+    report = dict(summary, unsharded_steps=unsharded, processes_steps=ranks)
+    k5 = dict(launches=launches, mma_launches=launches, launches_per_step=want,
+              max_abs_err=summary["checked_w_step"]["max_abs_err"])
     return report, k5
 
 
@@ -5663,11 +6084,11 @@ def run(opts, dry: list) -> int:
         the card; checked below) and hands the call on unchanged."""
         calls, orig = [], tqt._int8_mm
 
-        def spy(a, b, seed_a, seed_b, backend):
-            qa, sa = imk.rowwise_quantize(a.contiguous(), seed_a)
+        def spy(a, b, seed_a, seed_b, backend, a_block=None):
+            qa, sa = imk.rowwise_quantize(a.contiguous(), seed_a, block=a_block)
             qb, sb = imk.rowwise_quantize(b.contiguous(), seed_b)
             calls.append((qa, qb, sa, sb))
-            return orig(a, b, seed_a, seed_b, backend)
+            return orig(a, b, seed_a, seed_b, backend, a_block=a_block)
 
         tqt._int8_mm = spy
         try:
@@ -5736,10 +6157,16 @@ def run(opts, dry: list) -> int:
         check(bool(torch.isfinite(y).all()), f"K5 output not finite: {label}")
         check((imk.scaled_int8_mm.launches - before[0], imk.scaled_int8_mm.mma_launches
                - before[1]) == (1, 1), f"K5 must launch the tensor-core routine once: {label}")
+        # the int32 form (no scales): the sums themselves, one launch too
+        acc = imk.scaled_int8_mm(a, b)
+        same32 = acc.dtype == torch.int32 and torch.equal(acc, imk.scaled_int8_mm_plain(a, b))
+        check((imk.scaled_int8_mm.launches - before[0], imk.scaled_int8_mm.mma_launches
+               - before[1]) == (2, 2), f"K5's int32 form must launch once: {label}")
         k5_rows.append(dict(case=label, M=a.shape[0], N=b.shape[0], K=a.shape[1],
                             **k5_plan_row(a.shape[0], b.shape[0], a.shape[1], sms), bitwise=same,
-                            max_abs_err=float((y - ref).abs().max())))
+                            int32_bitwise=same32, max_abs_err=float((y - ref).abs().max())))
         check(same, f"K5 != its plain version bitwise: {label}")
+        check(same32, f"K5's int32 form != its plain twin's sums bitwise: {label}")
     xq = torch.from_numpy(gen.standard_normal((257, 333)).astype(np.float32) * 3)
     q_card, s_card = imk.rowwise_quantize(xq.to(dev))
     q_cpu, s_cpu = imk.rowwise_quantize(xq)
@@ -5748,13 +6175,23 @@ def run(opts, dry: list) -> int:
     sr = [imk.rowwise_quantize(xq.to(dev), seed)[0] for seed in (11, 11, 12)]
     check(torch.equal(sr[0], sr[1]) and not torch.equal(sr[0], sr[2]),
           "stochastic rounding: one seed twice must agree, two seeds differ")
+    # a block of columns with the whole's row max and place: the whole's columns
+    xd = xq.to(dev)
+    amax = torch.amax(torch.abs(xd), dim=-1)
+    for c0, c1 in ((0, 111), (111, 333)):
+        qb_, sb_ = imk.rowwise_quantize(xd[:, c0:c1].contiguous(), 11, amax=amax,
+                                        block=(tuple(xd.shape), (0, c0)))
+        check(torch.equal(qb_, sr[0][:, c0:c1]) and torch.equal(sb_, s_card),
+              "rowwise_quantize of a block != the whole's block bitwise")
     torch.cuda.synchronize()
     for row in k5_rows:
         log("[k5] " + json.dumps(row))
     log(f"[k5] {len(k5_rows)} products bitwise equal to the plain version, each one "
-        f"tensor-core launch; K > "
+        f"tensor-core launch, and in the int32 form (no epilogue) bitwise its plain twin's "
+        f"sums; K > "
         f"K_INT32_EXACT_MAX and a non-contiguous operand raise; rowwise_quantize card == CPU; "
-        f"SR deterministic per seed")
+        f"SR deterministic per seed; a block of columns quantized with the whole's row max and "
+        f"noise bitwise the whole's")
     report["k5_checks"] = k5_rows
 
     # -- 4. the main path ------------------------------------------------------
@@ -6270,6 +6707,11 @@ def run(opts, dry: list) -> int:
     torch.cuda.empty_cache()
     report["train_mesh"], k5_mesh = train_mesh(dev, card, ops)
 
+    # -- [train-dp]. minicpm across 2 processes sharing the card, one a data row ----
+    log(f"[clock] phase [train-dp] starts at {time.perf_counter() - t_run:.1f} s")
+    torch.cuda.empty_cache()
+    report["train_dp"], k5_dp = train_dp(dev, card, ops)
+
     # -- [train-ssm], [train-audio]. mamba2, zamba2 and whisper training, int8 ----
     log(f"[clock] phase [train-ssm] starts at {time.perf_counter() - t_run:.1f} s")
     torch.cuda.empty_cache()
@@ -6333,26 +6775,29 @@ def run(opts, dry: list) -> int:
              source="src/repro_torch/kernels/csrc/int8_matmul.cu",
              replaces="src/repro/kernels/int8_matmul.py:82",
              launches=(train_launches["scaled_int8_mm"] + k5_lm["launches"] + k5_moe["launches"]
-                       + k5_mesh["launches"] + sum(v["launches"] for v in k5_new.values())),
+                       + k5_mesh["launches"] + k5_dp["launches"]
+                       + sum(v["launches"] for v in k5_new.values())),
              mma_launches=(train_mma["scaled_int8_mm"] + k5_lm["mma_launches"]
                            + k5_moe["mma_launches"] + k5_mesh["mma_launches"]
+                           + k5_dp["mma_launches"]
                            + sum(v["mma_launches"] for v in k5_new.values())),
              launches_by_path=dict(tinyml_training=train_launches["scaled_int8_mm"],
                                    lm_training=k5_lm["launches"],
                                    moe_training=k5_moe["launches"],
                                    mesh_training=k5_mesh["launches"],
+                                   dp_training=k5_dp["launches"],
                                    **{f"{arch}_training": v["launches"]
                                       for arch, v in k5_new.items()}),
              max_abs_err=max([r["max_abs_err"] for r in k5_rows]
                              + [k5_lm["max_abs_err"], k5_moe["max_abs_err"],
-                                k5_mesh["max_abs_err"]]
+                                k5_mesh["max_abs_err"], k5_dp["max_abs_err"]]
                              + [v["max_abs_err"] for v in k5_new.values()]),
              ms=k5_sum["k5_ms"], plain_ms=k5_sum["plain_ms"], bound_ms=k5_bound,
              bound_by=k5_bound_by, library_ms=k5_sum["library_ms"],
              dae_ad=dict(ms=k5_dae_sum["k5_ms"], plain_ms=k5_dae_sum["plain_ms"],
                          bound_ms=k5_dae_sum["bound_ms"], bound_by=k5_dae_sum["bound_by"],
                          library_ms=k5_dae_sum["library_ms"], products=len(k5_dae)),
-             minicpm_train=k5_lm, deepseek_train=k5_moe, mesh_train=k5_mesh,
+             minicpm_train=k5_lm, deepseek_train=k5_moe, mesh_train=k5_mesh, dp_train=k5_dp,
              mamba2_train=k5_new["mamba2-780m"],
              zamba2_train=k5_new["zamba2-1.2b"], whisper_train=k5_new["whisper-small"]),
         dict(k4_lm, launches=(k4_lm["launches"] + fam_launches["decode_attention"]
@@ -6414,7 +6859,10 @@ def run(opts, dry: list) -> int:
         f"(deepseek-v3 and arctic at full width, 2 layers, int8: deepseek's step in its "
         f"'deepseek_train' entry), the [train-mesh] path's (the placed steps of minicpm-2b "
         f"at {TRAIN_MESH_LAYERS} layers and deepseek-v3 at 2 layers and {TRAIN_MESH_EXPERTS} "
-        f"experts on a (2, 4) mesh, {MESH_LABEL}: 'mesh_train'), "
+        f"experts on a (2, 4) mesh, {MESH_LABEL}: 'mesh_train'), the [train-dp] path's "
+        f"(minicpm-2b at {TRAIN_DP_LAYERS} layers trained across {TRAIN_DP_PROCS} processes, "
+        f"{DP_LABEL}, summed over the processes, the grad-weight products in K5's int32 form: "
+        f"'dp_train'), "
         f"the [train-ssm] and [train-audio] paths' (mamba2-780m, "
         f"zamba2-1.2b and whisper-small at full width and depth, int8: their steps in the "
         f"'mamba2_train', 'zamba2_train' and 'whisper_train' entries), K6's the kernel API's over the "

@@ -66,10 +66,11 @@ def softmax_tau(logits: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
     return torch.softmax(logits / tau.to(logits.device), dim=-1)
 
 
-def _recomputed(fn, w: torch.Tensor, *args) -> torch.Tensor:
+def _recomputed(fn, w: torch.Tensor, *args, numel=None) -> torch.Tensor:
     """``fn(w, *args)``; under autograd, for a weight of ``RECOMPUTE_MIN``
-    elements or more, its saved tensors are recomputed in the backward."""
-    if w.numel() >= RECOMPUTE_MIN and torch.is_grad_enabled():
+    elements or more (``numel``: the whole weight's, where ``w`` is a block
+    of it), its saved tensors are recomputed in the backward."""
+    if (w.numel() if numel is None else numel) >= RECOMPUTE_MIN and torch.is_grad_enabled():
         return checkpoint(fn, w, *args, use_reentrant=False)
     return fn(w, *args)
 
@@ -78,26 +79,37 @@ def _mixture_term(w, a, coef, bits: int) -> torch.Tensor:
     return coef * qz.quantize_weight(w, a, bits)
 
 
-def fake_quant_weight(w: torch.Tensor, alpha: torch.Tensor, bits: int) -> torch.Tensor:
+def fake_quant_weight(w: torch.Tensor, alpha: torch.Tensor, bits: int,
+                      numel=None) -> torch.Tensor:
     """``quantizers.quantize_weight`` (QAT's fixed precision), its saved
-    tensors recomputed in the backward for a large weight."""
-    return _recomputed(qz.quantize_weight, w, alpha, bits)
+    tensors recomputed in the backward for a large weight (``numel``: the
+    whole weight's, where ``w`` is a block of it)."""
+    return _recomputed(qz.quantize_weight, w, alpha, bits, numel=numel)
 
 
 def effective_weight(w: torch.Tensor, gamma: torch.Tensor, alpha_w: torch.Tensor,
-                     tau: torch.Tensor, cfg: MixedPrecConfig) -> torch.Tensor:
+                     tau: torch.Tensor, cfg: MixedPrecConfig, rows: slice = slice(None),
+                     numel=None) -> torch.Tensor:
     """Eq. (5): mixture of fake-quantized copies of ``w (c_out, ...)``,
     weighted per channel by ``gamma (c_out, |P_W|)`` or for the whole layer
     by ``gamma (1, |P_W|)``; ``alpha_w (c_out,)``.  A large weight's copies
-    are recomputed in the backward, one at a time (``RECOMPUTE_MIN``)."""
+    are recomputed in the backward, one at a time (``RECOMPUTE_MIN``).
+
+    The mixture is elementwise over ``w``: for ``w`` a block of a weight
+    (rows ``rows`` of it, or all of its rows and some of its columns;
+    ``numel`` the whole weight's elements) the result is the whole
+    mixture's block, bitwise, from the softmax of the whole ``gamma`` and
+    the block's rows of it and of ``alpha_w``."""
     g = softmax_tau(gamma, tau)
     bshape = (w.shape[0],) + (1,) * (w.ndim - 1)
-    a = alpha_w.reshape(bshape)
-    per_channel = g.shape[0] == w.shape[0]
+    a = alpha_w[rows].reshape(bshape)
+    per_channel = g.shape[0] != 1
+    if per_channel:
+        g = g[rows]
     out = torch.zeros_like(w)
     for i, bits in enumerate(cfg.weight_bits):
         coef = g[:, i].reshape(bshape) if per_channel else g[0, i]
-        out = out + _recomputed(_mixture_term, w, a, coef, bits)
+        out = out + _recomputed(_mixture_term, w, a, coef, bits, numel=numel)
     return out
 
 

@@ -44,14 +44,20 @@ class SyntheticLM:
     one; every even position copies an affine map of the one before, which
     gives the models something learnable.  ``extra`` maps a name to a
     per-example shape of standard-normal f32 features (``prefix_embeds``,
-    ``frames``)."""
+    ``frames``); ``data_row = (r, d)`` yields data row ``r`` of
+    ``d``'s block of each batch (:func:`row_block`): every process of a
+    data group draws the same batch and keeps its rows."""
 
     def __init__(self, vocab: int, seq: int, global_batch: int,
                  host_count: int = 1, host_id: int = 0, seed: int = 0,
-                 extra: Optional[dict] = None):
+                 extra: Optional[dict] = None, data_row: Optional[tuple] = None):
         if global_batch % host_count:
             raise ValueError(f"global batch {global_batch} not divisible by "
                              f"{host_count} hosts")
+        if data_row is not None and global_batch // host_count % data_row[1]:
+            raise ValueError(f"batch {global_batch // host_count} not divisible by "
+                             f"{data_row[1]} data rows")
+        self.data_row = data_row
         self.vocab, self.seq = vocab, seq
         self.local_batch = global_batch // host_count
         self.host_id, self.host_count = host_id, host_count
@@ -68,7 +74,7 @@ class SyntheticLM:
                  "labels": base[:, 1:].astype(np.int32)}
         for name, shape in self.extra.items():
             batch[name] = rng.standard_normal((B, *shape)).astype(np.float32)
-        return batch
+        return batch if self.data_row is None else row_block(batch, *self.data_row)
 
     def __iter__(self) -> Iterator[dict]:
         while True:
@@ -153,6 +159,18 @@ class Prefetcher:
                 self.q.get_nowait()
         except queue.Empty:
             pass
+
+
+def row_block(batch: dict, r: int, d: int) -> dict:
+    """Data row ``r`` of ``d``'s block of a batch: rows ``[r B/d, (r + 1)
+    B/d)`` of every leaf (the tokens, the labels, the VLM's prefix embeds,
+    the audio frames), as one process of a data group of ``d`` computes on
+    it.  ``B`` must divide by ``d``."""
+    B = len(next(iter(batch.values())))
+    if B % d:
+        raise ValueError(f"batch {B} not divisible by {d} data rows")
+    n = B // d
+    return {k: v[r * n:(r + 1) * n] for k, v in batch.items()}
 
 
 def lm_extra(cfg) -> dict:

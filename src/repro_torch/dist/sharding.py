@@ -77,6 +77,21 @@ its result comes back to the first position through
 reads (MLA's ``wkv_b``, a Mamba2 layer's conv and state parameters, under
 the key ``ROWS``).  :meth:`MeshContext.placement_bytes` reports the bytes
 each position holds.
+
+**Across processes** (``MeshContext(mesh, group=)``, a
+``dist/collectives.Group`` of one process a ``data`` row on a ``(d, 1)``
+mesh): process ``r`` is position ``(r, 0)``.  ``put_train_state`` places
+only its own blocks, ``(r, 0..m-1)`` of every :class:`Shards` (whose
+``group`` is then set), and every replicated leaf whole on its device.
+A step (``train/steps.py``) takes each block as a :class:`Local`: a linear
+map's weight ``w`` and the embedding stay local until the model uses them,
+where the weight is mixed on its block and gathered (:meth:`Local.whole`,
+an autograd function that all-gathers the blocks in its forward and
+reduce-scatters the gradient, summed over the processes, in its
+backward); every other sharded leaf is gathered so at the step's start.
+``Shards.whole`` gathers across the processes (a collective), so the
+checkpoint, the optimizer's whole-leaf updates and ``gather`` work as on
+one process.
 """
 from __future__ import annotations
 
@@ -218,19 +233,25 @@ class Shards:
     the first position; a mesh axis of size 1 shards nothing.  The training
     counterpart of :class:`Rows`."""
 
-    def __init__(self, blocks: dict, spec: tuple, shape):
+    def __init__(self, blocks: dict, spec: tuple, shape, n: Optional[tuple] = None,
+                 group=None):
         self.blocks, self.spec, self._shape = dict(blocks), tuple(spec), torch.Size(shape)
-        self.n_data = 1 + max(r for r, _ in self.blocks)
-        self.n_model = 1 + max(m for _, m in self.blocks)
+        if n is None:
+            n = (1 + max(r for r, _ in self.blocks), 1 + max(m for _, m in self.blocks))
+        self.n_data, self.n_model = n
+        self.group = group           # set: only this process's row of blocks is here
 
     @classmethod
     def cut(cls, t: torch.Tensor, spec: tuple, ctx: "MeshContext") -> "Shards":
         """``t`` split by ``spec`` (each named axis of size > 1 on
-        ``ctx``'s mesh), block ``(r, m)`` on ``ctx.position(r, m)``."""
+        ``ctx``'s mesh), block ``(r, m)`` on ``ctx.position(r, m)``; in a
+        process group only this process's row of blocks."""
         n = (ctx.data if "data" in spec else 1, ctx.model if "model" in spec else 1)
+        group = ctx.group if n[0] > 1 else None
+        rows = range(n[0]) if group is None else (group.rank,)
         return cls({(r, m): _own_copy(t[_block_index(spec, t.shape, n, r, m)],
                                       ctx.position(r, m))
-                    for r in range(n[0]) for m in range(n[1])}, spec, t.shape)
+                    for r in rows for m in range(n[1])}, spec, t.shape, n, group)
 
     @property
     def shape(self) -> torch.Size:
@@ -238,12 +259,13 @@ class Shards:
 
     @property
     def dtype(self):
-        return self.blocks[(0, 0)].dtype
+        return next(iter(self.blocks.values())).dtype
 
     @property
     def device(self):
-        """The first position's device (block ``(0, 0)``'s)."""
-        return self.blocks[(0, 0)].device
+        """The first position's device (block ``(0, 0)``'s); in a process
+        group this process's (its first block's)."""
+        return next(iter(self.blocks.values())).device
 
     def _axis(self, name: str):
         return self.spec.index(name) if name in self.spec else None
@@ -258,19 +280,32 @@ class Shards:
         return (isinstance(other, Shards) and other.spec == self.spec
                 and other.shape == self.shape and other.blocks.keys() == self.blocks.keys())
 
-    def whole(self, device) -> torch.Tensor:
-        """The leaf whole again on ``device``, bitwise (a new tensor)."""
-        rows = []
-        for r in range(self.n_data):
-            parts = [self.blocks[(r, m)].to(device) for m in range(self.n_model)]
-            rows.append(parts[0] if len(parts) == 1 else torch.cat(parts, self._axis("model")))
+    def _row(self, r: int, device) -> torch.Tensor:
+        parts = [self.blocks[(r, m)].to(device) for m in range(self.n_model)]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, self._axis("model"))
+
+    def whole(self, device, root: Optional[int] = None) -> Optional[torch.Tensor]:
+        """The leaf whole again on ``device``, bitwise (a new tensor); in
+        a process group gathered from every process (a collective): onto
+        every one, or onto process ``root`` alone (None on the others)."""
+        if self.group is not None:
+            mine = self._row(self.group.rank, self.group.device)
+            if root is None:
+                return self.group.all_gather(mine, self._axis("data")).to(device)
+            t = self.group.gather(mine, self._axis("data"), root)
+            return None if t is None else t.to(device)
+        rows = [self._row(r, device) for r in range(self.n_data)]
         return rows[0] if len(rows) == 1 else torch.cat(rows, self._axis("data"))
 
     def like(self, t: torch.Tensor) -> "Shards":
         """The whole tensor ``t`` (this leaf's shape) cut into these
         blocks, each on its block's device."""
         return Shards({k: _own_copy(t[self.slices(*k)], b.device) for k, b in self.blocks.items()},
-                      self.spec, self._shape)
+                      self.spec, self._shape, (self.n_data, self.n_model), self.group)
+
+    def with_blocks(self, blocks: dict) -> "Shards":
+        """A leaf split as this one holding ``blocks`` (the same keys)."""
+        return Shards(blocks, self.spec, self._shape, (self.n_data, self.n_model), self.group)
 
     def assign_(self, t: torch.Tensor) -> None:
         """Write the whole tensor ``t`` (on the first position) into the
@@ -281,8 +316,84 @@ class Shards:
 
     def off_first(self) -> int:
         """The bytes of the blocks off the first position: what a gather
-        onto it, or a scatter from it, moves across positions."""
+        onto it, or a scatter from it, moves across positions (0 in a
+        process group, whose collectives count their own bytes)."""
+        if self.group is not None:
+            return 0
         return sum(b.numel() * b.element_size() for k, b in self.blocks.items() if k != (0, 0))
+
+
+class _Gather(torch.autograd.Function):
+    """The blocks of every process concatenated along ``dim``; the
+    gradient reduce-scattered back (each process's block of the sum over
+    the processes)."""
+
+    @staticmethod
+    def forward(ctx, block, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return group.all_gather(block, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.reduce_scatter(g, ctx.dim), None, None
+
+
+class Local:
+    """Inside a step of a process group: this process's block of a leaf
+    sharded on ``data``, kept local until its use.  ``block`` is the
+    step's autograd leaf; ``shape`` the whole leaf's; ``dim`` the axis
+    ``data`` splits.  :meth:`whole` gathers a block (the leaf's, or one
+    computed from it elementwise, such as its mixture) across the
+    processes; :meth:`rows` is the slice of axis 0 the block covers."""
+
+    def __init__(self, block: torch.Tensor, dim: int, shape, group):
+        self.block, self.dim, self.shape, self.group = block, dim, torch.Size(shape), group
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def numel(self) -> int:
+        return self.shape.numel()
+
+    def rows(self) -> slice:
+        """The rows (axis 0) of the whole leaf the block covers."""
+        if self.dim != 0:
+            return slice(None)
+        n = self.block.shape[0]
+        return slice(self.group.rank * n, (self.group.rank + 1) * n)
+
+    def whole(self, block: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``block`` (default: the leaf's own block) gathered whole."""
+        return _Gather.apply(self.block if block is None else block, self.dim, self.group)
+
+    def unbind(self) -> list:
+        """The per-layer blocks of a stacked leaf (axis 0 unsplit)."""
+        if self.dim == 0:
+            raise ValueError("a leaf split on its layer axis is gathered whole, not unbound")
+        return [Local(t, self.dim - 1, self.shape[1:], self.group)
+                for t in torch.unbind(self.block, 0)]
+
+
+# the leaves a model keeps local until their use (the others a step gathers
+# at its start): a linear map's weight and the embedding
+LOCAL_KEYS = ("w", "embed")
+
+
+def local_view(placed, live, group):
+    """The tree a model computes on in a step of ``group``: ``live``
+    (``placed``'s leaves as the step's autograd leaves, a :class:`Shards`
+    as its own block) with each sharded ``w`` or ``embed`` whose split
+    axis is one of its last two a :class:`Local`, every other sharded leaf
+    gathered whole (differentiably)."""
+    def walk(p, t, key):
+        if isinstance(p, dict):
+            return {k: walk(p[k], t[k], k) for k in p}
+        if not isinstance(p, Shards) or p.group is None:
+            return t
+        loc = Local(t, p._axis("data"), p.shape, group)
+        return loc if key in LOCAL_KEYS and loc.dim >= loc.ndim - 2 else loc.whole()
+    return walk(placed, live, None)
 
 
 def _block_index(spec, shape, n, r: int, m: int) -> tuple:
@@ -667,14 +778,22 @@ class MeshContext:
     position holds.  At ``(1, m)`` the caches and the rows' copies stay as
     without a mesh, and at ``(1, 1)`` the train state too.  A mesh
     without the ``("data", "model")`` axes raises ``ValueError``.
+
+    ``group`` (a ``dist/collectives.Group`` of ``data`` processes, the mesh
+    ``(data, 1)``): this process is data row ``group.rank``, its device
+    that row's position; the train state it places holds that row's blocks
+    (the module docstring's "Across processes").
     """
 
-    def __init__(self, mesh=None):
+    def __init__(self, mesh=None, group=None):
         if mesh is not None:
             names = tuple(getattr(mesh, "axis_names", ()))
             if "data" not in names or "model" not in names:
                 raise ValueError(f"serving mesh needs ('data', 'model') axes, got {names}")
-        self.mesh = mesh
+        if group is not None and (mesh is None or int(mesh.shape["data"]) != group.size
+                                  or int(mesh.shape["model"]) != 1):
+            raise ValueError(f"a process group of {group.size} needs a ({group.size}, 1) mesh")
+        self.mesh, self.group = mesh, group
         self.rules = ShardingRules(mesh) if mesh is not None else None
 
     @property
@@ -690,10 +809,16 @@ class MeshContext:
         return int(self.mesh.shape["model"]) if self.is_active else 1
 
     @property
+    def rank(self) -> int:
+        """This process's data row (0 without a group)."""
+        return 0 if self.group is None else self.group.rank
+
+    @property
     def device(self):
         """The first position: it holds every replicated tensor and runs
-        the work that couples the rows and the shard launches' gathers."""
-        return self.mesh.devices.flat[0]
+        the work that couples the rows and the shard launches' gathers.  In
+        a process group this process's position, ``(rank, 0)``."""
+        return self.position(self.rank, 0)
 
     def position(self, r: int, m: int):
         """The device at data row ``r``, model position ``m`` (index 0 of
@@ -822,7 +947,7 @@ class MeshContext:
                     walk(v, r)
             elif isinstance(node, torch.Tensor):
                 add(node, r, 0, False)
-        walk(tree, 0)
+        walk(tree, self.rank)
         return out
 
 

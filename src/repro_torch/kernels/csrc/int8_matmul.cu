@@ -9,6 +9,10 @@
 //
 // with a (M, K) and b (N, K) int8, both contiguous along K, and the epilogue
 // `__fmul_rn(__fmul_rn(__int2float_rn(acc), sa[m]), sb[n])` in that order.
+// Without scales (sa and sb both null) the kernels skip the epilogue and
+// write the int32 sums themselves, `out` then an (M, N) int32 buffer: the
+// grad-weight product of a data-parallel step sums those partials across
+// processes before it applies the epilogue once.
 // The int32 sum of int8 products is exact in any order (K <= 133144 keeps
 // every partial sum within 127 * 127 * K < 2^31; the wrapper raises above
 // it), so the kernels equal their plain version and the reference bitwise,
@@ -111,7 +115,9 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ float dequant(int acc, float sa, float sb) {
+// The epilogue of one sum; `sums` (no scales): the int32 sum's own bits.
+__device__ __forceinline__ float dequant(int acc, float sa, float sb, bool sums) {
+  if (sums) return __int_as_float(acc);
   return __fmul_rn(__fmul_rn(__int2float_rn(acc), sa), sb);
 }
 
@@ -151,22 +157,24 @@ __device__ __forceinline__ void warp_step(uint32_t a_row0, uint32_t b_row0, int 
 }
 
 // The column scales of a thread's fragment columns (n0 + 8 j + 2 t and
-// + 1 of each of the warp's NF fragments; 0 past N) and the row scales of
-// its rows (m0 + g and m0 + g + 8; 0 past M).
+// + 1 of each of the warp's NF fragments; 0 past N, or without scales) and
+// the row scales of its rows (m0 + g and m0 + g + 8; 0 past M, or without
+// scales).
 template <int NF>
 __device__ __forceinline__ void col_scales(const float* __restrict__ sb, int n0, int N, int lane,
                                            float (&sbv)[NF][2]) {
 #pragma unroll
   for (int j = 0; j < NF; ++j) {
     const int n = n0 + 8 * j + 2 * (lane & 3);
-    sbv[j][0] = n < N ? __ldg(sb + n) : 0.0f;
-    sbv[j][1] = n + 1 < N ? __ldg(sb + n + 1) : 0.0f;
+    sbv[j][0] = sb != nullptr && n < N ? __ldg(sb + n) : 0.0f;
+    sbv[j][1] = sb != nullptr && n + 1 < N ? __ldg(sb + n + 1) : 0.0f;
   }
 }
 
 __device__ __forceinline__ float2 row_scales(const float* __restrict__ sa, int64_t m0, int64_t M,
                                              int lane) {
   const int64_t m = m0 + (lane >> 2);
+  if (sa == nullptr) return make_float2(0.0f, 0.0f);
   return make_float2(m < M ? __ldg(sa + m) : 0.0f, m + 8 < M ? __ldg(sa + m + 8) : 0.0f);
 }
 
@@ -175,21 +183,24 @@ __device__ __forceinline__ float2 row_scales(const float* __restrict__ sa, int64
 // each 8-column fragment) into the warp's staged tile `st`
 // (Stage<NF>::kBytes of shared memory), then the rows are read back 16
 // bytes a lane and stored; rows >= M and columns >= N are not stored.
-// vec: N % 4 == 0 (every 4-column group is 16-byte aligned in out).
+// vec: N % 4 == 0 (every 4-column group is 16-byte aligned in out).  sums:
+// the int32 sums are stored as they are (their bits through the f32 tile).
 template <int NF>
 __device__ __forceinline__ void warp_store(float* st, const int (&acc)[NF][4],
                                            const float (&sbv)[NF][2], float2 sav, int lane,
                                            int64_t m0, int n0, int64_t M, int N,
-                                           float* __restrict__ out, bool vec) {
+                                           float* __restrict__ out, bool vec, bool sums) {
   constexpr int W = Stage<NF>::kW;
   constexpr int kQ = 2 * NF;                 // 16-byte groups in a staged row
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int j = 0; j < NF; ++j) {
     *reinterpret_cast<float2*>(st + g * W + 8 * j + 2 * t) =
-        make_float2(dequant(acc[j][0], sav.x, sbv[j][0]), dequant(acc[j][1], sav.x, sbv[j][1]));
+        make_float2(dequant(acc[j][0], sav.x, sbv[j][0], sums),
+                    dequant(acc[j][1], sav.x, sbv[j][1], sums));
     *reinterpret_cast<float2*>(st + (g + 8) * W + 8 * j + 2 * t) =
-        make_float2(dequant(acc[j][2], sav.y, sbv[j][0]), dequant(acc[j][3], sav.y, sbv[j][1]));
+        make_float2(dequant(acc[j][2], sav.y, sbv[j][0], sums),
+                    dequant(acc[j][3], sav.y, sbv[j][1], sums));
   }
   __syncwarp();
 #pragma unroll 4
@@ -388,7 +399,7 @@ panel_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
     for (int kb = 0; kb < Kp; kb += kStep) warp_step<NF>(a_row0, b_row0, S, lane, kb, acc);
     __syncthreads();                    // every warp is done with this tile's a
     warp_store<NF>(st, acc, sbv, sav, lane, m0 + 16 * wi, n0 + 8 * NF * wj, M, N, out,
-                   out_vec != 0);
+                   out_vec != 0, sa == nullptr);
   }
   cp_async_wait<0>();
 }
@@ -499,7 +510,7 @@ split_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
     float sbv[NF][2];
     col_scales<NF>(sb, wn0, N, lane, sbv);
     warp_store<NF>(st, acc, sbv, row_scales(sa, wm0, M, lane), lane, wm0, wn0, M, N, out,
-                   out_vec != 0);
+                   out_vec != 0, sa == nullptr);
   }
 }
 
@@ -553,7 +564,8 @@ int launch(int kind, const int8_t* a, const int8_t* b, const float* sa, const fl
 
 }  // namespace
 
-// a (M, K) int8, b (N, K) int8, sa (M,) f32, sb (N,) f32 -> out (M, N) f32,
+// a (M, K) int8, b (N, K) int8, sa (M,) f32, sb (N,) f32 -> out (M, N) f32
+// (sa and sb both null: out (M, N) int32, the sums without the epilogue),
 // by the plan of `k5_plan`: kind 0 = panel_kernel, 1 = split_kernel; nf
 // (one of 1, 2, 3, 4, 6, 8, 9, 12, 16, 18), wm, wn the warp grid; grid_m blocks
 // along M (the panel kernel's M-tile walkers, else the M tiles), tiles_n
@@ -574,7 +586,8 @@ extern "C" int i8mm_tc(const void* a, const void* b, const void* sa, const void*
   if (M <= 0 || N <= 0 || K <= 0 || K > 133144 || (kind != 0 && kind != 1) || grid_m <= 0 ||
       tiles_n <= 0 || wm <= 0 || wn <= 0 || int64_t(tiles_n) * 8 * nf * wn < N ||
       int64_t(tiles_n - 1) * 8 * nf * wn >= N || splits <= 0 || kper <= 0 ||
-      int64_t(splits) * kper < K || int64_t(splits - 1) * kper >= K) {
+      int64_t(splits) * kper < K || int64_t(splits - 1) * kper >= K ||
+      (sa == nullptr) != (sb == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
 #define K5_CASE(NFV)                                                                        \

@@ -17,13 +17,21 @@ int8 with int32 sums, and dequantized in a fused epilogue:
   ``mma_launches``.
 * :func:`scaled_int8_mm_plain` sums the int8 products in float64, which is
   exact (``K * 127^2 < 2^31 < 2^53``), converts to int32 and applies the same
-  epilogue in the same order; so it equals the kernel on the card, and the
-  reference's ``scaled_int8_mm_ref`` on the CPU, bitwise.
+  epilogue in the same order (:func:`dequantize_sums`); so it equals the
+  kernel on the card, and the reference's ``scaled_int8_mm_ref`` on the CPU,
+  bitwise.
+* Both take ``sa = sb = None`` for the int32 form: the sums themselves,
+  ``(M, N)`` int32, no epilogue.  A data-parallel step's grad-weight
+  product (``qtrain/linear.py``) sums those partials across processes and
+  applies :func:`dequantize_sums` once.
 
 Quantization (:func:`rowwise_quantize`) rounds to nearest, or stochastically
 (``floor(x / s + u)``, ``u ~ U[0, 1)``) with ``u`` drawn by ``torch.rand``
 from a generator on the tensor's device seeded with ``seed``: unbiased,
-exact on representable values, the same for the same seed.  Torch cannot
+exact on representable values, the same for the same seed.  A block of a
+larger operand rounds as the whole does when it is given its place in the
+whole (``block``: the noise is the whole's draw, sliced) and, where it
+holds part of each row, the whole's row max (``amax``).  Torch cannot
 draw ``jax.random``'s numbers, so stochastic rounding is held to those
 properties and not to the reference's bits.
 """
@@ -41,7 +49,8 @@ from repro_torch.kernels import costs
 K_INT32_EXACT_MAX = (2 ** 31 - 1) // (127 * 127)
 
 
-def rowwise_quantize(x: torch.Tensor, seed: Optional[int] = None):
+def rowwise_quantize(x: torch.Tensor, seed: Optional[int] = None,
+                     amax: Optional[torch.Tensor] = None, block: Optional[tuple] = None):
     """Symmetric per-row int8 quantization over the last axis.
 
     ``x (..., K) -> (q int8 (..., K), scale f32 (...,))`` with
@@ -49,27 +58,46 @@ def rowwise_quantize(x: torch.Tensor, seed: Optional[int] = None):
     (half to even, as ``jnp.round``); an int seed rounds stochastically.
     The scale is divided by a device tensor: CUDA computes a division by a
     Python number as a product with its reciprocal.
+
+    ``x (R, C)`` as the block at ``start`` of an operand of ``shape``
+    (``block = (shape, start)``, both of two entries): the stochastic
+    noise is the block of the whole operand's draw; ``amax`` is the whole
+    operand's max of each of ``x``'s rows (the default: ``x``'s own, right
+    where ``x`` holds whole rows).  ``q`` and ``scale`` are then the block
+    of the whole quantization and its rows' scales, bitwise.
     """
     x32 = x.to(torch.float32)
-    amax = torch.amax(torch.abs(x32), dim=-1)
+    if amax is None:
+        amax = torch.amax(torch.abs(x32), dim=-1)
     scale = torch.clamp_min(amax, 1e-6) / torch.full_like(amax, 127.0)
     y = x32 / scale[..., None]
     if seed is None:
         q = torch.round(y)
     else:
         gen = torch.Generator(device=x.device).manual_seed(seed)
-        q = torch.floor(y + torch.rand(x.shape, generator=gen, dtype=torch.float32,
-                                       device=x.device))
+        u = torch.rand(x.shape if block is None else block[0], generator=gen,
+                       dtype=torch.float32, device=x.device)
+        if block is not None:
+            (r0, c0), (R, C) = block[1], x.shape
+            u = u[r0:r0 + R, c0:c0 + C]
+        q = torch.floor(y + u)
     return torch.clamp(q, -127, 127).to(torch.int8), scale
 
 
-def scaled_int8_mm_plain(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
-                         sb: torch.Tensor) -> torch.Tensor:
-    """``a (M, K) @ b (N, K)^T * sa[:, None] * sb[None, :]`` -> f32, exactly
-    as the kernel computes it (runs on any device)."""
-    acc = (a.to(torch.float64) @ b.to(torch.float64).T).to(torch.int32)
+def dequantize_sums(acc: torch.Tensor, sa: torch.Tensor, sb: torch.Tensor) -> torch.Tensor:
+    """The kernel's epilogue: ``f32(acc) * sa[:, None] * sb[None, :]``, the
+    two products rounded in that order."""
     return acc.to(torch.float32) * sa.to(torch.float32)[:, None] \
         * sb.to(torch.float32)[None, :]
+
+
+def scaled_int8_mm_plain(a: torch.Tensor, b: torch.Tensor, sa: Optional[torch.Tensor] = None,
+                         sb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``a (M, K) @ b (N, K)^T * sa[:, None] * sb[None, :]`` -> f32, exactly
+    as the kernel computes it (runs on any device); without scales the
+    int32 sums ``(M, N)``."""
+    acc = (a.to(torch.float64) @ b.to(torch.float64).T).to(torch.int32)
+    return acc if sa is None and sb is None else dequantize_sums(acc, sa, sb)
 
 
 # The kernel's plan constants (``csrc/int8_matmul.cu``).
@@ -236,9 +264,11 @@ def _split_buffers(device: torch.device, stream: int, ints: int, tiles: int) -> 
 
 
 @costs.charged_as("scaled_int8_mm", costs.k5_cost)
-def scaled_int8_mm(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
-                   sb: torch.Tensor, backend: str = "cuda") -> torch.Tensor:
-    """``a_i8 (M, K) @ b_i8 (N, K)^T * sa[:, None] * sb[None, :] -> f32``.
+def scaled_int8_mm(a: torch.Tensor, b: torch.Tensor, sa: Optional[torch.Tensor] = None,
+                   sb: Optional[torch.Tensor] = None, backend: str = "cuda") -> torch.Tensor:
+    """``a_i8 (M, K) @ b_i8 (N, K)^T * sa[:, None] * sb[None, :] -> f32``;
+    with ``sa = sb = None`` the int32 form: the sums ``(M, N)`` int32, no
+    epilogue (one launch of the same kernels, counted alike).
 
     ``backend="cuda"`` launches the kernel on CUDA tensors (which must be
     contiguous) and runs the plain version on CPU tensors;
@@ -264,16 +294,20 @@ def scaled_int8_mm(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
             f"(max {K_INT32_EXACT_MAX}); shard the contraction first")
     if backend not in ("cuda", "torch"):
         raise ValueError(f"unknown backend {backend!r}; one of ('cuda', 'torch')")
+    sums = sa is None and sb is None
+    if not sums and (sa is None or sb is None):
+        raise ValueError("scaled_int8_mm takes both scales or neither")
     if backend == "torch" or a.device.type == "cpu":
         return scaled_int8_mm_plain(a, b, sa, sb)
-    if sa.shape != (M,) or sb.shape != (N,):
+    if not sums and (sa.shape != (M,) or sb.shape != (N,)):
         raise ValueError(f"scales {tuple(sa.shape)}, {tuple(sb.shape)} do not "
                          f"match M={M}, N={N}")
-    _build.check_cuda("scaled_int8_mm", dict(a=a, b=b, sa=sa, sb=sb),
+    odt = torch.int32 if sums else torch.float32
+    _build.check_cuda("scaled_int8_mm", dict(a=a, b=b) if sums else dict(a=a, b=b, sa=sa, sb=sb),
                       dict(a=torch.int8, b=torch.int8, sa=torch.float32, sb=torch.float32))
     if _build.is_fake(a):
-        return a.new_empty((M, N), dtype=torch.float32)
-    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+        return a.new_empty((M, N), dtype=odt)
+    out = torch.empty((M, N), dtype=odt, device=a.device)
     if M == 0 or N == 0:
         return out
     if K == 0:
@@ -287,7 +321,8 @@ def scaled_int8_mm(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
                                       * plan.bm * plan.bn, plan.tiles_m * plan.tiles_n)
     lib = _build.load("int8_matmul.cu")
     with torch.cuda.device(a.device):
-        rc = lib.i8mm_tc(a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(), M, N, K,
+        rc = lib.i8mm_tc(a.data_ptr(), b.data_ptr(), None if sums else sa.data_ptr(),
+                         None if sums else sb.data_ptr(), M, N, K,
                          0 if plan.kernel == "panel" else 1, plan.nf, plan.wm, plan.wn,
                          plan.grid_m, plan.tiles_n, plan.splits, plan.kper,
                          None if ws is None else ws.data_ptr(),

@@ -26,6 +26,7 @@ activations are NHWC, as in the reference.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -36,6 +37,7 @@ from repro_torch.api.policy import Phase, PrecisionPolicy
 from repro_torch.api.qtensor import QTensor
 from repro_torch.core import mixedprec as mp
 from repro_torch.core import quantizers as qz
+from repro_torch.dist.sharding import Local
 from repro_torch.kernels import quant_conv as qc
 from repro_torch.qtrain import linear as qt_linear
 
@@ -44,6 +46,29 @@ from repro_torch.qtrain import linear as qt_linear
 # Initializers (weights from a torch.Generator; the reference's jax.random
 # numbers cannot be reproduced, so parity tests bridge the weights instead)
 # ---------------------------------------------------------------------------
+
+# where the leaves ``linear_init`` and ``embedding_init`` draw go once drawn
+# (``drawn_to``); None: they stay on the generator's device
+_DRAWN_TO = None
+
+
+@contextlib.contextmanager
+def drawn_to(device):
+    """Inside: each leaf ``linear_init`` and ``embedding_init`` return is
+    moved to ``device`` as soon as it is drawn, so a model drawn on a card
+    can be built in host memory while the card holds one weight at a time
+    (the same numbers as a draw kept on the card)."""
+    global _DRAWN_TO
+    prev, _DRAWN_TO = _DRAWN_TO, device
+    try:
+        yield
+    finally:
+        _DRAWN_TO = prev
+
+
+def _drawn(t: torch.Tensor) -> torch.Tensor:
+    return t if _DRAWN_TO is None else t.to(_DRAWN_TO)
+
 
 def linear_init(gen: torch.Generator, c_in: int, c_out: int,
                 bias: bool = False, dtype=torch.float32, lead: tuple = ()) -> dict:
@@ -61,7 +86,7 @@ def linear_init(gen: torch.Generator, c_in: int, c_out: int,
          "ax": qz.init_act_alpha().to(dev).expand(tuple(lead)).clone()}
     if bias:
         p["b"] = torch.zeros(tuple(lead) + (c_out,), dtype=dtype, device=dev)
-    return p
+    return {k: _drawn(v) for k, v in p.items()}
 
 
 def conv2d_init(gen: torch.Generator, c_in: int, c_out: int, kh: int, kw: int,
@@ -84,7 +109,7 @@ def nas_init(c_out: int, qcfg: mp.MixedPrecConfig, device="cpu", lead: tuple = (
 def embedding_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32) -> torch.Tensor:
     """``(vocab, d)`` normal(0, 0.02) on ``gen``'s device."""
     e = torch.randn((vocab, d), generator=gen, dtype=torch.float32, device=gen.device)
-    return (e * 0.02).to(dtype)
+    return _drawn((e * 0.02).to(dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -93,30 +118,40 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32
 
 def _quant_pair(x, w, p, nas, policy: PrecisionPolicy,
                 qcfg: mp.MixedPrecConfig, signed_act: bool):
-    """(x', w') after the policy's fake quantization."""
+    """(x', w') after the policy's fake quantization.  A weight kept on its
+    process's block (a ``sharding.Local``, in a step across processes) is
+    quantized there, with the block's rows of its clips and NAS logits, and
+    gathered whole (the quantizers are elementwise: the gathered result is
+    the whole weight's, bitwise)."""
+    local = isinstance(w, Local)
     if policy.phase is Phase.FLOAT:
-        return x, w
+        return x, (w.whole() if local else w)
     # the reference's clips promote a bf16 x against its f32 clip to f32;
     # torch would round the 0-dim clip to x's dtype instead
     x = x.to(torch.promote_types(x.dtype, torch.float32))
+    rows, numel = (w.rows(), w.numel()) if local else (slice(None), None)
+    blk = w.block if local else w
     if policy.phase is Phase.QAT8:
-        aw = p["aw"].reshape((w.shape[0],) + (1,) * (w.ndim - 1))
-        return (qz.quantize_act_any(x, p["ax"], 8, signed_act),
-                mp.fake_quant_weight(w, aw, 8))
-    if policy.phase is Phase.SEARCH:
-        return (mp.effective_act(x, nas["delta"], p["ax"], policy.tau, qcfg,
-                                 signed_act),
-                mp.effective_weight(w, nas["gamma"], p["aw"], policy.tau, qcfg))
-    if policy.phase is Phase.FROZEN:
-        return (mp.frozen_act(x, nas["delta"], p["ax"], qcfg, signed_act),
-                mp.frozen_weight(w, nas["gamma"], p["aw"], qcfg))
-    raise ValueError(f"unhandled policy {policy!r}")
+        aw = p["aw"][rows].reshape((blk.shape[0],) + (1,) * (blk.ndim - 1))
+        xq = qz.quantize_act_any(x, p["ax"], 8, signed_act)
+        wq = mp.fake_quant_weight(blk, aw, 8, numel)
+    elif policy.phase is Phase.SEARCH:
+        xq = mp.effective_act(x, nas["delta"], p["ax"], policy.tau, qcfg, signed_act)
+        wq = mp.effective_weight(blk, nas["gamma"], p["aw"], policy.tau, qcfg, rows, numel)
+    elif policy.phase is Phase.FROZEN:
+        gamma = nas["gamma"]
+        xq = mp.frozen_act(x, nas["delta"], p["ax"], qcfg, signed_act)
+        wq = mp.frozen_weight(blk, gamma if gamma.shape[0] == 1 else gamma[rows],
+                              p["aw"][rows], qcfg)
+    else:
+        raise ValueError(f"unhandled policy {policy!r}")
+    return xq, (w.whole(wq) if local else wq)
 
 
 def _site_key(policy: PrecisionPolicy, w: torch.Tensor) -> Optional[int]:
     """Per-site stochastic-rounding seed: the policy's seed folded with the
-    reference's salt from the weight's shape, so same-step sites of other
-    shapes draw independent noise."""
+    reference's salt from the (whole) weight's shape, so same-step sites of
+    other shapes draw independent noise."""
     if policy.sr_key is None:
         return None
     salt = (w.shape[0] * 1000003 + w.shape[-1]) & 0x7FFFFFFF

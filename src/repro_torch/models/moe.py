@@ -30,6 +30,7 @@ import torch
 from repro_torch.api.policy import Phase, PrecisionPolicy
 from repro_torch.core import mixedprec as mp
 from repro_torch.core import quantizers as qz
+from repro_torch.dist import collectives as coll
 from repro_torch.dist import sharding as shd
 from repro_torch.models import layers as L
 
@@ -201,7 +202,17 @@ def moe_forward(p: dict, nas: Optional[dict], policy, cfg, x: torch.Tensor) -> t
     policy whatever the step's arithmetic; the routed experts' products are
     plain batched products over the fake-quantized stacks (no int8 kernel,
     as in the reference); the shared expert and the dense residual MLP are
-    searched linears (``qlinear``, so int8 steps run them on K5)."""
+    searched linears (``qlinear``, so int8 steps run them on K5).
+
+    Not across a data group of processes: the capacity couples the whole
+    batch's tokens (the reference puts it on ``data``), and their dispatch
+    across the rows is ROADMAP item 8.3 part 2; it raises
+    ``NotImplementedError`` there."""
+    if coll.active() is not None:
+        raise NotImplementedError(
+            "MoE training across processes (the dispatch across the data rows, the "
+            "expert-parallel products) is ROADMAP item 8.3 part 2; train MoE models in one "
+            "process")
     B, S, d = x.shape
     E, k, cd = cfg.n_experts, cfg.experts_per_token, cfg.cdtype
     T = B * S

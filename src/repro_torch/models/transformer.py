@@ -50,6 +50,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.regularizers import LayerCostSpec
+from repro_torch.dist.sharding import Local
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -201,8 +202,15 @@ def init_model(cfg, gen: torch.Generator) -> tuple:
 # Forward
 # ---------------------------------------------------------------------------
 
+def _embedding(params: dict) -> torch.Tensor:
+    """The embedding table, gathered whole where a step across processes
+    keeps it on its blocks (``sharding.Local``)."""
+    e = params["embed"]
+    return e.whole() if isinstance(e, Local) else e
+
+
 def _embed_inputs(params: dict, cfg, batch: dict) -> torch.Tensor:
-    x = params["embed"][batch["tokens"].long()].to(cfg.cdtype)
+    x = _embedding(params)[batch["tokens"].long()].to(cfg.cdtype)
     if cfg.n_prefix_tokens and "prefix_embeds" in batch:
         n = cfg.n_prefix_tokens
         x = torch.cat([batch["prefix_embeds"].to(cfg.cdtype), x[:, n:]], dim=1)
@@ -227,6 +235,8 @@ def unstack(tree, n: int) -> list:
     if isinstance(tree, dict):
         subs = {k: unstack(v, n) for k, v in tree.items()}
         return [{k: subs[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, Local):
+        return tree.unbind()
     return list(torch.unbind(tree, 0))
 
 
@@ -326,7 +336,7 @@ def _forward_encdec(params: dict, nas: Optional[dict], cfg, batch: dict, policy,
                        enc, remat, _layer_keys(policy, cfg.n_encoder_layers, 1))
     enc = L.apply_norm(enc, params["enc_ln_f"], cfg.norm)
 
-    x = params["embed"][batch["tokens"].long()].to(cd)
+    x = _embedding(params)[batch["tokens"].long()].to(cd)
     S = x.shape[1]
     x = x + L.sinusoidal_positions(S, cfg.d_model, x.device).to(cd)
     positions = torch.arange(S, device=x.device)
@@ -384,16 +394,27 @@ def _mask_pad(logits: torch.Tensor, cfg) -> torch.Tensor:
 # Loss
 # ---------------------------------------------------------------------------
 
-def lm_loss(logits: torch.Tensor, batch: dict) -> torch.Tensor:
+def loss_mask(batch: dict) -> torch.Tensor:
+    """``batch["mask"]``, or ones of the labels' shape when absent."""
+    mask = batch.get("mask")
+    if mask is None:
+        labels = batch["labels"]
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+    return mask
+
+
+def lm_loss(logits: torch.Tensor, batch: dict, total: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
     """Next-token cross-entropy (the pipeline has shifted the labels),
-    averaged over ``batch["mask"]`` (all ones when absent)."""
+    averaged over ``batch["mask"]`` (all ones when absent).  ``total``: the
+    mask's count over the whole batch, where ``batch`` is one process's
+    block of it (the block's share of the whole batch's mean)."""
     labels = batch["labels"].long()
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     ll = torch.gather(logp, -1, labels[..., None])[..., 0]
-    mask = batch.get("mask")
-    if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
-    total = torch.sum(mask)
+    mask = loss_mask(batch)
+    if total is None:
+        total = torch.sum(mask)
     return -torch.sum(ll * mask) / torch.maximum(total, torch.ones_like(total))
 
 

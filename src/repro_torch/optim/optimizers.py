@@ -98,8 +98,25 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves))) if leaves else torch.zeros(())
 
 
-def _clip_scale(grads, max_norm: float) -> tuple:
-    norm = global_norm(grads)
+def global_norm_in_group(tree, group) -> torch.Tensor:
+    """:func:`global_norm` of a gradient tree placed on a process group
+    (``dist/sharding.py``): each leaf's sum of squares, a sharded leaf's
+    summed over every process's blocks and a replicated leaf's taken once,
+    in one all-reduce."""
+    from repro_torch.dist import sharding as shd
+    leaves = []
+    for x in tree_leaves(tree):
+        blocks = list(x.blocks.values()) if isinstance(x, shd.Shards) else [x]
+        sq = sum(torch.sum(torch.square(b.to(torch.float32))) for b in blocks)
+        leaves.append(sq if isinstance(x, shd.Shards) or group.rank == 0
+                      else torch.zeros_like(sq))
+    if not leaves:
+        return torch.zeros(())
+    return torch.sqrt(torch.sum(group.all_reduce_(torch.stack(leaves), "sum")))
+
+
+def _clip_scale(grads, max_norm: float, group=None) -> tuple:
+    norm = global_norm(grads) if group is None else global_norm_in_group(grads, group)
     return torch.clamp_max(_full(norm, max_norm) / (norm + 1e-9), 1.0), norm
 
 
@@ -153,10 +170,11 @@ class _Optimizer:
     ELEMENTWISE = True
     CHUNK = 1 << 24
 
-    def clip_scale(self, grads):
-        """The global-norm clip's scale, or ``None``."""
+    def clip_scale(self, grads, group=None):
+        """The global-norm clip's scale, or ``None``; ``group``: of a
+        gradient placed on a process group (:func:`global_norm_in_group`)."""
         clip = getattr(self, "clip_norm", None)
-        return None if clip is None else _clip_scale(grads, clip)[0]
+        return None if clip is None else _clip_scale(grads, clip, group)[0]
 
     def update(self, grads, state: dict, params, step: int):
         scale, c = self.clip_scale(grads), self._consts(step, params)
@@ -188,7 +206,9 @@ class _Optimizer:
         reciprocal); any other placed leaf (Adafactor's, or a state split
         unlike its param) is gathered onto the first position, updated
         whole and written back into its blocks.  Returns the number of
-        leaves updated whole."""
+        leaves updated whole.  On a process group each process updates its
+        own blocks, and a leaf updated whole is gathered from every process
+        and written back into this process's blocks."""
         from repro_torch.dist import sharding as shd
         c = self._consts(step, params)
         n_whole = 0

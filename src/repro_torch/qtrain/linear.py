@@ -20,6 +20,22 @@ independent and the same for the same seed; ``seed=None`` rounds every leg
 to nearest.  The transposed operands are made contiguous before they are
 quantized: the kernel reads raw rows.  A gradient autograd does not need
 (``ctx.needs_input_grad``) is not computed.
+
+Across a data group of processes (``dist/collectives.data_group``: one
+process a ``data`` row, each holding as many of the batch's tokens) the
+forward and the grad-input product stay per token, the process's own rows,
+the grad-input's ``dy`` rounding with its rows of the whole batch's
+noise.  The grad-weight product contracts over every token of the batch, and each row
+of its operands ``dy^T`` and ``x^T`` is scaled by its max over all of them
+(:func:`dp_grad_weight`): the processes all-reduce the max of their
+blocks' rows, quantize their blocks with those scales, taking their
+columns of the whole batch's stochastic-rounding noise, compute their
+int32 partial sums on the kernel (``scaled_int8_mm``'s int32 form) and
+all-reduce them.  Integer sums are exact, so the sums, and the epilogue
+applied once (``int8_matmul.dequantize_sums``, the kernel's), are the whole
+batch's product bit for bit.  The product enters the step's gradient once:
+the first process keeps it and the others pass zeros, so the step's sum
+over processes adds ``dw + 0``.
 """
 from __future__ import annotations
 
@@ -28,6 +44,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.dist import collectives as coll
 from repro_torch.kernels import int8_matmul as im
 
 _MASK64 = (1 << 64) - 1
@@ -62,18 +79,44 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
 
 
 def _int8_mm(a: torch.Tensor, b: torch.Tensor, seed_a, seed_b,
-             backend: str) -> torch.Tensor:
-    """``a (M, K) @ b (N, K)^T`` through per-row int8 of both operands."""
-    qa, sa = im.rowwise_quantize(a.contiguous(), seed_a)
+             backend: str, a_block: Optional[tuple] = None) -> torch.Tensor:
+    """``a (M, K) @ b (N, K)^T`` through per-row int8 of both operands;
+    ``a_block``: ``a``'s place in a larger operand, whose noise it takes
+    (``int8_matmul.rowwise_quantize``'s ``block``)."""
+    qa, sa = im.rowwise_quantize(a.contiguous(), seed_a, block=a_block)
     qb, sb = im.rowwise_quantize(b.contiguous(), seed_b)
     return im.scaled_int8_mm(qa, qb, sa, sb, backend=backend)
+
+
+def dp_grad_weight(dy2: torch.Tensor, x2: torch.Tensor, seed_dy, seed_x, backend: str,
+                   group: coll.Group) -> torch.Tensor:
+    """``dy2 (T_r, N)^T @ x2 (T_r, K)`` over every process's tokens, the
+    process's ``T_r`` tokens the block at ``rank * T_r`` of the batch's
+    ``size * T_r`` (each process holds as many): bit for bit the
+    grad-weight product of the whole batch in one process, on the first
+    process, zeros ``(N, K)`` on the others."""
+    a, b = dy2.T.contiguous(), x2.T.contiguous()          # (N, T_r), (K, T_r)
+    T_r, N = a.shape[1], a.shape[0]
+    total = T_r * group.size
+    if total > im.K_INT32_EXACT_MAX:
+        raise ValueError(f"{total} tokens overflow the grad-weight product's exact int32 "
+                         f"sums (max {im.K_INT32_EXACT_MAX})")
+    amax = torch.cat([torch.amax(torch.abs(a), dim=-1), torch.amax(torch.abs(b), dim=-1)])
+    group.all_reduce_(amax, "max")
+    at = (0, group.rank * T_r)
+    qa, sa = im.rowwise_quantize(a, seed_dy, amax=amax[:N], block=((N, total), at))
+    qb, sb = im.rowwise_quantize(b, seed_x, amax=amax[N:], block=((b.shape[0], total), at))
+    acc = group.all_reduce_(im.scaled_int8_mm(qa, qb, backend=backend), "sum")
+    if group.rank:
+        return torch.zeros(acc.shape, dtype=torch.float32, device=acc.device)
+    return im.dequantize_sums(acc, sa, sb)
 
 
 class _Int8Linear(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, seed, cfg):
         ctx.save_for_backward(x, w)
-        ctx.seed, ctx.cfg = seed, cfg
+        ctx.seed, ctx.cfg, ctx.group = seed, cfg, coll.active()
         x2, w32 = _flat(x), w.to(torch.float32)
         if cfg.forward:
             y = _int8_mm(x2, w32, None, None, cfg.backend)
@@ -93,12 +136,17 @@ class _Int8Linear(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[0]:          # dx = dy (M, N) @ w (N, K)
             if cfg.grad_input:
-                dx2 = _int8_mm(dy2, w32.T, seeds[0], seeds[1], cfg.backend)
+                g, rows = ctx.group, None
+                if g is not None:
+                    rows = ((dy2.shape[0] * g.size, dy2.shape[1]), (g.rank * dy2.shape[0], 0))
+                dx2 = _int8_mm(dy2, w32.T, seeds[0], seeds[1], cfg.backend, a_block=rows)
             else:
                 dx2 = dy2 @ w32
             dx = dx2.reshape(x.shape).to(x.dtype)
         if ctx.needs_input_grad[1]:          # dw = dy^T (N, M) @ x (M, K)
-            if cfg.grad_weight:
+            if cfg.grad_weight and ctx.group is not None:
+                dw = dp_grad_weight(dy2, x2, seeds[2], seeds[3], cfg.backend, ctx.group)
+            elif cfg.grad_weight:
                 dw = _int8_mm(dy2.T, x2.T, seeds[2], seeds[3], cfg.backend)
             else:
                 dw = dy2.T @ x2

@@ -25,7 +25,12 @@ put_train_state``) is saved whole, each :class:`~repro_torch.dist.sharding.
 Shards` gathered, so the files keep the reference's layout and keys
 whatever the mesh; ``restore(.., mesh=)`` places the loaded tree by that
 mesh's rules (the reference's ``shardings=``), so a state saved on one
-mesh restores on another.
+mesh restores on another.  Across processes (a state placed over a
+``dist/collectives.Group``) every process calls :meth:`CheckpointManager.
+save`, whose gather of each leaf onto the first process is a collective,
+and only the manager made with ``writer=True`` (the first process's)
+holds the state whole and writes the files, once; every process restores
+its own row of blocks from them.
 """
 from __future__ import annotations
 
@@ -68,13 +73,18 @@ def _flatten(tree) -> dict:
     return out
 
 
-def _host_copy(tree):
+def _host_copy(tree, writer: bool = True):
     """The state's tensors copied to the host (the snapshot an async save
-    serializes while training goes on), each placed leaf whole."""
+    serializes while training goes on), each placed leaf whole.  A leaf
+    placed across processes is gathered onto the first process alone (the
+    writer); a process that writes nothing takes part in those gathers
+    and copies nothing."""
     if isinstance(tree, dict):
-        return {k: _host_copy(v) for k, v in tree.items()}
+        return {k: _host_copy(v, writer) for k, v in tree.items()}
     if isinstance(tree, Shards):
-        return tree.whole("cpu")
+        return tree.whole("cpu", root=0 if tree.group is not None else None)
+    if not writer:
+        return None
     return tree.detach().to("cpu", copy=True) if isinstance(tree, torch.Tensor) else tree
 
 
@@ -104,10 +114,11 @@ def config_hash(cfg) -> str:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3, host_id: int = 0):
+    def __init__(self, directory: str, keep: int = 3, host_id: int = 0, writer: bool = True):
         self.dir = directory
         self.keep = keep
         self.host_id = host_id
+        self.writer = writer
         self._thread: Optional[threading.Thread] = None
         os.makedirs(directory, exist_ok=True)
 
@@ -117,9 +128,12 @@ class CheckpointManager:
              block: bool = False) -> None:
         """Save ``state`` (a nested dict of tensors and numbers) as step
         ``step`` with the JSON-serializable ``meta``; in the background
-        unless ``block``."""
+        unless ``block``.  A manager made with ``writer=False`` takes part in
+        the gathers as every process must, and holds and writes nothing."""
         self.wait()   # never two saves at once
-        host_state = _host_copy(state)
+        host_state = _host_copy(state, self.writer)
+        if not self.writer:
+            return
         if block:
             self._save(step, host_state, meta or {})
         else:

@@ -34,10 +34,27 @@ gradient, cuts the gradient into the placed blocks (``sharding.scatter``)
 and updates each block on its position (``Optimizer.apply_placed_``): bit
 for bit the unsharded step, with as many int8 GEMM launches.  Its
 transient peak over the unsharded step's is the gathered params' bytes
-once.  Splitting the batch over the data rows would not keep those bits:
-the int8 grad-weight product scales each row of its contraction over all
-tokens (``qtrain/linear.py``), and its stochastic rounding draws by the
-operand's shape.
+once.  That is the path whenever one process holds the whole mesh.
+
+Across processes (a ``MeshContext`` with a ``dist/collectives.Group``: one
+process a data row, all in lockstep, the state holding the process's row
+of blocks) a step computes :func:`loss_and_grads` on the row's block of
+the batch (``data/pipeline.row_block``) inside the group
+(``collectives.data_group``).  Each linear map's weight is mixed on its
+block and gathered at its use, the gradient reduce-scattered back to the
+blocks (``sharding.Local``; under the checkpointed blocks the backward
+gathers it again, so one block's weights at most are whole at once); the
+loss divides by the whole batch's mask count (one all-reduce); the int8
+grad-weight products are the whole batch's bit for bit
+(``qtrain/linear.dp_grad_weight``); the theta step adds ``lambda * L_R``
+on the first process only; every replicated leaf's gradient is summed
+over the processes (each sharded leaf's arrives summed); the clip's norm
+takes one all-reduce (``Optimizer.clip_scale(group=)``) and each process
+updates its own blocks (``apply_placed_``).  The loss metric is summed
+over the processes.  The f32 sums over tokens (the loss, norm gains,
+biases, the embedding, the activation clips and NAS logits) and over a
+block's columns are reassociated, as in the reference's partitioned step;
+every other number is the unsharded step's.
 """
 from __future__ import annotations
 
@@ -50,7 +67,9 @@ from repro_torch.api.engine import resolve_device
 from repro_torch.api.policy import PrecisionPolicy
 from repro_torch.core import mixedprec as mp
 from repro_torch.core import regularizers as reg
+from repro_torch.dist import collectives as coll
 from repro_torch.dist import sharding as shd
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import optimizers as opt_mod
 from repro_torch.qtrain.linear import fold_in
@@ -106,17 +125,32 @@ def make_optimizers(hp: TrainHParams) -> tuple:
     return opt_w, opt_t
 
 
-def init_train_state(cfg, hp: TrainHParams, seed: int = 0, device=None) -> dict:
+def init_train_state(cfg, hp: TrainHParams, seed: int = 0, device=None,
+                     mesh=None) -> dict:
     """A fresh state drawn from ``seed`` on ``device`` (the card unless the
-    caller names another; ``None`` means ``"cuda"``, which must exist)."""
+    caller names another; ``None`` means ``"cuda"``, which must exist).
+
+    ``mesh`` (a ``MeshContext``): the state placed on it
+    (``put_train_state``).  Across processes (the mesh's ``group``) each
+    weight drawn on ``device`` goes to host memory at once
+    (``layers.drawn_to``) and the state is built there, so a process's
+    card holds its own blocks and one stacked weight while it is drawn,
+    never the whole state; the numbers are those drawn on ``device``."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    params, nas = tfm.init_model(cfg, gen)
+    host = mesh is not None and mesh.group is not None and torch.device(device).type != "cpu"
+    home = torch.device("cpu") if host else device
+    with L.drawn_to(home if host else None):
+        params, nas = tfm.init_model(cfg, gen)
+    if host:
+        to_home = lambda t: t.to(home) if isinstance(t, torch.Tensor) else t
+        params, nas = opt_mod.tree_map(to_home, params), opt_mod.tree_map(to_home, nas)
     opt_w, opt_t = make_optimizers(hp)
-    return {"params": params, "nas": nas, "opt_w": opt_w.init(params),
-            "opt_t": opt_t.init(nas),
-            "tau": torch.tensor(cfg.quant.tau0, dtype=torch.float32, device=device),
-            "step": 0}
+    state = {"params": params, "nas": nas, "opt_w": opt_w.init(params),
+             "opt_t": opt_t.init(nas),
+             "tau": torch.tensor(cfg.quant.tau0, dtype=torch.float32, device=home),
+             "step": 0}
+    return state if mesh is None else mesh.put_train_state(state)
 
 
 def _train_policy(hp: TrainHParams, base: PrecisionPolicy, step: int) -> PrecisionPolicy:
@@ -128,18 +162,26 @@ def _train_policy(hp: TrainHParams, base: PrecisionPolicy, step: int) -> Precisi
     return base.with_train_compute(hp.train_compute, sr_key)
 
 
-def _task_loss(cfg, hp: TrainHParams, params, nas, policy, batch: dict) -> torch.Tensor:
+def _task_loss(cfg, hp: TrainHParams, params, nas, policy, batch: dict,
+               group=None) -> torch.Tensor:
     """The LM loss; with ``mtp`` plus ``mtp_weight`` times the MTP head's
     cross-entropy on the labels one more step ahead (the last column
-    masked)."""
-    logits, mtp_logits = tfm.forward_with_mtp(params, nas, cfg, batch, policy, hp.remat)
-    loss = tfm.lm_loss(logits, batch)
-    if mtp_logits is not None:
-        labels = batch["labels"]
+    masked).  In a process ``group`` (``batch`` the row's block) the block's
+    share: each mean divides by the whole batch's mask count."""
+    labels = batch["labels"]
+    masks = [tfm.loss_mask(batch)]
+    if cfg.mtp:
         mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
         mask[:, -1] = 0
-        mtp_batch = {"labels": torch.roll(labels, -1, dims=1), "mask": mask}
-        loss = loss + hp.mtp_weight * tfm.lm_loss(mtp_logits, mtp_batch)
+        masks.append(mask)
+    totals = [None] * len(masks)
+    if group is not None:
+        totals = group.all_reduce_(torch.stack([torch.sum(m) for m in masks])).unbind()
+    logits, mtp_logits = tfm.forward_with_mtp(params, nas, cfg, batch, policy, hp.remat)
+    loss = tfm.lm_loss(logits, batch, totals[0])
+    if mtp_logits is not None:
+        mtp_batch = {"labels": torch.roll(labels, -1, dims=1), "mask": masks[1]}
+        loss = loss + hp.mtp_weight * tfm.lm_loss(mtp_logits, mtp_batch, totals[1])
     return loss
 
 
@@ -159,22 +201,58 @@ def _detached(tree):
     return None if tree is None else opt_mod.tree_map(torch.Tensor.detach, tree)
 
 
+def _own(t, group):
+    """A placed leaf's tensor in this process: a :class:`Shards`' own block."""
+    return t.blocks[(group.rank, 0)] if isinstance(t, shd.Shards) else t
+
+
+def _live_in_group(tree: dict, group, grad: bool = True) -> tuple:
+    """``(view, leaves)``: the tree a model computes on in a step of
+    ``group`` (``sharding.local_view``) and its autograd leaves in
+    :func:`optimizers.tree_leaves` order (this process's blocks and the
+    replicated leaves; ``grad=False``: detached)."""
+    live = opt_mod.tree_map(lambda t: _own(t, group).detach().requires_grad_(grad), tree)
+    return shd.local_view(tree, live, group), opt_mod.tree_leaves(live)
+
+
+def _summed(like, grads: list, group) -> list:
+    """The gradient of each leaf of ``like`` summed over ``group``'s
+    processes: a sharded leaf's block arrived summed (the gather's
+    backward), as a :class:`Shards` of this process's block; a replicated
+    leaf's all-reduced."""
+    out = []
+    for t, g in zip(opt_mod.tree_leaves(like), grads):
+        if isinstance(t, shd.Shards):
+            out.append(t.with_blocks({(group.rank, 0): g}))
+        else:
+            out.append(group.all_reduce_(g, "sum"))
+    return out
+
+
 def loss_and_grads(cfg, hp: TrainHParams, state: dict, batch: dict, kind: str,
-                   specs=None) -> tuple:
+                   specs=None, group=None) -> tuple:
     """The loss of a ``kind`` step (``"warmup"``, ``"theta"`` or ``"w"``)
     from ``state`` on ``batch`` (tensors on the state's device), its
     metrics and the gradient tree that step updates by (the params', or the
     NAS logits' for ``"theta"``, which needs the cost ``specs``); nothing is
     updated.  A leaf the loss does not use gets zeros, as ``jax.grad``
-    gives it."""
+    gives it.  In a process ``group`` (``state`` placed by a
+    ``MeshContext`` over it, ``batch`` the row's block, run inside
+    ``collectives.data_group``): the metrics and every gradient leaf
+    summed over the processes, a sharded leaf's as a :class:`Shards` of
+    this process's block."""
     step, tau = state["step"], state["tau"]
     if kind == "theta":
         pol = _train_policy(hp, PrecisionPolicy.search(tau), step)
         live, leaves = _live(state["nas"])
-        lt = _task_loss(cfg, hp, _detached(state["params"]), live, pol, batch)
+        params = (_detached(state["params"]) if group is None
+                  else _live_in_group(state["params"], group, grad=False)[0])
+        lt = _task_loss(cfg, hp, params, live, pol, batch, group)
         lr_cost = reg.total_cost(tfm.flatten_nas(live), tau, specs, cfg.quant, hp.objective,
                                  hp.lut_name)
-        loss, metrics, like = lt + hp.lam * lr_cost, {"loss": lt, "reg_cost": lr_cost}, state["nas"]
+        loss = lt + hp.lam * lr_cost if group is None or group.rank == 0 else lt
+        metrics, like = {"loss": lt, "reg_cost": lr_cost}, state["nas"]
+        del params
     else:
         if kind == "warmup":
             pol, nas = _train_policy(hp, PrecisionPolicy.QAT8, step), None
@@ -182,14 +260,21 @@ def loss_and_grads(cfg, hp: TrainHParams, state: dict, batch: dict, kind: str,
             pol, nas = _train_policy(hp, PrecisionPolicy.search(tau), step), state["nas"]
         else:
             raise ValueError(f"unknown step kind {kind!r}")
-        live, leaves = _live(state["params"])
-        loss = _task_loss(cfg, hp, live, _detached(nas), pol, batch)
+        if group is None:
+            live, leaves = _live(state["params"])
+        else:
+            live, leaves = _live_in_group(state["params"], group)
+        loss = _task_loss(cfg, hp, live, _detached(nas), pol, batch, group)
         metrics, like = {"loss": loss}, state["params"]
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     del live, leaves
-    grads = opt_mod.tree_unflatten(like, [torch.zeros_like(t) if g is None else g
-                                          for t, g in zip(opt_mod.tree_leaves(like), grads)])
-    return {k: v.detach() for k, v in metrics.items()}, grads
+    grads = [torch.zeros_like(_own(t, group) if group else t) if g is None else g
+             for t, g in zip(opt_mod.tree_leaves(like), grads)]
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if group is not None:
+        grads = _summed(like, grads, group)
+        metrics["loss"] = group.all_reduce_(metrics["loss"].clone(), "sum")
+    return metrics, opt_mod.tree_unflatten(like, grads)
 
 
 def _make_step(cfg, hp: TrainHParams, kind: str, specs=None, mesh=None) -> Callable:
@@ -236,8 +321,30 @@ def _make_step(cfg, hp: TrainHParams, kind: str, specs=None, mesh=None) -> Calla
         state["step"] += 1
         return state, metrics
 
+    def group_step_fn(state: dict, batch: dict, mark=None) -> tuple:
+        """The step of a process group: ``batch`` is this process's data
+        row's block; ``mark`` as for the step without a mesh.
+        ``group_step_fn.whole_leaf_updates``: the leaves its optimizer
+        updated whole."""
+        mark = mark or (lambda phase: None)
+        group = mesh.group
+        batch = device_batch(batch, mesh.device)
+        with coll.data_group(group):
+            metrics, grads = loss_and_grads(cfg, hp, state, batch, kind, specs, group)
+        mark("compute")
+        with torch.no_grad():
+            scale = opt.clip_scale(grads, group)
+            group_step_fn.whole_leaf_updates = opt.apply_placed_(
+                grads, state[ost], state[tree], state["step"], scale)
+        mark("optimizer")
+        state["step"] += 1
+        return state, metrics
+
     if mesh is None or not mesh.is_active:
         return step_fn
+    if mesh.group is not None:
+        group_step_fn.whole_leaf_updates = 0
+        return group_step_fn
     placed_step_fn.whole_leaf_updates = 0
     return placed_step_fn
 
